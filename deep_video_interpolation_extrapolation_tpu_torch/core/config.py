@@ -18,3 +18,14 @@ class Config:
     coarse_model: str = "HRNet"
     model: str = "InterNet"
     compute_dtype: str = "bfloat16"     # activations/matmul dtype; masters f32
+    # the INTER train step (train/inter.py)
+    mode: str = "xs2xs"                 # xs2xs (rgb + seg) | xx2x
+    l1_weight: float = 80.0
+    gdl_weight: float = 80.0
+    vgg_weight: float = 20.0
+    ce_weight: float = 30.0
+    ssim_weight: float = 20.0
+    coarse_optimizer: str = "adamax"
+    coarse_learning_rate: float = 0.001
+    train_coarse: bool = False
+    remat: bool = False                 # not ported: make_train_step raises

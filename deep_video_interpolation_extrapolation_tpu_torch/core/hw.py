@@ -8,7 +8,8 @@ environment kill-switch: the route is decided by the tensor alone.
 - a tensor on ``cpu`` takes the kernel's plain PyTorch version;
 - anything else raises.
 
-``launches`` holds one plain int per kernel.  Each wrapper adds one where it
+``launches`` holds one plain int per kernel (a backward wrapper that queues
+several launches counts one per call).  Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels.
 """
@@ -18,12 +19,10 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
-           "ups_head_taps")
+           "ups_head_taps", "ups_head_1x1", "stem_fwd", "stem_bwd",
+           "bottleneck_fwd", "bottleneck_bwd")
 
 launches = {name: 0 for name in KERNELS}
-
-TRAINING_PR = ("training (ROADMAP.md queue 1, item 1: the INTER train step "
-               "and the kernels' backward)")
 
 
 def reset_counters() -> None:
@@ -43,15 +42,6 @@ def use_kernel(t: torch.Tensor) -> bool:
             f"the kernels are built for sm_90a (H100/H200); {t.device} has "
             f"compute capability {cap}")
     raise RuntimeError(f"no route for a tensor on {t.device}")
-
-
-def check_no_grad(*tensors) -> None:
-    """The kernels are forward-only; training brings their backward."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the Hopper kernels have no backward yet; it comes with "
-            + TRAINING_PR + ". Run under torch.inference_mode().")
 
 
 def check_bf16(name: str, t: torch.Tensor, shape=None) -> None:

@@ -3,34 +3,41 @@
 //   h   = bf16(lrelu(cat . W1 + b1))                           (896 ch)
 //   yt  = bf16(h . W2t)                                        (207 = 9*23 ch)
 // Bilinear upsampling is the half-pixel, edge-clamped form of
-// F.interpolate(mode="bilinear", align_corners=False).
+// F.interpolate(mode="bilinear", align_corners=False).  Two modes, one
+// kernel: with W2t (dvie_ups_head_taps) the output is yt and h never
+// leaves shared memory; without it (dvie_ups_head_1x1) the output is h.
 //
-// Replaces ops/pallas_upshead.py:ups_head_taps_x0f4 (via _pallas_impl,
-// pallas_call at :342) and also covers ups_head_taps (:390) and, with the
-// product by W2t stopped at h, ups_head_1x1 (:362).  ups_head_taps_fold
-// (:817) and pallas_shiftadd.shifted_add_bias (:153) are this kernel's
-// epilogue, which stays plain PyTorch (ops/upshead.taps_shifted_add + bias)
-// as it is XLA code in the JAX package's default route.  The f4 packing of
-// p0 and the lane rolls of the TPU kernel are dropped.
+// Replaces ops/pallas_upshead.py:_pallas_impl (pallas_call at :342), the
+// kernel of ups_head_taps_x0f4 and ups_head_taps (taps mode, the
+// forward of the heads) and of ups_head_1x1 (:362, h mode: the h that the
+// explicit backward _explicit_taps_bwd recomputes, :449).  It also covers
+// ups_head_taps_fold (:817) and pallas_shiftadd.shifted_add_bias (:153),
+// whose 9-way shifted add + bias is this kernel's epilogue and stays plain
+// PyTorch (ops/upshead.taps_shifted_add + bias), as it is XLA code in the
+// JAX package's default route.  The f4 packing of p0 and the lane rolls of
+// the TPU kernel are dropped.
 //
 // Bound on the H100 at the main-path shape (B=1, 512x1024): FLOPs
 // 2*524288*(448*896 + 896*208) = 616 GFLOP (207 taps padded to 208); bytes
 // p0 64 + p1 32 + p2 16 + yt 207 MiB = 319 MiB.  622 us of tensor cores at
 // 989 TFLOP/s vs 100 us of HBM: compute-bound.  The 896-ch h (896 MiB at
 // B=1) never reaches device memory, which is what the TPU kernel buys.
+// h mode at the train recipe (24x128x128): 2*393216*448*896 = 316 GFLOP
+// and 705 MB of h written: compute-bound (320 us vs 210 us at peak).
 // Design: one block of 8 warps owns 128 consecutive pixels (each warp 16
 // rows).  It builds the 448-ch concat in shared memory (p0 copied, p1/p2
 // interpolated in f32 from 16-byte neighbour loads, rounded to bf16), then
 // walks W1 in 14 chunks of 64 hidden channels: chunk GEMM (K=448, W1 fed in
 // 64-row pieces by cp.async into a double buffer, the next piece in flight
-// during the MMAs) -> +b1, lrelu, bf16 into shared h -> accumulate
-// h . W2t[chunk] into per-warp 16x208 f32 fragments that live across all
-// chunks; W2t's rows for the chunk arrive by cp.async during the chunk
-// GEMM.  The 128-pixel tile reads the 1.17 MB of weights once per 128
-// pixels (4.8 GB of L2 traffic per 512x1024 frame).  N=207 is padded to
-// 208 in the weight copy the wrapper prepares, never in the output: yt
-// keeps its 207-wide rows and leaves as one contiguous span per block.
-// 216 KB of shared memory: one block of 8 warps per SM.
+// during the MMAs) -> +b1, lrelu, bf16 into shared h -> in taps mode,
+// accumulate h . W2t[chunk] into per-warp 16x208 f32 fragments that live
+// across all chunks (W2t's rows for the chunk arrive by cp.async during
+// the chunk GEMM); in h mode, store the chunk of h.  The 128-pixel tile
+// reads the 1.17 MB of weights once per 128 pixels (4.8 GB of L2 traffic
+// per 512x1024 frame).  N=207 is padded to 208 in the weight copy the
+// wrapper prepares, never in the output: yt keeps its 207-wide rows and
+// leaves as one contiguous span per block.  216 KB of shared memory: one
+// block of 8 warps per SM.
 #include "common.cuh"
 
 namespace dvie {
@@ -72,8 +79,8 @@ __global__ void __launch_bounds__(NT, 1)
 ups_head_taps_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
                      const bf16 *__restrict__ p2, const bf16 *__restrict__ w1,
                      const float *__restrict__ b1, const bf16 *__restrict__ w2t,
-                     bf16 *__restrict__ yt, int B, int H, int W, int H1, int W1, int H2,
-                     int W2, int C0, int C1, int C2, int N1, int N2) {
+                     bf16 *__restrict__ yt, bf16 *__restrict__ hout, int B, int H, int W,
+                     int H1, int W1, int H2, int W2, int C0, int C1, int C2, int N1, int N2) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16 *As = reinterpret_cast<bf16 *>(smem);
   bf16 *W1s = reinterpret_cast<bf16 *>(smem + OFF_W1);
@@ -123,7 +130,7 @@ ups_head_taps_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
   for (int nc = 0; nc < N1 / 64; ++nc) {
     // W2t rows of this hidden chunk (padded to N2P columns by the wrapper);
     // the previous chunk's product finished before the barrier below
-    load_block_async(W2s, LDW2, w2t + (long)nc * 64 * N2P, N2P, 64, N2P);
+    if (w2t) load_block_async(W2s, LDW2, w2t + (long)nc * 64 * N2P, N2P, 64, N2P);
     cp_async_commit();
     zero(hacc);
     for (int kc = 0; kc < nk; ++kc, ++it) {
@@ -146,9 +153,20 @@ ups_head_taps_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
       Hs[(row0 + r) * LDH + c] = __float2bfloat16(lrelu(Cw[r * LDC + c] + b1[nc * 64 + c]));
     }
     __syncwarp();
-    warp_mma(yacc, Hs + row0 * LDH, LDH, W2s, LDW2, 64 / 16);
+    if (w2t) {
+      warp_mma(yacc, Hs + row0 * LDH, LDH, W2s, LDW2, 64 / 16);
+    } else {  // h mode: this warp's 16 rows of the chunk
+      for (int i = lane; i < 16 * 8; i += 32) {
+        const int r = i / 8, c = (i % 8) * 8;
+        const long m = m0 + row0 + r;
+        if (m < M)
+          st16(hout + m * N1 + nc * 64 + c,
+               *reinterpret_cast<const uint4 *>(Hs + (row0 + r) * LDH + c));
+      }
+    }
     __syncthreads();
   }
+  if (!w2t) return;
 
   store(Ys + row0 * LDY, LDY, yacc);
   __syncthreads();
@@ -162,6 +180,27 @@ ups_head_taps_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
 }  // namespace
 }  // namespace dvie
 
+namespace dvie {
+namespace {
+
+int launch(const void *p0, const void *p1, const void *p2, const void *w1, const void *b1,
+           const void *w2t, void *yt, void *h, int B, int H, int W, int H1, int W1, int H2, int W2,
+           int C0, int C1, int C2, int N1, int N2, void *stream) {
+  cudaError_t e = cudaFuncSetAttribute(ups_head_taps_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const long M = (long)B * H * W;
+  dim3 grid((unsigned)((M + TM - 1) / TM));
+  ups_head_taps_kernel<<<grid, NT, SMEM, (cudaStream_t)stream>>>(
+      (const bf16 *)p0, (const bf16 *)p1, (const bf16 *)p2, (const bf16 *)w1,
+      (const float *)b1, (const bf16 *)w2t, (bf16 *)yt, (bf16 *)h, B, H, W, H1, W1, H2, W2, C0,
+      C1, C2, N1, N2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace dvie
+
 // p0 (B,H,W,C0), p1 (B,H1,W1,C1), p2 (B,H2,W2,C2), w1 (C0+C1+C2, N1) bf16,
 // b1 (N1,) f32, w2t (N1, 208) bf16 (the taps matrix zero-padded from N2
 // columns), yt (B,H,W,N2) bf16.  C0, C1, C2 % 8 == 0, (C0+C1+C2) % 64 == 0
@@ -170,15 +209,14 @@ extern "C" int dvie_ups_head_taps(const void *p0, const void *p1, const void *p2
                                   const void *b1, const void *w2t, void *yt, int B, int H, int W,
                                   int H1, int W1, int H2, int W2, int C0, int C1, int C2, int N1,
                                   int N2, void *stream) {
-  using dvie::bf16;
-  cudaError_t e = cudaFuncSetAttribute(dvie::ups_head_taps_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, dvie::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const long M = (long)B * H * W;
-  dim3 grid((unsigned)((M + dvie::TM - 1) / dvie::TM));
-  dvie::ups_head_taps_kernel<<<grid, dvie::NT, dvie::SMEM, (cudaStream_t)stream>>>(
-      (const bf16 *)p0, (const bf16 *)p1, (const bf16 *)p2, (const bf16 *)w1,
-      (const float *)b1, (const bf16 *)w2t, (bf16 *)yt, B, H, W, H1, W1, H2, W2, C0, C1, C2,
-      N1, N2);
-  return (int)cudaGetLastError();
+  return dvie::launch(p0, p1, p2, w1, b1, w2t, yt, nullptr, B, H, W, H1, W1, H2, W2, C0, C1, C2,
+                      N1, N2, stream);
+}
+
+// h mode: the same pyramid, w1 and b1; h (B,H,W,N1) bf16.
+extern "C" int dvie_ups_head_1x1(const void *p0, const void *p1, const void *p2, const void *w1,
+                                 const void *b1, void *h, int B, int H, int W, int H1, int W1,
+                                 int H2, int W2, int C0, int C1, int C2, int N1, void *stream) {
+  return dvie::launch(p0, p1, p2, w1, b1, nullptr, nullptr, h, B, H, W, H1, W1, H2, W2, C0, C1,
+                      C2, N1, 0, stream);
 }

@@ -24,6 +24,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.ops.trainchain import (
+    bottleneck_plain,
+)
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -79,8 +82,9 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 (x4) residual block, lrelu (blocks.py:401).
 
-    ``forward`` is the unfused block; HRNet's layer1 runs the same weights
-    through the fused tail (ops/bottleneck_tail.py)."""
+    ``forward`` is the plain block (``ops/trainchain.bottleneck_plain``);
+    HRNet's layer1 runs the same weights through the fused tail
+    (ops/bottleneck_tail.py) or the train-chain kernels (ops/trainchain.py)."""
     expansion = 4
 
     def __init__(self, cin: int, planes: int):
@@ -94,11 +98,9 @@ class Bottleneck(nn.Module):
                            if cin != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = lrelu(self.conv1(x))
-        out = lrelu(self.conv2(out))
-        out = self.conv3(out)
-        res = self.downsample[0](x) if self.downsample is not None else x
-        return lrelu(out + res)
+        return bottleneck_plain(
+            x, self.conv1.weight, self.conv2.weight, self.conv3.weight,
+            self.downsample[0].weight if self.downsample is not None else None)
 
 
 class SegEncoder(nn.Sequential):

@@ -16,8 +16,8 @@ from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 
 
 class InterNet(nn.Module):
-    """Coarse-only interpolation (composite.py:28-42), eval forward:
-    ``(rgb, seg) -> (rgb_out, seg_out)``."""
+    """Coarse-only interpolation (composite.py:28-42):
+    ``(rgb, seg) -> (rgb_out, seg_out)``, differentiable."""
 
     def __init__(self, cfg: Config, use_kernels: bool = True):
         super().__init__()

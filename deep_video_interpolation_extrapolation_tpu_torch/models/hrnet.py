@@ -1,23 +1,37 @@
-"""HRNet coarse generator, eval forward (counterpart of models/hrnet.py).
+"""HRNet coarse generator (counterpart of models/hrnet.py), forward and,
+through autograd, backward.
 
 seg encoder + stem + 4 Bottleneck layer1 + 2-branch then 3-branch
 high-resolution modules + upsample-concat + rgb/seg heads, at the published
 widths (branches 64/128/256, 448 -> 448 head 1x1s, rgb 3 + seg 20).
 
 The Hopper kernels go in at the sites where the JAX package's TPU build
-routes its Pallas kernels at 8x512x1024 bf16, and nowhere else:
+routes its Pallas kernels, by the JAX package's own shape predicates:
 
-- K1 ``conv3x3_bias_res_lrelu``: stem conv2 (with bias), transition1's
-  trans_0 (256 -> 64) and both convs of every branch-0 BasicBlock of
-  stage2 and stage3 (the second with the residual): 18 launches;
-- K2 ``bottleneck_tail``: the four layer1 Bottleneck tails;
+- stem + layer1, by ``_pack_factor`` (hrnet.py:452-460, without its TPU
+  test): at W >= 256 and even (serving at 512x1024) K1
+  ``conv3x3_bias_res_lrelu`` runs stem conv2 (with bias) and transition1's
+  trans_0 (256 -> 64), and K2 ``bottleneck_tail`` the four layer1
+  Bottleneck tails; at any other width (the 128x128 train recipe) the
+  train-chain kernels run the whole stem (``stem_fwd`` / ``stem_bwd``) and
+  the four whole Bottlenecks (``bottleneck_fwd`` / ``bottleneck_bwd``),
+  and trans_0 is ``F.conv2d``, as ``_trainchain`` and the unpacked
+  transition route them (hrnet.py:557-565, :351-354);
+- the branch-0 BasicBlocks of stage2 and stage3 take K1 for both convs
+  (the second with the residual) where the JAX ``packable`` test holds
+  (hrnet.py:146-149: W even and >= 128), else ``F.conv2d``.  This is the
+  JAX package's ``DVIE_BBCHAIN=0`` route; its default trains them through
+  the BasicBlock chain kernel (``pallas_trainchain.basicblock_chain``),
+  which is still to port (ROADMAP.md queue 2) and will replace it;
 - K3 ``fuse_out0``: the out-0 fuse sum of stage2 and stage3;
-- K4 ``ups_head_taps``: upsample-concat + both heads up to the taps tensor.
+- K4 ``ups_head_taps``: upsample-concat + both heads up to the taps tensor
+  (its backward recomputes h through K4's h mode, ``ups_head_1x1``).
 
-Every other conv (the stem conv1, the 1x1 and stride-2 fuse convs, the
-transitions' stride-2 convs, branches 1 and 2) is ``F.conv2d``, as the JAX
-package leaves it to XLA.  ``use_kernels=False`` builds the same model on
-the kernels' plain versions (the reference the card's run is held to).
+Every other conv (the stem conv1 at W >= 256, the 1x1 and stride-2 fuse
+convs, the transitions' stride-2 convs, branches 1 and 2) is ``F.conv2d``,
+as the JAX package leaves it to XLA.  Every kernel is differentiable.
+``use_kernels=False`` builds the same model on the kernels' plain versions
+(the reference the card's run is held to), differentiated by autograd.
 
 Submodule names follow the reference's torch HRNet, so ``state_dict`` keys
 are exactly those ``tools/torch_port.port_hrnet`` reads.
@@ -49,6 +63,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.fuse0 import (
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     interpolate_bilinear,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.ops.trainchain import (
+    stem_layer1,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
     build_dual_tap_kernel,
     finish_taps,
@@ -61,6 +78,17 @@ STAGE2_CFG = dict(num_branches=2, num_blocks=(4, 4), num_channels=(64, 128))
 STAGE3_CFG = dict(num_branches=3, num_blocks=(4, 4, 4),
                   num_channels=(64, 128, 256))
 N_FRAMES, RGB_DIM, SEG_DIM = 2, 3, 20   # interpolation: 2 frames in, 1 out
+
+
+def packed_route(w: int) -> bool:
+    """The JAX package's stem/layer1 route (``_pack_factor`` != 0, without
+    its TPU test): W even and >= 256."""
+    return w % 2 == 0 and w >= 256
+
+
+def branch0_kernel(w: int) -> bool:
+    """The JAX ``packable`` test for a 64-ch branch: W even and >= 128."""
+    return w % 2 == 0 and w >= 128
 
 
 class HighResolutionModule(nn.Module):
@@ -97,8 +125,10 @@ class HighResolutionModule(nn.Module):
         ys = []
         for i, blocks in enumerate(self.branches):
             h = xs[i]
+            kernel = (self.use_kernels and i == 0
+                      and branch0_kernel(h.shape[2]))
             for blk in blocks:
-                h = blk(h, kernel=self.use_kernels and i == 0)
+                h = blk(h, kernel=kernel)
             ys.append(h)
 
         # out-0: the 1x1 fuse convs stay F.conv2d; upsample + sum + lrelu
@@ -129,11 +159,11 @@ class HighResolutionModule(nn.Module):
 
 class _Transition(nn.ModuleList):
     """Branch-count/channel transition (hrnet.py:322-373).  A same-
-    resolution channel change is a 3x3 conv + lrelu (K1 in transition1);
-    each new branch is a chain of stride-2 3x3 convs + lrelu."""
+    resolution channel change is a 3x3 conv + lrelu (K1 with
+    ``kernel=True``); each new branch is a chain of stride-2 3x3 convs +
+    lrelu."""
 
-    def __init__(self, pre: Sequence[int], cur: Sequence[int],
-                 use_kernels: bool = True):
+    def __init__(self, pre: Sequence[int], cur: Sequence[int]):
         layers = []
         for i, c in enumerate(cur):
             if i < len(pre):
@@ -147,14 +177,14 @@ class _Transition(nn.ModuleList):
                     for j in range(n))))
         super().__init__(layers)
         self.n_pre = len(pre)
-        self.use_kernels = use_kernels
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, xs: Sequence[torch.Tensor],
+                kernel: bool = False) -> List[torch.Tensor]:
         outs = []
         for i, layer in enumerate(self):
             if i < self.n_pre:
                 outs.append(xs[i] if layer is None else conv3x3_site(
-                    xs[i], layer[0], kernel=self.use_kernels))
+                    xs[i], layer[0], kernel=kernel))
             else:
                 t = xs[-1]
                 for seq in layer:
@@ -212,11 +242,11 @@ class HRNet(nn.Module):
         self.conv2 = Conv(64, 64, 3)
         self.layer1 = nn.Sequential(*(Bottleneck(64 if i == 0 else 256, 64)
                                       for i in range(4)))
-        self.transition1 = _Transition((256,), STAGE2_CFG["num_channels"], k)
+        self.transition1 = _Transition((256,), STAGE2_CFG["num_channels"])
         self.stage2 = nn.ModuleList([HighResolutionModule(**STAGE2_CFG,
                                                           use_kernels=k)])
         self.transition2 = _Transition(STAGE2_CFG["num_channels"],
-                                       STAGE3_CFG["num_channels"], k)
+                                       STAGE3_CFG["num_channels"])
         self.stage3 = nn.ModuleList([HighResolutionModule(**STAGE3_CFG,
                                                           use_kernels=k)])
         head_cin = sum(STAGE3_CFG["num_channels"])
@@ -224,9 +254,13 @@ class HRNet(nn.Module):
         self.seg_layer = _Head(head_cin, SEG_DIM)
 
     def _stem_layer1(self, x: torch.Tensor) -> torch.Tensor:
-        """Stem conv1/conv2 + the layer1 chain (hrnet.py:486-580): block 0's
-        h1 = lrelu(conv1x1(x)) outside the fused tails, each tail returns
-        the block output and the next block's h1 (hrnet.py:431-448)."""
+        """Stem conv1/conv2 + the four layer1 Bottlenecks (hrnet.py:486-580),
+        by the route of ``packed_route``."""
+        if not packed_route(x.shape[2]):
+            return self._trainchain(x.to(self.dtype))
+        # block 0's h1 = lrelu(conv1x1(x)) outside the fused tails, each
+        # tail returns the block output and the next block's h1
+        # (hrnet.py:431-448)
         x = lrelu(self.conv1(x, self.dtype))
         x = conv3x3_site(x, self.conv2, kernel=self.use_kernels)
         tail = bottleneck_tail if self.use_kernels else bottleneck_tail_plain
@@ -238,11 +272,22 @@ class HRNet(nn.Module):
             x, h1 = tail(h1, x, blk.conv2.weight, blk.conv3.weight, wres, w1n)
         return x
 
+    def _trainchain(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole stem, then four whole Bottlenecks (hrnet.py:588-609)."""
+        return stem_layer1(
+            x, (self.conv1.weight, self.conv1.bias, self.conv2.weight,
+                self.conv2.bias),
+            [(blk.conv1.weight, blk.conv2.weight, blk.conv3.weight,
+              blk.downsample[0].weight if blk.downsample is not None
+              else None) for blk in self.layer1],
+            kernels=self.use_kernels)
+
     def _backbone(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Stem + layer1 + stage2/3; returns the raw pyramid
         (_HRBackbone with return_parts, hrnet.py:463-692)."""
+        packed = packed_route(x.shape[2])
         x = self._stem_layer1(x)
-        xs = self.transition1([x])
+        xs = self.transition1([x], kernel=self.use_kernels and packed)
         xs = self.stage2[0](xs)
         xs = self.transition2(xs)
         return self.stage3[0](xs)

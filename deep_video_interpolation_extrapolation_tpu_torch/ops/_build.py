@@ -8,7 +8,8 @@ does not rebuild.  A missing ``nvcc`` or a failed build raises with the
 compiler's output; nothing falls back.
 
 Every exported function takes device pointers and the CUDA stream as
-``void*`` and returns ``cudaGetLastError()`` after its launch.
+``void*`` and returns ``cudaGetLastError()`` after its launches (a backward
+queues three and stops at the first error).
 """
 
 from __future__ import annotations
@@ -39,6 +40,18 @@ SIGNATURES = {
     # p0, p1, p2, w1, b1, w2t, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2,
     # N1, N2, stream
     "dvie_ups_head_taps": [P, P, P, P, P, P, P] + [I] * 12 + [P],
+    # p0, p1, p2, w1, b1, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, stream
+    "dvie_ups_head_1x1": [P] * 6 + [I] * 11 + [P],
+    # x16, w1, b1, w2, b2, y, B, H, W, stream
+    "dvie_stem_fwd": [P] * 6 + [I] * 3 + [P],
+    # x16, dy, w1, b1, w2, b2, w1f, w2f, dpre2, s1, dpre1, dx16, pk1, pb1,
+    # pk2, pb2, B, H, W, splits, stream
+    "dvie_stem_bwd": [P] * 16 + [I] * 4 + [P],
+    # x, w1, w2, w3, wres, y, B, H, W, Ci, stream
+    "dvie_bottleneck_fwd": [P] * 6 + [I] * 4 + [P],
+    # x, dy, w1, w2, w3, wres, w1t, w2f, w3t, wrest, h1, h2, dpre_y, dpre2,
+    # dpre1, dx, pk1, pk2, pk3, pkres, B, H, W, Ci, splits, stream
+    "dvie_bottleneck_bwd": [P] * 20 + [I] * 5 + [P],
 }
 
 
@@ -107,3 +120,9 @@ def check_launch(name: str, err: int) -> None:
 def ptr(t) -> int | None:
     """Device pointer of a tensor, or None (NULL) for an absent operand."""
     return None if t is None else t.data_ptr()
+
+
+def stream(t) -> int:
+    """The current CUDA stream of a tensor's device, as a pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -10,7 +10,8 @@ the same tail without its conv3x3):
 The kernel is ``csrc/bottleneck_tail.cu``.  The plain version rounds where
 ``pallas_chain._block_ref`` rounds: every conv/product is an f32-accumulated
 product of compute-dtype operands, rounded to the compute dtype before the
-next step.
+next step.  The backward recomputes the plain version and differentiates it
+(``ops/recompute.py``), the JAX kernel's own rule.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import torch.nn.functional as F
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
+from deep_video_interpolation_extrapolation_tpu_torch.ops.recompute import (
+    recompute_vjp,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
@@ -60,10 +64,12 @@ def bottleneck_tail(h1: torch.Tensor, x: torch.Tensor, w2: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The tail on CUDA bf16 tensors through the Hopper kernel; on CPU
     tensors through the plain version.  Same arguments as the plain
-    version; the kernel takes P = 64, Co = 256, Pn = 64."""
-    if not hw.use_kernel(h1):
-        return bottleneck_tail_plain(h1, x, w2, w3, wres, w1_next)
-    hw.check_no_grad(h1, x, w2, w3, wres, w1_next)
+    version; the kernel takes P = 64, Co = 256, Pn = 64.  Differentiable."""
+    return recompute_vjp(_kernel, bottleneck_tail_plain, h1, x, w2, w3,
+                         wres, w1_next)
+
+
+def _kernel(h1, x, w2, w3, wres, w1_next):
     b, h, w, p = h1.shape
     cx = x.shape[-1]
     if p != P or tuple(w2.shape) != (P, P, 3, 3) or tuple(w3.shape) != (CO, P, 1, 1):

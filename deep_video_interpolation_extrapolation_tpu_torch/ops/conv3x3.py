@@ -4,7 +4,8 @@ Counterpart of ``ops/pallas_ae_conv.conv3x3_packed_ae_hwnc`` (and of its
 NHWC-packed twin ``conv3x3_packed_ae``).  The kernel is
 ``csrc/conv3x3.cu``; the plain version rounds where the JAX reference
 ``_ref_hwnc`` rounds (conv output in the compute dtype, then bias, residual
-and lrelu in that dtype).
+and lrelu in that dtype).  The backward recomputes the plain version and
+differentiates it (``ops/recompute.py``), the JAX kernel's own rule.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import torch.nn.functional as F
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
+from deep_video_interpolation_extrapolation_tpu_torch.ops.recompute import (
+    recompute_vjp,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
@@ -44,10 +48,12 @@ def conv3x3_bias_res_lrelu(x: torch.Tensor, w: torch.Tensor,
                            relu: bool = True) -> torch.Tensor:
     """The conv on a CUDA bf16 tensor through the Hopper kernel; on a CPU
     tensor through the plain version.  Same arguments as the plain
-    version."""
-    if not hw.use_kernel(x):
-        return conv3x3_bias_res_lrelu_plain(x, w, bias, res, relu)
-    hw.check_no_grad(x, w, bias, res)
+    version; differentiable."""
+    return recompute_vjp(_kernel, conv3x3_bias_res_lrelu_plain, x, w, bias,
+                         res, relu)
+
+
+def _kernel(x, w, bias, res, relu):
     b, h, wd, cin = x.shape
     cout = w.shape[0]
     if tuple(w.shape) != (cout, cin, 3, 3):

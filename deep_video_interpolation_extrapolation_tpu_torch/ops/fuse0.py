@@ -12,7 +12,9 @@ per 32 consecutive pixels x all 64 channels; the four bilinear neighbours
 of t1 and t2 are gathered per pixel (they hit L2: t1/t2 are 4x/16x smaller
 than the output), the sum and lrelu run in f32 and the result is rounded
 once.  The plain version rounds where ``pallas_fuse0._ref`` rounds (each
-upsampled part in the compute dtype, the sum and lrelu in f32).
+upsampled part in the compute dtype, the sum and lrelu in f32).  The
+backward recomputes the plain version and differentiates it
+(``ops/recompute.py``), the JAX kernel's own rule.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
+from deep_video_interpolation_extrapolation_tpu_torch.ops.recompute import (
+    recompute_vjp,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     interpolate_bilinear,
 )
@@ -122,10 +127,11 @@ def _triton_kernel():
 def fuse_out0(y0: torch.Tensor, t1: torch.Tensor,
               t2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fuse sum on CUDA bf16 tensors through the Triton kernel; on CPU
-    tensors through the plain version."""
-    if not hw.use_kernel(y0):
-        return fuse_out0_plain(y0, t1, t2)
-    hw.check_no_grad(y0, t1, t2)
+    tensors through the plain version.  Differentiable."""
+    return recompute_vjp(_kernel, fuse_out0_plain, y0, t1, t2)
+
+
+def _kernel(y0, t1, t2):
     b, h, w, c = y0.shape
     if c & (c - 1):
         raise ValueError(f"kernel takes a power-of-two C, got {c}")

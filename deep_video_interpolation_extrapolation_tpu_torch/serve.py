@@ -10,7 +10,7 @@
   queue 3.)
 
 Tensors are NHWC.  Seg ids travel as ``uint8`` (B, H, W) maps and expand to
-one-hots on their own device, as ``train/common.seg_oh`` does.
+one-hots on their own device (``core/seg.seg_oh``).
 """
 
 from __future__ import annotations
@@ -19,15 +19,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-N_CLASSES = 20
-
-
-def seg_oh(ids: torch.Tensor) -> torch.Tensor:
-    """Integer (B,H,W) class ids -> f32 (B,H,W,20) one-hot on the ids'
-    device."""
-    return F.one_hot(ids.long(), N_CLASSES).to(torch.float32)
+from deep_video_interpolation_extrapolation_tpu_torch.core.seg import seg_oh
 
 
 def forward(model: nn.Module, rgb: torch.Tensor, seg: torch.Tensor

@@ -1,4 +1,4 @@
-"""JAX HRNet parameters -> the port's ``state_dict``.
+"""JAX HRNet (and frozen VGG19) parameters -> the port's ``state_dict``.
 
 The inverse of the JAX package's ``tools/torch_port.port_hrnet`` (which maps
 the reference's torch HRNet state_dict onto the flax tree): flax HWIO conv
@@ -14,6 +14,11 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
+    conv_names,
+)
+
 
 def key_map(params: Mapping) -> Iterator[Tuple[str, Tuple[str, ...]]]:
     """(torch key, path in the flax tree) for every parameter of the port's
@@ -77,4 +82,18 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         if a.ndim == 4:       # HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
         sd[key] = torch.from_numpy(np.array(a, order="C"))   # a writable copy
+    return sd
+
+
+def from_jax_vgg(vgg_params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's frozen VGG19 params (``frozen["vgg"]``: one
+    ``conv{b}_{i}`` dict of HWIO kernel and bias per conv) -> the
+    ``state_dict`` of the port's ``models/features.VGG19Features``."""
+    sd = OrderedDict()
+    for name in conv_names():
+        kernel = np.asarray(vgg_params[name]["kernel"], dtype=np.float32)
+        sd[f"convs.{name}.weight"] = torch.from_numpy(
+            np.array(np.transpose(kernel, (3, 2, 0, 1)), order="C"))
+        sd[f"convs.{name}.bias"] = torch.from_numpy(np.array(
+            vgg_params[name]["bias"], dtype=np.float32))
     return sd

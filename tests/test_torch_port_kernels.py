@@ -36,6 +36,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     bottleneck_tail,
     conv3x3,
     fuse0,
+    trainchain,
     upshead,
 )
 
@@ -254,19 +255,71 @@ def test_unknown_device_raises():
         hw.use_kernel(torch.empty(1, device="meta"))
 
 
-def test_no_grad_check_names_the_training_queue():
-    t = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hw.check_no_grad(t)
-    with torch.inference_mode():
-        hw.check_no_grad(t)
+def _grad_cases():
+    """(wrapper, plain version, argument shapes, which arguments are
+    activations) for every kernel wrapper; None: an absent operand."""
+    t3 = (1, 4, 8)
+    return {
+        "conv3x3": (conv3x3.conv3x3_bias_res_lrelu,
+                    conv3x3.conv3x3_bias_res_lrelu_plain,
+                    [t3 + (64,), (64, 64, 3, 3), (64,), t3 + (64,)]),
+        "bottleneck_tail": (bottleneck_tail.bottleneck_tail,
+                            bottleneck_tail.bottleneck_tail_plain,
+                            [t3 + (64,), t3 + (64,), (64, 64, 3, 3),
+                             (256, 64, 1, 1), (256, 64, 1, 1),
+                             (64, 256, 1, 1)]),
+        "fuse_out0": (fuse0.fuse_out0, fuse0.fuse_out0_plain,
+                      [t3 + (64,), (1, 2, 4, 64), (1, 1, 2, 64)]),
+        "ups_head_taps": (upshead.ups_head_taps, upshead.ups_head_taps_plain,
+                          [t3 + (64,), (1, 2, 4, 128), (1, 1, 2, 256),
+                           (448, 896), (896,), (896, 207)]),
+        "stem": (trainchain.stem, trainchain.stem_plain,
+                 [t3 + (14,), (64, 14, 3, 3), (64,), (64, 64, 3, 3), (64,)]),
+        "bottleneck": (trainchain.bottleneck, trainchain.bottleneck_plain,
+                       [t3 + (256,), (64, 256, 1, 1), (64, 64, 3, 3),
+                        (256, 64, 1, 1), None]),
+        "bottleneck_projection": (
+            trainchain.bottleneck, trainchain.bottleneck_plain,
+            [t3 + (64,), (64, 64, 1, 1), (64, 64, 3, 3), (256, 64, 1, 1),
+             (256, 64, 1, 1)]),
+    }
+
+
+@pytest.mark.parametrize("name", list(_grad_cases()))
+def test_no_grad_check_names_the_training_queue(name):
+    """Every kernel wrapper is a ``torch.autograd.Function``: CPU tensors
+    that require grad flow through it (its plain forward, then its own
+    backward: recomputed autograd for K1-K3, the explicit backward for K4,
+    the hand-written ones for the train chain) with grads equal to plain
+    autograd of the plain version, up to f32 summation order."""
+    fn, plain, shapes = _grad_cases()[name]
+    rng = np.random.RandomState(len(name))
+    args = [None if s is None else torch.from_numpy(
+        rng.uniform(-0.5, 0.5, s).astype(np.float32)) for s in shapes]
+    grads = []
+    for f in (fn, plain):
+        leaves = [None if a is None else a.clone().requires_grad_()
+                  for a in args]
+        out = f(*leaves)
+        outs = [o for o in (out if isinstance(out, tuple) else (out,))
+                if o is not None]
+        assert all(o.requires_grad for o in outs)
+        sum((o * torch.linspace(-1, 1, o.numel()).reshape(o.shape)).sum()
+            for o in outs).backward()
+        grads.append([None if a is None else a.grad for a in leaves])
+    for g, ref in zip(*grads):
+        if ref is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, ref, rtol=1e-4, atol=1e-5)
 
 
 def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD and path == _build.library_path()
     assert {p.name for p in _build.sources()} == {
-        "conv3x3.cu", "bottleneck_tail.cu", "upshead.cu"}
+        "conv3x3.cu", "bottleneck_tail.cu", "upshead.cu",
+        "trainchain_stem.cu", "trainchain_bottleneck.cu"}
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is installed here: the missing-compiler path "
                     "cannot be reached")

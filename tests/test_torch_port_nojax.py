@@ -1,7 +1,7 @@
 """The port imports no jax, flax or optax, nor any module of the JAX package,
 directly or through another module: a fresh interpreter with those modules
-blocked imports every module of the port and runs the CPU forward and a
-rollout at 32x64."""
+blocked imports every module of the port (the train modules included) and
+runs the CPU forward, a rollout and two INTER train steps at 32x64."""
 
 import os
 import subprocess
@@ -34,6 +34,18 @@ ids = [torch.randint(0, 20, (1, 32, 64), generator=g, dtype=torch.uint8)
 preds, pred_ids = serve.rollout(model, imgs, ids, 2)
 assert all(torch.isfinite(p).all() for p in preds)
 assert all(int(i.max()) < 20 for i in pred_ids)
+import dataclasses
+from {pkg}.train import inter, state as state_lib
+from {pkg}.train.common import init_vgg_frozen
+cfg = dataclasses.replace(cfg, train_coarse=True)
+state = state_lib.create_train_state(cfg, model, init_vgg_frozen(cfg, 1))
+step = inter.make_train_step(cfg, model)
+batch = dict(frame1=imgs[0] * 2 - 1, frame2=imgs[1] * 2 - 1,
+             frame3=imgs[0] - imgs[1], seg1=ids[0], seg2=ids[1], seg3=ids[0])
+for _ in range(2):
+    state, losses = step(state, batch)
+assert state.step == 2 and torch.isfinite(losses["loss_all"])
+assert "coarse_ce_loss" in losses
 assert not any(sys.modules.get(n) for n in ("jax", "flax", "optax"))
 print("modules", len(names))
 """
@@ -46,4 +58,4 @@ def test_port_runs_without_jax():
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("modules")[-1])
-    assert n >= 15, proc.stdout
+    assert n >= 26, proc.stdout

@@ -9,6 +9,9 @@ times); seg ids agree on >= 99.9% of the pixels of every step.
 """
 
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -108,3 +111,13 @@ def test_seg_oh_expands_ids():
     oh = serve.seg_oh(ids)
     assert oh.dtype == torch.float32 and oh.shape == (1, 1, 2, 20)
     assert oh[0, 0, 1, 19] == 1 and oh.sum() == 2
+
+
+def test_serving_does_not_import_training():
+    """serve.py takes its seg contract from core/, not from train/ (which
+    pulls in the losses and VGG19)."""
+    code = ("import sys; import deep_video_interpolation_extrapolation_tpu_torch"
+            ".serve; sys.exit(any('_torch.train' in m or '_torch.losses' in m"
+            " for m in sys.modules))")
+    root = Path(__file__).resolve().parents[1]
+    assert subprocess.run([sys.executable, "-c", code], cwd=root).returncode == 0
