@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the four Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torch/csrc``
-(and the Triton one), then, in order:
+Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torch/csrc``
+(one nvcc per source, all at once; and the Triton one), then, in order:
 
-1. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16 at the main-path shapes (B=1, 512x1024), max|d|/max|ref| <= 2e-2,
-   with median CUDA-event times of both;
+1. kernels: each serving kernel against its plain PyTorch version on the
+   card, in bf16 at the main-path shapes (B=1, 512x1024; the 4-part head
+   ``ups_head_taps4`` of ``--highres_large`` included),
+   max|d|/max|ref| <= 2e-2, with median CUDA-event times of both;
 2. slice: InterNet/HRNet at full width, 128x256, B=2, bf16, kernels against
    the plain model with the same seed weights: rgb max|d| <= 5e-2 *
    max(1, max|ref|), seg argmax agreement >= 98%;
@@ -15,28 +16,39 @@ Builds the four Hopper kernels from ``deep_video_interpolation_extrapolation_tpu
    512x1024, B=2, bf16 after one warm-up rollout; every kernel's launch
    counter must move by its count per forward (K1 18, K2 4, K3 2, K4 1);
    outputs finite, seg ids in [0, 20); frames/s;
-4. train kernels: the stem and Bottleneck kernels (forward and backward)
-   and K4's h mode against their plain versions at the recipe shapes
-   (24x128x128 bf16): outputs by max|d|/max|ref| <= 2e-2, weight and bias
-   grads by rel-L2 <= 1e-2; each backward twice, on inputs whose lrelu
-   masks are fixed per channel (dx by max|d|/max|ref| <= 2e-2) and on
-   random inputs, whose masks vary per pixel (dx by rel-L2 <= 1e-2);
+4. train kernels: the stem, Bottleneck and BasicBlock chain kernels
+   (forward and backward; the chain at N = 4 and N = 1) and K4's h mode
+   against their plain versions at the recipe shapes (24x128x128 bf16):
+   outputs by max|d|/max|ref| <= 2e-2, weight and bias grads by rel-L2 <=
+   1e-2; each backward on inputs whose lrelu masks are fixed per channel
+   (dx by max|d|/max|ref| <= 2e-2) and on random inputs, whose masks vary
+   per pixel (dx by rel-L2 <= 1e-2); and K1's backward (autograd of its
+   plain version recomputed) against plain autograd, now that the train
+   step no longer runs it;
 5. training: the INTER train step (``train/inter.make_train_step``) of
    InterNet/HRNet at full width on seeded 24x128x128 batches, bf16 with f32
    masters, frozen seeded VGG19, default loss weights:
    - one step's gradient, kernel model and plain bf16 model, each against
      the plain model in f32 (TF32 off): the kernel model's rel-L2 error
      <= 1.5 x the plain bf16 model's + 1e-3, for the whole gradient and
-     for each stem and layer1 leaf on its own, and every loss term within
-     2e-2 relative of the plain bf16 model's;
+     for each of the 33 train-chain leaves on its own (stem, layer1 and
+     the branch-0 BasicBlocks of stages 2 and 3), and every loss term
+     within 2e-2 relative of the plain bf16 model's;
    - 20 Adamax steps on one fixed batch per model: loss_all falls for
      both, and the kernel model ends within 10% of the plain model;
    - the launches of one counted step (stem fwd/bwd 1/1, Bottleneck
-     fwd/bwd 4/4, K1 16, K2 0, K3 2, K4 taps 1 and h mode 1);
-   - samples/s of both models: median of the 18 steps after 2 warm-ups.
+     fwd/bwd 4/4, BasicBlock chain fwd/bwd 8/8 (one per block), K1 0, K2
+     0, K3 2, K4 taps 1 and h mode 1);
+   - samples/s of both models: median of the 18 steps after 2 warm-ups;
+6. highres_large: the 4-branch model (``--highres_large``), kernels
+   against the plain model at 2x128x256 as in phase 2, then
+   ``registry.build_model`` + ``serve.rollout`` for 3 steps at 2x512x1024
+   bf16 after a warm-up: launches per forward K1 26, K2 4, K3 2, the
+   4-part head 1, K4 0; outputs finite; frames/s.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
-(``launches``: the serve rollout's count plus the counted train step's),
+(``launches``: the serve rollout's count plus the counted train step's plus
+the highres_large rollout's),
 and last ``{"ok": true, "device": {...}}``.  Any failed phase raises: the
 exit code is then non-zero and no result line is printed.  Needs a CUDA
 card of compute capability (9, 0); there is no CPU fallback.
@@ -67,6 +79,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     _build,
+    bbchain as bb,
     bottleneck_tail as k2,
     conv3x3 as k1,
     fuse0 as k3,
@@ -80,13 +93,17 @@ DX_L2_TOL = 1e-2           # rel-L2 of dx on random inputs, kernel vs plain
 SLICE_RGB_TOL = 5e-2       # rgb max|d| / max(1, max|ref|)
 SLICE_SEG_AGREE = 0.98     # seg argmax agreement
 PER_FORWARD = {"conv3x3_bias_res_lrelu": 18, "bottleneck_tail": 4,
-               "fuse_out0": 2, "ups_head_taps": 1}
-# one train step at 24x128x128: the train chain for stem + layer1, K1 for
-# the 16 branch-0 BasicBlock convs of stages 2 and 3, no K2
+               "fuse_out0": 2, "ups_head_taps": 1, "ups_head_taps4": 0}
+# --highres_large: stage4's branch 0 adds 8 K1 launches; the 4-part head
+# replaces K4
+PER_FORWARD_HL = {**PER_FORWARD, "conv3x3_bias_res_lrelu": 26,
+                  "ups_head_taps": 0, "ups_head_taps4": 1}
+# one train step at 24x128x128: the train chain for stem + layer1 and for
+# the 8 branch-0 BasicBlocks of stages 2 and 3, no K1, no K2
 PER_TRAIN_STEP = {"stem_fwd": 1, "stem_bwd": 1, "bottleneck_fwd": 4,
-                  "bottleneck_bwd": 4, "conv3x3_bias_res_lrelu": 16,
-                  "bottleneck_tail": 0, "fuse_out0": 2, "ups_head_taps": 1,
-                  "ups_head_1x1": 1}
+                  "bottleneck_bwd": 4, "bb_chain_fwd": 8, "bb_chain_bwd": 8,
+                  "conv3x3_bias_res_lrelu": 0, "bottleneck_tail": 0,
+                  "fuse_out0": 2, "ups_head_taps": 1, "ups_head_1x1": 1}
 GRAD_RATIO, GRAD_FLOOR = 1.5, 1e-3   # kernel grad error <= 1.5 x plain's + 1e-3
 LOSS_TOL = 2e-2            # each loss term, kernel vs plain bf16, relative
 TRAJ_TOL = 0.10            # final loss_all, kernel vs plain, relative
@@ -110,6 +127,12 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:400"),
     "bottleneck_bwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:445"),
+    "bb_chain_fwd": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                     "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:704"),
+    "bb_chain_bwd": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                     "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
+    "ups_head_taps4": ("cuda", f"{PKG}/csrc/upshead4.cu",
+                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
 }
 
 
@@ -165,7 +188,7 @@ def kernel_phase(dev):
         return torch.randn(shape, generator=g, device=dev) / fan_in ** 0.5
 
     B, H, W = 1, 512, 1024
-    cases = {name: [] for name in PER_FORWARD}
+    cases = {}
     # K1: stem conv2 (bias), transition1 trans_0 (Cin 256), BasicBlock
     # conv2 (residual) — the timed one, 16 of the 18 launches per forward
     x64, x256, res = rnd(B, H, W, 64), rnd(B, H, W, 256), rnd(B, H, W, 64)
@@ -195,12 +218,21 @@ def kernel_phase(dev):
     w2t = k4.build_dual_tap_kernel(w(3, 448, 3, 3), w(20, 448, 3, 3),
                                    torch.bfloat16)
     cases["ups_head_taps"] = [("heads", (x64, p1, p2, w1, b1, w2t))]
+    # the 4-part head of --highres_large
+    p3 = rnd(B, H // 8, W // 8, 512)
+    w1_4 = w(1920, 960, 1, 1)[:, :, 0, 0].t()
+    b1_4 = w(1920, 1, 1, 1).flatten()
+    w2t_4 = k4.build_dual_tap_kernel(w(3, 960, 3, 3), w(20, 960, 3, 3),
+                                     torch.bfloat16)
+    cases["ups_head_taps4"] = [("heads", (x64, p1, p2, p3, w1_4, b1_4,
+                                          w2t_4))]
 
     fns = {"conv3x3_bias_res_lrelu": (k1.conv3x3_bias_res_lrelu,
                                       k1.conv3x3_bias_res_lrelu_plain),
            "bottleneck_tail": (k2.bottleneck_tail, k2.bottleneck_tail_plain),
            "fuse_out0": (k3.fuse_out0, k3.fuse_out0_plain),
-           "ups_head_taps": (k4.ups_head_taps, k4.ups_head_taps_plain)}
+           "ups_head_taps": (k4.ups_head_taps, k4.ups_head_taps_plain),
+           "ups_head_taps4": (k4.ups_head_taps4, k4.ups_head_taps4_plain)}
     results = {}
     for name, variants in cases.items():
         kern, plain = fns[name]
@@ -284,6 +316,101 @@ def _carrier_inputs(dev, g, B, H, W):
     return stem, block(64, True), block(256, False)
 
 
+def _carrier_chain(dev, g, B, H, W, n):
+    """``_carrier_inputs`` for a chain of n BasicBlocks: channel 0 of x
+    carries a constant 1, which k1 turns into a +-1 offset per h channel
+    (and copies to h's channel 0) and k2 into a +-2 offset per output
+    channel (0 for channel 0, whose output stays x's 1).  The +-2 signs are
+    the same in every block, so an output channel grows or stays near
+    -0.5 block after block and never crosses zero; x's other channels lie
+    in [-0.5, 0.5) and the weights' noise adds <= ~0.1."""
+    def n_(*shape, std):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def sign(c):
+        return torch.where(torch.rand(c, generator=g, device=dev) < 0.5,
+                           -1.0, 1.0)
+
+    x = torch.rand((B, H, W, 64), generator=g, device=dev) - 0.5
+    x[..., 0] = 1.0
+    s2 = 2 * sign(64)
+    pairs = []
+    for _ in range(n):
+        k1 = n_(64, 64, 3, 3, std=8e-4)
+        k1[:, 0, 1, 1] = sign(64)
+        k1[0] = 0.0
+        k1[0, 0, 1, 1] = 1.0               # h[..., 0] == 1
+        k2 = n_(64, 64, 3, 3, std=8e-4)
+        k2[:, 0, 1, 1] = s2
+        k2[0] = 0.0                        # y[..., 0] == x[..., 0] == 1
+        pairs.append((k1, k2))
+    return x.to(torch.bfloat16), pairs
+
+
+def _flat_grads(dx, grads):
+    return (dx, *(d for pair in grads for d in pair))
+
+
+def _bb_bwd_kernel(x, dy, pairs, saved):
+    """The chain's backward kernels on what the kernel forward kept
+    (``saved`` = (block outputs, h per block)), as the train step's
+    backward runs them; (dx, dk1_0, dk2_0, ...)."""
+    return _flat_grads(*bb.bb_chain_bwd_kernel(x, dy, pairs, *saved))
+
+
+def _bb_bwd_plain(x, dy, pairs, saved):
+    """The hand-written plain backward on the kernel forward's block
+    inputs (it recomputes h itself).  Given its own forward's block
+    outputs instead, on random data, the two sides differ by more than the
+    kernels do: the two forwards' outputs part by bf16 rounding, the
+    backward's lrelu masks at near-zero pre-activations follow them, and
+    dx moved by rel-L2 2.4e-2 at N = 4 (forward outputs 2.2e-3 apart at
+    block 4) against 9e-4 at N = 1 (H100, 24x128x128)."""
+    return _flat_grads(*bb.bb_chain_bwd_plain(x, dy, pairs, saved[0][:-1]))
+
+
+def _bb_bwd_plain_own(x, dy, pairs, saved):
+    """The plain backward on its own forward: on the carrier inputs no
+    mask can flip, so each side runs its own forward."""
+    return _flat_grads(*bb.bb_chain_bwd_plain(x, dy, pairs))
+
+
+def k1_backward_check(dev):
+    """K1's backward (``ops/recompute.py``: autograd of the plain version
+    recomputed) against plain autograd at the BasicBlock conv2 site, 64 ch,
+    24x128x128 bf16: dx and dres by max|d|/max|ref| <= KERNEL_TOL, dw by
+    rel-L2 <= WGRAD_TOL.  The train step no longer launches K1, so this
+    keeps its backward checked on the card.  That backward is by design
+    the plain version's autograd, recomputed, so the grads match to the
+    bit: what this holds is K1's forward and the recompute's plumbing
+    (saved inputs, casts, the residual's grad), not a backward kernel."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, H, W = 24, 128, 128
+    x, res, dy = (torch.randn((B, H, W, 64), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    w = torch.randn((64, 64, 3, 3), generator=g, device=dev) / 24
+
+    def grads(fn):
+        xs, rs, ws = (t.detach().clone().requires_grad_() for t in (x, res, w))
+        out = fn(xs, ws, None, rs, True)
+        out.backward(dy)
+        return out.detach(), xs.grad, rs.grad, ws.grad
+
+    got = grads(k1.conv3x3_bias_res_lrelu)
+    want = grads(k1.conv3x3_bias_res_lrelu_plain)
+    torch.cuda.synchronize()
+    for label, o, r in zip(("y", "dx", "dres"), got[:3], want[:3]):
+        _, rel = rel_err(o, r)
+        print(f"  conv3x3_bias_res_lrelu backward [{label}] "
+              f"max|d|/max|ref|={rel:.6g}")
+        if not torch.isfinite(o).all() or rel > KERNEL_TOL:
+            raise AssertionError(f"K1 backward: {label} {rel:.4g}")
+    l2 = rel_l2(got[3], want[3])
+    print(f"  conv3x3_bias_res_lrelu backward [dw] rel-L2={l2:.6g}")
+    if not torch.isfinite(got[3]).all() or l2 > WGRAD_TOL:
+        raise AssertionError(f"K1 backward: dw rel-L2 {l2:.4g}")
+
+
 def train_kernel_phase(dev):
     """The train-chain kernels and K4's h mode against their plain
     versions at the recipe shapes (24x128x128 bf16): outputs by
@@ -318,6 +445,12 @@ def train_kernel_phase(dev):
     w1 = w(896, 448, 1, 1)[:, :, 0, 0].t()
     b1 = w(896, 1, 1, 1).flatten()
     c_stem, c_blk0, c_blk1 = _carrier_inputs(dev, g, B, H, W)
+    pairs4 = [(w(64, 64, 3, 3), w(64, 64, 3, 3)) for _ in range(4)]
+    c_x, c_pairs = _carrier_chain(dev, g, B, H, W, 4)
+    # what the kernel forward keeps for the backward: outputs and h
+    saved4 = bb.bb_chain_fwd_saved(x64, pairs4)
+    saved1 = bb.bb_chain_fwd_saved(x64, pairs4[:1])
+    c_saved = bb.bb_chain_fwd_saved(c_x, c_pairs)
     dy64, dy256 = act(B, H, W, 64, scale=1e-3), act(B, H, W, 256, scale=1e-3)
     # name: [(label, kernel fn, plain fn, args, how output 0 is held)]; of
     # each output tuple the first item is an activation or dx ("max":
@@ -325,6 +458,8 @@ def train_kernel_phase(dev):
     # are grads (rel-L2 <= WGRAD_TOL)
     fwd, bwd = (tc.bottleneck_fwd_kernel, tc.bottleneck_plain), (
         tc.bottleneck_bwd_kernel, tc.bottleneck_bwd_plain)
+    bb_fwd = (bb.bb_chain_fwd_kernel, bb.bb_chain_plain)
+    bb_bwd = (_bb_bwd_kernel, _bb_bwd_plain)
     x14 = act(B, H, W, 14)
     cases = {
         "stem_fwd": [("stem", tc.stem_fwd_kernel, tc.stem_plain,
@@ -343,6 +478,15 @@ def train_kernel_phase(dev):
              "max"),
             ("block 0, random", *bwd, (x64, dy256, *blk0), "l2"),
             ("block 1, random", *bwd, (x256, dy256, *blk1), "l2")],
+        # N = 1 is pallas_resblock.fused_basicblock and
+        # pallas_bb.fused_basicblock_hwnc; N = 4 is the train step's chain
+        "bb_chain_fwd": [("N=1", *bb_fwd, (x64, pairs4[:1]), "max"),
+                         ("N=4", *bb_fwd, (x64, pairs4), "max")],
+        "bb_chain_bwd": [
+            ("N=4, fixed masks, own forwards", _bb_bwd_kernel,
+             _bb_bwd_plain_own, (c_x, dy64, c_pairs, c_saved), "max"),
+            ("N=1, random", *bb_bwd, (x64, dy64, pairs4[:1], saved1), "l2"),
+            ("N=4, random", *bb_bwd, (x64, dy64, pairs4, saved4), "l2")],
         "ups_head_1x1": [("heads", k4.ups_head_1x1, k4.ups_head_1x1_plain,
                           (x64, p1, p2, w1, b1), "max")],
     }
@@ -404,10 +548,10 @@ def _inputs(dev, b, h, w, seed):
     return imgs, ids
 
 
-def slice_phase(dev):
+def slice_phase(dev, cfg=CFG, label="slice"):
     b, h, w = 2, 128, 256
-    fast = registry.build_model(CFG, device=dev, seed=0)
-    plain = registry.build_model(CFG, device=dev, seed=0, use_kernels=False)
+    fast = registry.build_model(cfg, device=dev, seed=0)
+    plain = registry.build_model(cfg, device=dev, seed=0, use_kernels=False)
     imgs, ids = _inputs(dev, b, h, w, 1)
     rgb = torch.cat(imgs, -1) * 2 - 1
     seg = torch.cat([serve.seg_oh(i) for i in ids], -1)
@@ -417,20 +561,21 @@ def slice_phase(dev):
     d = (r_k.float() - r_p.float()).abs().max().item()
     bound = SLICE_RGB_TOL * max(1.0, r_p.float().abs().max().item())
     agree = (s_k.argmax(-1) == s_p.argmax(-1)).float().mean().item()
-    print(f"slice 2x128x256 bf16: rgb max|d|={d:.6g} (bound {bound:.4g}), "
+    print(f"{label} 2x128x256 bf16: rgb max|d|={d:.6g} (bound {bound:.4g}), "
           f"seg argmax agreement {agree:.6f} (bound {SLICE_SEG_AGREE})")
     if not (torch.isfinite(r_k).all() and torch.isfinite(s_k).all()):
-        raise AssertionError("slice: non-finite output")
+        raise AssertionError(f"{label}: non-finite output")
     if d > bound:
-        raise AssertionError(f"slice: rgb max|d| {d:.4g} > {bound:.4g}")
+        raise AssertionError(f"{label}: rgb max|d| {d:.4g} > {bound:.4g}")
     if agree < SLICE_SEG_AGREE:
-        raise AssertionError(f"slice: seg agreement {agree:.4f} < "
+        raise AssertionError(f"{label}: seg agreement {agree:.4f} < "
                              f"{SLICE_SEG_AGREE}")
 
 
-def serve_phase(dev, card):
+def serve_phase(dev, card, cfg=CFG, per_forward=PER_FORWARD,
+                label="serve rollout"):
     b, h, w, steps = 2, 512, 1024, 3
-    model = registry.build_model(CFG, device=dev, seed=0)
+    model = registry.build_model(cfg, device=dev, seed=0)
     imgs, ids = _inputs(dev, b, h, w, 2)
     serve.rollout(model, imgs, ids, 1)               # warm-up
     torch.cuda.synchronize()
@@ -440,17 +585,17 @@ def serve_phase(dev, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(hw.launches)
-    for name, per in PER_FORWARD.items():
+    for name, per in per_forward.items():
         if counts[name] != per * steps:
-            raise AssertionError(f"serve: {name} launched {counts[name]} "
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
                                  f"times, expected {per} x {steps}")
     for p, i in zip(preds, pred_ids):
         if p.shape != (b, h, w, 3) or not torch.isfinite(p.float()).all():
-            raise AssertionError("serve: bad predicted frame")
+            raise AssertionError(f"{label}: bad predicted frame")
         if i.shape != (b, h, w) or int(i.max()) >= 20:
-            raise AssertionError("serve: bad seg ids")
+            raise AssertionError(f"{label}: bad seg ids")
     fps = b * steps / dt
-    print(f"serve rollout {steps} steps at {b}x{h}x{w} bf16: {dt:.4f} s, "
+    print(f"{label} {steps} steps at {b}x{h}x{w} bf16: {dt:.4f} s, "
           f"{fps:.4f} frames/s on {card}")
     return counts
 
@@ -490,9 +635,13 @@ def _flat(grads):
 
 
 def _train_chain_leaf(name: str) -> bool:
-    """The stem (conv1, conv2) and layer1 leaves: the train chain's."""
+    """The leaves the train-chain kernels compute the grads of: the stem
+    (conv1, conv2), layer1, and the branch-0 BasicBlocks of stages 2 and
+    3."""
     return name.startswith(("coarse_model.conv1.", "coarse_model.conv2.",
-                            "coarse_model.layer1."))
+                            "coarse_model.layer1.",
+                            "coarse_model.stage2.0.branches.0.",
+                            "coarse_model.stage3.0.branches.0."))
 
 
 def _check_grad(label, g_k, g_p, g_ref):
@@ -511,9 +660,9 @@ def _check_grad(label, g_k, g_p, g_ref):
 
 def grad_check(dev, b, h, w):
     """Phase 5a: one step's gradients and losses, kernel vs plain.  The
-    whole gradient is held, then each stem and layer1 leaf on its own:
-    the train chain's leaves are a small part of the whole norm, so an
-    error there would hide in it."""
+    whole gradient is held, then each train-chain leaf on its own: they
+    are a small part of the whole norm, so an error there would hide in
+    it."""
     batch = train_batch(dev, b, h, w, seed=4)
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
@@ -528,9 +677,10 @@ def grad_check(dev, b, h, w):
     l_p, g_p = step_grads(dev, False, "bfloat16", batch)
     print(f"train step {b}x{h}x{w}:")
     leaves = [n for n in g_ref if _train_chain_leaf(n)]
-    if len(leaves) != 17:          # conv1/conv2 w+b, 4 x 3 convs, 1 downsample
-        raise AssertionError(f"train: {len(leaves)} stem/layer1 leaves, "
-                             "expected 17")
+    # conv1/conv2 w+b, 4 x 3 convs, 1 downsample; 2 stages x 4 x 2 convs
+    if len(leaves) != 33:
+        raise AssertionError(f"train: {len(leaves)} train-chain leaves, "
+                             "expected 33")
     fails = [_check_grad("whole gradient", _flat(g_k), _flat(g_p),
                          _flat(g_ref))]
     fails += [_check_grad(n, g_k[n], g_p[n], g_ref[n]) for n in leaves]
@@ -599,6 +749,18 @@ def train_phase(dev, card):
     return counts
 
 
+CFG_HL = dataclasses.replace(CFG, highres_large=True)
+
+
+def highres_phase(dev, card):
+    """Phase 6: the --highres_large model.  Kernel vs plain model at
+    2x128x256 (as the slice phase), then the 3-step rollout at 2x512x1024
+    with the launches per forward asserted."""
+    slice_phase(dev, CFG_HL, "highres_large slice")
+    return serve_phase(dev, card, CFG_HL, PER_FORWARD_HL,
+                       "highres_large rollout")
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -611,10 +773,12 @@ def main():
     slice_phase(dev)
     counts = serve_phase(dev, card)
     kernels.update(train_kernel_phase(dev))
+    k1_backward_check(dev)
     train_counts = train_phase(dev, card)
+    hl_counts = highres_phase(dev, card)
     print(json.dumps({"kernels": [
-        dict(name=n, route=META[n][0], source=META[n][1],
-             replaces=META[n][2], launches=counts[n] + train_counts[n],
+        dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
+             launches=counts[n] + train_counts[n] + hl_counts[n],
              max_abs_err=kernels[n]["max_abs_err"], ms=kernels[n]["ms"],
              plain_ms=kernels[n]["plain_ms"]) for n in META]}))
     print(card_line())

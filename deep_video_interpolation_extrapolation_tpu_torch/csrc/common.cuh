@@ -139,4 +139,26 @@ __device__ __forceinline__ void store(float *c_s, int ldc, FragC (&acc)[NJ]) {
 
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
+// 8 channels [c, c+8) of the bilinear sample of src (B,Hi,Wi,C) at output
+// pixel (yy, xx) of image b, rounded to bf16; sh, sw = in/out size
+// (F.interpolate's half-pixel, edge-clamped align_corners=False rule)
+__device__ __forceinline__ uint4 bilerp8(const bf16 *__restrict__ src, long b, int Hi, int Wi,
+                                         int C, int c, int yy, int xx, float sh, float sw) {
+  const float fy = fmaxf((yy + 0.5f) * sh - 0.5f, 0.f);
+  const float fx = fmaxf((xx + 0.5f) * sw - 0.5f, 0.f);
+  const int y0 = min((int)fy, Hi - 1), x0 = min((int)fx, Wi - 1);
+  const int y1 = min(y0 + 1, Hi - 1), x1 = min(x0 + 1, Wi - 1);
+  const float ly = fy - y0, lx = fx - x0;
+  const bf16 *base = src + b * Hi * Wi * C + c;
+  float a[8], bq[8], cq[8], d[8], o[8];
+  unpack8(ldg16(base + ((long)y0 * Wi + x0) * C), a);
+  unpack8(ldg16(base + ((long)y0 * Wi + x1) * C), bq);
+  unpack8(ldg16(base + ((long)y1 * Wi + x0) * C), cq);
+  unpack8(ldg16(base + ((long)y1 * Wi + x1) * C), d);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    o[k] = (1.f - ly) * ((1.f - lx) * a[k] + lx * bq[k]) + ly * ((1.f - lx) * cq[k] + lx * d[k]);
+  return pack8(o);
+}
+
 }  // namespace dvie

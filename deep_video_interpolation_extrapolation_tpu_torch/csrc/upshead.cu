@@ -54,27 +54,6 @@ constexpr int SMEM = OFF_H + align128(TM * LDH * 2);
 static_assert(TM * LDY * 4 <= OFF_W1, "yt staging must fit in the concat buffer");
 static_assert(SMEM <= 232448, "shared memory per block");
 
-// 8 channels [c, c+8) of the bilinear sample of src (B,Hi,Wi,C) at output
-// pixel (yy, xx); scale = in/out size (torch's align_corners=False rule)
-__device__ __forceinline__ uint4 bilerp8(const bf16 *__restrict__ src, long b, int Hi, int Wi,
-                                         int C, int c, int yy, int xx, float sh, float sw) {
-  const float fy = fmaxf((yy + 0.5f) * sh - 0.5f, 0.f);
-  const float fx = fmaxf((xx + 0.5f) * sw - 0.5f, 0.f);
-  const int y0 = min((int)fy, Hi - 1), x0 = min((int)fx, Wi - 1);
-  const int y1 = min(y0 + 1, Hi - 1), x1 = min(x0 + 1, Wi - 1);
-  const float ly = fy - y0, lx = fx - x0;
-  const bf16 *base = src + b * Hi * Wi * C + c;
-  float a[8], bq[8], cq[8], d[8], o[8];
-  unpack8(ldg16(base + ((long)y0 * Wi + x0) * C), a);
-  unpack8(ldg16(base + ((long)y0 * Wi + x1) * C), bq);
-  unpack8(ldg16(base + ((long)y1 * Wi + x0) * C), cq);
-  unpack8(ldg16(base + ((long)y1 * Wi + x1) * C), d);
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    o[k] = (1.f - ly) * ((1.f - lx) * a[k] + lx * bq[k]) + ly * ((1.f - lx) * cq[k] + lx * d[k]);
-  return pack8(o);
-}
-
 __global__ void __launch_bounds__(NT, 1)
 ups_head_taps_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
                      const bf16 *__restrict__ p2, const bf16 *__restrict__ w1,

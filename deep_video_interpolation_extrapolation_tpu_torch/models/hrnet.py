@@ -1,9 +1,10 @@
 """HRNet coarse generator (counterpart of models/hrnet.py), forward and,
 through autograd, backward.
 
-seg encoder + stem + 4 Bottleneck layer1 + 2-branch then 3-branch
-high-resolution modules + upsample-concat + rgb/seg heads, at the published
-widths (branches 64/128/256, 448 -> 448 head 1x1s, rgb 3 + seg 20).
+seg encoder + stem + 4 Bottleneck layer1 + 2-branch then 3-branch (and,
+with ``highres_large``, 4-branch) high-resolution modules +
+upsample-concat + rgb/seg heads, at the published widths (branches
+64/128/256(/512), 448 -> 448 (960 -> 960) head 1x1s, rgb 3 + seg 20).
 
 The Hopper kernels go in at the sites where the JAX package's TPU build
 routes its Pallas kernels, by the JAX package's own shape predicates:
@@ -17,18 +18,25 @@ routes its Pallas kernels, by the JAX package's own shape predicates:
   the four whole Bottlenecks (``bottleneck_fwd`` / ``bottleneck_bwd``),
   and trans_0 is ``F.conv2d``, as ``_trainchain`` and the unpacked
   transition route them (hrnet.py:557-565, :351-354);
-- the branch-0 BasicBlocks of stage2 and stage3 take K1 for both convs
-  (the second with the residual) where the JAX ``packable`` test holds
-  (hrnet.py:146-149: W even and >= 128), else ``F.conv2d``.  This is the
-  JAX package's ``DVIE_BBCHAIN=0`` route; its default trains them through
-  the BasicBlock chain kernel (``pallas_trainchain.basicblock_chain``),
-  which is still to port (ROADMAP.md queue 2) and will replace it;
-- K3 ``fuse_out0``: the out-0 fuse sum of stage2 and stage3;
+- the four branch-0 BasicBlocks of each stage run through the BasicBlock
+  chain kernels (``bb_chain_fwd`` / ``bb_chain_bwd``) where
+  ``bb_chain_route`` holds (the JAX default ``DVIE_BBCHAIN=b0``,
+  hrnet.py:164-201: the 24x128x128 train recipe); else they take K1 for
+  both convs (the second with the residual) where the JAX ``packable``
+  test holds (hrnet.py:146-149: W even and >= 128, serving), else
+  ``F.conv2d``;
+- K3 ``fuse_out0``: the out-0 fuse sum of stage2 and stage3 (2-3
+  branches, ``_fuse0_gate`` at hrnet.py:124); stage4's out-0 is the plain
+  1x1 + bilinear + sum + lrelu (hrnet.py:280-318);
 - K4 ``ups_head_taps``: upsample-concat + both heads up to the taps tensor
-  (its backward recomputes h through K4's h mode, ``ups_head_1x1``).
+  (its backward recomputes h through K4's h mode, ``ups_head_1x1``); with
+  ``highres_large`` the 4-part head ``ups_head_taps4`` (hrnet.py:796-823).
+  The JAX package takes its 4-part kernel only where ``fits4`` holds; the
+  Hopper kernel tiles over pixels and takes any pyramid size, so the port
+  always runs it, and a pyramid it cannot take raises.
 
 Every other conv (the stem conv1 at W >= 256, the 1x1 and stride-2 fuse
-convs, the transitions' stride-2 convs, branches 1 and 2) is ``F.conv2d``,
+convs, the transitions' stride-2 convs, branches 1-3) is ``F.conv2d``,
 as the JAX package leaves it to XLA.  Every kernel is differentiable.
 ``use_kernels=False`` builds the same model on the kernels' plain versions
 (the reference the card's run is held to), differentiated by autograd.
@@ -52,6 +60,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     conv3x3_site,
     lrelu,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.ops.bbchain import (
+    bb_chain,
+    bb_chain_plain,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.bottleneck_tail import (
     bottleneck_tail,
     bottleneck_tail_plain,
@@ -70,13 +82,17 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
     build_dual_tap_kernel,
     finish_taps,
     ups_head_taps,
+    ups_head_taps4,
+    ups_head_taps4_plain,
     ups_head_taps_plain,
 )
 
-# stage configs (hrnet.py:45-46)
+# stage configs (hrnet.py:45-47)
 STAGE2_CFG = dict(num_branches=2, num_blocks=(4, 4), num_channels=(64, 128))
 STAGE3_CFG = dict(num_branches=3, num_blocks=(4, 4, 4),
                   num_channels=(64, 128, 256))
+STAGE4_CFG = dict(num_branches=4, num_blocks=(4, 4, 4, 4),
+                  num_channels=(64, 128, 256, 512))
 N_FRAMES, RGB_DIM, SEG_DIM = 2, 3, 20   # interpolation: 2 frames in, 1 out
 
 
@@ -89,6 +105,29 @@ def packed_route(w: int) -> bool:
 def branch0_kernel(w: int) -> bool:
     """The JAX ``packable`` test for a 64-ch branch: W even and >= 128."""
     return w % 2 == 0 and w >= 128
+
+
+def bb_chain_route(b: int, h: int, w: int, itemsize: int = 2,
+                   n_blocks: int = 4) -> bool:
+    """The JAX default route of a 64-ch branch 0 through the BasicBlock
+    chain (``DVIE_BBCHAIN=b0``, hrnet.py:164-186, without its TPU test):
+    ``packable`` and ``pallas_trainchain.bb_fits`` (:652-678) on the
+    width-packed shape (b, h, w/2, 128) with ``itemsize``-byte elements.
+    Pure shape arithmetic: true at the 24x128x128 train recipe, false at
+    2x128x256 and 2x512x1024.  The 40 MiB budget is the TPU kernel's VMEM
+    budget, kept so that the port takes the JAX package's route at every
+    shape; it is no limit of the Hopper chain kernels, whose 8x16 tiles
+    take any size."""
+    if not branch0_kernel(w):
+        return False
+    w2, c = w // 2, 128
+    if w2 % 8 or h < 8:
+        return False
+    budget = 40 * 2**20                          # _bb_pick_bt's budget
+    plane = h * w2 * c * itemsize
+    weights = 2 * n_blocks * 9 * c * c * 4 * 2
+    return any(b % bt == 0 and 2 * bt * plane * 3 + bt * plane * (n_blocks + 3)
+               + weights < budget for bt in (8, 4, 2, 1))
 
 
 class HighResolutionModule(nn.Module):
@@ -125,19 +164,29 @@ class HighResolutionModule(nn.Module):
         ys = []
         for i, blocks in enumerate(self.branches):
             h = xs[i]
-            kernel = (self.use_kernels and i == 0
-                      and branch0_kernel(h.shape[2]))
-            for blk in blocks:
-                h = blk(h, kernel=kernel)
+            if i == 0 and h.shape[-1] == 64 and bb_chain_route(
+                    *h.shape[:3], h.element_size(), len(blocks)):
+                pairs = [(blk.conv1.weight, blk.conv2.weight)
+                         for blk in blocks]
+                h = (bb_chain if self.use_kernels else bb_chain_plain)(
+                    h, pairs)
+            else:
+                kernel = (self.use_kernels and i == 0
+                          and branch0_kernel(h.shape[2]))
+                for blk in blocks:
+                    h = blk(h, kernel=kernel)
             ys.append(h)
 
-        # out-0: the 1x1 fuse convs stay F.conv2d; upsample + sum + lrelu
-        # is K3 (hrnet.py:242-278)
-        t1 = self.fuse_layers[0][1][0](ys[1])
-        t2 = self.fuse_layers[0][2][0](ys[2]) if self.num_branches >= 3 else None
-        outs = [(fuse_out0 if self.use_kernels else fuse_out0_plain)(
-            ys[0], t1, t2)]
-        for i in range(1, self.num_branches):
+        outs = []
+        if self.num_branches <= 3:
+            # out-0: the 1x1 fuse convs stay F.conv2d; upsample + sum +
+            # lrelu is K3 (hrnet.py:242-278)
+            t1 = self.fuse_layers[0][1][0](ys[1])
+            t2 = (self.fuse_layers[0][2][0](ys[2])
+                  if self.num_branches == 3 else None)
+            outs.append((fuse_out0 if self.use_kernels else fuse_out0_plain)(
+                ys[0], t1, t2))
+        for i in range(len(outs), self.num_branches):
             y = None
             for j in range(self.num_branches):
                 if j == i:
@@ -229,13 +278,15 @@ class HRNet(nn.Module):
 
     ``forward(rgb, seg)``: rgb (B,H,W,3*n_frames), seg one-hot
     (B,H,W,20*n_frames), NHWC; returns (rgb_out (B,H,W,3),
-    seg_out (B,H,W,20)) in ``dtype``."""
+    seg_out (B,H,W,20)) in ``dtype``.  ``highres_large`` adds transition3
+    and the 4-branch stage4 (STAGE4_CFG, the CLI's ``--highres_large``)."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, highres_large: bool = False):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
+        self.highres_large = highres_large
         k = use_kernels
         self.seg_encoder = SegEncoder()
         self.conv1 = Conv((3 + 4) * N_FRAMES, 64, 3)   # rgb + seg encoding
@@ -249,7 +300,14 @@ class HRNet(nn.Module):
                                        STAGE3_CFG["num_channels"])
         self.stage3 = nn.ModuleList([HighResolutionModule(**STAGE3_CFG,
                                                           use_kernels=k)])
-        head_cin = sum(STAGE3_CFG["num_channels"])
+        last = STAGE3_CFG
+        if highres_large:
+            self.transition3 = _Transition(STAGE3_CFG["num_channels"],
+                                           STAGE4_CFG["num_channels"])
+            self.stage4 = nn.ModuleList([HighResolutionModule(
+                **STAGE4_CFG, use_kernels=k)])
+            last = STAGE4_CFG
+        head_cin = sum(last["num_channels"])
         self.rgb_layer = _Head(head_cin, RGB_DIM)
         self.seg_layer = _Head(head_cin, SEG_DIM)
 
@@ -283,18 +341,22 @@ class HRNet(nn.Module):
             kernels=self.use_kernels)
 
     def _backbone(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """Stem + layer1 + stage2/3; returns the raw pyramid
+        """Stem + layer1 + stage2/3 (/4); returns the raw pyramid
         (_HRBackbone with return_parts, hrnet.py:463-692)."""
         packed = packed_route(x.shape[2])
         x = self._stem_layer1(x)
         xs = self.transition1([x], kernel=self.use_kernels and packed)
         xs = self.stage2[0](xs)
         xs = self.transition2(xs)
-        return self.stage3[0](xs)
+        xs = self.stage3[0](xs)
+        if self.highres_large:
+            xs = self.stage4[0](self.transition3(xs))
+        return xs
 
     def _apply_heads(self, parts: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Both heads through K4 + the shifted-add tail (hrnet.py:824-865)."""
+        """Both heads through K4 (3 parts) or ``ups_head_taps4`` (4 parts),
+        then the shifted-add tail (hrnet.py:788-865)."""
         rgb_fc, seg_fc = self.rgb_layer[0], self.seg_layer[0]
         w1 = torch.cat([rgb_fc.weight[:, :, 0, 0].t(),
                         seg_fc.weight[:, :, 0, 0].t()], dim=1)
@@ -302,7 +364,10 @@ class HRNet(nn.Module):
         dt = parts[0].dtype
         w2t = build_dual_tap_kernel(self.rgb_layer[2].weight,
                                     self.seg_layer[2].weight, dt)
-        fused = ups_head_taps if self.use_kernels else ups_head_taps_plain
+        if len(parts) == 4:
+            fused = ups_head_taps4 if self.use_kernels else ups_head_taps4_plain
+        else:
+            fused = ups_head_taps if self.use_kernels else ups_head_taps_plain
         yt = fused(*parts, w1, b1, w2t)
         out = finish_taps(yt, RGB_DIM + SEG_DIM,
                           torch.cat([self.rgb_layer[2].bias,

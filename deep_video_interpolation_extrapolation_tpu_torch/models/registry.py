@@ -26,14 +26,11 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
         raise NotImplementedError(
             f"coarse model {cfg.coarse_model!r} is not ported yet "
             f"({_QUEUE}, items 5-8)")
-    if cfg.highres_large:
-        raise NotImplementedError(
-            f"--highres_large (STAGE4_CFG) is not ported yet ({_QUEUE}, "
-            "item 2; its head kernel ups_head_taps4 is in queue 2)")
     if cfg.syn_type != "inter":
         raise NotImplementedError(
             f"syn_type {cfg.syn_type!r} is not ported yet ({_QUEUE}, item 6)")
-    return HRNet(dtype=compute_dtype(cfg), use_kernels=use_kernels)
+    return HRNet(dtype=compute_dtype(cfg), use_kernels=use_kernels,
+                 highres_large=cfg.highres_large)
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

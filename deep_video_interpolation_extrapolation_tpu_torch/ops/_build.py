@@ -1,15 +1,16 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers:
-the build takes seconds, not minutes).  The output goes to ``_build/`` in the
+At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: the
+build takes seconds, not minutes).  The output goes to ``_build/`` in the
 package and is keyed by a hash of the sources and flags, so an unchanged tree
 does not rebuild.  A missing ``nvcc`` or a failed build raises with the
 compiler's output; nothing falls back.
 
 Every exported function takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches (a backward
-queues three and stops at the first error).
+queues two or three and stops at the first error).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 
@@ -52,6 +54,14 @@ SIGNATURES = {
     # x, dy, w1, w2, w3, wres, w1t, w2f, w3t, wrest, h1, h2, dpre_y, dpre2,
     # dpre1, dx, pk1, pk2, pk3, pkres, B, H, W, Ci, splits, stream
     "dvie_bottleneck_bwd": [P] * 20 + [I] * 5 + [P],
+    # x, w1, w2, y, h, B, H, W, stream
+    "dvie_bb_chain_fwd": [P] * 5 + [I] * 3 + [P],
+    # x, y, h, dy, w1f, w2f, dpre_y, dpre_h, dx, pk1, pk2, B, H, W, splits,
+    # stream
+    "dvie_bb_chain_bwd": [P] * 11 + [I] * 4 + [P],
+    # p0, p1, p2, p3, w1, b1, w2t, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
+    # C1, C2, C3, N1, N2, stream
+    "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],
 }
 
 
@@ -80,22 +90,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists.
-    The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside the library as ``.log``."""
+    """Compile the kernels unless a library of the same sources exists:
+    one ``nvcc -c`` per source, all at once, then one link.  The compilers'
+    output (``-Xptxas -v``: registers, shared memory, spills per kernel) is
+    kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [(src.name, p.communicate()[0], p.returncode)
+            for src, p in zip(sources(), procs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    if not any(rc for _, _, rc in logs):
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(("link", proc.stdout + proc.stderr, proc.returncode))
+    failed = [f"{name} ({rc})" for name, _, rc in logs if rc]
+    text = "".join(f"== {name}\n{log}" for name, log, _ in logs)
+    out.with_suffix(".log").write_text(text)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{text}")
     os.replace(tmp, out)
     return out
 

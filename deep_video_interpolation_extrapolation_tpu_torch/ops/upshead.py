@@ -21,6 +21,12 @@ h, the weight grads are f32 products, and dp1/dp2 go through the vjp of
 the bilinear upsampling.  The plain versions round where
 ``pallas_upshead._ups_head_taps_ref`` rounds (upsampled parts, h and yt in
 the compute dtype).
+
+``ups_head_taps4`` is the 4-part head of ``--highres_large``
+(``pallas_upshead.ups_head_taps4``: p3 at 1/8 resolution added, 960 ->
+1920 -> 207), on its own kernel ``csrc/upshead4.cu``; its backward is
+autograd of the plain version recomputed (``ops/recompute.py``), as the
+JAX ``_bwd_taps4`` is ``jax.vjp`` of its reference.
 """
 
 from __future__ import annotations
@@ -30,30 +36,65 @@ import torch.nn.functional as F
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
+from deep_video_interpolation_extrapolation_tpu_torch.ops.recompute import (
+    recompute_vjp,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     interpolate_bilinear,
 )
 
-NAME, NAME_1X1 = "ups_head_taps", "ups_head_1x1"
+NAME, NAME_1X1, NAME4 = "ups_head_taps", "ups_head_1x1", "ups_head_taps4"
 CT_MAX, N2_MAX = 448, 208   # the kernel's shared-memory tile widths
+CT4_MAX = 960               # upshead4.cu's concat width
+
+
+def _h_plain(parts, w1, b1):
+    """h = lrelu(bf16(concat(parts upsampled to parts[0]'s size) . w1) +
+    b1), in parts[0]'s dtype (``_ups_head_ref`` / ``_ups_head_ref4``)."""
+    dt = parts[0].dtype
+    size = tuple(parts[0].shape[1:3])
+    cat = torch.cat([parts[0]] + [interpolate_bilinear(p, size=size)
+                                  for p in parts[1:]], dim=-1)
+    h = torch.matmul(cat.float(), w1.to(dt).float()).to(dt) + b1.to(dt)
+    return torch.where(h >= 0, h, 0.2 * h)
+
+
+def _taps_plain(h, w2t):
+    return torch.matmul(h.float(), w2t.to(h.dtype).float()).to(h.dtype)
 
 
 def ups_head_1x1_plain(p0, p1, p2, w1, b1):
     """p0 (B,H,W,C0), p1 (B,H/2,W/2,C1), p2 (B,H/4,W/4,C2); w1 (C0+C1+C2, N1),
     b1 (N1,), any float dtype (cast to p0's).  Returns h (B,H,W,N1)."""
-    dt = p0.dtype
-    size = tuple(p0.shape[1:3])
-    cat = torch.cat([p0, interpolate_bilinear(p1, size=size),
-                     interpolate_bilinear(p2, size=size)], dim=-1)
-    h = torch.matmul(cat.float(), w1.to(dt).float()).to(dt) + b1.to(dt)
-    return torch.where(h >= 0, h, 0.2 * h)
+    return _h_plain((p0, p1, p2), w1, b1)
 
 
 def ups_head_taps_plain(p0, p1, p2, w1, b1, w2t):
     """``ups_head_1x1_plain`` then the taps product by w2t (N1, N2).
     Returns yt (B,H,W,N2)."""
-    h = ups_head_1x1_plain(p0, p1, p2, w1, b1)
-    return torch.matmul(h.float(), w2t.to(h.dtype).float()).to(h.dtype)
+    return _taps_plain(_h_plain((p0, p1, p2), w1, b1), w2t)
+
+
+def ups_head_taps4_plain(p0, p1, p2, p3, w1, b1, w2t):
+    """The 4-part head (``_ups_head_taps_ref4``): as ``ups_head_taps_plain``
+    with p3 (B,H/8,W/8,C3) and w1 (C0+C1+C2+C3, N1).  Returns yt
+    (B,H,W,N2)."""
+    return _taps_plain(_h_plain((p0, p1, p2, p3), w1, b1), w2t)
+
+
+def fits4(p0, p1, p2, p3) -> bool:
+    """``pallas_upshead.fits4`` (:1156): the pyramid shapes the JAX package
+    routes through its 4-part head kernel.  The port's kernel tiles over
+    pixels and takes any pyramid size (``_taps4_kernel`` raises only for
+    channel counts), so the model does not route by it; it names the
+    shapes at which the JAX kernel, and so the parity tests, can run."""
+    b, h, w, _ = p0.shape
+    return (h % 8 == 0 and w % 64 == 0 and w >= 64
+            and tuple(p1.shape[1:3]) == (h // 2, w // 2)
+            and tuple(p2.shape[1:3]) == (h // 4, w // 4)
+            and tuple(p3.shape[1:3]) == (h // 8, w // 8)
+            and p1.shape[-1] % 128 == 0 and p2.shape[-1] % 128 == 0
+            and p3.shape[-1] % 128 == 0 and (h // 8) >= 2)
 
 
 def _check(p0, p1, p2, w1, b1, n1):
@@ -215,3 +256,50 @@ def taps_shifted_add(yt: torch.Tensor, co: int) -> torch.Tensor:
 def finish_taps(yt: torch.Tensor, co: int, b2: torch.Tensor) -> torch.Tensor:
     """Shifted add + bias: the heads' 3x3 convs from their taps tensor."""
     return taps_shifted_add(yt, co) + b2.to(yt.dtype)
+
+
+# ---- the 4-part head ------------------------------------------------------
+
+def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
+    parts = (p0, p1, p2, p3)
+    b = p0.shape[0]
+    cs = [p.shape[-1] for p in parts]
+    n1, n2 = w2t.shape
+    if (any(p.shape[0] != b for p in parts) or any(c % 8 for c in cs)
+            or sum(cs) % 64 or sum(cs) > CT4_MAX):
+        raise ValueError(f"pyramid {[tuple(p.shape) for p in parts]} not "
+                         "taken by the 4-part kernel")
+    if tuple(w1.shape) != (sum(cs), n1) or tuple(b1.shape) != (n1,):
+        raise ValueError(f"w1 {tuple(w1.shape)} / b1 {tuple(b1.shape)} do "
+                         f"not match C={sum(cs)}, N1={n1}")
+    if n1 % 64 or n2 > N2_MAX:
+        raise ValueError(f"kernel takes N1 % 64 == 0 and N2 <= {N2_MAX}, "
+                         f"got N1={n1} N2={n2}")
+    for i, p in enumerate(parts):
+        hw.check_bf16(f"p{i}", p)
+    dev = p0.device
+    # weights converted and held in locals until the launch is queued; the
+    # taps matrix zero-padded to N2_MAX columns (yt keeps its n2)
+    w1k = w1.to(device=dev, dtype=torch.bfloat16).contiguous()
+    b1k = b1.to(device=dev, dtype=torch.float32).contiguous()
+    w2k = torch.zeros((n1, N2_MAX), device=dev, dtype=torch.bfloat16)
+    w2k[:, :n2] = w2t
+    yt = torch.empty((*p0.shape[:3], n2), device=dev, dtype=torch.bfloat16)
+    p = _build.ptr
+    sizes = [d for q in parts[1:] for d in q.shape[1:3]]
+    err = _build.library().dvie_ups_head_taps4(
+        p(p0), p(p1), p(p2), p(p3), p(w1k), p(b1k), p(w2k), p(yt),
+        *p0.shape[:3], *sizes, *cs, n1, n2, _build.stream(p0))
+    _build.check_launch(NAME4, err)
+    hw.launches[NAME4] += 1
+    return yt
+
+
+def ups_head_taps4(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                   p3: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2t: torch.Tensor) -> torch.Tensor:
+    """The 4-part head on CUDA bf16 tensors through ``csrc/upshead4.cu``; on
+    CPU tensors through ``ups_head_taps4_plain``.  Differentiable, by
+    autograd of the plain version recomputed."""
+    return recompute_vjp(_taps4_kernel, ups_head_taps4_plain, p0, p1, p2, p3,
+                         w1, b1, w2t)

@@ -22,7 +22,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
 
 def key_map(params: Mapping) -> Iterator[Tuple[str, Tuple[str, ...]]]:
     """(torch key, path in the flax tree) for every parameter of the port's
-    HRNet, in the order and naming of port_hrnet (torch_port.py:42-92)."""
+    HRNet, in the order and naming of port_hrnet (torch_port.py:42-92).
+    A ``--highres_large`` tree (with ``transition3`` and ``stage4``) also
+    maps trans_3_0 and the 4-branch stage4 in the reference's torch naming,
+    which port_hrnet does not cover."""
     for cv, tid in (("Conv_0", 0), ("Conv_1", 2), ("Conv_2", 4)):
         yield f"seg_encoder.{tid}.weight", ("seg_encoder", cv, "kernel")
         yield f"seg_encoder.{tid}.bias", ("seg_encoder", cv, "bias")
@@ -44,7 +47,12 @@ def key_map(params: Mapping) -> Iterator[Tuple[str, Tuple[str, ...]]]:
            ("backbone", "transition1", "trans_1_0", "kernel"))
     yield ("transition2.2.0.0.weight",
            ("backbone", "transition2", "trans_2_0", "kernel"))
-    for stage, n_br in (("stage2", 2), ("stage3", 3)):
+    stages = [("stage2", 2), ("stage3", 3)]
+    if "transition3" in bb:
+        yield ("transition3.3.0.0.weight",
+               ("backbone", "transition3", "trans_3_0", "kernel"))
+        stages.append(("stage4", 4))
+    for stage, n_br in stages:
         sp = ("backbone", stage)
         for br in range(n_br):
             for k in range(4):

@@ -59,6 +59,9 @@ def make_train_step(cfg: Config, model: nn.Module) -> Callable:
     """``train_step(state, batch) -> (state, loss_dict)``; the loss dict's
     values are detached scalars."""
     _check(cfg)
+    if cfg.highres_large:
+        raise NotImplementedError(
+            f"--highres_large training is not ported yet ({_QUEUE}, item 2)")
     if cfg.remat:
         raise NotImplementedError(
             f"--remat is not ported yet ({_QUEUE}, item 4)")

@@ -33,6 +33,7 @@ from deep_video_interpolation_extrapolation_tpu.ops.packed_conv import (
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     _build,
+    bbchain,
     bottleneck_tail,
     conv3x3,
     fuse0,
@@ -255,6 +256,10 @@ def test_unknown_device_raises():
         hw.use_kernel(torch.empty(1, device="meta"))
 
 
+def _pairs(ks):
+    return [(ks[0] / 24, ks[1] / 24), (ks[2] / 24, ks[3] / 24)]
+
+
 def _grad_cases():
     """(wrapper, plain version, argument shapes, which arguments are
     activations) for every kernel wrapper; None: an absent operand."""
@@ -282,6 +287,16 @@ def _grad_cases():
             trainchain.bottleneck, trainchain.bottleneck_plain,
             [t3 + (64,), (64, 64, 1, 1), (64, 64, 3, 3), (256, 64, 1, 1),
              (256, 64, 1, 1)]),
+        # two blocks; the weights scaled to lecun size (fan-in 576), so
+        # the activations stay O(1) through the four convs
+        "bb_chain": (lambda x, *ks: bbchain.bb_chain(x, _pairs(ks)),
+                     lambda x, *ks: bbchain.bb_chain_plain(x, _pairs(ks)),
+                     [t3 + (64,)] + [(64, 64, 3, 3)] * 4),
+        "ups_head_taps4": (upshead.ups_head_taps4,
+                           upshead.ups_head_taps4_plain,
+                           [(1, 8, 16, 64), (1, 4, 8, 128), (1, 2, 4, 256),
+                            (1, 1, 2, 512), (960, 1920), (1920,),
+                            (1920, 207)]),
     }
 
 
@@ -318,8 +333,9 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD and path == _build.library_path()
     assert {p.name for p in _build.sources()} == {
-        "conv3x3.cu", "bottleneck_tail.cu", "upshead.cu",
-        "trainchain_stem.cu", "trainchain_bottleneck.cu"}
+        "conv3x3.cu", "bottleneck_tail.cu", "upshead.cu", "upshead4.cu",
+        "trainchain_stem.cu", "trainchain_bottleneck.cu",
+        "trainchain_basicblock.cu"}
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is installed here: the missing-compiler path "
                     "cannot be reached")

@@ -141,7 +141,7 @@ def test_port_config_mirrors_the_jax_config():
 
 @pytest.mark.parametrize("kw", [dict(model="InterRefineNet"),
                                 dict(coarse_model="VAEHRNet"),
-                                dict(highres_large=True),
+                                dict(model="ExtraInpaintNet"),
                                 dict(syn_type="extra")])
 def test_registry_refuses_unported_models(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,7 +1,9 @@
 """The port imports no jax, flax or optax, nor any module of the JAX package,
 directly or through another module: a fresh interpreter with those modules
 blocked imports every module of the port (the train modules included) and
-runs the CPU forward, a rollout and two INTER train steps at 32x64."""
+runs the CPU forward, a rollout and two INTER train steps at 32x64, a
+``--highres_large`` rollout step, and the BasicBlock chain forward and
+backward."""
 
 import os
 import subprocess
@@ -46,6 +48,17 @@ for _ in range(2):
     state, losses = step(state, batch)
 assert state.step == 2 and torch.isfinite(losses["loss_all"])
 assert "coarse_ce_loss" in losses
+high = registry.build_model(dataclasses.replace(cfg, highres_large=True),
+                            seed=3)
+preds, pred_ids = serve.rollout(high, imgs, ids, 1)
+assert torch.isfinite(preds[0]).all() and int(pred_ids[0].max()) < 20
+from {pkg}.ops import bbchain
+x = torch.rand(1, 8, 16, 64, generator=g, requires_grad=True)
+pairs = [tuple((torch.randn(64, 64, 3, 3, generator=g) / 24).requires_grad_()
+               for _ in range(2)) for _ in range(2)]
+bbchain.bb_chain(x, pairs).square().sum().backward()
+assert torch.isfinite(x.grad).all()
+assert all(torch.isfinite(k.grad).all() for p in pairs for k in p)
 assert not any(sys.modules.get(n) for n in ("jax", "flax", "optax"))
 print("modules", len(names))
 """
