@@ -8,7 +8,11 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
 1. kernels: each serving kernel against its plain PyTorch version on the
    card, in bf16 at the main-path shapes (B=1, 512x1024; the 4-part head
    ``ups_head_taps4`` of ``--highres_large`` included),
-   max|d|/max|ref| <= 2e-2, with median CUDA-event times of both;
+   max|d|/max|ref| <= 2e-2, with median CUDA-event times of both; the
+   stage-3 window attention at its serving shape (B=1, 128x256x128, k1 = v1
+   and k2 = v2 as on the path): out max|d|/max|ref| <= 2e-2 and flow
+   agreement >= 90% on random inputs, and on an input whose k1 is q rolled
+   by a known shift, that shift as the flow on every interior pixel;
 2. slice: InterNet/HRNet at full width, 128x256, B=2, bf16, kernels against
    the plain model with the same seed weights: rgb max|d| <= 5e-2 *
    max(1, max|ref|), seg argmax agreement >= 98%;
@@ -44,14 +48,22 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    against the plain model at 2x128x256 as in phase 2, then
    ``registry.build_model`` + ``serve.rollout`` for 3 steps at 2x512x1024
    bf16 after a warm-up: launches per forward K1 26, K2 4, K3 2, the
-   4-part head 1, K4 0; outputs finite; frames/s.
+   4-part head 1, K4 0; outputs finite; frames/s;
+7. stage3: InterStage3Net (HRNet -> SRNRefine -> MSResAttnRefine,
+   ``--n_sc 1``), kernels against the plain model at 2x128x256 as in phase
+   2 on the final (stage-3) frame, plus flow-map agreement >= 90%; then the
+   3-step rollout at 2x512x1024: launches per forward K1 18, K2 4, K3 2, K4
+   1, window attention 1.
 
-Prints the card's name and power limit, one JSON line of per-kernel results
-(``launches``: the serve rollout's count plus the counted train step's plus
-the highres_large rollout's),
-and last ``{"ok": true, "device": {...}}``.  Any failed phase raises: the
-exit code is then non-zero and no result line is printed.  Needs a CUDA
-card of compute capability (9, 0); there is no CPU fallback.
+Every rollout asserts every kernel's launches, the ones not named above at
+0.  Prints the card's name and power limit, one JSON line of per-kernel
+results (``launches``: the serve rollout's count plus the counted train
+step's plus the highres_large and stage3 rollouts'; ``bound_ms``: the least
+time of the timed call from its bytes and operations; ``library_ms``: null,
+as no single PyTorch call computes any of these functions), and last
+``{"ok": true, "device": {...}}``.  Any failed phase raises: the exit code
+is then non-zero and no result line is printed.  Needs a CUDA card of
+compute capability (9, 0); there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -85,6 +97,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     fuse0 as k3,
     trainchain as tc,
     upshead as k4,
+    window_attn as wa,
 )
 
 KERNEL_TOL = 2e-2          # max|d| / max|ref|, bf16 kernel vs plain
@@ -133,7 +146,80 @@ META = {
                      "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
     "ups_head_taps4": ("cuda", f"{PKG}/csrc/upshead4.cu",
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
+    "window_attention": ("cuda", f"{PKG}/csrc/window_attn.cu",
+                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
 }
+WA_FLOW_AGREE = 0.90       # window-attention flow agreement, kernel vs plain
+# InterStage3Net: the coarse HRNet as InterNet, one window attention
+PER_FORWARD_S3 = {**PER_FORWARD, "window_attention": 1}
+SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
+# H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
+# peaks (at the 700 W limit)
+HBM_RATE, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
+
+
+def _tensors(obj):
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+def moved_bytes(*objs) -> int:
+    """Bytes of the distinct tensors among ``objs``: each input read once,
+    each output written once (an operand passed twice counts once)."""
+    return sum({t.data_ptr(): t.nbytes for t in _tensors(objs)}.values())
+
+
+def _px(t) -> int:
+    return t[..., 0].numel()
+
+
+def _nz(*ws) -> int:
+    """Multiply-adds per pixel of these weights: their nonzeros (the
+    zero half of K4's taps matrix is no work)."""
+    return sum(int(torch.count_nonzero(w)) for w in _tensors(ws))
+
+
+# the arguments of each kernel that hold the weights of the convolutions
+# and matmuls it computes (biases, 1-D, are left out)
+WEIGHT_ARGS = {
+    "conv3x3_bias_res_lrelu": slice(1, 2), "bottleneck_tail": slice(2, None),
+    "ups_head_taps": slice(3, None), "ups_head_taps4": slice(4, None),
+    "ups_head_1x1": slice(3, None), "stem_fwd": slice(1, None),
+    "stem_bwd": slice(2, None), "bottleneck_fwd": slice(1, None),
+    "bottleneck_bwd": slice(2, None), "bb_chain_fwd": slice(1, None),
+    "bb_chain_bwd": slice(2, 3)}
+# a backward without saved activations recomputes its forward (3 passes);
+# the chain's backward reads the kept ones (2)
+PASSES = {"stem_bwd": 3, "bottleneck_bwd": 3, "bb_chain_bwd": 2}
+
+
+def operations(name, args):
+    """(operations, the card's peak rate for them) of one call of kernel
+    ``name`` on ``args``: 2 per multiply-add of what it computes, on bf16
+    operands (the tensor-core peak); K3 is elementwise in f32 (the 4 taps
+    of each bilinear part, the adds and the lrelu)."""
+    if name == "fuse_out0":
+        ups = sum(t is not None for t in args[1:])
+        return args[0].numel() * (2 + 8 * ups), F32_PEAK
+    if name == "window_attention":
+        q, _, _, v1, _, win_h, win_w = args
+        return (2 * _px(q) * 2 * win_h * win_w * (q.shape[-1] + v1.shape[-1]),
+                BF16_PEAK)
+    ws = [w for w in _tensors(args[WEIGHT_ARGS[name]]) if w.dim() >= 2]
+    return 2 * PASSES.get(name, 1) * _px(args[0]) * _nz(ws), BF16_PEAK
+
+
+def bound(name, args, out):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over their peak."""
+    t_bytes = moved_bytes(args, out) / HBM_RATE
+    ops, peak = operations(name, args)
+    t_ops = ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def card_line() -> str:
@@ -261,9 +347,66 @@ def kernel_phase(dev):
         label, args = variants[-1]
         ms = median_ms(lambda: kern(*args))
         plain_ms = median_ms(lambda: plain(*args))
-        print(f"  {name} [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results[name] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
+        results[name] = timed(name, label, args, kern(*args), worst_abs, ms,
+                              plain_ms)
+    results["window_attention"] = window_attention_check(dev)
     return results
+
+
+def timed(name, label, args, out, max_abs_err, ms, plain_ms):
+    """A kernel's row of the result line, from its timed call."""
+    bound_ms, bound_by = bound(name, args, out)
+    print(f"  {name} [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def flow_agreement(a, b) -> float:
+    """Share of pixels whose flow vectors are equal."""
+    return (a == b).all(-1).float().mean().item()
+
+
+def window_attention_check(dev):
+    """The window attention against its plain version at the serving shape
+    (B=1, 128x256x128 bf16: the 1/4-resolution features of 512x1024; k1 =
+    v1 and k2 = v2 as on the path): on random inputs out max|d|/max|ref|
+    <= KERNEL_TOL and flow agreement >= WA_FLOW_AGREE (near-tied
+    similarities can flip under sums taken in another order); with k1 =
+    q rolled by (1, 2) the flow is (dx, dy) = (-2, -1) on every interior
+    pixel."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, f, b = (torch.randn((1, 128, 256, 128), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    args = (q, f, b, f, b, 5, 9)
+    (out, flow), (ref, ref_flow) = wa.window_attention(*args), \
+        wa.window_attention_plain(*args)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError("window_attention: bad shape or non-finite out")
+    d, rel = rel_err(out, ref)
+    agree = flow_agreement(flow, ref_flow)
+    print(f"  window_attention [random] out max|d|={d:.6g} max|d|/max|ref|="
+          f"{rel:.6g}, flow agreement {agree:.6f}")
+    if rel > KERNEL_TOL or agree < WA_FLOW_AGREE:
+        raise AssertionError(f"window_attention: out {rel:.4g} (bound "
+                             f"{KERNEL_TOL}), flow agreement {agree:.4f} "
+                             f"(bound {WA_FLOW_AGREE})")
+    k1 = torch.roll(q, shifts=(-1, -2), dims=(1, 2))
+    _, shift_flow = wa.window_attention(q, k1, b, k1, b, 5, 9)
+    inner = shift_flow[0, 2:-2, 4:-4, :2]
+    want = torch.tensor([-2.0, -1.0], device=dev)
+    hit = (inner == want).all(-1).float().mean().item()
+    print(f"  window_attention [known shift] interior flow == (-2, -1) on "
+          f"{hit:.6f} of the pixels")
+    if hit != 1.0:
+        raise AssertionError(f"window_attention: known shift found on "
+                             f"{hit:.4f} of the interior")
+    ms = median_ms(lambda: wa.window_attention(*args))
+    plain_ms = median_ms(lambda: wa.window_attention_plain(*args), iters=3,
+                         reps=3)
+    return timed("window_attention", "serving", args, (out, flow), d, ms,
+                 plain_ms)
 
 
 def rel_l2(out, ref):
@@ -531,8 +674,8 @@ def train_kernel_phase(dev):
         label, kern, plain, args, _ = variants[-1]
         ms = median_ms(lambda: kern(*args), iters=5, reps=3)
         plain_ms = median_ms(lambda: plain(*args), iters=5, reps=3)
-        print(f"  {name} [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results[name] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
+        results[name] = timed(name, label, args, kern(*args), worst_abs, ms,
+                              plain_ms)
     return results
 
 
@@ -549,24 +692,33 @@ def _inputs(dev, b, h, w, seed):
 
 
 def slice_phase(dev, cfg=CFG, label="slice"):
+    """Kernel model against the plain model on the final frame and seg
+    (``serve.final_output``); for InterStage3Net also the flow maps."""
     b, h, w = 2, 128, 256
     fast = registry.build_model(cfg, device=dev, seed=0)
     plain = registry.build_model(cfg, device=dev, seed=0, use_kernels=False)
     imgs, ids = _inputs(dev, b, h, w, 1)
     rgb = torch.cat(imgs, -1) * 2 - 1
     seg = torch.cat([serve.seg_oh(i) for i in ids], -1)
-    r_k, s_k = serve.forward(fast, rgb, seg)
-    r_p, s_p = serve.forward(plain, rgb, seg)
+    with torch.inference_mode():
+        o_k, o_p = fast(rgb, seg), plain(rgb, seg)
     torch.cuda.synchronize()
+    (r_k, s_k), (r_p, s_p) = serve.final_output(o_k), serve.final_output(o_p)
+    if len(o_k) == 5:
+        agree = flow_agreement(o_k[4][0], o_p[4][0])
+        print(f"{label} 2x128x256 bf16: flow map agreement {agree:.6f} "
+              f"(bound {SLICE_FLOW_AGREE})")
+        if agree < SLICE_FLOW_AGREE:
+            raise AssertionError(f"{label}: flow agreement {agree:.4f}")
     d = (r_k.float() - r_p.float()).abs().max().item()
-    bound = SLICE_RGB_TOL * max(1.0, r_p.float().abs().max().item())
+    limit = SLICE_RGB_TOL * max(1.0, r_p.float().abs().max().item())
     agree = (s_k.argmax(-1) == s_p.argmax(-1)).float().mean().item()
-    print(f"{label} 2x128x256 bf16: rgb max|d|={d:.6g} (bound {bound:.4g}), "
+    print(f"{label} 2x128x256 bf16: rgb max|d|={d:.6g} (bound {limit:.4g}), "
           f"seg argmax agreement {agree:.6f} (bound {SLICE_SEG_AGREE})")
     if not (torch.isfinite(r_k).all() and torch.isfinite(s_k).all()):
         raise AssertionError(f"{label}: non-finite output")
-    if d > bound:
-        raise AssertionError(f"{label}: rgb max|d| {d:.4g} > {bound:.4g}")
+    if d > limit:
+        raise AssertionError(f"{label}: rgb max|d| {d:.4g} > {limit:.4g}")
     if agree < SLICE_SEG_AGREE:
         raise AssertionError(f"{label}: seg agreement {agree:.4f} < "
                              f"{SLICE_SEG_AGREE}")
@@ -585,7 +737,8 @@ def serve_phase(dev, card, cfg=CFG, per_forward=PER_FORWARD,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(hw.launches)
-    for name, per in per_forward.items():
+    for name in hw.KERNELS:
+        per = per_forward.get(name, 0)
         if counts[name] != per * steps:
             raise AssertionError(f"{label}: {name} launched {counts[name]} "
                                  f"times, expected {per} x {steps}")
@@ -761,6 +914,18 @@ def highres_phase(dev, card):
                        "highres_large rollout")
 
 
+CFG_S3 = dataclasses.replace(CFG, model="InterStage3Net",
+                             refine_model="SRNRefine")
+
+
+def stage3_phase(dev, card):
+    """Phase 7: InterStage3Net.  Kernel vs plain model at 2x128x256 (as the
+    slice phase, with the flow maps), then the 3-step rollout at
+    2x512x1024 with the launches per forward asserted."""
+    slice_phase(dev, CFG_S3, "stage3 slice")
+    return serve_phase(dev, card, CFG_S3, PER_FORWARD_S3, "stage3 rollout")
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -774,13 +939,11 @@ def main():
     counts = serve_phase(dev, card)
     kernels.update(train_kernel_phase(dev))
     k1_backward_check(dev)
-    train_counts = train_phase(dev, card)
-    hl_counts = highres_phase(dev, card)
+    runs = [counts, train_phase(dev, card), highres_phase(dev, card),
+            stage3_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
-             launches=counts[n] + train_counts[n] + hl_counts[n],
-             max_abs_err=kernels[n]["max_abs_err"], ms=kernels[n]["ms"],
-             plain_ms=kernels[n]["plain_ms"]) for n in META]}))
+             launches=sum(c[n] for c in runs), **kernels[n]) for n in META]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,3 +29,8 @@ class Config:
     coarse_learning_rate: float = 0.001
     train_coarse: bool = False
     remat: bool = False                 # not ported: make_train_step raises
+    # the refine and stage-3 composites (InterRefineNet, InterStage3Net)
+    n_scales: int = 1                   # --n_sc
+    refine_model: str = "refineUnet"    # only SRNRefine is ported
+    stage3_model: str = "MSResAttnRefine"
+    stage3_prop: bool = False

@@ -21,7 +21,7 @@ import torch
 KERNELS = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
            "ups_head_taps", "ups_head_1x1", "stem_fwd", "stem_bwd",
            "bottleneck_fwd", "bottleneck_bwd", "bb_chain_fwd", "bb_chain_bwd",
-           "ups_head_taps4")
+           "ups_head_taps4", "window_attention")
 
 launches = {name: 0 for name in KERNELS}
 
@@ -29,6 +29,18 @@ launches = {name: 0 for name in KERNELS}
 def reset_counters() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def entry_device(device) -> torch.device:
+    """The device an entry point builds on (``"cuda"`` unless the caller
+    asks for another): raises for a CUDA device when there is no card,
+    rather than running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for {device} (torch.cuda.is_available() is "
+            "False); pass device='cpu' to build on the CPU")
+    return device
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -1,4 +1,4 @@
-"""Building blocks of the HRNet slice (counterpart of models/blocks.py).
+"""Building blocks of the ported models (counterpart of models/blocks.py).
 
 Modules take and return NHWC tensors.  Convolutions run through
 ``F.conv2d`` on the logical-NCHW, channels_last view of the same memory, so
@@ -10,7 +10,7 @@ weights to the compute dtype and rounds its output there, as the JAX
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,15 +35,17 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """torch-style Conv2d on NHWC tensors: symmetric padding ``k // 2``
-    (unless given), optional bias, compute in ``dtype`` (default: the
-    input's)."""
+    """torch-style Conv2d on NHWC tensors: symmetric padding
+    ``(k // 2) * dilation`` (unless given), optional bias, compute in
+    ``dtype`` (default: the input's)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: Optional[int] = None, bias: bool = True):
+                 padding: Optional[int] = None, bias: bool = True,
+                 dilation: int = 1):
         super().__init__()
         self.stride = stride
-        self.padding = kernel // 2 if padding is None else padding
+        self.dilation = dilation
+        self.padding = (kernel // 2) * dilation if padding is None else padding
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
@@ -51,7 +53,8 @@ class Conv(nn.Module):
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         dt = dtype or x.dtype
         out = nhwc(F.conv2d(nchw(x.to(dt)), self.weight.to(dt),
-                            stride=self.stride, padding=self.padding))
+                            stride=self.stride, padding=self.padding,
+                            dilation=self.dilation))
         if self.bias is not None:
             out = out + self.bias.to(dt)
         return out
@@ -117,3 +120,41 @@ class SegEncoder(nn.Sequential):
         x = F.elu(self[0](seg, dtype))
         x = F.elu(self[2](x))
         return self[4](x)
+
+
+class ConvT(nn.Module):
+    """torch ConvTranspose2d(k=4, s=2, p=1) on NHWC tensors, an exact 2x
+    upsample (blocks.py:247-266), computed in the input's dtype; weight
+    (Cin, Cout, 4, 4) as the reference's state_dict holds it."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cin, cout, 4, 4))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return nhwc(F.conv_transpose2d(nchw(x), self.weight.to(dt),
+                                       self.bias.to(dt), stride=2, padding=1))
+
+
+def conv_lrelu(cin: int, cout: int, stride: int = 1,
+               dilation: int = 1) -> Tuple[nn.Module, nn.Module]:
+    """A 3x3 conv and its lrelu (``ConvLReLU``, blocks.py:542), as the two
+    entries of the reference's ``nn.Sequential`` (so the conv keeps its
+    state_dict index)."""
+    return Conv(cin, cout, 3, stride, dilation=dilation), nn.LeakyReLU(0.2)
+
+
+class ResnetBlock(nn.Module):
+    """conv-lrelu-conv + input (blocks.py:492); ``conv.0`` / ``conv.2`` are
+    the reference's state_dict keys."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv = nn.Sequential(Conv(features, features, 3),
+                                  nn.LeakyReLU(0.2),
+                                  Conv(features, features, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + x

@@ -1,12 +1,11 @@
-"""Composite model heads (counterpart of models/composite.py).
-
-Only ``InterNet`` is ported so far; the other composites wait in ROADMAP.md
-queue 1.
+"""Composite model heads (counterpart of models/composite.py): ``InterNet``,
+``InterRefineNet`` and ``InterStage3Net``.  The other composites wait in
+ROADMAP.md queue 1.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,3 +26,59 @@ class InterNet(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         out = self.coarse_model(rgb, seg)
         return out[0], out[1]
+
+
+class InterRefineNet(nn.Module):
+    """Coarse + SRN refine (composite.py:55-80): ``(rgb, seg) ->
+    (coarse_rgb, coarse_seg, refine_rgbs)``, the refined frames clipped to
+    [-10, 10]."""
+
+    clip = 10.0
+
+    def __init__(self, cfg: Config, use_kernels: bool = True):
+        super().__init__()
+        self.coarse_model = registry.build_coarse(cfg, use_kernels)
+        self.refine_model = registry.build_refine(cfg)
+
+    def _refine(self, rgb: torch.Tensor, seg: torch.Tensor):
+        """The coarse forward and the refiner on its detached outputs:
+        (coarse_rgb, coarse_seg, soft seg, refine_rgbs clipped)."""
+        coarse_rgb, coarse_seg = self.coarse_model(rgb, seg)[:2]
+        soft = torch.softmax(coarse_seg, dim=-1).detach()
+        # per-frame seg embeddings of the coarse model's encoder, in its
+        # dtype, detached (composite.py:68-75)
+        enc = self.coarse_model.seg_encoder
+        dt = self.coarse_model.dtype
+        feats = [enc(seg[..., :20], dt).detach(),
+                 enc(seg[..., 20:40], dt).detach()]
+        encoded_feat = torch.cat([rgb] + [f.to(rgb.dtype) for f in feats],
+                                 dim=-1)
+        coarse_in = torch.clamp(coarse_rgb.detach(), -1, 1)
+        refine_rgbs = [torch.clamp(r, -self.clip, self.clip) for r in
+                       self.refine_model(coarse_in, soft, encoded_feat)]
+        return coarse_rgb, coarse_seg, soft, refine_rgbs
+
+    def forward(self, rgb: torch.Tensor, seg: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+        coarse_rgb, coarse_seg, _, refine_rgbs = self._refine(rgb, seg)
+        return coarse_rgb, coarse_seg, refine_rgbs
+
+
+class InterStage3Net(InterRefineNet):
+    """Coarse + refine + attention re-refine (composite.py:83-111):
+    ``(rgb, seg) -> (coarse_rgb, coarse_seg, refine_rgbs, stage3_rgbs,
+    flow_maps)``; the refined frames clipped to [-1, 1], the stage-3 ones
+    to [-10, 10]."""
+
+    clip = 1.0
+
+    def __init__(self, cfg: Config, use_kernels: bool = True):
+        super().__init__(cfg, use_kernels)
+        self.stage3_model = registry.build_stage3(cfg, use_kernels)
+
+    def forward(self, rgb: torch.Tensor, seg: torch.Tensor):
+        coarse_rgb, coarse_seg, soft, refine_rgbs = self._refine(rgb, seg)
+        stage3_rgbs, flow_maps = self.stage3_model(
+            refine_rgbs[-1].detach(), soft, rgb, seg)
+        stage3_rgbs = [torch.clamp(r, -10, 10) for r in stage3_rgbs]
+        return coarse_rgb, coarse_seg, refine_rgbs, stage3_rgbs, flow_maps

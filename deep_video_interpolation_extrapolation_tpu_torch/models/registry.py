@@ -1,6 +1,8 @@
-"""Model registry (counterpart of models/registry.py) for the ported slice:
-``--model InterNet`` with ``--coarse_model HRNet`` in interpolation mode.
-Any other model raises ``NotImplementedError`` naming its ROADMAP queue."""
+"""Model registry (counterpart of models/registry.py) for the ported slices:
+``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net`` with
+``--coarse_model HRNet`` in interpolation mode, ``--refine_model SRNRefine``
+and ``--stage3_model MSResAttnRefine`` at ``--n_sc 1``.  Any other model
+raises ``NotImplementedError`` naming its ROADMAP queue."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 
 _QUEUE = "ROADMAP.md queue 1"
@@ -33,10 +36,40 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
                  highres_large=cfg.highres_large)
 
 
+def build_refine(cfg: Config) -> nn.Module:
+    from deep_video_interpolation_extrapolation_tpu_torch.models.refine import (
+        SRNRefine,
+    )
+    if cfg.refine_model != "SRNRefine":
+        raise NotImplementedError(
+            f"refine model {cfg.refine_model!r} (models/optical.RefineUnet) "
+            f"is not ported yet ({_QUEUE}, item 8)")
+    return SRNRefine(n_scales=cfg.n_scales, dtype=compute_dtype(cfg))
+
+
+def build_stage3(cfg: Config, use_kernels: bool = True) -> nn.Module:
+    from deep_video_interpolation_extrapolation_tpu_torch.models.attn_refine import (
+        MSResAttnRefine,
+    )
+    if cfg.stage3_model != "MSResAttnRefine":
+        raise NotImplementedError(
+            f"stage-3 model {cfg.stage3_model!r} is not ported yet "
+            f"({_QUEUE}, item 7)")
+    return MSResAttnRefine(n_scales=cfg.n_scales,
+                           stage3_prop=cfg.stage3_prop,
+                           dtype=compute_dtype(cfg), use_kernels=use_kernels)
+
+
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from ``numpy.random.RandomState(seed)``: conv
-    weights lecun-normal (std 1/sqrt(fan_in), the JAX ``Conv`` init's
-    scale), biases zero.  Deterministic across devices and torch builds."""
+    weights lecun-normal (std 1/sqrt(fan_in), the JAX ``Conv`` and
+    ``ConvTranspose`` inits' scale), biases zero.  Deterministic across
+    devices and torch builds."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
+        ConvT,
+    )
+    # a transposed conv's weight is (Cin, Cout, kh, kw)
+    convt = {id(m.weight) for m in model.modules() if isinstance(m, ConvT)}
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, p in sorted(model.named_parameters()):
@@ -44,21 +77,28 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 p.zero_()
             else:
                 fan_in = int(np.prod(p.shape[1:]))
+                if id(p) in convt:
+                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
                 p.copy_(torch.from_numpy(rng.normal(
                     0.0, 1.0 / np.sqrt(fan_in), p.shape).astype(np.float32)))
     return model
 
 
-def build_model(cfg: Config, device="cpu", seed: int = 0,
+def build_model(cfg: Config, device="cuda", seed: int = 0,
                 use_kernels: bool = True) -> nn.Module:
     """Build the composite named by ``cfg.model``, weights from ``seed``,
-    in eval mode on ``device``."""
+    in eval mode on ``device`` (the card unless the caller asks for the
+    CPU; without a card it raises)."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
         composite,
     )
-    if cfg.model != "InterNet":
+    heads = {"InterNet": composite.InterNet,
+             "InterRefineNet": composite.InterRefineNet,
+             "InterStage3Net": composite.InterStage3Net}
+    if cfg.model not in heads:
         raise NotImplementedError(
             f"model {cfg.model!r} is not ported yet ({_QUEUE})")
-    model = composite.InterNet(cfg, use_kernels=use_kernels)
+    device = hw.entry_device(device)
+    model = heads[cfg.model](cfg, use_kernels=use_kernels)
     init_weights(model, seed)
     return model.to(device).eval()

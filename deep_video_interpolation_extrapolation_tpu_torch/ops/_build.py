@@ -62,6 +62,8 @@ SIGNATURES = {
     # p0, p1, p2, p3, w1, b1, w2t, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
     # C1, C2, C3, N1, N2, stream
     "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],
+    # q, k1, k2, v1, v2, out, flow, B, H, W, win_h, win_w, stream
+    "dvie_window_attn": [P] * 7 + [I] * 5 + [P],
 }
 
 

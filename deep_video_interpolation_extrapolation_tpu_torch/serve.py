@@ -1,7 +1,8 @@
 """Serving entry points of the port.
 
 - ``forward(model, rgb, seg)``: the serving forward, counterpart of
-  ``tools/export.forward_fn`` (export.py:37-56): eval mode, no gradient.
+  ``tools/export.forward_fn`` (export.py:37-56): eval mode, no gradient;
+  it returns the composite's final stage (``final_output``).
 - ``rollout(model, img_list, seg_list, num_pred_step)``: the cycgen sliding
   window, counterpart of ``Runner._mini_test`` (runner.py:806-853) for
   ``num_pred_once == 1``: each step predicts from (img1, img2) and slides
@@ -23,13 +24,24 @@ import torch.nn as nn
 from deep_video_interpolation_extrapolation_tpu_torch.core.seg import seg_oh
 
 
+def final_output(out: Sequence) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final (rgb, seg) of a composite's output, the stage that is
+    rolled out (``Runner._final_output``, runner.py:785-804): the last
+    stage-3 frame of InterStage3Net's 5-tuple, the last refined frame of
+    InterRefineNet's 3-tuple, else the coarse pair."""
+    if len(out) == 5:
+        return out[3][-1], out[1]
+    if len(out) == 3 and isinstance(out[2], (list, tuple)):
+        return out[2][-1], out[1]
+    return out[0], out[1]
+
+
 def forward(model: nn.Module, rgb: torch.Tensor, seg: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rgb (B,H,W,6) in [-1, 1], seg (B,H,W,40) one-hot) ->
     (rgb_pred (B,H,W,3), seg_logits (B,H,W,20))."""
     with torch.inference_mode():
-        out = model(rgb, seg)
-    return out[0], out[1]
+        return final_output(model(rgb, seg))
 
 
 def rollout(model: nn.Module, img_list: Sequence[torch.Tensor],

@@ -1,16 +1,20 @@
-"""JAX HRNet (and frozen VGG19) parameters -> the port's ``state_dict``.
+"""JAX model (and frozen VGG19) parameters -> the port's ``state_dict``s.
 
-The inverse of the JAX package's ``tools/torch_port.port_hrnet`` (which maps
-the reference's torch HRNet state_dict onto the flax tree): flax HWIO conv
-kernels become torch OIHW weights (transpose (3, 2, 0, 1)), biases copy.
-Takes the ``params["coarse_model"]`` tree as nested dicts of numpy arrays;
-imports no jax (callers convert with ``np.asarray``).
+The inverses of the JAX package's ``tools/torch_port`` mappers, which map
+the reference's torch state_dicts onto the flax trees: ``port_hrnet``
+(``key_map``, ``from_jax_params``), ``port_srn_refine`` (``refine_key_map``)
+and ``port_ms_res_attn_refine`` (``stage3_key_map``).  Flax HWIO conv
+kernels become torch OIHW weights (transpose (3, 2, 0, 1)); a flax
+``ConvTranspose`` kernel (kh, kw, in, out), which ``convT_w`` flipped in
+both spatial axes (torch_port.py:32-35), is flipped back and becomes torch's
+(in, out, kh, kw); biases copy.  Takes the trees as nested dicts of numpy
+arrays; imports no jax (callers convert with ``np.asarray``).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -77,20 +81,129 @@ def key_map(params: Mapping) -> Iterator[Tuple[str, Tuple[str, ...]]]:
         yield f"{head}.2.bias", (head, "Conv_1", "bias")
 
 
-def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``params["coarse_model"]`` of a JAX HRNet/InterNet -> the port's
-    HRNet ``state_dict`` (load it with ``model.coarse_model.load_state_dict``
-    for an InterNet)."""
+def refine_key_map(params: Mapping
+                   ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(torch key, flax path) for every parameter of ``SRNRefine``, the
+    inverse of port_srn_refine (torch_port.py:95-142)."""
+    def conv(path, tname):
+        yield f"{tname}.weight", ("core",) + path + ("kernel",)
+        yield f"{tname}.bias", ("core",) + path + ("bias",)
+
+    def clrelu(i, tname):
+        yield from conv((f"ConvLReLU_{i}", "Conv_0"), tname)
+
+    def res(i, tname):
+        yield from conv((f"ResnetBlock_{i}", "Conv_0"), f"{tname}.conv.0")
+        yield from conv((f"ResnetBlock_{i}", "Conv_1"), f"{tname}.conv.2")
+
+    for i, t in enumerate((0, 2, 4)):
+        yield from clrelu(i, f"input_layer.{t}")
+    for k, t in enumerate((6, 7, 8)):
+        yield from res(k, f"input_layer.{t}")
+    for e, (ci, ri) in enumerate(((3, 3), (4, 6)), start=1):
+        yield from clrelu(ci, f"encoder_{e}.0")
+        for k, t in enumerate((2, 3, 4)):
+            yield from res(ri + k, f"encoder_{e}.{t}")
+    for k, t in enumerate((0, 2, 4, 6)):
+        yield from clrelu(5 + k, f"bottle_dilated.{t}")
+    yield from clrelu(9, "hidden_comb.0")
+    yield from clrelu(10, "hidden_comb.2")
+    for d, (ri, ct) in (("decoder_2", (9, 0)), ("decoder_1", (12, 1))):
+        for k in range(3):
+            yield from res(ri + k, f"{d}.{k}")
+        yield from conv((f"ConvT_{ct}", "ConvTranspose_0"), f"{d}.3")
+    for k in range(3):
+        yield from res(15 + k, f"output_layer.{k}")
+    yield from clrelu(11, "output_layer.3")
+    yield from conv(("Conv_0",), "output_layer.5")
+
+
+# (flax module, reference Sequential entry) of MSResAttnRefine's ConvLReLU
+# layers (torch_port.py:145-171)
+ATTN_CONV_PAIRS = [
+    (f"{name}_{i}", f"{name}.{2 * i}")
+    for name, n in (("input_layer", 2), ("attn_input_layer", 2),
+                    ("attn_encoder_1", 2), ("attn_encoder_2", 2),
+                    ("attn_fuse_layer", 2), ("attn_img_fuse_layer", 2),
+                    ("img_input_layer", 2), ("img_encoder_1", 2),
+                    ("img_encoder_2", 2), ("img_atrous_layer", 4),
+                    ("img_fuse_layer", 2), ("output_layer", 2))
+    for i in range(n)]
+
+
+def stage3_key_map(params: Mapping
+                   ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(torch key, flax path) for every parameter of ``MSResAttnRefine``
+    that the JAX tree holds, the inverse of port_ms_res_attn_refine
+    (torch_port.py:174-193).  At ``n_scales == 1`` the JAX module never
+    creates ``attn_fuse_layer``: its two convs are not in the tree, and the
+    port's keep their seeded init (``load_jax_params`` returns their
+    keys)."""
+    def conv(path, tname):
+        yield f"{tname}.weight", path + ("kernel",)
+        yield f"{tname}.bias", path + ("bias",)
+
+    for ours, theirs in ATTN_CONV_PAIRS:
+        if ours in params:
+            yield from conv((ours, "Conv_0"), theirs)
+    yield from conv(("output_conv",), "output_layer.4")
+    for dec in ("decoder_2", "decoder_1"):
+        yield from conv((f"{dec}_t", "ConvTranspose_0"), f"{dec}.0")
+        yield from conv((f"{dec}_r", "Conv_0"), f"{dec}.2.conv.0")
+        yield from conv((f"{dec}_r", "Conv_1"), f"{dec}.2.conv.2")
+
+
+def _state_dict(params: Mapping, keys) -> Dict[str, torch.Tensor]:
     sd = OrderedDict()
-    for key, path in key_map(params):
+    for key, path in keys:
         a = params
         for p in path:
             a = a[p]
         a = np.asarray(a, dtype=np.float32)
-        if a.ndim == 4:       # HWIO -> OIHW
+        if a.ndim == 4 and path[-2] == "ConvTranspose_0":
+            a = np.transpose(a[::-1, ::-1], (2, 3, 0, 1))   # -> (I, O, kh, kw)
+        elif a.ndim == 4:     # HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
         sd[key] = torch.from_numpy(np.array(a, order="C"))   # a writable copy
     return sd
+
+
+def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params["coarse_model"]`` of a JAX HRNet/InterNet -> the port's
+    HRNet ``state_dict`` (load it with ``model.coarse_model.load_state_dict``
+    for an InterNet)."""
+    return _state_dict(params, key_map(params))
+
+
+def from_jax_refine(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params["refine_model"]`` of a JAX SRNRefine -> its state_dict."""
+    return _state_dict(params, refine_key_map(params))
+
+
+def from_jax_stage3(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params["stage3_model"]`` of a JAX MSResAttnRefine -> its
+    state_dict, without the absent ``attn_fuse_layer``."""
+    return _state_dict(params, stage3_key_map(params))
+
+
+def load_jax_params(model: torch.nn.Module, params: Mapping) -> List[str]:
+    """Load a JAX composite's ``params`` (the per-submodel tree) into the
+    port's composite of the same ``--model``.  Returns the keys the JAX tree
+    has no counterpart for, which keep their seeded init: only
+    ``stage3_model.attn_fuse_layer.*``."""
+    mappers = {"coarse_model": from_jax_params,
+               "refine_model": from_jax_refine,
+               "stage3_model": from_jax_stage3}
+    left = []
+    for name, sub in model.named_children():
+        missing, unexpected = sub.load_state_dict(
+            mappers[name](params[name]), strict=False)
+        if unexpected or any(not k.startswith("attn_fuse_layer.")
+                             for k in missing):
+            raise KeyError(f"{name}: missing {missing}, unexpected "
+                           f"{unexpected}")
+        left += [f"{name}.{k}" for k in missing]
+    return left
 
 
 def from_jax_vgg(vgg_params: Mapping) -> Dict[str, torch.Tensor]:

@@ -8,6 +8,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 from deep_video_interpolation_extrapolation_tpu_torch.core.seg import seg_oh
 from deep_video_interpolation_extrapolation_tpu_torch.losses.bundles import (
@@ -24,10 +25,12 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.registry import (
     compute_dtype,
 )
 
-def init_vgg_frozen(cfg: Config, seed: int, device="cpu") -> VGG19Features:
+def init_vgg_frozen(cfg: Config, seed: int, device="cuda") -> VGG19Features:
     """A frozen VGG19 in the compute dtype, weights from a numpy seed (the
     reference's ImageNet weights cannot be fetched; see the JAX package's
-    models/features.py docstring)."""
+    models/features.py docstring), on ``device`` (the card unless the
+    caller asks for the CPU; without a card it raises)."""
+    device = hw.entry_device(device)
     vgg = VGG19Features(dtype=compute_dtype(cfg))
     return init_vgg_weights(vgg, seed).to(device).eval()
 

@@ -248,7 +248,7 @@ def test_hrnet_gradient_on_the_chain_route(monkeypatch):
         return bbchain.bb_chain(x, pairs)
 
     monkeypatch.setattr(hrnet, "bb_chain", spy)
-    model = registry.build_model(_cfg())
+    model = registry.build_model(_cfg(), device="cpu")
     model.coarse_model.load_state_dict(from_jax_params(params))
     r, s = model(torch.from_numpy(rgb), torch.from_numpy(seg))
     ((r.float() * _t(ct_rgb)).sum() + (s.float() * _t(ct_seg)).sum()).backward()

@@ -119,7 +119,8 @@ def test_head_route_ignores_fits4(monkeypatch, use_kernels):
     rgb = torch.from_numpy(rng.uniform(-1, 1, (1, 8, 48, 6)).astype(np.float32))
     seg = torch.from_numpy(np.eye(20, dtype=np.float32)[
         rng.randint(0, 20, (1, 8, 48, 2))].reshape(1, 8, 48, 40))
-    model = registry.build_model(_cfg(), use_kernels=use_kernels)
+    model = registry.build_model(_cfg(), device="cpu",
+                                 use_kernels=use_kernels)
     with torch.no_grad():
         parts = model.coarse_model._backbone(
             hrnet._encode_inputs(rgb, seg, model.coarse_model.seg_encoder,
@@ -170,7 +171,7 @@ def test_highres_internet_matches_jax(jax_model, dtype, tol, agree):
     jr, js = jregistry.build_model(_cfg(dtype)).apply(
         variables, jnp.asarray(rgb), jnp.asarray(seg), train=False)
     jr, js = np.asarray(jr, np.float32), np.asarray(js, np.float32)
-    model = registry.build_model(_cfg(dtype))
+    model = registry.build_model(_cfg(dtype), device="cpu")
     model.coarse_model.load_state_dict(from_jax_params(params))
     r, s = serve.forward(model, torch.from_numpy(rgb), torch.from_numpy(seg))
     r, s = r.float().numpy(), s.float().numpy()
@@ -192,7 +193,7 @@ def test_key_map_covers_every_jax_leaf_once(jax_model):
     assert len(paths) == len(set(paths))
     assert sorted(paths) == sorted(leaves)
     sd = from_jax_params(params)
-    port = registry.build_model(_cfg())
+    port = registry.build_model(_cfg(), device="cpu")
     assert "transition3.3.0.0.weight" in sd
     assert "stage4.0.fuse_layers.3.0.2.0.weight" in sd
     missing, unexpected = port.coarse_model.load_state_dict(sd, strict=True)
@@ -202,4 +203,4 @@ def test_key_map_covers_every_jax_leaf_once(jax_model):
 def test_highres_training_is_refused():
     cfg = dataclasses.replace(_cfg(), train_coarse=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inter.make_train_step(cfg, registry.build_model(cfg))
+        inter.make_train_step(cfg, registry.build_model(cfg, device="cpu"))

@@ -335,7 +335,7 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     assert {p.name for p in _build.sources()} == {
         "conv3x3.cu", "bottleneck_tail.cu", "upshead.cu", "upshead4.cu",
         "trainchain_stem.cu", "trainchain_bottleneck.cu",
-        "trainchain_basicblock.cu"}
+        "trainchain_basicblock.cu", "window_attn.cu"}
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is installed here: the missing-compiler path "
                     "cannot be reached")

@@ -65,7 +65,7 @@ def jax_model():
 
 
 def _port(params, dtype):
-    model = registry.build_model(_cfg(dtype))
+    model = registry.build_model(_cfg(dtype), device="cpu")
     model.coarse_model.load_state_dict(from_jax_params(params))
     return model
 
@@ -91,7 +91,7 @@ def test_internet_matches_jax(jax_model, dtype, tol, agree):
 def test_from_jax_params_covers_every_key(jax_model):
     _, params, _, _ = jax_model
     sd = from_jax_params(params)
-    port = registry.build_model(_cfg())
+    port = registry.build_model(_cfg(), device="cpu")
     assert sorted(sd) == sorted(port.coarse_model.state_dict())
     missing, unexpected = port.coarse_model.load_state_dict(sd, strict=True)
     assert not missing and not unexpected
@@ -118,7 +118,7 @@ def test_kernel_and_plain_models_agree_on_cpu(jax_model):
     _, params, rgb, seg = jax_model
     a = serve.forward(_port(params, "float32"), torch.from_numpy(rgb),
                       torch.from_numpy(seg))
-    plain = registry.build_model(_cfg(), use_kernels=False)
+    plain = registry.build_model(_cfg(), device="cpu", use_kernels=False)
     plain.coarse_model.load_state_dict(from_jax_params(params))
     b = serve.forward(plain, torch.from_numpy(rgb), torch.from_numpy(seg))
     for x, y in zip(a, b):
@@ -132,17 +132,18 @@ def test_port_config_mirrors_the_jax_config():
     for f in dataclasses.fields(PortConfig):
         assert f.name in jax_defaults, f.name
         assert f.default == jax_defaults[f.name], f.name
-    port = registry.build_model(PortConfig(syn_type="inter"), seed=5)
-    ref = registry.build_model(_cfg("bfloat16"), seed=5)
+    port = registry.build_model(PortConfig(syn_type="inter"), device="cpu",
+                                  seed=5)
+    ref = registry.build_model(_cfg("bfloat16"), device="cpu", seed=5)
     assert port.coarse_model.dtype == ref.coarse_model.dtype == torch.bfloat16
     for a, b in zip(port.state_dict().values(), ref.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(model="InterRefineNet"),
+@pytest.mark.parametrize("kw", [dict(model="InterGANNet"),
                                 dict(coarse_model="VAEHRNet"),
                                 dict(model="ExtraInpaintNet"),
                                 dict(syn_type="extra")])
 def test_registry_refuses_unported_models(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_model(_cfg(**kw))
+        registry.build_model(_cfg(**kw), device="cpu")

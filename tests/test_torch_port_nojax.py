@@ -2,8 +2,8 @@
 directly or through another module: a fresh interpreter with those modules
 blocked imports every module of the port (the train modules included) and
 runs the CPU forward, a rollout and two INTER train steps at 32x64, a
-``--highres_large`` rollout step, and the BasicBlock chain forward and
-backward."""
+``--highres_large`` rollout step, an InterStage3Net rollout step, and the
+BasicBlock chain forward and backward."""
 
 import os
 import subprocess
@@ -28,7 +28,7 @@ from {pkg}.core.config import Config
 from {pkg}.models import registry
 cfg = Config(model="InterNet", coarse_model="HRNet", syn_type="inter",
              compute_dtype="float32")
-model = registry.build_model(cfg, seed=3)
+model = registry.build_model(cfg, device="cpu", seed=3)
 g = torch.Generator().manual_seed(0)
 imgs = [torch.rand(1, 32, 64, 3, generator=g) for _ in range(2)]
 ids = [torch.randint(0, 20, (1, 32, 64), generator=g, dtype=torch.uint8)
@@ -40,7 +40,8 @@ import dataclasses
 from {pkg}.train import inter, state as state_lib
 from {pkg}.train.common import init_vgg_frozen
 cfg = dataclasses.replace(cfg, train_coarse=True)
-state = state_lib.create_train_state(cfg, model, init_vgg_frozen(cfg, 1))
+vgg = init_vgg_frozen(cfg, 1, device="cpu")
+state = state_lib.create_train_state(cfg, model, vgg)
 step = inter.make_train_step(cfg, model)
 batch = dict(frame1=imgs[0] * 2 - 1, frame2=imgs[1] * 2 - 1,
              frame3=imgs[0] - imgs[1], seg1=ids[0], seg2=ids[1], seg3=ids[0])
@@ -49,8 +50,13 @@ for _ in range(2):
 assert state.step == 2 and torch.isfinite(losses["loss_all"])
 assert "coarse_ce_loss" in losses
 high = registry.build_model(dataclasses.replace(cfg, highres_large=True),
-                            seed=3)
+                            device="cpu", seed=3)
 preds, pred_ids = serve.rollout(high, imgs, ids, 1)
+assert torch.isfinite(preds[0]).all() and int(pred_ids[0].max()) < 20
+stage3 = registry.build_model(
+    dataclasses.replace(cfg, model="InterStage3Net", refine_model="SRNRefine"),
+    device="cpu", seed=3)
+preds, pred_ids = serve.rollout(stage3, imgs, ids, 1)
 assert torch.isfinite(preds[0]).all() and int(pred_ids[0].max()) < 20
 from {pkg}.ops import bbchain
 x = torch.rand(1, 8, 16, 64, generator=g, requires_grad=True)
@@ -71,4 +77,4 @@ def test_port_runs_without_jax():
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("modules")[-1])
-    assert n >= 26, proc.stdout
+    assert n >= 30, proc.stdout

@@ -64,7 +64,7 @@ def test_rollout_matches_mini_test(runner):
 
     params = jax.tree_util.tree_map(
         np.asarray, runner.state.params["coarse_model"])
-    model = registry.build_model(runner.cfg)
+    model = registry.build_model(runner.cfg, device="cpu")
     model.coarse_model.load_state_dict(from_jax_params(params))
     out_imgs, out_ids = serve.rollout(
         model, [torch.from_numpy(i) for i in imgs],

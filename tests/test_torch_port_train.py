@@ -93,7 +93,7 @@ def jax_side():
 
 
 def _port_state(jstate_, cfg):
-    model = registry.build_model(cfg)
+    model = registry.build_model(cfg, device="cpu")
     model.coarse_model.load_state_dict(
         from_jax_params(_np(jstate_.params["coarse_model"])))
     vgg = VGG19Features(dtype=torch.float32)
@@ -195,13 +195,13 @@ def test_eval_metrics_match_jax(jax_side):
 @pytest.mark.parametrize("kw", [dict(model="InterRefineNet"),
                                 dict(remat=True)])
 def test_unported_train_options_raise(kw):
-    model = registry.build_model(_cfg())
+    model = registry.build_model(_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inter.make_train_step(_cfg(**kw), model)
 
 
 @pytest.mark.parametrize("name", ["adam", "sgd"])
 def test_unported_optimizers_raise(name):
-    model = registry.build_model(_cfg())
+    model = registry.build_model(_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         state_lib.create_train_state(_cfg(coarse_optimizer=name), model)
