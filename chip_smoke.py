@@ -53,14 +53,36 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    ``--n_sc 1``), kernels against the plain model at 2x128x256 as in phase
    2 on the final (stage-3) frame, plus flow-map agreement >= 90%; then the
    3-step rollout at 2x512x1024: launches per forward K1 18, K2 4, K3 2, K4
-   1, window attention 1.
+   1, window attention 1;
+8. vae: the video VAE (``--model VAE``, ``--vid_len 2``, 128x128, bf16):
+   the kernel model against the plain model at 2x128x128 on the same
+   weights and ``z_m`` (the warped ``output`` by max|d|/max|ref| <= 2e-2,
+   ``y_pred`` as the slice phase's rgb, flows and masks within 1e-3 of
+   their max: no kernel runs before the warp); then 3 timed eval forwards
+   (``serve.predict_video``) at 8x128x128 after a warm-up, the code drawn
+   from a seeded generator:
+   launches per forward grid_sample 2 (one per step, unbounded), every
+   other kernel 0 (the bounded mode has a counter of its own,
+   grid_sample_bounded); outputs finite; frames/s.
+
+The kernel phase also holds the shift-add kernel (at its serving shape, the
+heads' tail in every HRNet forward and train step: one launch each, counted
+in phases 3 and 5-7), the grid sample bounded (R = 8: flows up to 6 px, a
+band beyond the window that must give 0, a known integer shift) and
+unbounded (flows up to 40 px) at 8x512x1024x3 bf16, and the dual head
+(``fused_dual_head``) on the InterNet serving forward's own 1x512x1024x448
+concat map and head weights, against its plain version and against the
+model's K4-route heads.
 
 Every rollout asserts every kernel's launches, the ones not named above at
 0.  Prints the card's name and power limit, one JSON line of per-kernel
 results (``launches``: the serve rollout's count plus the counted train
-step's plus the highres_large and stage3 rollouts'; ``bound_ms``: the least
-time of the timed call from its bytes and operations; ``library_ms``: null,
-as no single PyTorch call computes any of these functions), and last
+step's plus the highres_large, stage3 and vae runs', as counted there: 0
+for the dual head and the bounded grid sample, which no model runs; the
+chain forward's N = 1 row, ``bb_chain_fwd_n1``, reads the chain's counter,
+one launch per block; ``bound_ms``: the least
+time of the timed call from its bytes and operations; ``library_ms``: one
+PyTorch call of the same function where there is one, else null), and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the exit code
 is then non-zero and no result line is printed.  Needs a CUDA card of
 compute capability (9, 0); there is no CPU fallback.
@@ -82,6 +104,10 @@ from deep_video_interpolation_extrapolation_tpu_torch import serve
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
+from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
+    _concat_pyramid,
+    _encode_inputs,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     inter,
     state as state_lib,
@@ -94,10 +120,17 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     bbchain as bb,
     bottleneck_tail as k2,
     conv3x3 as k1,
+    dual_head as dh,
     fuse0 as k3,
+    shiftadd as sa,
     trainchain as tc,
     upshead as k4,
+    warp,
     window_attn as wa,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
+    nchw,
+    nhwc,
 )
 
 KERNEL_TOL = 2e-2          # max|d| / max|ref|, bf16 kernel vs plain
@@ -106,7 +139,8 @@ DX_L2_TOL = 1e-2           # rel-L2 of dx on random inputs, kernel vs plain
 SLICE_RGB_TOL = 5e-2       # rgb max|d| / max(1, max|ref|)
 SLICE_SEG_AGREE = 0.98     # seg argmax agreement
 PER_FORWARD = {"conv3x3_bias_res_lrelu": 18, "bottleneck_tail": 4,
-               "fuse_out0": 2, "ups_head_taps": 1, "ups_head_taps4": 0}
+               "fuse_out0": 2, "ups_head_taps": 1, "ups_head_taps4": 0,
+               "shifted_add_bias": 1}
 # --highres_large: stage4's branch 0 adds 8 K1 launches; the 4-part head
 # replaces K4
 PER_FORWARD_HL = {**PER_FORWARD, "conv3x3_bias_res_lrelu": 26,
@@ -116,7 +150,8 @@ PER_FORWARD_HL = {**PER_FORWARD, "conv3x3_bias_res_lrelu": 26,
 PER_TRAIN_STEP = {"stem_fwd": 1, "stem_bwd": 1, "bottleneck_fwd": 4,
                   "bottleneck_bwd": 4, "bb_chain_fwd": 8, "bb_chain_bwd": 8,
                   "conv3x3_bias_res_lrelu": 0, "bottleneck_tail": 0,
-                  "fuse_out0": 2, "ups_head_taps": 1, "ups_head_1x1": 1}
+                  "fuse_out0": 2, "ups_head_taps": 1, "ups_head_1x1": 1,
+                  "shifted_add_bias": 1}
 GRAD_RATIO, GRAD_FLOOR = 1.5, 1e-3   # kernel grad error <= 1.5 x plain's + 1e-3
 LOSS_TOL = 2e-2            # each loss term, kernel vs plain bf16, relative
 TRAJ_TOL = 0.10            # final loss_all, kernel vs plain, relative
@@ -148,7 +183,24 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
     "window_attention": ("cuda", f"{PKG}/csrc/window_attn.cu",
                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
+    "shifted_add_bias": ("cuda", f"{PKG}/csrc/shiftadd.cu",
+                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
+    "grid_sample": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                    "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "grid_sample_bounded": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                            "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "dual_head": ("cuda", f"{PKG}/csrc/upshead.cu",
+                  "deep_video_interpolation_extrapolation_tpu/ops/pallas_head.py:147"),
+    "bb_chain_fwd_n1": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_resblock.py:307"),
 }
+# a row timed on another row's counter: the chain forward launches once per
+# block, so each of its launches computes the one-block function
+COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd"}
+# the video VAE serving forward: one grid sample per step
+VAE_T = 2
+PER_FORWARD_VAE = {"grid_sample": VAE_T}
+VAE_FLOW_TOL = 1e-3        # flows and masks, kernel vs plain model, of max
 WA_FLOW_AGREE = 0.90       # window-attention flow agreement, kernel vs plain
 # InterStage3Net: the coarse HRNet as InterNet, one window attention
 PER_FORWARD_S3 = {**PER_FORWARD, "window_attention": 1}
@@ -187,7 +239,8 @@ def _nz(*ws) -> int:
 WEIGHT_ARGS = {
     "conv3x3_bias_res_lrelu": slice(1, 2), "bottleneck_tail": slice(2, None),
     "ups_head_taps": slice(3, None), "ups_head_taps4": slice(4, None),
-    "ups_head_1x1": slice(3, None), "stem_fwd": slice(1, None),
+    "ups_head_1x1": slice(3, None), "dual_head": slice(1, None),
+    "stem_fwd": slice(1, None),
     "stem_bwd": slice(2, None), "bottleneck_fwd": slice(1, None),
     "bottleneck_bwd": slice(2, None), "bb_chain_fwd": slice(1, None),
     "bb_chain_bwd": slice(2, 3)}
@@ -199,11 +252,18 @@ PASSES = {"stem_bwd": 3, "bottleneck_bwd": 3, "bb_chain_bwd": 2}
 def operations(name, args):
     """(operations, the card's peak rate for them) of one call of kernel
     ``name`` on ``args``: 2 per multiply-add of what it computes, on bf16
-    operands (the tensor-core peak); K3 is elementwise in f32 (the 4 taps
-    of each bilinear part, the adds and the lrelu)."""
+    operands (the tensor-core peak); K3, the shifted add and the grid
+    sample are elementwise in f32 (K3: the 4 taps of each bilinear part,
+    the adds and the lrelu; the shifted add: 8 adds and the bias per
+    output; the grid sample: 9 per channel of the 4-corner blend and ~10
+    per pixel for the coordinates and weights)."""
     if name == "fuse_out0":
         ups = sum(t is not None for t in args[1:])
         return args[0].numel() * (2 + 8 * ups), F32_PEAK
+    if name == "shifted_add_bias":
+        return 9 * _px(args[0]) * args[1].numel(), F32_PEAK
+    if name.startswith("grid_sample"):
+        return _px(args[0]) * (9 * args[0].shape[-1] + 10), F32_PEAK
     if name == "window_attention":
         q, _, _, v1, _, win_h, win_w = args
         return (2 * _px(q) * 2 * win_h * win_w * (q.shape[-1] + v1.shape[-1]),
@@ -350,16 +410,166 @@ def kernel_phase(dev):
         results[name] = timed(name, label, args, kern(*args), worst_abs, ms,
                               plain_ms)
     results["window_attention"] = window_attention_check(dev)
+    results["shifted_add_bias"] = shifted_add_check(dev)
+    results.update(grid_sample_check(dev))
+    results["dual_head"] = dual_head_check(dev)
     return results
 
 
-def timed(name, label, args, out, max_abs_err, ms, plain_ms):
+def _held(name, label, out, ref, tol=KERNEL_TOL):
+    """max|d| of a kernel output against its reference; raises past
+    ``tol`` of max|ref| or for a bad shape or non-finite values."""
+    if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{name} [{label}]: shape {tuple(out.shape)} vs "
+                             f"{tuple(ref.shape)} or non-finite output")
+    d, rel = rel_err(out, ref)
+    print(f"  {name} [{label}] max|d|={d:.6g} max|d|/max|ref|={rel:.6g}")
+    if rel > tol:
+        raise AssertionError(f"{name} [{label}]: max|d|/max|ref| {rel:.4g} > "
+                             f"{tol}")
+    return d
+
+
+def shifted_add_check(dev):
+    """The heads' shifted add + bias at its serving shape (B=1, 512x1024,
+    co = 23: yt (1,512,1024,207) bf16) against its plain version; its
+    library time is one ``F.conv2d`` of yt with the fixed one-hot (23,
+    207, 3, 3) kernel and b2, the same function."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    co = 23
+    yt = torch.randn((1, 512, 1024, 9 * co), generator=g, device=dev).to(
+        torch.bfloat16)
+    b2 = torch.randn((co,), generator=g, device=dev)
+    out, ref = sa.shifted_add_bias(yt, b2), sa.shifted_add_bias_plain(yt, b2)
+    torch.cuda.synchronize()
+    d = _held("shifted_add_bias", "serving", out, ref)
+    onehot = torch.zeros((co, 9 * co, 3, 3), device=dev, dtype=torch.bfloat16)
+    for t in range(9):
+        onehot[torch.arange(co), t * co + torch.arange(co), t // 3, t % 3] = 1
+    bias = b2.to(torch.bfloat16)
+
+    def library():
+        return nhwc(torch.nn.functional.conv2d(nchw(yt), onehot, bias,
+                                               padding=1))
+    _held("shifted_add_bias", "library conv2d vs plain", library(), ref)
+    args = (yt, b2)
+    return timed("shifted_add_bias", "serving", args, out, d,
+                 median_ms(lambda: sa.shifted_add_bias(*args)),
+                 median_ms(lambda: sa.shifted_add_bias_plain(*args)),
+                 median_ms(library))
+
+
+def grid_sample_check(dev):
+    """The grid sample at 8x512x1024x3 bf16 (the shape warp.py:130 names).
+    Bounded (R = 8): flows up to 6 px, except a band of 64 rows per image
+    displaced 12 px in x, beyond the window, which must give exactly 0;
+    and a uniform (3, -2) px shift, which must reproduce the image on the
+    interior.  Unbounded: flows up to 40 px; its library time is
+    ``F.grid_sample(align_corners=True, padding_mode="zeros")``, which
+    takes its grid in the input's dtype: a bf16 grid would move samples by
+    up to ~2 px at 1024 wide, so it is timed in f32 (x and grid)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, h, w, c, r = 8, 512, 1024, 3, 8
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    base = warp.make_base_grid(h, w, device=dev)[None]
+    px = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev)
+
+    def grid_of(flow_px):
+        return (base + flow_px * px).expand(b, h, w, 2).contiguous()
+
+    small = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * 6
+    small[:, :64, :, 0] = 12.0                     # beyond the window
+    grid_b = grid_of(small)
+    out, ref = warp.grid_sample(x, grid_b, r), warp.grid_sample_plain(
+        x, grid_b, r)
+    torch.cuda.synchronize()
+    d_b = _held("grid_sample", "bounded, R=8", out, ref)
+    band = out[:, :64].float().abs().max().item()
+    print(f"  grid_sample [bounded, band beyond R] max|out|={band:.6g}")
+    if band != 0.0:
+        raise AssertionError(f"grid_sample bounded: {band} beyond the window")
+    shifted = warp.grid_sample(
+        x, grid_of(torch.tensor([3.0, -2.0], device=dev)), r)
+    torch.cuda.synchronize()
+    _held("grid_sample", "bounded, known (3, -2) px shift",
+          shifted[:, 2:, :-3], x[:, :-2, 3:])
+    args_b = (x, grid_b, r)
+    rows = {"grid_sample_bounded": timed(
+        "grid_sample_bounded", "R=8", args_b, out, d_b,
+        median_ms(lambda: warp.grid_sample(*args_b)),
+        median_ms(lambda: warp.grid_sample_plain(*args_b), iters=3, reps=3))}
+
+    far = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * 40
+    grid_u = grid_of(far)
+    out, ref = warp.grid_sample(x, grid_u), warp.grid_sample_plain(x, grid_u)
+    torch.cuda.synchronize()
+    d_u = _held("grid_sample", "unbounded, 40 px", out, ref)
+    x32 = nchw(x.float()).contiguous()
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            x32, grid_u, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+    _held("grid_sample", "library F.grid_sample (f32) vs plain",
+          nhwc(library()), ref.float())
+    args_u = (x, grid_u)
+    rows["grid_sample"] = timed(
+        "grid_sample", "unbounded", args_u, out, d_u,
+        median_ms(lambda: warp.grid_sample(*args_u)),
+        median_ms(lambda: warp.grid_sample_plain(*args_u), iters=3, reps=3),
+        median_ms(library))
+    return rows
+
+
+def dual_head_check(dev):
+    """The dual head at (1,512,1024,448) bf16 on the InterNet serving
+    forward's own concat map (``_concat_pyramid`` of its backbone's
+    pyramid) with the model's own head weights: against its plain version
+    (each output by max|d|/max|ref| <= KERNEL_TOL) and against the same
+    model's K4-route heads (rgb by the slice phase's bound, seg argmax
+    agreement >= SLICE_SEG_AGREE)."""
+    hrnet = registry.build_model(CFG, device=dev, seed=0).coarse_model
+    imgs, ids = _inputs(dev, 1, 512, 1024, 10)
+    rgb = torch.cat(imgs, -1) * 2 - 1
+    seg = torch.cat([serve.seg_oh(i) for i in ids], -1)
+    with torch.inference_mode():
+        parts = hrnet._backbone(_encode_inputs(rgb, seg, hrnet.seg_encoder,
+                                               hrnet.dtype))
+        feat = _concat_pyramid(parts)
+        k4_rgb, k4_seg = hrnet._apply_heads(parts)
+        heads = []
+        for layer in (hrnet.rgb_layer, hrnet.seg_layer):
+            heads += [layer[0].weight[:, :, 0, 0].t(), layer[0].bias,
+                      layer[2].weight.permute(2, 3, 1, 0), layer[2].bias]
+        args = (feat, *heads)
+        out, ref = dh.fused_dual_head(*args), dh.fused_dual_head_plain(*args)
+        torch.cuda.synchronize()
+        d = max(_held("dual_head", f"{n} vs plain", o, r)
+                for n, o, r in zip(("rgb", "seg"), out, ref))
+        rd = (out[0].float() - k4_rgb.float()).abs().max().item()
+        limit = SLICE_RGB_TOL * max(1.0, k4_rgb.float().abs().max().item())
+        agree = (out[1].argmax(-1) == k4_seg.argmax(-1)).float().mean().item()
+        print(f"  dual_head [vs the K4-route heads] rgb max|d|={rd:.6g} "
+              f"(bound {limit:.4g}), seg argmax agreement {agree:.6f}")
+        if rd > limit or agree < SLICE_SEG_AGREE:
+            raise AssertionError(f"dual_head vs K4 route: rgb {rd:.4g}, seg "
+                                 f"agreement {agree:.4f}")
+        return timed("dual_head", "serving", args, out, d,
+                     median_ms(lambda: dh.fused_dual_head(*args), iters=3,
+                               reps=3),
+                     median_ms(lambda: dh.fused_dual_head_plain(*args),
+                               iters=3, reps=3))
+
+
+def timed(name, label, args, out, max_abs_err, ms, plain_ms,
+          library_ms=None):
     """A kernel's row of the result line, from its timed call."""
     bound_ms, bound_by = bound(name, args, out)
-    print(f"  {name} [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"  {name} [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          f"{lib}, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def flow_agreement(a, b) -> float:
@@ -595,10 +805,10 @@ def train_kernel_phase(dev):
     saved1 = bb.bb_chain_fwd_saved(x64, pairs4[:1])
     c_saved = bb.bb_chain_fwd_saved(c_x, c_pairs)
     dy64, dy256 = act(B, H, W, 64, scale=1e-3), act(B, H, W, 256, scale=1e-3)
-    # name: [(label, kernel fn, plain fn, args, how output 0 is held)]; of
-    # each output tuple the first item is an activation or dx ("max":
-    # max|d|/max|ref| <= KERNEL_TOL, "l2": rel-L2 <= DX_L2_TOL), the rest
-    # are grads (rel-L2 <= WGRAD_TOL)
+    # name: [(label, kernel fn, plain fn, args, how output 0 is held, the
+    # result row it is timed for or None)]; of each output tuple the first
+    # item is an activation or dx ("max": max|d|/max|ref| <= KERNEL_TOL,
+    # "l2": rel-L2 <= DX_L2_TOL), the rest are grads (rel-L2 <= WGRAD_TOL)
     fwd, bwd = (tc.bottleneck_fwd_kernel, tc.bottleneck_plain), (
         tc.bottleneck_bwd_kernel, tc.bottleneck_bwd_plain)
     bb_fwd = (bb.bb_chain_fwd_kernel, bb.bb_chain_plain)
@@ -606,37 +816,43 @@ def train_kernel_phase(dev):
     x14 = act(B, H, W, 14)
     cases = {
         "stem_fwd": [("stem", tc.stem_fwd_kernel, tc.stem_plain,
-                      (x14, *stem_w), "max")],
+                      (x14, *stem_w), "max", "stem_fwd")],
         "stem_bwd": [
             ("stem, fixed masks", tc.stem_bwd_kernel, tc.stem_bwd_plain,
-             (c_stem[0], dy64, *c_stem[1:]), "max"),
+             (c_stem[0], dy64, *c_stem[1:]), "max", None),
             ("stem, random", tc.stem_bwd_kernel, tc.stem_bwd_plain,
-             (x14, dy64, *stem_w), "l2")],
-        "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max"),
-                           ("block 1", *fwd, (x256, *blk1), "max")],
+             (x14, dy64, *stem_w), "l2", "stem_bwd")],
+        "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max", None),
+                           ("block 1", *fwd, (x256, *blk1), "max",
+                            "bottleneck_fwd")],
         "bottleneck_bwd": [
             ("block 0, fixed masks", *bwd, (c_blk0[0], dy256, *c_blk0[1:]),
-             "max"),
+             "max", None),
             ("block 1, fixed masks", *bwd, (c_blk1[0], dy256, *c_blk1[1:]),
-             "max"),
-            ("block 0, random", *bwd, (x64, dy256, *blk0), "l2"),
-            ("block 1, random", *bwd, (x256, dy256, *blk1), "l2")],
+             "max", None),
+            ("block 0, random", *bwd, (x64, dy256, *blk0), "l2", None),
+            ("block 1, random", *bwd, (x256, dy256, *blk1), "l2",
+             "bottleneck_bwd")],
         # N = 1 is pallas_resblock.fused_basicblock and
         # pallas_bb.fused_basicblock_hwnc; N = 4 is the train step's chain
-        "bb_chain_fwd": [("N=1", *bb_fwd, (x64, pairs4[:1]), "max"),
-                         ("N=4", *bb_fwd, (x64, pairs4), "max")],
+        "bb_chain_fwd": [("N=1", *bb_fwd, (x64, pairs4[:1]), "max",
+                          "bb_chain_fwd_n1"),
+                         ("N=4", *bb_fwd, (x64, pairs4), "max",
+                          "bb_chain_fwd")],
         "bb_chain_bwd": [
             ("N=4, fixed masks, own forwards", _bb_bwd_kernel,
-             _bb_bwd_plain_own, (c_x, dy64, c_pairs, c_saved), "max"),
-            ("N=1, random", *bb_bwd, (x64, dy64, pairs4[:1], saved1), "l2"),
-            ("N=4, random", *bb_bwd, (x64, dy64, pairs4, saved4), "l2")],
+             _bb_bwd_plain_own, (c_x, dy64, c_pairs, c_saved), "max", None),
+            ("N=1, random", *bb_bwd, (x64, dy64, pairs4[:1], saved1), "l2",
+             None),
+            ("N=4, random", *bb_bwd, (x64, dy64, pairs4, saved4), "l2",
+             "bb_chain_bwd")],
         "ups_head_1x1": [("heads", k4.ups_head_1x1, k4.ups_head_1x1_plain,
-                          (x64, p1, p2, w1, b1), "max")],
+                          (x64, p1, p2, w1, b1), "max", "ups_head_1x1")],
     }
     results = {}
     for name, variants in cases.items():
         worst_abs, worst_rel, worst_dx_l2, worst_l2 = 0.0, 0.0, 0.0, 0.0
-        for label, kern, plain, args, hold in variants:
+        for label, kern, plain, args, hold, _ in variants:
             out, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
             outs = out if isinstance(out, tuple) else (out,)
@@ -671,11 +887,12 @@ def train_kernel_phase(dev):
                 f"{KERNEL_TOL}), dx rel-L2 on random inputs "
                 f"{worst_dx_l2:.4g} (bound {DX_L2_TOL}), weight-grad rel-L2 "
                 f"{worst_l2:.4g} (bound {WGRAD_TOL})")
-        label, kern, plain, args, _ = variants[-1]
-        ms = median_ms(lambda: kern(*args), iters=5, reps=3)
-        plain_ms = median_ms(lambda: plain(*args), iters=5, reps=3)
-        results[name] = timed(name, label, args, kern(*args), worst_abs, ms,
-                              plain_ms)
+        for label, kern, plain, args, _, row in variants:
+            if row is not None:
+                results[row] = timed(
+                    name, label, args, kern(*args), worst_abs,
+                    median_ms(lambda: kern(*args), iters=5, reps=3),
+                    median_ms(lambda: plain(*args), iters=5, reps=3))
     return results
 
 
@@ -926,6 +1143,81 @@ def stage3_phase(dev, card):
     return serve_phase(dev, card, CFG_S3, PER_FORWARD_S3, "stage3 rollout")
 
 
+CFG_VAE = Config(model="VAE", vid_length=VAE_T, input_h=128, input_w=128,
+                 compute_dtype="bfloat16")
+
+
+def _vae_inputs(dev, b, seed):
+    """A seeded VAE batch in bf16: T+1 frames in [0, 1], one-hot segs,
+    complementary fg/bg masks, background noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w, t1 = CFG_VAE.input_h, CFG_VAE.input_w, VAE_T + 1
+    rgb = torch.rand((b, t1, h, w, 3), generator=g, device=dev)
+    seg = torch.nn.functional.one_hot(torch.randint(
+        0, 20, (b, t1, h, w), generator=g, device=dev), 20)
+    fg = (torch.rand((b, t1, h, w, 1), generator=g, device=dev) > 0.5)
+    noise = torch.rand((b, h, w, 3), generator=g, device=dev)
+    return [a.to(torch.bfloat16) for a in (rgb, seg, ~fg, fg, noise)]
+
+
+def vae_phase(dev, card):
+    """Phase 8: the video VAE.  Kernel model against the plain model at
+    2x128x128 on the same weights and z_m, then the timed eval forwards at
+    8x128x128 with the launches per forward asserted."""
+    fast = registry.build_model(CFG_VAE, device=dev, seed=0)
+    plain = registry.build_model(CFG_VAE, device=dev, seed=0,
+                                 use_kernels=False)
+    inputs = _vae_inputs(dev, 2, 11)
+    z = torch.randn((2, 1024), generator=torch.Generator(
+        device=dev).manual_seed(12), device=dev).to(torch.bfloat16)
+    o_k = serve.predict_video(fast, *inputs, z_m=z)
+    o_p = serve.predict_video(plain, *inputs, z_m=z)
+    torch.cuda.synchronize()
+    names = ("output", "y_pred", "flow", "flowback", "mask_fw", "mask_bw")
+    tols = (KERNEL_TOL, None, VAE_FLOW_TOL, VAE_FLOW_TOL, VAE_FLOW_TOL,
+            VAE_FLOW_TOL)
+    for name, tol, k, p in zip(names, tols, o_k, o_p):
+        if tol is None:        # the refined frame: the slice phase's bound
+            d = (k.float() - p.float()).abs().max().item()
+            limit = SLICE_RGB_TOL * max(1.0, p.float().abs().max().item())
+            print(f"vae slice 2x128x128 bf16: y_pred max|d|={d:.6g} (bound "
+                  f"{limit:.4g})")
+            if d > limit or not torch.isfinite(k.float()).all():
+                raise AssertionError(f"vae: y_pred max|d| {d:.4g}")
+        else:
+            _held("vae slice", name, k, p, tol)
+
+    b, steps = 8, 3
+    inputs = _vae_inputs(dev, b, 13)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    serve.predict_video(fast, *inputs, generator=gen)          # warm-up
+    torch.cuda.synchronize()
+    hw.reset_counters()
+    t0 = time.perf_counter()
+    outs = [serve.predict_video(fast, *inputs, generator=gen)
+            for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(hw.launches)
+    for name in hw.KERNELS:
+        per = PER_FORWARD_VAE.get(name, 0)
+        if counts[name] != per * steps:
+            raise AssertionError(f"vae: {name} launched {counts[name]} times, "
+                                 f"expected {per} x {steps}")
+    h, w = CFG_VAE.input_h, CFG_VAE.input_w
+    for out in outs:
+        for o, shape in zip(out, [(b, VAE_T, h, w, 3)] * 2
+                            + [(b, VAE_T, h, w, 2)] * 2
+                            + [(b, VAE_T, h, w, 1)] * 2):
+            if o.shape != shape or not torch.isfinite(o.float()).all():
+                raise AssertionError(f"vae: output {tuple(o.shape)} vs "
+                                     f"{shape} or non-finite")
+    fps = b * VAE_T * steps / dt
+    print(f"vae eval {steps} forwards at {b}x{h}x{w} bf16, T={VAE_T}: "
+          f"{dt:.4f} s, {fps:.4f} predicted frames/s on {card}")
+    return counts
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -940,10 +1232,11 @@ def main():
     kernels.update(train_kernel_phase(dev))
     k1_backward_check(dev)
     runs = [counts, train_phase(dev, card), highres_phase(dev, card),
-            stage3_phase(dev, card)]
+            stage3_phase(dev, card), vae_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
-             launches=sum(c[n] for c in runs), **kernels[n]) for n in META]}))
+             launches=sum(c[COUNTER.get(n, n)] for c in runs),
+             **kernels[n]) for n in META]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,3 +34,7 @@ class Config:
     refine_model: str = "refineUnet"    # only SRNRefine is ported
     stage3_model: str = "MSResAttnRefine"
     stage3_prop: bool = False
+    # the video VAEs (models/vae_video.py)
+    vid_length: int = 1                 # --vid_len
+    input_h: int = 128                  # frame size the VAEs are built for
+    input_w: int = 256

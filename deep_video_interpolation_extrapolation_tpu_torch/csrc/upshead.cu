@@ -10,12 +10,12 @@
 // Replaces ops/pallas_upshead.py:_pallas_impl (pallas_call at :342), the
 // kernel of ups_head_taps_x0f4 and ups_head_taps (taps mode, the
 // forward of the heads) and of ups_head_1x1 (:362, h mode: the h that the
-// explicit backward _explicit_taps_bwd recomputes, :449).  It also covers
-// ups_head_taps_fold (:817) and pallas_shiftadd.shifted_add_bias (:153),
-// whose 9-way shifted add + bias is this kernel's epilogue and stays plain
-// PyTorch (ops/upshead.taps_shifted_add + bias), as it is XLA code in the
-// JAX package's default route.  The f4 packing of p0 and the lane rolls of
-// the TPU kernel are dropped.
+// explicit backward _explicit_taps_bwd recomputes, :449).  With
+// csrc/shiftadd.cu after it, it also covers ups_head_taps_fold (:817).  A
+// third entry, dvie_dual_head_taps, runs the taps mode on one full-resolution
+// part (C1 = C2 = 0: no upsampling): with the shift-add kernel after it, it
+// replaces ops/pallas_head.py:fused_dual_head (pallas_call at :147).  The f4
+// packing of p0 and the lane rolls of the TPU kernel are dropped.
 //
 // Bound on the H100 at the main-path shape (B=1, 512x1024): FLOPs
 // 2*524288*(448*896 + 896*208) = 616 GFLOP (207 taps padded to 208); bytes
@@ -198,4 +198,15 @@ extern "C" int dvie_ups_head_1x1(const void *p0, const void *p1, const void *p2,
                                  int H2, int W2, int C0, int C1, int C2, int N1, void *stream) {
   return dvie::launch(p0, p1, p2, w1, b1, nullptr, nullptr, h, B, H, W, H1, W1, H2, W2, C0, C1,
                       C2, N1, 0, stream);
+}
+
+// The dual head of ops/pallas_head.fused_dual_head: the taps mode on one
+// full-resolution part feat (B,H,W,C), C % 64 == 0 and <= 448; w1 (C, N1)
+// bf16, b1 (N1,) f32, w2t (N1, 208) bf16, yt (B,H,W,N2) bf16.  The pyramid's
+// other two parts have no channels, so every concat row is a copy of feat.
+extern "C" int dvie_dual_head_taps(const void *feat, const void *w1, const void *b1,
+                                   const void *w2t, void *yt, int B, int H, int W, int C, int N1,
+                                   int N2, void *stream) {
+  return dvie::launch(feat, feat, feat, w1, b1, w2t, yt, nullptr, B, H, W, H, W, H, W, C, 0, 0,
+                      N1, N2, stream);
 }

@@ -36,17 +36,20 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Module):
     """torch-style Conv2d on NHWC tensors: symmetric padding
-    ``(k // 2) * dilation`` (unless given), optional bias, compute in
-    ``dtype`` (default: the input's)."""
+    ``(kh // 2, kw // 2) * dilation`` (unless given), optional bias,
+    compute in ``dtype`` (default: the input's).  ``kernel`` is a size or a
+    (kh, kw) pair."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+    def __init__(self, cin: int, cout: int, kernel=3, stride: int = 1,
                  padding: Optional[int] = None, bias: bool = True,
                  dilation: int = 1):
         super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride = stride
         self.dilation = dilation
-        self.padding = (kernel // 2) * dilation if padding is None else padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.padding = ((kh // 2) * dilation, (kw // 2) * dilation) \
+            if padding is None else padding
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def forward(self, x: torch.Tensor,

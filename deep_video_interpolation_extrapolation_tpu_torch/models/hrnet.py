@@ -75,12 +75,15 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.fuse0 import (
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     interpolate_bilinear,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.ops.shiftadd import (
+    shifted_add_bias,
+    shifted_add_bias_plain,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.ops.trainchain import (
     stem_layer1,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
     build_dual_tap_kernel,
-    finish_taps,
     ups_head_taps,
     ups_head_taps4,
     ups_head_taps4_plain,
@@ -356,7 +359,9 @@ class HRNet(nn.Module):
     def _apply_heads(self, parts: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both heads through K4 (3 parts) or ``ups_head_taps4`` (4 parts),
-        then the shifted-add tail (hrnet.py:788-865)."""
+        then the shifted-add tail (hrnet.py:788-865) on its kernel: the JAX
+        package leaves that tail to XLA unless ``DVIE_SHIFTADD=1``, a
+        default resting on a TPU measurement."""
         rgb_fc, seg_fc = self.rgb_layer[0], self.seg_layer[0]
         w1 = torch.cat([rgb_fc.weight[:, :, 0, 0].t(),
                         seg_fc.weight[:, :, 0, 0].t()], dim=1)
@@ -369,9 +374,9 @@ class HRNet(nn.Module):
         else:
             fused = ups_head_taps if self.use_kernels else ups_head_taps_plain
         yt = fused(*parts, w1, b1, w2t)
-        out = finish_taps(yt, RGB_DIM + SEG_DIM,
-                          torch.cat([self.rgb_layer[2].bias,
-                                     self.seg_layer[2].bias]))
+        tail = shifted_add_bias if self.use_kernels else shifted_add_bias_plain
+        out = tail(yt, torch.cat([self.rgb_layer[2].bias,
+                                  self.seg_layer[2].bias]))
         return out[..., :RGB_DIM], out[..., RGB_DIM:]
 
     def forward(self, rgb: torch.Tensor, seg: torch.Tensor

@@ -1,8 +1,10 @@
 """Model registry (counterpart of models/registry.py) for the ported slices:
 ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net`` with
 ``--coarse_model HRNet`` in interpolation mode, ``--refine_model SRNRefine``
-and ``--stage3_model MSResAttnRefine`` at ``--n_sc 1``.  Any other model
-raises ``NotImplementedError`` naming its ROADMAP queue."""
+and ``--stage3_model MSResAttnRefine`` at ``--n_sc 1``; and the video VAEs
+``--model VAE``, ``VAE_S`` and ``VAE_SD`` (``--vid_len``), built for
+frames of ``(input_h, input_w)``.  Any other model raises
+``NotImplementedError`` naming its ROADMAP queue."""
 
 from __future__ import annotations
 
@@ -68,13 +70,23 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
         ConvT,
     )
-    # a transposed conv's weight is (Cin, Cout, kh, kw)
-    convt = {id(m.weight) for m in model.modules() if isinstance(m, ConvT)}
+    from deep_video_interpolation_extrapolation_tpu_torch.models.subnets import (
+        BatchNorm,
+        ConvTranspose,
+    )
+    # a transposed conv's weight is (Cin, Cout, kh, kw); a BatchNorm scale
+    # starts at one (flax's init)
+    convt = {id(m.weight) for m in model.modules()
+             if isinstance(m, (ConvT, ConvTranspose))}
+    scales = {id(m.weight) for m in model.modules()
+              if isinstance(m, BatchNorm)}
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, p in sorted(model.named_parameters()):
             if name.endswith("bias"):
                 p.zero_()
+            elif id(p) in scales:
+                p.fill_(1.0)
             else:
                 fan_in = int(np.prod(p.shape[1:]))
                 if id(p) in convt:
@@ -86,19 +98,29 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
 def build_model(cfg: Config, device="cuda", seed: int = 0,
                 use_kernels: bool = True) -> nn.Module:
-    """Build the composite named by ``cfg.model``, weights from ``seed``,
-    in eval mode on ``device`` (the card unless the caller asks for the
-    CPU; without a card it raises)."""
+    """Build the model named by ``cfg.model``, weights from ``seed``, in
+    eval mode on ``device`` (the card unless the caller asks for the CPU;
+    without a card it raises)."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
         composite,
+        vae_video,
     )
     heads = {"InterNet": composite.InterNet,
              "InterRefineNet": composite.InterRefineNet,
              "InterStage3Net": composite.InterStage3Net}
-    if cfg.model not in heads:
+    vaes = {"VAE": "vae", "VAE_S": "vae_s", "VAE_SD": "vae_sd"}
+    if cfg.model not in heads and cfg.model not in vaes:
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet ({_QUEUE})")
+            f"model {cfg.model!r} is not ported yet ({_QUEUE}, item 8 for "
+            "the legacy models, items 5-6 for the GAN and extrapolation "
+            "ones)")
     device = hw.entry_device(device)
-    model = heads[cfg.model](cfg, use_kernels=use_kernels)
+    if cfg.model in vaes:
+        model = vae_video.VideoVAE(
+            vid_length=cfg.vid_length, variant=vaes[cfg.model],
+            dtype=compute_dtype(cfg), size=(cfg.input_h, cfg.input_w),
+            use_kernels=use_kernels)
+    else:
+        model = heads[cfg.model](cfg, use_kernels=use_kernels)
     init_weights(model, seed)
     return model.to(device).eval()

@@ -64,6 +64,12 @@ SIGNATURES = {
     "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],
     # q, k1, k2, v1, v2, out, flow, B, H, W, win_h, win_w, stream
     "dvie_window_attn": [P] * 7 + [I] * 5 + [P],
+    # yt, b2, out, B, H, W, co, stream
+    "dvie_shifted_add_bias": [P] * 3 + [I] * 4 + [P],
+    # x, grid, out, B, H, W, C, max_disp (-1: unbounded), x is bf16, stream
+    "dvie_grid_sample": [P] * 3 + [I] * 6 + [P],
+    # feat, w1, b1, w2t, yt, B, H, W, C, N1, N2, stream
+    "dvie_dual_head_taps": [P] * 5 + [I] * 6 + [P],
 }
 
 

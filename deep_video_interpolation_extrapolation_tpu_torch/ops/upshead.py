@@ -8,9 +8,7 @@ Counterpart of ``ops/pallas_upshead.ups_head_taps_x0f4`` /
 
 ``W2t`` stacks both heads' 3x3 convs tap by tap (``build_dual_tap_kernel``),
 so ``yt`` holds 9 * (Cr + Cs) channels and the heads finish with the 9-way
-shifted add + bias of ``finish_taps``.  That tail stays plain PyTorch, as it
-is XLA code in the JAX package (hrnet.py ``_finish_taps``,
-ops/tapped_conv.py).
+shifted add + bias of ``ops/shiftadd.shifted_add_bias``, on its own kernel.
 
 The kernel is ``csrc/upshead.cu``, in two modes: taps (the heads'
 forward) and h (``ups_head_1x1``, the recompute of the backward).
@@ -32,7 +30,6 @@ JAX ``_bwd_taps4`` is ``jax.vjp`` of its reference.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
@@ -114,6 +111,16 @@ def _check(p0, p1, p2, w1, b1, n1):
         hw.check_bf16(name, t)
 
 
+def padded_taps(w2t: torch.Tensor, dev) -> torch.Tensor:
+    """The taps matrix (N1, N2) in bf16, zero-padded to the kernels' tile
+    width N2_MAX so each row is one run of 16-byte words (yt itself keeps
+    its N2 columns)."""
+    n1, n2 = w2t.shape
+    w2k = torch.zeros((n1, N2_MAX), device=dev, dtype=torch.bfloat16)
+    w2k[:, :n2] = w2t
+    return w2k
+
+
 def _launch(fn, p0, p1, p2, w1, b1, w2k, out, *tail):
     dev = p0.device
     # converted weights held in locals until the launch is queued
@@ -134,14 +141,10 @@ def _taps_kernel(p0, p1, p2, w1, b1, w2t):
     _check(p0, p1, p2, w1, b1, n1)
     if n2 > N2_MAX:
         raise ValueError(f"kernel takes N2 <= {N2_MAX}, got N2={n2}")
-    # the taps matrix, zero-padded to the kernel's tile width N2_MAX so each
-    # row is one run of 16-byte words (yt itself keeps its n2 columns)
-    w2k = torch.zeros((n1, N2_MAX), device=p0.device, dtype=torch.bfloat16)
-    w2k[:, :n2] = w2t
     yt = torch.empty((*p0.shape[:3], n2), device=p0.device,
                      dtype=torch.bfloat16)
     err = _launch(_build.library().dvie_ups_head_taps, p0, p1, p2, w1, b1,
-                  w2k, yt, n2)
+                  padded_taps(w2t, p0.device), yt, n2)
     _build.check_launch(NAME, err)
     hw.launches[NAME] += 1
     return yt
@@ -237,27 +240,6 @@ def build_dual_tap_kernel(w_rgb: torch.Tensor, w_seg: torch.Tensor,
     return wt.reshape(2 * cin, 9 * co)
 
 
-def taps_shifted_add(yt: torch.Tensor, co: int) -> torch.Tensor:
-    """9-way shifted add over a (B, H, W, 9*co) taps tensor:
-    out[y, x] = sum_t yt[y + ky - 1, x + kx - 1, t], zero outside the
-    image (the 3x3 conv's SAME padding)."""
-    b, h, w, n = yt.shape
-    if n != 9 * co:
-        raise ValueError(f"taps tensor has {n} channels, expected 9*{co}")
-    ytp = F.pad(yt.reshape(b, h, w, 9, co), (0, 0, 0, 0, 1, 1, 1, 1))
-    out = None
-    for ky in range(3):
-        for kx in range(3):
-            sl = ytp[:, ky:ky + h, kx:kx + w, ky * 3 + kx]
-            out = sl if out is None else out + sl
-    return out
-
-
-def finish_taps(yt: torch.Tensor, co: int, b2: torch.Tensor) -> torch.Tensor:
-    """Shifted add + bias: the heads' 3x3 convs from their taps tensor."""
-    return taps_shifted_add(yt, co) + b2.to(yt.dtype)
-
-
 # ---- the 4-part head ------------------------------------------------------
 
 def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
@@ -278,12 +260,10 @@ def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
     for i, p in enumerate(parts):
         hw.check_bf16(f"p{i}", p)
     dev = p0.device
-    # weights converted and held in locals until the launch is queued; the
-    # taps matrix zero-padded to N2_MAX columns (yt keeps its n2)
+    # weights converted and held in locals until the launch is queued
     w1k = w1.to(device=dev, dtype=torch.bfloat16).contiguous()
     b1k = b1.to(device=dev, dtype=torch.float32).contiguous()
-    w2k = torch.zeros((n1, N2_MAX), device=dev, dtype=torch.bfloat16)
-    w2k[:, :n2] = w2t
+    w2k = padded_taps(w2t, dev)
     yt = torch.empty((*p0.shape[:3], n2), device=dev, dtype=torch.bfloat16)
     p = _build.ptr
     sizes = [d for q in parts[1:] for d in q.shape[1:3]]

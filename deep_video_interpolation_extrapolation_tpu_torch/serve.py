@@ -9,6 +9,11 @@
   img1 <- img2, img2 <- pred; the predicted seg ids come back as one-hots.
   (Not ``export.rollout_fn``, whose window carries [pred, pred]; ROADMAP.md
   queue 3.)
+- ``predict_video(model, rgb_seq, seg_seq, bg_mask, fg_mask, ...)``: the
+  serving forward of the video VAEs (``--model VAE|VAE_S|VAE_SD``): eval
+  mode, no gradient, the motion code drawn from ``generator`` unless
+  ``z_m`` is given; returns the eval tuple (output, y_pred, flow,
+  flowback, mask_fw, mask_bw).
 
 Tensors are NHWC.  Seg ids travel as ``uint8`` (B, H, W) maps and expand to
 one-hots on their own device (``core/seg.seg_oh``).
@@ -65,3 +70,15 @@ def rollout(model: nn.Module, img_list: Sequence[torch.Tensor],
         img1, img2 = img2, pred * 2.0 - 1.0
         seg1, seg2 = seg2, seg_oh(ids)
     return pred_imgs, pred_ids
+
+
+def predict_video(model: nn.Module, rgb_seq: torch.Tensor,
+                  seg_seq: torch.Tensor, bg_mask: torch.Tensor,
+                  fg_mask: torch.Tensor, noise_bg=None, z_m=None,
+                  generator=None) -> Tuple[torch.Tensor, ...]:
+    """rgb_seq (B,T+1,H,W,3) in [0, 1], seg_seq (B,T+1,H,W,20) one-hot,
+    masks (B,T+1,H,W,1) -> ``vid_length`` predicted frames and their
+    flows and masks (``models/vae_video.VideoVAE``, eval)."""
+    with torch.inference_mode():
+        return model(rgb_seq, seg_seq, bg_mask, fg_mask, noise_bg, z_m,
+                     train=False, generator=generator)

@@ -9,6 +9,10 @@ kernels become torch OIHW weights (transpose (3, 2, 0, 1)); a flax
 both spatial axes (torch_port.py:32-35), is flipped back and becomes torch's
 (in, out, kh, kw); biases copy.  Takes the trees as nested dicts of numpy
 arrays; imports no jax (callers convert with ``np.asarray``).
+
+The video VAEs have no torch_port mapper: ``vae_key_map`` maps the flax
+tree's auto-names (``Conv_k``, ``BatchNorm_k``, ``ConvTranspose_k``, the
+named ``Dense`` layers) straight onto the port's module names.
 """
 
 from __future__ import annotations
@@ -217,4 +221,134 @@ def from_jax_vgg(vgg_params: Mapping) -> Dict[str, torch.Tensor]:
             np.array(np.transpose(kernel, (3, 2, 0, 1)), order="C"))
         sd[f"convs.{name}.bias"] = torch.from_numpy(np.array(
             vgg_params[name]["bias"], dtype=np.float32))
+    return sd
+
+
+# ---- the video VAEs --------------------------------------------------------
+
+def _numbered(flax_cls: str, ports, kind: str):
+    return [(f"{flax_cls}_{i}", port, kind) for i, port in enumerate(ports)]
+
+
+_BLOCK = [("Conv_0", "conv", "conv"), ("BatchNorm_0", "bn", "bn")]
+_PAIR = ["block1", "block2"]
+# (flax child, port child, kind) of every module of the VAE family, in the
+# JAX modules' naming: a kind is a module of this table or a leaf kind
+# ("conv", "conv3d", "convT", "dense", "bn")
+VAE_TREE = {
+    "VideoVAE": [
+        ("seg_encoder", "seg_encoder", "SegEncoderBN"),
+        ("encoder", "encoder", "FrameEncoder"),
+        ("flow_encoder_bg", "flow_encoder_bg", "FlowEncoder"),
+        ("flow_encoder_fg", "flow_encoder_fg", "FlowEncoder"),
+        ("fc", "fc", "dense"), ("zconv", "zconv", "ConvBase"),
+        ("flow_decoder", "flow_decoder", "FlowDecoder"),
+        ("flownext", "flownext", "ConvHead"),
+        ("flowprev", "flowprev", "ConvHead"),
+        ("get_mask", "get_mask", "ConvHead"),
+        ("refine_net", "refine_net", "LegacyRefineNet")],
+    "SegEncoderBN": (_numbered("Conv", ["conv1", "conv2", "conv3"], "conv")
+                     + _numbered("BatchNorm", ["bn1", "bn2"], "bn")),
+    "FlowEncoder": (_numbered("Conv", [f"convs.{i}" for i in range(6)], "conv")
+                    + _numbered("BatchNorm", [f"bns.{i}" for i in range(4)],
+                                "bn")
+                    + [("mu_fc", "mu_fc", "dense"),
+                       ("logvar_fc", "logvar_fc", "dense")]),
+    "ConvBlock": _BLOCK,
+    "GateConv3d": [("Conv_0", "conv", "conv3d"), ("BatchNorm_0", "bn", "bn")],
+    "ConvBase": [("Conv_0", "conv", "conv")],
+    "UpConv": _numbered("ConvBlock", _PAIR, "ConvBlock"),
+    "_HeadConvs": _numbered("ConvBlock", _PAIR, "ConvBlock"),
+    "ConvHead": [("_HeadConvs_0", "head", "_HeadConvs"),
+                 ("Conv_0", "conv", "conv")],
+    "FrameEncoder": ([("ConvBase_0", "enco1.0", "ConvBase")]
+                     + _numbered("ConvBlock", [
+                         "enco1.1", "enco2.0", "enco2.1", "enco2.2",
+                         "enco3.0", "enco3.1", "enco3.2", "codex.0",
+                         "codex.1"], "ConvBlock")),
+    "FlowDecoder": [("ConvBlock_0", "deco1", "ConvBlock"),
+                    ("UpConv_0", "deco2", "UpConv"),
+                    ("UpConv_1", "deco3", "UpConv"),
+                    ("GateConv3d_0", "gate3", "GateConv3d"),
+                    ("UpConv_2", "deco4", "UpConv"),
+                    ("GateConv3d_1", "gate4", "GateConv3d")],
+    "VGGLayer": [("Conv_0", "main.0", "conv"), ("BatchNorm_0", "main.1", "bn")],
+    "LegacyEncoder": (_numbered("VGGLayer", [
+        f"c{lv}.{k}" for lv, n in ((1, 2), (2, 2), (3, 3), (4, 3), (5, 3))
+        for k in range(n)], "VGGLayer")
+        + [("Conv_0", "c6.0", "conv"), ("BatchNorm_0", "c6.1", "bn")]),
+    "LegacyDecoder": (_numbered("VGGLayer", [
+        f"upc{lv}.{k}" for lv, n in ((2, 3), (3, 3), (4, 3), (5, 2))
+        for k in range(n)] + ["upc6.0"], "VGGLayer")
+        + _numbered("ConvTranspose", ["upc1.0", "upc6.1"], "convT")
+        + [("BatchNorm_0", "upc1.1", "bn")]),
+    "LegacyRefineNet": [("image_encoder", "image_encoder", "LegacyEncoder"),
+                        ("image_decoder", "image_decoder", "LegacyDecoder")],
+    "Flow2FrameWarped": [("image_encoder", "image_encoder", "LegacyEncoder"),
+                         ("flow_encoder", "flow_encoder", "LegacyEncoder"),
+                         ("image_decoder", "image_decoder", "LegacyDecoder")],
+}
+# (flax leaf, collection, port leaf) of each leaf kind; a conv without a
+# bias has no bias leaf on either side
+_LEAVES = {
+    "bn": [("scale", "params", "weight"), ("bias", "params", "bias"),
+           ("mean", "batch_stats", "running_mean"),
+           ("var", "batch_stats", "running_var")],
+}
+_KERNEL = [("kernel", "params", "weight"), ("bias", "params", "bias")]
+# flax kernel -> torch weight
+KERNEL_TRANSFORM = {
+    "conv": lambda a: np.transpose(a, (3, 2, 0, 1)),        # HWIO -> OIHW
+    "conv3d": lambda a: np.transpose(a, (4, 3, 0, 1, 2)),   # DHWIO -> OIDHW
+    "dense": lambda a: np.transpose(a, (1, 0)),             # (in, out)
+    # flax correlates unflipped; torch's transposed conv flips
+    "convT": lambda a: np.transpose(a[::-1, ::-1], (2, 3, 0, 1)),
+}
+
+
+def vae_key_map(params: Mapping, batch_stats: Mapping, root: str = "VideoVAE"
+                ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch key, (collection, *flax path), leaf kind) for every leaf of a
+    JAX ``VideoVAE`` tree (or of another module of ``VAE_TREE``, ``root``):
+    ``params`` and ``batch_stats`` are the two collections of its
+    variables.  A submodule absent from ``params`` (the refine net of
+    ``refine=False``, the posterior encoders of a tree initialised in eval
+    mode) is skipped."""
+    trees = {"params": params, "batch_stats": batch_stats}
+
+    def walk(kind, path, prefix):
+        node = params
+        for p in path:
+            node = node[p]
+        if kind in VAE_TREE:
+            for flax_name, port_name, child in VAE_TREE[kind]:
+                if flax_name in node:
+                    yield from walk(child, path + (flax_name,),
+                                    f"{prefix}{port_name}.")
+            return
+        for leaf, coll, port_leaf in _LEAVES.get(kind, _KERNEL):
+            tree = trees[coll]
+            for p in path:
+                tree = tree[p]
+            if leaf in tree:
+                yield f"{prefix}{port_leaf}", (coll,) + path + (leaf,), kind
+
+    yield from walk(root, (), "")
+
+
+def from_jax_vae(params: Mapping, batch_stats: Mapping,
+                 root: str = "VideoVAE") -> Dict[str, torch.Tensor]:
+    """A JAX ``VideoVAE``'s ``params`` and ``batch_stats`` -> the
+    ``state_dict`` of the port's ``models/vae_video.VideoVAE`` (or of the
+    port's module ``root`` of ``models/subnets``)."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    sd = OrderedDict()
+    for key, (coll, *path), kind in vae_key_map(params, batch_stats, root):
+        a = trees[coll]
+        for p in path:
+            a = a[p]
+        a = np.asarray(a, dtype=np.float32)
+        if path[-1] == "kernel":
+            a = KERNEL_TRANSFORM[kind](a)
+        sd[key] = torch.from_numpy(np.array(a, order="C"))   # a writable copy
     return sd

@@ -18,7 +18,11 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
     _concat_pyramid,
     _Head,
 )
-from deep_video_interpolation_extrapolation_tpu_torch.ops import resize, upshead
+from deep_video_interpolation_extrapolation_tpu_torch.ops import (
+    resize,
+    shiftadd,
+    upshead,
+)
 
 torch.set_num_threads(1)
 torch.backends.cudnn.allow_tf32 = False
@@ -110,6 +114,25 @@ def test_interpolate_bilinear_matches_jax(size):
     _close(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("factor", [2.0, 0.5, 1.5])
+def test_interpolate_bilinear_scale_factor_matches_jax(factor):
+    rng = np.random.RandomState(4)
+    x = rng.uniform(-1, 1, (2, 8, 16, 5)).astype(np.float32)
+    ref = jresize.interpolate_bilinear(jnp.asarray(x), scale_factor=factor,
+                                       align_corners=False)
+    out = resize.interpolate_bilinear(_t(x), scale_factor=factor)
+    _close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 5), (1, 7, 9, 3)])
+def test_max_pool_matches_jax(shape):
+    """VALID, stride = window: a ragged last row and column are dropped."""
+    x = np.random.RandomState(5).uniform(-1, 1, shape).astype(np.float32)
+    ref = jresize.max_pool(jnp.asarray(x), (2, 2))
+    out = resize.max_pool(_t(x), (2, 2))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
 def test_fused_head_path_equals_unfused_heads():
     """The K4 route (fused upsample-concat + both 1x1s + taps product, then
     the shifted add) == each _Head run on the concat pyramid."""
@@ -129,7 +152,28 @@ def test_fused_head_path_equals_unfused_heads():
         w2t = upshead.build_dual_tap_kernel(rgb_head[2].weight,
                                             seg_head[2].weight, torch.float32)
         yt = upshead.ups_head_taps(*parts, w1, b1, w2t)
-        out = upshead.finish_taps(yt, 23, torch.cat([rgb_head[2].bias,
-                                                     seg_head[2].bias]))
+        out = shiftadd.shifted_add_bias(yt, torch.cat([rgb_head[2].bias,
+                                                       seg_head[2].bias]))
     _close(out[..., :3].numpy(), ref_r.numpy())
     _close(out[..., 3:].numpy(), ref_s.numpy())
+
+
+@pytest.mark.parametrize("kernel,dilation", [((1, 3), 1), ((3, 1), 1),
+                                             ((3, 5), 2)])
+def test_conv_default_padding_is_same_per_axis(kernel, dilation):
+    """A non-square ``Conv`` pads each axis by its own half-width: SAME, as
+    XLA's convolution with SAME padding."""
+    rng = np.random.RandomState(7)
+    x = rng.uniform(-1, 1, (2, 6, 9, 5)).astype(np.float32)
+    k = rng.uniform(-1, 1, kernel + (5, 4)).astype(np.float32)     # HWIO
+    b = rng.uniform(-1, 1, (4,)).astype(np.float32)
+    conv = blocks.Conv(5, 4, kernel=kernel, dilation=dilation)
+    with torch.no_grad():
+        conv.weight.copy_(_oihw(k))
+        conv.bias.copy_(_t(b))
+        out = conv(_t(x)).numpy()
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(k), (1, 1), "SAME",
+        rhs_dilation=(dilation, dilation),
+        dimension_numbers=("NHWC", "HWIO", "NHWC")) + b
+    _close(out, ref)

@@ -37,6 +37,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     bottleneck_tail,
     conv3x3,
     fuse0,
+    shiftadd,
     trainchain,
     upshead,
 )
@@ -216,10 +217,12 @@ def test_build_dual_tap_kernel_matches_tapped_conv():
 
 
 def test_taps_shifted_add_matches_tapped_conv():
+    """The shift-add kernel's plain version with a zero bias is the JAX
+    package's XLA tail ``tapped_conv.taps_shifted_add``."""
     rng = np.random.RandomState(32)
     yt = rng.uniform(-1, 1, (2, 6, 10, 9 * 23)).astype(np.float32)
     ref = tapped_conv.taps_shifted_add(jnp.asarray(yt), 23)
-    _close(upshead.taps_shifted_add(_t(yt), 23).numpy(), ref)
+    _close(shiftadd.shifted_add_bias(_t(yt), torch.zeros(23)).numpy(), ref)
 
 
 def test_finish_taps_is_the_dual_3x3_conv():
@@ -231,7 +234,7 @@ def test_finish_taps_is_the_dual_3x3_conv():
     w2s = rng.uniform(-0.3, 0.3, (3, 3, 16, 20)).astype(np.float32)
     b2 = rng.uniform(-0.1, 0.1, (23,)).astype(np.float32)
     w2t = upshead.build_dual_tap_kernel(_oihw(w2r), _oihw(w2s), torch.float32)
-    out = upshead.finish_taps(_t(h) @ w2t, 23, _t(b2))
+    out = shiftadd.shifted_add_bias(_t(h) @ w2t, _t(b2))
     r, s = tapped_conv.dual_conv3x3_tapped(
         jnp.asarray(h), jnp.asarray(w2r), jnp.asarray(b2[:3]),
         jnp.asarray(w2s), jnp.asarray(b2[3:]))
@@ -292,6 +295,9 @@ def _grad_cases():
         "bb_chain": (lambda x, *ks: bbchain.bb_chain(x, _pairs(ks)),
                      lambda x, *ks: bbchain.bb_chain_plain(x, _pairs(ks)),
                      [t3 + (64,)] + [(64, 64, 3, 3)] * 4),
+        "shifted_add_bias": (shiftadd.shifted_add_bias,
+                             shiftadd.shifted_add_bias_plain,
+                             [t3 + (207,), (23,)]),
         "ups_head_taps4": (upshead.ups_head_taps4,
                            upshead.ups_head_taps4_plain,
                            [(1, 8, 16, 64), (1, 4, 8, 128), (1, 2, 4, 256),
@@ -335,7 +341,8 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     assert {p.name for p in _build.sources()} == {
         "conv3x3.cu", "bottleneck_tail.cu", "upshead.cu", "upshead4.cu",
         "trainchain_stem.cu", "trainchain_bottleneck.cu",
-        "trainchain_basicblock.cu", "window_attn.cu"}
+        "trainchain_basicblock.cu", "window_attn.cu", "shiftadd.cu",
+        "grid_sample.cu"}
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is installed here: the missing-compiler path "
                     "cannot be reached")

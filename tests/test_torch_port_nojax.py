@@ -2,8 +2,9 @@
 directly or through another module: a fresh interpreter with those modules
 blocked imports every module of the port (the train modules included) and
 runs the CPU forward, a rollout and two INTER train steps at 32x64, a
-``--highres_large`` rollout step, an InterStage3Net rollout step, and the
-BasicBlock chain forward and backward."""
+``--highres_large`` rollout step, an InterStage3Net rollout step, the
+BasicBlock chain forward and backward, a VideoVAE eval forward (``--model
+VAE``, two warped steps at 32x32) and the shifted add."""
 
 import os
 import subprocess
@@ -65,6 +66,21 @@ pairs = [tuple((torch.randn(64, 64, 3, 3, generator=g) / 24).requires_grad_()
 bbchain.bb_chain(x, pairs).square().sum().backward()
 assert torch.isfinite(x.grad).all()
 assert all(torch.isfinite(k.grad).all() for p in pairs for k in p)
+vae = registry.build_model(Config(model="VAE", vid_length=2, input_h=32,
+                                  input_w=32, compute_dtype="float32"),
+                           device="cpu", seed=3)
+rgb_seq = torch.rand(1, 3, 32, 32, 3, generator=g)
+seg_seq = torch.nn.functional.one_hot(
+    torch.randint(0, 20, (1, 3, 32, 32), generator=g), 20).float()
+fg = (torch.rand(1, 3, 32, 32, 1, generator=g) > 0.5).float()
+with torch.no_grad():
+    out = vae(rgb_seq, seg_seq, 1 - fg, fg,
+              generator=torch.Generator().manual_seed(1))
+assert len(out) == 6 and out[0].shape == (1, 2, 32, 32, 3)
+assert all(torch.isfinite(o).all() for o in out)
+from {pkg}.ops import dual_head, shiftadd, warp
+assert torch.isfinite(shiftadd.shifted_add_bias(
+    torch.rand(1, 4, 4, 207, generator=g), torch.zeros(23))).all()
 assert not any(sys.modules.get(n) for n in ("jax", "flax", "optax"))
 print("modules", len(names))
 """
