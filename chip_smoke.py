@@ -21,8 +21,11 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    counter must move by its count per forward (K1 18, K2 4, K3 2, K4 1);
    outputs finite, seg ids in [0, 20); frames/s;
 4. train kernels: the stem, Bottleneck and BasicBlock chain kernels
-   (forward and backward; the chain at N = 4 and N = 1) and K4's h mode
-   against their plain versions at the recipe shapes (24x128x128 bf16):
+   (forward and backward; the chain at C = 64, 24x128x128, N = 4 and N =
+   1, at C = 128, 24x64x64 (branch 1 of the recipe), and at C = 256,
+   24x16x32 (branch 2 of a 24x64x128 input), all N = 4; and the chain's
+   weight-grad kernel on the C = 64 chain's 8 weights) and K4's h mode
+   against their plain versions at the recipe shapes (bf16):
    outputs by max|d|/max|ref| <= 2e-2, weight and bias grads by rel-L2 <=
    1e-2; each backward on inputs whose lrelu masks are fixed per channel
    (dx by max|d|/max|ref| <= 2e-2) and on random inputs, whose masks vary
@@ -41,9 +44,17 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    - 20 Adamax steps on one fixed batch per model: loss_all falls for
      both, and the kernel model ends within 10% of the plain model;
    - the launches of one counted step (stem fwd/bwd 1/1, Bottleneck
-     fwd/bwd 4/4, BasicBlock chain fwd/bwd 8/8 (one per block), K1 0, K2
-     0, K3 2, K4 taps 1 and h mode 1);
+     fwd/bwd 4/4, BasicBlock chain fwd/bwd 8/8 (one per block) and its
+     weight grads 2 (one per chain), K1 0, K2 0, K3 2, K4 taps 1 and h
+     mode 1, every other kernel 0);
    - samples/s of both models: median of the 18 steps after 2 warm-ups;
+   all under the default ``DVIE_BBCHAIN=b0``; then the same step under
+   ``0`` (branch 0 on K1: 16 launches), ``rest`` (branch 1 on the C = 128
+   chain, 8/8, branch 0 on K1) and ``all`` (branches 0 and 1 on the
+   chain), and under ``all`` at 24x64x128 (branch 2 on the C = 256 chain
+   too, 4/4): per mode one gradient check as above over the leaves of
+   the branches it runs on the train kernels (49 or 57 leaves), the
+   launches of one counted step, samples/s of the kernel model;
 6. highres_large: the 4-branch model (``--highres_large``), kernels
    against the plain model at 2x128x256 as in phase 2, then
    ``registry.build_model`` + ``serve.rollout`` for 3 steps at 2x512x1024
@@ -93,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -149,9 +161,29 @@ PER_FORWARD_HL = {**PER_FORWARD, "conv3x3_bias_res_lrelu": 26,
 # the 8 branch-0 BasicBlocks of stages 2 and 3, no K1, no K2
 PER_TRAIN_STEP = {"stem_fwd": 1, "stem_bwd": 1, "bottleneck_fwd": 4,
                   "bottleneck_bwd": 4, "bb_chain_fwd": 8, "bb_chain_bwd": 8,
+                  "bb_chain_wgrad": 2,
                   "conv3x3_bias_res_lrelu": 0, "bottleneck_tail": 0,
                   "fuse_out0": 2, "ups_head_taps": 1, "ups_head_1x1": 1,
                   "shifted_add_bias": 1}
+# the same step under each other DVIE_BBCHAIN mode: "0" runs branch 0 on
+# K1 (2 convs x 4 blocks x 2 stages), "rest" branch 1 (128 ch) on the
+# chain and branch 0 on K1, "all" branches 0 and 1 on the chain; branch 2
+# (256 ch at 32x32) fails bb_fits in every mode; one weight-grad launch
+# per chain
+_NO_CHAIN = {"bb_chain_fwd": 0, "bb_chain_bwd": 0, "bb_chain_wgrad": 0}
+PER_TRAIN_STEP_MODE = {
+    "0": {**PER_TRAIN_STEP, **_NO_CHAIN, "conv3x3_bias_res_lrelu": 16},
+    "rest": {**PER_TRAIN_STEP, **_NO_CHAIN, "conv3x3_bias_res_lrelu": 16,
+             "bb_chain_fwd_c128": 8, "bb_chain_bwd_c128": 8,
+             "bb_chain_wgrad": 2},
+    "all": {**PER_TRAIN_STEP, "bb_chain_fwd_c128": 8, "bb_chain_bwd_c128": 8,
+            "bb_chain_wgrad": 4},
+}
+# DVIE_BBCHAIN=all at 24x64x128: branch 2 (256 ch at 16x32) fits too
+SMALL_ALL = (24, 64, 128)
+PER_TRAIN_STEP_SMALL_ALL = {**PER_TRAIN_STEP_MODE["all"],
+                            "bb_chain_fwd_c256": 4, "bb_chain_bwd_c256": 4,
+                            "bb_chain_wgrad": 5}
 GRAD_RATIO, GRAD_FLOOR = 1.5, 1e-3   # kernel grad error <= 1.5 x plain's + 1e-3
 LOSS_TOL = 2e-2            # each loss term, kernel vs plain bf16, relative
 TRAJ_TOL = 0.10            # final loss_all, kernel vs plain, relative
@@ -193,6 +225,16 @@ META = {
                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_head.py:147"),
     "bb_chain_fwd_n1": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_resblock.py:307"),
+    "bb_chain_fwd_c128": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:704"),
+    "bb_chain_bwd_c128": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
+    "bb_chain_fwd_c256": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:704"),
+    "bb_chain_bwd_c256": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
+    "bb_chain_wgrad": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
+                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
 }
 # a row timed on another row's counter: the chain forward launches once per
 # block, so each of its launches computes the one-block function
@@ -243,10 +285,13 @@ WEIGHT_ARGS = {
     "stem_fwd": slice(1, None),
     "stem_bwd": slice(2, None), "bottleneck_fwd": slice(1, None),
     "bottleneck_bwd": slice(2, None), "bb_chain_fwd": slice(1, None),
-    "bb_chain_bwd": slice(2, 3)}
+    "bb_chain_bwd": slice(2, 3), "bb_chain_fwd_c128": slice(1, None),
+    "bb_chain_bwd_c128": slice(2, 3), "bb_chain_fwd_c256": slice(1, None),
+    "bb_chain_bwd_c256": slice(2, 3)}
 # a backward without saved activations recomputes its forward (3 passes);
-# the chain's backward reads the kept ones (2)
-PASSES = {"stem_bwd": 3, "bottleneck_bwd": 3, "bb_chain_bwd": 2}
+# the chain's backward reads the kept ones (2: dh and dx, the weight grads)
+PASSES = {"stem_bwd": 3, "bottleneck_bwd": 3, "bb_chain_bwd": 2,
+          "bb_chain_bwd_c128": 2, "bb_chain_bwd_c256": 2}
 
 
 def operations(name, args):
@@ -264,6 +309,9 @@ def operations(name, args):
         return 9 * _px(args[0]) * args[1].numel(), F32_PEAK
     if name.startswith("grid_sample"):
         return _px(args[0]) * (9 * args[0].shape[-1] + 10), F32_PEAK
+    if name == "bb_chain_wgrad":   # 9 taps of a C x C product per pixel
+        return sum(2 * 9 * a.shape[-1] * d.shape[-1] * _px(a)
+                   for a, d in args[0]), BF16_PEAK
     if name == "window_attention":
         q, _, _, v1, _, win_h, win_w = args
         return (2 * _px(q) * 2 * win_h * win_w * (q.shape[-1] + v1.shape[-1]),
@@ -669,8 +717,8 @@ def _carrier_inputs(dev, g, B, H, W):
     return stem, block(64, True), block(256, False)
 
 
-def _carrier_chain(dev, g, B, H, W, n):
-    """``_carrier_inputs`` for a chain of n BasicBlocks: channel 0 of x
+def _carrier_chain(dev, g, B, H, W, n, c=64):
+    """``_carrier_inputs`` for a chain of n BasicBlocks at c channels: channel 0 of x
     carries a constant 1, which k1 turns into a +-1 offset per h channel
     (and copies to h's channel 0) and k2 into a +-2 offset per output
     channel (0 for channel 0, whose output stays x's 1).  The +-2 signs are
@@ -684,16 +732,16 @@ def _carrier_chain(dev, g, B, H, W, n):
         return torch.where(torch.rand(c, generator=g, device=dev) < 0.5,
                            -1.0, 1.0)
 
-    x = torch.rand((B, H, W, 64), generator=g, device=dev) - 0.5
+    x = torch.rand((B, H, W, c), generator=g, device=dev) - 0.5
     x[..., 0] = 1.0
-    s2 = 2 * sign(64)
+    s2 = 2 * sign(c)
     pairs = []
     for _ in range(n):
-        k1 = n_(64, 64, 3, 3, std=8e-4)
-        k1[:, 0, 1, 1] = sign(64)
+        k1 = n_(c, c, 3, 3, std=8e-4)
+        k1[:, 0, 1, 1] = sign(c)
         k1[0] = 0.0
         k1[0, 0, 1, 1] = 1.0               # h[..., 0] == 1
-        k2 = n_(64, 64, 3, 3, std=8e-4)
+        k2 = n_(c, c, 3, 3, std=8e-4)
         k2[:, 0, 1, 1] = s2
         k2[0] = 0.0                        # y[..., 0] == x[..., 0] == 1
         pairs.append((k1, k2))
@@ -726,6 +774,16 @@ def _bb_bwd_plain_own(x, dy, pairs, saved):
     """The plain backward on its own forward: on the carrier inputs no
     mask can flip, so each side runs its own forward."""
     return _flat_grads(*bb.bb_chain_bwd_plain(x, dy, pairs))
+
+
+def _wgrad_plain(pairs_ad):
+    """The weight grads of ``bb.bb_chain_wgrad_kernel``, plain: f32 OIHW."""
+    return tuple(tc._conv_wgrad(a, d, (d.shape[-1], a.shape[-1], 3, 3))
+                 for a, d in pairs_ad)
+
+
+def _wgrad_kernel(pairs_ad):
+    return tuple(bb.bb_chain_wgrad_kernel(pairs_ad))
 
 
 def k1_backward_check(dev):
@@ -805,6 +863,19 @@ def train_kernel_phase(dev):
     saved1 = bb.bb_chain_fwd_saved(x64, pairs4[:1])
     c_saved = bb.bb_chain_fwd_saved(c_x, c_pairs)
     dy64, dy256 = act(B, H, W, 64, scale=1e-3), act(B, H, W, 256, scale=1e-3)
+    # the wider chains at the shapes their routes give them: branch 1 of
+    # the recipe (128 ch at 64x64) and branch 2 of a 24x64x128 input (256
+    # ch at 16x32, DVIE_BBCHAIN=rest|all)
+    wide = {}
+    for c, (hh, ww) in ((128, (H // 2, W // 2)), (256, (16, 32))):
+        xc, dyc = act(B, hh, ww, c), act(B, hh, ww, c, scale=1e-3)
+        pc = [(w(c, c, 3, 3), w(c, c, 3, 3)) for _ in range(4)]
+        cx, cp = _carrier_chain(dev, g, B, hh, ww, 4, c)
+        wide[c] = (xc, dyc, pc, bb.bb_chain_fwd_saved(xc, pc), cx, cp,
+                   bb.bb_chain_fwd_saved(cx, cp))
+    # the weight grads of the N = 4 chain: (x or h of each block, a grad)
+    wjobs = [(a, dy64) for i in range(4) for a in (
+        ([x64] + saved4[0][:-1])[i], saved4[1][i])]
     # name: [(label, kernel fn, plain fn, args, how output 0 is held, the
     # result row it is timed for or None)]; of each output tuple the first
     # item is an activation or dx ("max": max|d|/max|ref| <= KERNEL_TOL,
@@ -846,6 +917,17 @@ def train_kernel_phase(dev):
              None),
             ("N=4, random", *bb_bwd, (x64, dy64, pairs4, saved4), "l2",
              "bb_chain_bwd")],
+        **{f"bb_chain_fwd_c{c}": [
+            (f"C={c}, N=4", *bb_fwd, wide[c][:1] + wide[c][2:3], "max",
+             f"bb_chain_fwd_c{c}")] for c in wide},
+        **{f"bb_chain_bwd_c{c}": [
+            (f"C={c}, N=4, fixed masks, own forwards", _bb_bwd_kernel,
+             _bb_bwd_plain_own, (wide[c][4], wide[c][1], wide[c][5],
+                                 wide[c][6]), "max", None),
+            (f"C={c}, N=4, random", *bb_bwd, wide[c][:4], "l2",
+             f"bb_chain_bwd_c{c}")] for c in wide},
+        "bb_chain_wgrad": [("C=64, 8 weights of N=4", _wgrad_kernel,
+                            _wgrad_plain, (wjobs,), "l2", "bb_chain_wgrad")],
         "ups_head_1x1": [("heads", k4.ups_head_1x1, k4.ups_head_1x1_plain,
                           (x64, p1, p2, w1, b1), "max", "ups_head_1x1")],
     }
@@ -1004,14 +1086,21 @@ def _flat(grads):
     return torch.cat([g.flatten() for g in grads.values()])
 
 
-def _train_chain_leaf(name: str) -> bool:
-    """The leaves the train-chain kernels compute the grads of: the stem
-    (conv1, conv2), layer1, and the branch-0 BasicBlocks of stages 2 and
-    3."""
+def _train_chain_leaf(name: str, branches=(0,)) -> bool:
+    """The leaves the train kernels compute the grads of: the stem (conv1,
+    conv2), layer1, and the BasicBlocks of ``branches`` in stages 2 and 3
+    (branch 0 on the chain or on K1; branches 1 and 2 on the chain under
+    DVIE_BBCHAIN=rest|all)."""
     return name.startswith(("coarse_model.conv1.", "coarse_model.conv2.",
-                            "coarse_model.layer1.",
-                            "coarse_model.stage2.0.branches.0.",
-                            "coarse_model.stage3.0.branches.0."))
+                            "coarse_model.layer1.") + tuple(
+        f"coarse_model.stage{s}.0.branches.{i}." for s in (2, 3)
+        for i in branches))
+
+
+# train-kernel leaves per set of branches: conv1/conv2 w+b, 4 x 3 convs, 1
+# downsample (15); 2 stages x 4 x 2 convs per branch 0 or 1 (16); branch 2
+# in stage 3 only (8)
+N_LEAVES = {(0,): 33, (0, 1): 49, (0, 1, 2): 57}
 
 
 def _check_grad(label, g_k, g_p, g_ref):
@@ -1028,41 +1117,44 @@ def _check_grad(label, g_k, g_p, g_ref):
     return f"{label}: kernel grad error {err_k:.4g} > {bound:.4g} or non-finite"
 
 
-def grad_check(dev, b, h, w):
+def grad_check(dev, b, h, w, branches=(0,), g_ref=None, label="train"):
     """Phase 5a: one step's gradients and losses, kernel vs plain.  The
-    whole gradient is held, then each train-chain leaf on its own: they
-    are a small part of the whole norm, so an error there would hide in
-    it."""
+    whole gradient is held, then each train-kernel leaf on its own (those
+    of ``branches``): they are a small part of the whole norm, so an error
+    there would hide in it.  ``g_ref``: the f32 plain gradient of this
+    batch, if already computed (the f32 model is the same function on
+    every route).  Returns it."""
     batch = train_batch(dev, b, h, w, seed=4)
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        _, g_ref = step_grads(dev, False, "float32", batch)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
+    if g_ref is None:
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            _, g_ref = step_grads(dev, False, "float32", batch)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
     l_k, g_k = step_grads(dev, True, "bfloat16", batch)
     l_p, g_p = step_grads(dev, False, "bfloat16", batch)
-    print(f"train step {b}x{h}x{w}:")
-    leaves = [n for n in g_ref if _train_chain_leaf(n)]
-    # conv1/conv2 w+b, 4 x 3 convs, 1 downsample; 2 stages x 4 x 2 convs
-    if len(leaves) != 33:
-        raise AssertionError(f"train: {len(leaves)} train-chain leaves, "
-                             "expected 33")
+    print(f"{label} step {b}x{h}x{w}:")
+    leaves = [n for n in g_ref if _train_chain_leaf(n, branches)]
+    if len(leaves) != N_LEAVES[tuple(branches)]:
+        raise AssertionError(f"{label}: {len(leaves)} train-kernel leaves, "
+                             f"expected {N_LEAVES[tuple(branches)]}")
     fails = [_check_grad("whole gradient", _flat(g_k), _flat(g_p),
                          _flat(g_ref))]
     fails += [_check_grad(n, g_k[n], g_p[n], g_ref[n]) for n in leaves]
     fails = [f for f in fails if f]
     if fails:
-        raise AssertionError("train: " + "; ".join(fails))
+        raise AssertionError(f"{label}: " + "; ".join(fails))
     for k in l_p:
         rel = abs(l_k[k] - l_p[k]) / max(abs(l_p[k]), 1e-30)
         print(f"  {k}: kernel {l_k[k]:.6g} plain {l_p[k]:.6g} rel {rel:.3g}")
         if rel > LOSS_TOL:
-            raise AssertionError(f"train: {k} differs by {rel:.4g} > "
+            raise AssertionError(f"{label}: {k} differs by {rel:.4g} > "
                                  f"{LOSS_TOL}")
+    return g_ref
 
 
 def trajectory(dev, use_kernels, b, h, w, steps=20, warmup=2, count_at=2):
@@ -1088,8 +1180,10 @@ def trajectory(dev, use_kernels, b, h, w, steps=20, warmup=2, count_at=2):
 
 
 def train_phase(dev, card):
+    """Phase 5 under the default DVIE_BBCHAIN=b0.  Returns the counted
+    step's launches and the f32 reference gradient of the grad check."""
     b, h, w = 24, 128, 128
-    grad_check(dev, b, h, w)
+    g_ref = grad_check(dev, b, h, w)
     runs = {}
     for name, use_kernels in (("kernel", True), ("plain", False)):
         losses, times, counts = trajectory(dev, use_kernels, b, h, w)
@@ -1112,11 +1206,63 @@ def train_phase(dev, card):
         raise AssertionError(f"train: final loss differs by {gap:.4g}")
     counts = runs["kernel"][2]
     print(f"train step launches: {json.dumps(counts)}")
-    for name, per in PER_TRAIN_STEP.items():
-        if counts[name] != per:
-            raise AssertionError(f"train: {name} launched {counts[name]} "
-                                 f"times in one step, expected {per}")
+    _check_step_counts("train", counts, PER_TRAIN_STEP)
+    return counts, g_ref
+
+
+def _check_step_counts(label, counts, per_step):
+    """Every kernel's launches in one counted step: ``per_step``'s, 0 for
+    the kernels it does not name."""
+    for name in hw.KERNELS:
+        if counts[name] != per_step.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times in one step, expected "
+                                 f"{per_step.get(name, 0)}")
+
+
+def _mode_steps(dev, card, mode, b, h, w, per_step, steps=12):
+    """``steps`` kernel-model Adamax steps under DVIE_BBCHAIN=mode: finite
+    losses, the launches of step 2 against ``per_step``, samples/s (median
+    of the steps after 2 warm-ups).  Returns the counted launches."""
+    losses, times, counts = trajectory(dev, True, b, h, w, steps=steps)
+    label = f"train DVIE_BBCHAIN={mode} {b}x{h}x{w}"
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    print(f"{label}: kernel model {b / statistics.median(times):.4f} "
+          f"samples/s (median of {len(times)} steps) on {card}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    _check_step_counts(label, counts, per_step)
     return counts
+
+
+def bbchain_modes_phase(dev, card, g_ref):
+    """Phase 5c: the train step under DVIE_BBCHAIN=0, rest and all at
+    24x128x128 (``g_ref``: the f32 gradient of phase 5a's batch), and
+    under all at 24x64x128, where branch 2 (256 ch at 16x32) takes the
+    chain too: per mode one gradient check (the whole gradient and every
+    leaf of the branches the mode runs on the train kernels, against the
+    f32 plain model, as in phase 5a) and a counted, timed run.  Returns
+    the counted launches of each run."""
+    old = os.environ.get("DVIE_BBCHAIN")
+    runs = []
+    try:
+        for mode, branches in (("0", (0,)), ("rest", (0, 1)),
+                               ("all", (0, 1))):
+            os.environ["DVIE_BBCHAIN"] = mode
+            grad_check(dev, 24, 128, 128, branches, g_ref,
+                       f"train DVIE_BBCHAIN={mode}")
+            runs.append(_mode_steps(dev, card, mode, 24, 128, 128,
+                                    PER_TRAIN_STEP_MODE[mode]))
+        os.environ["DVIE_BBCHAIN"] = "all"
+        grad_check(dev, *SMALL_ALL, (0, 1, 2), None, "train DVIE_BBCHAIN=all")
+        runs.append(_mode_steps(dev, card, "all", *SMALL_ALL,
+                                PER_TRAIN_STEP_SMALL_ALL, steps=6))
+    finally:
+        if old is None:
+            os.environ.pop("DVIE_BBCHAIN", None)
+        else:
+            os.environ["DVIE_BBCHAIN"] = old
+    return runs
 
 
 CFG_HL = dataclasses.replace(CFG, highres_large=True)
@@ -1231,8 +1377,10 @@ def main():
     counts = serve_phase(dev, card)
     kernels.update(train_kernel_phase(dev))
     k1_backward_check(dev)
-    runs = [counts, train_phase(dev, card), highres_phase(dev, card),
-            stage3_phase(dev, card), vae_phase(dev, card)]
+    train_counts, g_ref = train_phase(dev, card)
+    runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
+            highres_phase(dev, card), stage3_phase(dev, card),
+            vae_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

@@ -1,107 +1,138 @@
-// The BasicBlock chain in training: one block per launch, forward and
-// backward, NHWC bf16, f32 accumulation, C = 64 (branch 0 of stage2 and
-// stage3).  Per block:
+// The BasicBlock chain in training, NHWC bf16, f32 accumulation, at C = 64,
+// 128 and 256 (branch 0, 1 and 2 of stage2 and stage3).  Per block:
 //   h   = lrelu(bf16(conv3x3(x, k1)))
 //   pre = bf16(conv3x3(h, k2))          y = lrelu(bf16(pre + x))
 // with the residual add and lrelu in bf16, as ops/pallas_trainchain.py
-// rounds.
+// rounds.  Backward: dpre_y = lrelu'(y) * dy; dh = bf16(conv_t(dpre_y, k2));
+// dpre_h = lrelu'(h) * dh; dx = bf16(conv_t(dpre_h, k1) + dpre_y), rounded
+// once; dk1 = wgrad(x, dpre_h), dk2 = wgrad(h, dpre_y) in f32.
 //
 // Replaces ops/pallas_trainchain.py:basicblock_chain: the forward
 // _bb_fwd_kernel (pallas_call at :704) and the backward _bb_bwd_kernel
-// (:741), which recomputes every block input, h and the masks (from the
-// signs of h and of each block output) and returns dx and per-program f32
-// weight-grad partials.  With N = 1 it is also pallas_resblock.
-// fused_basicblock and pallas_bb.fused_basicblock_hwnc (one BasicBlock).
-// The TPU kernel holds one whole 128x128 plane per program, so it chains
-// all N blocks in one kernel; that is a VMEM layout.  Here a block of
-// threads owns an 8x16 pixel tile (trainchain.cuh), and chaining four
-// BasicBlocks in one launch would need an 8-pixel halo: one launch per
-// BasicBlock instead.
+// (:741), packed at C = 64 (DVIE_BBCHAIN=b0|all) and unpacked at C = 128
+// and 256 (rest|all).  With N = 1 it is also pallas_resblock.
+// fused_basicblock and pallas_bb.fused_basicblock_hwnc.  The TPU kernel
+// holds whole planes in VMEM and chains all N blocks in one kernel; here a
+// launch is one block over 2-D pixel tiles (chaining would need an 8-pixel
+// halo), and the backward recomputes nothing: the forward stores y and h
+// (the masks are their signs: lrelu keeps the sign).
 //
-// Saved state.  The TPU backward recomputes every block input, h and the
-// pre-activations because VMEM is small.  On an 80 GB card the forward
-// stores each block's output y and its h (2 x 50 MB per block at the
-// 24x128x128 recipe), and the backward reads them: the masks are the signs
-// of y and h (lrelu keeps the sign), so the backward runs no forward conv.
-// It computes the same function.
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s).  24x128x128, C = 64,
+// per block: forward 2 convs = 2*M*576*64*2 = 58 GFLOP (59 us) against
+// x in, y and h out, 150 MB (45 us): operations.  Backward: dh, dx and the
+// two weight grads, 116 GFLOP (117 us), against dy, y, h, x in, dx out and
+// dpre_y, dpre_h out and back in (~450 MB, 134 us): bytes, barely.
+// 24x64x64, C = 128: the same operations per block (a quarter of the
+// pixels, four times the MACs per pixel) on half the bytes: operations.
 //
-// Bound on the H100 at the recipe shape (M = 393,216 pixels, C = 64):
-// forward per block conv1 on the 1-ring (13 row fragments for 8 output
-// rows: 1.63x) + conv2 = 2*M*576*64*2.63 = 76 GFLOP, x 50 MB in, y and h
-// 100 MB out: 77 us of tensor cores at peak vs 45 us of HBM.  Backward per
-// block: dh on the 1-ring (48 GFLOP), dx (29), dk1 + dk2 (58): 135 GFLOP,
-// and dy, y, h, x in, dpre_y, dpre_h, dx out and back in for the weight
-// grads (about 11 x 50 MB).
+// Design: every conv is an implicit GEMM on wgmma m64n64k16 (M = pixels,
+// N = 64 output channels per instruction, K = 9 taps x C input channels),
+// A from registers, B from shared memory.
+// - A: a block stages its tile's input on a 2-ring halo (pitch TW + 4) in
+//   shared memory, 16 bytes of padding per position so that ldmatrix of 8
+//   positions hits 8 distinct bank groups.  Each lane of the warpgroup
+//   gives ldmatrix the address of its own A row, so a row is any region
+//   position plus the tap's offset: no im2col, and conv1's output rows are
+//   exactly the 1-ring positions ((TH + 2) x 18 of them, 3 m-tiles of 64 at
+//   TH = 8), not runs that wrap across rows.
+// - B: the weights are streamed in units of (tap, 64 input channels) x C
+//   output channels (8-32 KB), laid out by the wrapper in the no-swizzle
+//   K-major core-matrix order (hopper.cuh), by one producer warp with the
+//   bulk TMA copy into a ring of 4 slots (2 at C = 256) under full/empty
+//   mbarriers.  No whole 3x3 set is ever resident, which is what lets C =
+//   128 (295 KB a set) and 256 (1.2 MB) run at all.
+// - Warpgroups: conv1 has MT1 m-tiles and conv2 MT2 = TH * 16 / 64; one
+//   m-tile per consumer warpgroup (NWG = MT1), each holding C / 2 f32
+//   accumulators; the A registers of the next unit are loaded while the
+//   current unit's wgmmas run (wait_group 1).  In conv2 the warpgroups past
+//   MT2 recompute the last m-tile and store nothing: a wgmma under a branch
+//   is serialized by ptxas (C7518), and the two ways timed alike (one call,
+//   H100 700 W, C = 64, N = 4: forward 1.30 ms this way, 1.39 and 1.46 ms
+//   in two builds with the branch).
+// - Persistent blocks walk the tiles; the next tile's input region is
+//   loaded (cp.async) while conv2 runs, which no longer reads it (the
+//   residual is read from global memory, where it sits in L2).  The
+//   epilogues run from the accumulator registers: conv1's writes h (bf16,
+//   zero outside the image: conv2's SAME padding) to the 1-ring buffer,
+//   conv2's adds the residual and stores.
+// - C = 256: the 2-ring region (123 KB at 8x16) and h's 1-ring (92 KB) do
+//   not fit beside a weight ring, so the tile shrinks to 4x16 (84 + 57 +
+//   64 KB): two m-tiles for conv1, one for conv2.  Splitting the block in
+//   two launches with h through HBM would add 2 x 50 MB-class round trips
+//   per block; the smaller tile only re-reads more halo (1.9x vs 1.5x) from
+//   L2.
+// - Backward: the same kernel with dy as the staged input (masked in place
+//   by the sign of y, read from global, and dpre_y stored at the tile), the
+//   flipped and transposed taps, conv1's epilogue forming dpre_h (h from
+//   global) and conv2's adding dpre_y: dx.
+// - Weight grads: one launch for every block of the chain (wgrad_kernel):
+//   a block stages a pixel tile of d (dpre_h or dpre_y, 64 output
+//   channels, MN-major core matrices) and its 1-ring of a (x or h, 64 input
+//   channels), and forms all nine tap products from shifted views of the
+//   staged a (ldmatrix.trans), 3 taps per warpgroup, K = pixels.  Each
+//   64x64 channel pair reads its operands once per chain; f32 partials per
+//   pixel range, summed by the wrapper: deterministic, no atomics (the JAX
+//   note at pallas_trainchain.py:26-33).
 //
-// Design.  Shared memory: the 2-ring region (40 KB at 160-byte positions),
-// the 1-ring buffer (38 KB), the accumulator staging (35 KB) and ONE 3x3
-// weight set (83 KB at LDW = C + 8).  The stem keeps both of its weight
-// sets resident, but at Ci = 64 two sets are 166 KB and the whole would be
-// 280 KB, over the 227 KB a block may have; so the forward loads k2 into
-// k1's buffer after conv1 (a second 83 KB cp.async wave, from L2, not
-// overlapped), for 197 KB in all: one block of 8 warps per SM.
-// Forward, one launch: x on the 2-ring, conv1 -> h on the 1-ring (zero
-// outside the image: conv2's SAME padding), k2 in, conv2 on the tile, the
-// residual from the staged x, lrelu, y and h stored.
-// Backward, two launches per block (dx needs dpre_h one ring out, which
-// needs dpre_y two rings out, all inside one tile's launch):
-//   1. bb_bwd: dy and y on the 2-ring -> dpre_y = lrelu'(y) * dy in place;
-//      dh = bf16(conv_t(dpre_y, k2)) on the 1-ring; dpre_h = lrelu'(h) * dh
-//      (h read from the forward's store, zero outside the image) while k1's
-//      flipped taps arrive; dx = bf16(conv_t(dpre_h, k1) + dpre_y) on the
-//      tile, rounded once; dpre_y and dpre_h stored for the weight grads;
-//   2. wgrad_kernel: dk1 (x, dpre_h) and dk2 (h, dpre_y) as split-K f32
-//      partials (trainchain.cuh).
-// Prediction (written before the first run of this design): the backward
-// at N = 4 falls from 12.4 ms (three launches per block, the forward and
-// pre_h recomputed) to 6.5-7.5 ms; the forward rises by the h store, <= 0.1
-// ms at N = 4.
-#include "trainchain.cuh"
+// Prediction (written before the first chip run of this design): at
+// 24x128x128, C = 64, N = 4 the forward falls from 3.41 to 0.8-1.5 ms and
+// the backward (weight grads included) from 7.36 to 1.5-3.0 ms; the train
+// step rises from ~194.5 to 210-228 samples/s.
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace dvie {
 namespace {
 
-using namespace tc;
+using namespace hop;
 
-constexpr int NT = 256;                // 8 warps, one output row each
-constexpr int C = 64;
-constexpr int PW = TW + 4;             // region pitch: a ring of 2 (20)
-constexpr int XPOS = (TH + 4) * PW;    // 240 positions of the 2-ring region
-constexpr int XALLOC = 256;            // zero positions past it: shifted reads
-constexpr int R1 = PW + 1;             // first position of the 1-ring (21)
-constexpr int NF1 = 13;                // 1-ring fragments: positions [21, 229)
-constexpr int LDS = C + 16;            // 160-byte positions: 32-byte aligned views
-constexpr int LDW = C + 8;
-constexpr int LDC = C + 4;
-constexpr int SPOS = 240;              // positions of the second buffer (a 2-ring)
+constexpr int TW = 16;  // tile width: one warp's 16 A rows are one tile row
 
-constexpr int SZ_A = XALLOC * LDS * 2;         // 40960: a 2-ring region
-constexpr int SZ_W = 9 * C * LDW * 2;          // 82944: one 3x3 weight set
-constexpr int SZ_S = SPOS * LDS * 2;           // 38400: the 1-ring buffer
-constexpr int SZ_C = NT / 32 * 16 * LDC * 4;   // 34816
+template <int C_>
+struct BB {
+  static constexpr int C = C_;
+  static constexpr int TH = C == 256 ? 4 : 8;
+  static constexpr int NCH = C / 64;            // 64-channel chunks (N of a wgmma)
+  static constexpr int PW2 = TW + 4, NPOS2 = (TH + 4) * PW2;  // the 2-ring region
+  static constexpr int PW1 = TW + 2, NPOS1 = (TH + 2) * PW1;  // the 1-ring buffer
+  static constexpr int MT1 = (NPOS1 + 63) / 64;  // conv1 m-tiles
+  static constexpr int MT2 = TH * TW / 64;       // conv2 m-tiles
+  static constexpr int NWG = MT1;                // consumer warpgroups
+  static constexpr int CT = NWG * 128;           // consumer threads
+  static constexpr int NT = CT + 32;             // + the weight producer warp
+  static constexpr int LDS = C + 8;              // region pitch, elements
+  static constexpr int U = 9 * NCH;              // weight units per conv
+  static constexpr int UB = 64 * C * 2;          // bytes of a unit
+  static constexpr int NST = C == 256 ? 2 : 4;   // weight ring slots
+  static constexpr int O_X = NST * UB;
+  static constexpr int O_H = align128(O_X + NPOS2 * LDS * 2);
+  static constexpr int O_BAR = align128(O_H + NPOS1 * LDS * 2);
+  static constexpr int SMEM = O_BAR + 2 * NST * 8;
+  static_assert(SMEM <= 232448, "shared memory per block");
+  static_assert(MT2 <= NWG && MT2 * 64 == TH * TW, "conv2 m-tiles");
+};
 
-constexpr int O_A = 0, O_W = align128(O_A + SZ_A), O_S = align128(O_W + SZ_W);
-constexpr int O_C = align128(O_S + SZ_S);
-constexpr int SMEM = O_C + SZ_C;
-static_assert(SMEM <= 232448, "shared memory per block");
-static_assert(R1 + 16 * NF1 - 1 + PW + 1 < XALLOC, "1-ring taps stay in the region");
-static_assert(SPOS >= XPOS, "the second buffer holds a 2-ring region");
+struct Tile {
+  int b, y0, x0;
+};
 
-// offset of tap t (ky*3 + kx) in region positions
-__device__ __forceinline__ int toff(int t) { return (t / 3 - 1) * PW + (t % 3 - 1); }
-
-// image row / column of region position l (origin two pixels up-left)
-__device__ __forceinline__ int ry(const Tile &t, int l) { return t.y0 - 2 + l / PW; }
-__device__ __forceinline__ int rx(const Tile &t, int l) { return t.x0 - 2 + l % PW; }
-
-__device__ __forceinline__ void load_weights(bf16 *Ws, const bf16 *w) {
-  load_block_async(Ws, LDW, w, C, 9 * C, C);
+template <int TH>
+__device__ __forceinline__ Tile tile_at(int t, int H, int W) {
+  const int tx = (W + TW - 1) / TW, ty = (H + TH - 1) / TH;
+  Tile r;
+  r.x0 = (t % tx) * TW;
+  t /= tx;
+  r.y0 = (t % ty) * TH;
+  r.b = t / ty;
+  return r;
 }
 
-__device__ __forceinline__ void wait_all() {
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+__device__ __forceinline__ bool inside(int yy, int xx, int H, int W) {
+  return yy >= 0 && yy < H && xx >= 0 && xx < W;
+}
+
+__device__ __forceinline__ long pix(int b, int yy, int xx, int H, int W) {
+  return ((long)b * H + yy) * W + xx;
 }
 
 // g = lrelu'(s) * g on 8 channels: the mask from the sign of s, bf16
@@ -114,212 +145,422 @@ __device__ __forceinline__ uint4 masked8(const uint4 &s, const uint4 &g) {
   return pack8(gv);
 }
 
-// a 3x3 conv of the staged region As with the weights Ws over 1-ring
-// fragment f (positions R1 + 16 f ...), f32 in acc
-__device__ __forceinline__ void ring_frag(FragC (&acc)[4], const bf16 *As, const bf16 *Ws, int f) {
-  zero(acc);
-  const int l0 = R1 + 16 * f;
-#pragma unroll 1
-  for (int tp = 0; tp < 9; ++tp)
-    warp_mma(acc, As + (l0 + toff(tp)) * LDS, LDS, Ws + tp * C * LDW, LDW, C / 16);
-}
+__device__ __forceinline__ float masked(float s, float g) { return s >= 0.f ? g : rbf(0.2f * g); }
 
-// the same conv on the tile's output row r (positions (r+2)*PW + 2 ...)
-__device__ __forceinline__ void tile_row(FragC (&acc)[4], const bf16 *As, const bf16 *Ws, int r) {
-  zero(acc);
-  const int l0 = (r + 2) * PW + 2;
-#pragma unroll 1
-  for (int tp = 0; tp < 9; ++tp)
-    warp_mma(acc, As + (l0 + toff(tp)) * LDS, LDS, Ws + tp * C * LDW, LDW, C / 16);
-}
-
-// the forward of one block: y, and h at the tile's pixels where h_out is
-// not null
-__global__ void __launch_bounds__(NT, 1)
-bb_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1,
-              const bf16 *__restrict__ w2, bf16 *__restrict__ y, bf16 *__restrict__ h_out, int H,
-              int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *Xs = reinterpret_cast<bf16 *>(smem + O_A);
-  bf16 *Ws = reinterpret_cast<bf16 *>(smem + O_W);
-  bf16 *Ss = reinterpret_cast<bf16 *>(smem + O_S);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float *Cw = reinterpret_cast<float *>(smem + O_C) + warp * 16 * LDC;
-  const Tile t = tile_of(H, W);
-
-  load_region(Xs, LDS, x, C, 0, C / 8, t, -2, -2, PW, XPOS, XALLOC, H, W);
-  load_weights(Ws, w1);
-  wait_all();
-
-  // h on the 1-ring, zero outside the image
-  for (int f = warp; f < NF1; f += NT / 32) {
-    FragC acc[4];
-    ring_frag(acc, Xs, Ws, f);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    for (int i = lane; i < 16 * C; i += 32) {
-      const int r = i / C, c = i % C, l = R1 + 16 * f + r;
-      const float v = inside(ry(t, l), rx(t, l), H, W) ? lrelu_bf(rbf(Cw[r * LDC + c])) : 0.f;
-      Ss[l * LDS + c] = __float2bfloat16(v);
-    }
-    __syncwarp();
+// cp.async the 2-ring region of tile t (zeros outside the image)
+template <class K>
+__device__ __forceinline__ void load_region(bf16 *Xs, const bf16 *__restrict__ src, const Tile &t,
+                                            int H, int W) {
+  constexpr int V = K::C / 8;
+  for (int i = threadIdx.x; i < K::NPOS2 * V; i += K::CT) {
+    const int l = i / V, c = (i % V) * 8;
+    const int yy = t.y0 - 2 + l / K::PW2, xx = t.x0 - 2 + l % K::PW2;
+    const bool ok = inside(yy, xx, H, W);
+    cp_async16(Xs + l * K::LDS + c, ok ? src + pix(t.b, yy, xx, H, W) * K::C + c : src, ok);
   }
-  __syncthreads();  // every warp is done with k1
-  load_weights(Ws, w2);
-  wait_all();
+}
 
-  // conv2 on the tile: warp = output row; + x, lrelu
-  const int r = warp, l0 = (r + 2) * PW + 2, yy = t.y0 + r;
-  FragC acc[4];
-  tile_row(acc, Ss, Ws, r);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  for (int i = lane; i < 16 * (C / 8); i += 32) {
-    const int px = i / (C / 8), c = (i % (C / 8)) * 8, xx = t.x0 + px;
-    if (yy >= H || xx >= W) continue;
-    const long m = pix(t, yy, xx, H, W);
-    float v[8], xr[8];
-    unpack8(*reinterpret_cast<const uint4 *>(Xs + (l0 + px) * LDS + c), xr);
+// the A fragments of weight unit u (tap u / NCH, input channels 64 (u % NCH)
+// ...): 4 k-steps; `base` is this lane's row at the centre tap
+template <class K, int PW>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t base, int u) {
+  const int tap = u / K::NCH, kc = u % K::NCH;
+  const uint32_t off = (((tap / 3 - 1) * PW + tap % 3 - 1) * K::LDS + kc * 64) * 2;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = lrelu_bf(rbf(rbf(Cw[px * LDC + c + k]) + xr[k]));
-    st16(y + m * C + c, pack8(v));
-    if (h_out) st16(h_out + m * C + c, *reinterpret_cast<const uint4 *>(Ss + (l0 + px) * LDS + c));
-  }
+  for (int j = 0; j < 4; ++j) ldsm4(a[j], base + off + j * 32);
 }
 
-// the backward of one block but its weight grads: dpre_y, dpre_h (stored)
-// and dx on the tile, from the forward's y and h
-__global__ void __launch_bounds__(NT, 1)
-bb_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
-              const bf16 *__restrict__ h, const bf16 *__restrict__ w1f,
-              const bf16 *__restrict__ w2f, bf16 *__restrict__ dpre_y, bf16 *__restrict__ dpre_h,
-              bf16 *__restrict__ dx, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *As = reinterpret_cast<bf16 *>(smem + O_A);  // dy, then dpre_y in place
-  bf16 *Ws = reinterpret_cast<bf16 *>(smem + O_W);  // k2 flipped, then k1 flipped
-  bf16 *Ss = reinterpret_cast<bf16 *>(smem + O_S);  // y, then dh, then dpre_h in place
+// One weight unit of a conv: wait for its slot, issue its wgmmas on `cur`,
+// release the previous unit's slot once its wgmmas are done, load the next
+// unit's A into `nxt`.  No wgmma sits under a branch: ptxas serializes
+// wgmmas on a divergent path (C7518).
+template <class K, int PW>
+__device__ __forceinline__ void conv_unit(float (&acc)[K::NCH][32], uint32_t (&cur)[4][4],
+                                          uint32_t (&nxt)[4][4], uint32_t abase, int u, int &seq,
+                                          uint64_t *full, uint64_t *empty, uint32_t ring) {
+  const int s = seq % K::NST;
+  mbar_wait(&full[s], (seq / K::NST) & 1);
+  wg_fence();
+  const uint64_t d0 = desc(ring + s * K::UB, K::C * 16, 128);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int n = 0; n < K::NCH; ++n)
+      wgmma64<0>(acc[n], cur[j], d0 + ((j * 32 * K::C + n * 1024) >> 4));
+  wg_commit();
+  wg_wait<1>();
+  mbar_arrive_if(&empty[(seq + K::NST - 1) % K::NST], u > 0 && (threadIdx.x & 31) == 0);
+  if (u + 1 < K::U) load_a<K, PW>(nxt, abase, u + 1);
+  ++seq;
+}
+
+// acc = conv3x3 over this warpgroup's m-tile: A rows at `abase` (pitch
+// PW), the weight units streamed through the ring
+template <class K, int PW>
+__device__ __forceinline__ void conv(float (&acc)[K::NCH][32], uint32_t abase, int &seq,
+                                     uint64_t *full, uint64_t *empty, uint32_t ring) {
+#pragma unroll
+  for (int n = 0; n < K::NCH; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+  uint32_t a0[4][4], a1[4][4];
+  load_a<K, PW>(a0, abase, 0);
+#pragma unroll 1
+  for (int u = 0; u < K::U; u += 2) {
+    conv_unit<K, PW>(acc, a0, a1, abase, u, seq, full, empty, ring);
+    if (u + 1 < K::U) conv_unit<K, PW>(acc, a1, a0, abase, u + 1, seq, full, empty, ring);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int n = 0; n < K::NCH; ++n) fence_acc(acc[n]);
+  mbar_arrive_if(&empty[(seq - 1) % K::NST], (threadIdx.x & 31) == 0);
+}
+
+// One block's pass over every tile.
+// Forward (BWD = false): src = x, w1/w2 = k1/k2 units; out = y; mid = h
+//   (or null: not stored).
+// Backward (BWD = true): src = dy, msk = y, hin = h, w1/w2 = flipped k2/k1
+//   units; out = dx; mid = dpre_h; dpy = dpre_y.
+template <int C, bool BWD>
+__global__ void __launch_bounds__(BB<C>::NT, 1)
+bb_kernel(const bf16 *__restrict__ src, const bf16 *__restrict__ msk,
+          const bf16 *__restrict__ hin, const bf16 *__restrict__ w1,
+          const bf16 *__restrict__ w2, bf16 *__restrict__ out, bf16 *__restrict__ mid,
+          bf16 *dpy, int B, int H, int W) {
+  using K = BB<C>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16 *Xs = reinterpret_cast<bf16 *>(smem + K::O_X);
+  bf16 *Hs = reinterpret_cast<bf16 *>(smem + K::O_H);
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + K::O_BAR), *empty = full + K::NST;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float *Cw = reinterpret_cast<float *>(smem + O_C) + warp * 16 * LDC;
-  const Tile t = tile_of(H, W);
-
-  // ---- phase 1: dpre_y = lrelu'(y) * dy on the 2-ring (zero outside the
-  // image, where dy is staged as zero)
-  load_region(As, LDS, dy, C, 0, C / 8, t, -2, -2, PW, XPOS, XALLOC, H, W);
-  load_region(Ss, LDS, y, C, 0, C / 8, t, -2, -2, PW, XPOS, SPOS, H, W);
-  load_weights(Ws, w2f);
-  wait_all();
-  for (int i = threadIdx.x; i < XPOS * (C / 8); i += NT) {
-    const int l = i / (C / 8), c = (i % (C / 8)) * 8;
-    bf16 *p = As + l * LDS + c;
-    st16(p, masked8(*reinterpret_cast<const uint4 *>(Ss + l * LDS + c),
-                    *reinterpret_cast<const uint4 *>(p)));
-  }
-  __syncthreads();  // dpre_y is whole; y is no longer needed
-
-  // ---- phase 2: dh = bf16(conv_t(dpre_y, k2)) on the 1-ring
-  for (int f = warp; f < NF1; f += NT / 32) {
-    FragC acc[4];
-    ring_frag(acc, As, Ws, f);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    const int l0 = R1 + 16 * f;
-    for (int i = lane; i < 16 * C; i += 32) {
-      const int r = i / C, c = i % C;
-      Ss[(l0 + r) * LDS + c] = __float2bfloat16(Cw[r * LDC + c]);
+  const int nt = B * ((H + K::TH - 1) / K::TH) * ((W + TW - 1) / TW);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * K::NWG);
     }
-    __syncwarp();
+    mbar_init_fence();
   }
-  __syncthreads();  // every warp is done with k2 and dh is whole
-
-  // ---- phase 3: k1's flipped taps fly while dpre_h = lrelu'(h) * dh is
-  // formed on the 1-ring, zero outside the image
-  load_weights(Ws, w1f);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < 16 * NF1 * (C / 8); i += NT) {
-    const int l = R1 + i / (C / 8), c = (i % (C / 8)) * 8;
-    const int yy = ry(t, l), xx = rx(t, l);
-    bf16 *p = Ss + l * LDS + c;
-    st16(p, inside(yy, xx, H, W)
-                ? masked8(ldg16(h + pix(t, yy, xx, H, W) * C + c),
-                          *reinterpret_cast<const uint4 *>(p))
-                : make_uint4(0, 0, 0, 0));
-  }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // ---- phase 4: dpre_y and dpre_h out at the tile's pixels;
-  // dx = conv_t(dpre_h, k1) + dpre_y
-  const int r = warp, l0 = (r + 2) * PW + 2, yy = t.y0 + r;
-  FragC acc[4];
-  tile_row(acc, Ss, Ws, r);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  for (int i = lane; i < 16 * (C / 8); i += 32) {
-    const int px = i / (C / 8), c = (i % (C / 8)) * 8, xx = t.x0 + px;
-    if (yy >= H || xx >= W) continue;
-    const long m = pix(t, yy, xx, H, W);
-    const uint4 gy = *reinterpret_cast<const uint4 *>(As + (l0 + px) * LDS + c);
-    st16(dpre_h + m * C + c, *reinterpret_cast<const uint4 *>(Ss + (l0 + px) * LDS + c));
-    st16(dpre_y + m * C + c, gy);
-    float v[8], g[8];
-    unpack8(gy, g);
+  if (warp == 4 * K::NWG) {  // the producer: both convs' units, tile after tile
+    if (lane == 0) {
+      int seq = 0;
+      for (int t = blockIdx.x; t < nt; t += gridDim.x)
+        for (int cv = 0; cv < 2; ++cv)
+          for (int u = 0; u < K::U; ++u, ++seq) {
+            const int s = seq % K::NST;
+            mbar_wait(&empty[s], ((seq / K::NST) & 1) ^ 1);
+            mbar_expect_tx(&full[s], K::UB);
+            bulk_load(smem + s * K::UB, (cv ? w2 : w1) + (long)u * (K::UB / 2), K::UB, &full[s]);
+          }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;
+  const uint32_t ring = smem_u32(smem);
+  // this lane's ldmatrix row (of its warp's 16) and channel offset
+  const int lr = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  // conv1: row i of m-tile wg is 1-ring position i (clamped past the end)
+  const int i1 = min(wg * 64 + lr, K::NPOS1 - 1);
+  const uint32_t a1 =
+      smem_u32(Xs) + (((i1 / K::PW1 + 1) * K::PW2 + i1 % K::PW1 + 1) * K::LDS + lk) * 2;
+  // conv2: row i of m-tile wg is tile pixel (i / 16, i % 16); a warpgroup
+  // past the last m-tile recomputes its rows and stores nothing
+  const int i2 = min(wg * 64 + lr, K::TH * TW - 1);
+  const uint32_t a2 = smem_u32(Hs) + (((i2 / TW + 1) * K::PW1 + i2 % TW + 1) * K::LDS + lk) * 2;
+  // accumulator rows and columns of this thread
+  const int er = wg * 64 + wq * 16 + (lane >> 2), ec = 2 * (lane & 3);
+  constexpr int V = C / 8;
+
+  int seq = 0;
+  if (blockIdx.x < nt) load_region<K>(Xs, src, tile_at<K::TH>(blockIdx.x, H, W), H, W);
+  cp_async_commit();
+  for (int ti = blockIdx.x; ti < nt; ti += gridDim.x) {
+    const Tile t = tile_at<K::TH>(ti, H, W);
+    cp_async_wait<0>();
+    bar_sync(1, K::CT);
+    if (BWD) {  // dpre_y = lrelu'(y) * dy on the region; stored at the tile
+      for (int i = threadIdx.x; i < K::NPOS2 * V; i += K::CT) {
+        const int l = i / V, c = (i % V) * 8, ry = l / K::PW2, rx = l % K::PW2;
+        const int yy = t.y0 - 2 + ry, xx = t.x0 - 2 + rx;
+        if (!inside(yy, xx, H, W)) continue;
+        const long m = pix(t.b, yy, xx, H, W) * C + c;
+        bf16 *p = Xs + l * K::LDS + c;
+        const uint4 g = masked8(ldg16(msk + m), *reinterpret_cast<const uint4 *>(p));
+        st16(p, g);
+        if (ry >= 2 && ry < K::TH + 2 && rx >= 2 && rx < TW + 2) st16(dpy + m, g);
+      }
+      bar_sync(1, K::CT);
+    }
+
+    // ---- conv1 on the 1-ring -> Hs: h (forward) or dpre_h (backward)
+    float acc[K::NCH][32];
+    conv<K, K::PW2>(acc, a1, seq, full, empty, ring);
+    {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = Cw[px * LDC + c + k] + g[k];
-    st16(dx + m * C + c, pack8(v));
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = er + 8 * hh;
+        if (i >= K::NPOS1) continue;
+        const int yy = t.y0 - 1 + i / K::PW1, xx = t.x0 - 1 + i % K::PW1;
+        const bool ok = inside(yy, xx, H, W);
+        const long m = ok ? pix(t.b, yy, xx, H, W) * C : 0;
+#pragma unroll
+        for (int n = 0; n < K::NCH; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = n * 64 + 8 * j + ec;
+            float v0 = rbf(acc[n][4 * j + 2 * hh]), v1 = rbf(acc[n][4 * j + 2 * hh + 1]);
+            if (!ok) {
+              v0 = v1 = 0.f;
+            } else if (BWD) {
+              const float2 s = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162 *>(hin + m + c));
+              v0 = masked(s.x, v0);
+              v1 = masked(s.y, v1);
+            } else {
+              v0 = lrelu_bf(v0);
+              v1 = lrelu_bf(v1);
+            }
+            *reinterpret_cast<__nv_bfloat162 *>(Hs + i * K::LDS + c) = __floats2bfloat162_rn(v0, v1);
+          }
+      }
+    }
+    bar_sync(1, K::CT);  // Hs is whole; nothing reads Xs any more
+
+    if (mid) {  // h or dpre_h at the tile's pixels
+      for (int i = threadIdx.x; i < K::TH * TW * V; i += K::CT) {
+        const int px = i / V, c = (i % V) * 8;
+        const int yy = t.y0 + px / TW, xx = t.x0 + px % TW;
+        if (inside(yy, xx, H, W))
+          st16(mid + pix(t.b, yy, xx, H, W) * C + c,
+               *reinterpret_cast<const uint4 *>(Hs + ((px / TW + 1) * K::PW1 + px % TW + 1) * K::LDS + c));
+      }
+    }
+    if (ti + gridDim.x < nt) load_region<K>(Xs, src, tile_at<K::TH>(ti + gridDim.x, H, W), H, W);
+    cp_async_commit();
+
+    // ---- conv2 on the tile: y = lrelu(bf16(pre + x)), or dx = pre + dpre_y
+    conv<K, K::PW1>(acc, a2, seq, full, empty, ring);
+    if (wg < K::MT2) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = er + 8 * hh;
+        const int yy = t.y0 + i / TW, xx = t.x0 + i % TW;
+        if (!inside(yy, xx, H, W)) continue;
+        const long m = pix(t.b, yy, xx, H, W) * C;
+#pragma unroll
+        for (int n = 0; n < K::NCH; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = n * 64 + 8 * j + ec;
+            const float a0 = acc[n][4 * j + 2 * hh], a1v = acc[n][4 * j + 2 * hh + 1];
+            float2 r;
+            __nv_bfloat162 o;
+            if (BWD) {
+              r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(dpy + m + c));
+              o = __floats2bfloat162_rn(a0 + r.x, a1v + r.y);
+            } else {
+              r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(src + m + c));
+              o = __floats2bfloat162_rn(lrelu_bf(rbf(rbf(a0) + r.x)), lrelu_bf(rbf(rbf(a1v) + r.y)));
+            }
+            *reinterpret_cast<__nv_bfloat162 *>(out + m + c) = o;
+          }
+      }
+    }
   }
 }
 
-int set_smem() {
-  cudaError_t e = cudaFuncSetAttribute(bb_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(bb_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  return (int)e;
+// ---- weight grads ---------------------------------------------------------
+
+constexpr int GTH = 8, GPW = TW + 2, GNPOS = (GTH + 2) * GPW;  // a's 1-ring: 180
+constexpr int GLD = 64 + 8;
+constexpr int GNT = 384;  // 3 warpgroups, 3 taps each
+constexpr int G_A = align128(GNPOS * GLD * 2);
+constexpr int G_STAGE = G_A + GTH * TW * 64 * 2;
+constexpr int GSMEM = 2 * G_STAGE;
+constexpr int MAX_JOBS = 16;
+
+struct GJobs {
+  const bf16 *a[MAX_JOBS];  // (B,H,W,C): x or h
+  const bf16 *d[MAX_JOBS];  // (B,H,W,C): dpre_h or dpre_y
+  float *out[MAX_JOBS];     // (splits, 9, C, C): tap, input channel, output channel
+};
+
+// the A fragments of k-step ks (tile row ks) for this warpgroup's 3 taps
+__device__ __forceinline__ void g_load_a(uint32_t (&a)[3][4], uint32_t base, int wg, int ks) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int tap = 3 * wg + k;
+    ldsm4t(a[k], base + ((ks + tap / 3) * GPW + tap % 3) * GLD * 2);
+  }
+}
+
+__device__ __forceinline__ void g_step(float (&acc)[3][32], uint32_t (&cur)[3][4],
+                                       uint32_t (&nxt)[3][4], uint32_t abase, uint32_t dsm,
+                                       int wg, int ks) {
+  wg_fence();
+  const uint64_t d = desc(dsm + ks * 2048, 1024, 128);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) wgmma64<1>(acc[k], cur[k], d);
+  wg_commit();
+  wg_wait<1>();
+  if (ks + 1 < GTH) g_load_a(nxt, abase, wg, ks + 1);
+}
+
+// blockIdx.y: the job; blockIdx.x: (input chunk, output chunk, pixel range)
+__global__ void __launch_bounds__(GNT, 1)
+wgrad_kernel(const GJobs jobs, int C, int B, int H, int W, int splits) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int job = blockIdx.y, nch = C / 64;
+  int r = blockIdx.x;
+  const int s = r % splits;
+  r /= splits;
+  const int nc = r % nch, mc = r / nch;
+  const bf16 *__restrict__ a = jobs.a[job];
+  const bf16 *__restrict__ dg = jobs.d[job];
+  const int tx = (W + TW - 1) / TW, ty = (H + GTH - 1) / GTH, nt = B * tx * ty;
+  const int t0 = (int)((long)s * nt / splits), t1 = (int)((long)(s + 1) * nt / splits);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wq = warp & 3;
+
+  auto load = [&](int ti, int buf) {
+    const Tile t = tile_at<GTH>(ti, H, W);
+    bf16 *As = reinterpret_cast<bf16 *>(smem + buf * G_STAGE);
+    bf16 *Ds = reinterpret_cast<bf16 *>(smem + buf * G_STAGE + G_A);
+    for (int i = threadIdx.x; i < GNPOS * 8; i += GNT) {
+      const int l = i >> 3, v = i & 7;
+      const int yy = t.y0 - 1 + l / GPW, xx = t.x0 - 1 + l % GPW;
+      const bool ok = inside(yy, xx, H, W);
+      cp_async16(As + l * GLD + v * 8, ok ? a + pix(t.b, yy, xx, H, W) * C + mc * 64 + v * 8 : a,
+                 ok);
+    }
+    // d in MN-major core matrices: (pixel group of 8, channel group of 8)
+    for (int i = threadIdx.x; i < GTH * TW * 8; i += GNT) {
+      const int p = i >> 3, v = i & 7;
+      const int yy = t.y0 + p / TW, xx = t.x0 + p % TW;
+      const bool ok = inside(yy, xx, H, W);
+      cp_async16(Ds + ((p >> 3) * 8 + v) * 64 + (p & 7) * 8,
+                 ok ? dg + pix(t.b, yy, xx, H, W) * C + nc * 64 + v * 8 : dg, ok);
+    }
+  };
+
+  float acc[3][32];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[k][i] = 0.f;
+  // ldmatrix.trans: lane gives pixel (lane & 7) + 8 (lane >> 4) of the
+  // k-step's tile row, input channels 16 wq + 8 ((lane >> 3) & 1) ...
+  const int lp = (lane & 7) + 8 * (lane >> 4), lc = 16 * wq + 8 * ((lane >> 3) & 1);
+
+  if (t0 < t1) load(t0, 0);
+  cp_async_commit();
+  for (int ti = t0, it = 0; ti < t1; ++ti, ++it) {
+    if (ti + 1 < t1) load(ti + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();  // d is read by wgmma
+    __syncthreads();
+    const uint32_t abase = smem_u32(smem + (it & 1) * G_STAGE) + (lp * GLD + lc) * 2;
+    const uint32_t dsm = smem_u32(smem + (it & 1) * G_STAGE + G_A);
+    uint32_t a0[3][4], a1[3][4];
+    g_load_a(a0, abase, wg, 0);
+#pragma unroll 1
+    for (int ks = 0; ks < GTH; ks += 2) {
+      g_step(acc, a0, a1, abase, dsm, wg, ks);
+      g_step(acc, a1, a0, abase, dsm, wg, ks + 1);
+    }
+    wg_wait<0>();
+    __syncthreads();  // this stage is refilled next iteration
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fence_acc(acc[k]);
+  float *o = jobs.out[job] + (long)s * 9 * C * C;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ci = mc * 64 + 16 * wq + (lane >> 2) + 8 * hh;
+      float *row = o + ((long)(3 * wg + k) * C + ci) * C + nc * 64 + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2 *>(row + 8 * j) =
+            make_float2(acc[k][4 * j + 2 * hh], acc[k][4 * j + 2 * hh + 1]);
+    }
+}
+
+template <int C, bool BWD>
+int launch_bb(const void *src, const void *msk, const void *hin, const void *w1, const void *w2,
+              void *out, void *mid, void *dpy, int B, int H, int W, cudaStream_t st) {
+  using K = BB<C>;
+  auto kern = bb_kernel<C, BWD>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+  int dev = 0, sms = 0, occ = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, K::NT, K::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const int nt = B * ((H + K::TH - 1) / K::TH) * ((W + TW - 1) / TW);
+  kern<<<min(nt, sms * occ), K::NT, K::SMEM, st>>>(
+      (const bf16 *)src, (const bf16 *)msk, (const bf16 *)hin, (const bf16 *)w1,
+      (const bf16 *)w2, (bf16 *)out, (bf16 *)mid, (bf16 *)dpy, B, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <bool BWD>
+int dispatch(int C, const void *src, const void *msk, const void *hin, const void *w1,
+             const void *w2, void *out, void *mid, void *dpy, int B, int H, int W, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+    case 64: return launch_bb<64, BWD>(src, msk, hin, w1, w2, out, mid, dpy, B, H, W, st);
+    case 128: return launch_bb<128, BWD>(src, msk, hin, w1, w2, out, mid, dpy, B, H, W, st);
+    case 256: return launch_bb<256, BWD>(src, msk, hin, w1, w2, out, mid, dpy, B, H, W, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace dvie
 
-// One BasicBlock forward.  x (B,H,W,64), w1 and w2 (9,64,64): the taps of
-// k1 and k2 (tap ky*3+kx, input rows, output columns); y (B,H,W,64); h
-// (B,H,W,64) or null (not stored).  All bf16.
-extern "C" int dvie_bb_chain_fwd(const void *x, const void *w1, const void *w2, void *y, void *h,
-                                 int B, int H, int W, void *stream) {
-  using dvie::bf16;
-  int e = dvie::set_smem();
-  if (e) return e;
-  dvie::bb_fwd_kernel<<<dvie::tc::n_tiles(B, H, W), dvie::NT, dvie::SMEM,
-                        (cudaStream_t)stream>>>((const bf16 *)x, (const bf16 *)w1,
-                                                (const bf16 *)w2, (bf16 *)y, (bf16 *)h, H, W);
-  return (int)cudaGetLastError();
+// One BasicBlock forward at C in {64, 128, 256}.  x (B,H,W,C); w1u, w2u:
+// k1 and k2 as 9 * C / 64 weight units (tap, 64 input channels) of
+// (8 k-groups, C outputs, 8 k) bf16; y (B,H,W,C); h (B,H,W,C) or null.
+extern "C" int dvie_bb_chain_fwd(const void *x, const void *w1u, const void *w2u, void *y, void *h,
+                                 int B, int H, int W, int C, void *stream) {
+  return dvie::dispatch<false>(C, x, nullptr, nullptr, w1u, w2u, y, h, nullptr, B, H, W, stream);
 }
 
-// One BasicBlock backward.  x, y, h (B,H,W,64): the block's input and what
-// its forward stored; dy (B,H,W,64); w1f, w2f (9,64,64): the taps of k1
-// and k2 flipped and transposed (the transposed convs as SAME convs).
-// Scratch: dpre_y, dpre_h (B,H,W,64) bf16.  Outputs: dx (B,H,W,64) bf16;
-// f32 partials over `splits` pixel ranges: pk1, pk2 (splits,9,64,64).
-extern "C" int dvie_bb_chain_bwd(const void *x, const void *y, const void *h, const void *dy,
-                                 const void *w1f, const void *w2f, void *dpre_y, void *dpre_h,
-                                 void *dx, void *pk1, void *pk2, int B, int H, int W, int splits,
-                                 void *stream) {
-  using dvie::bf16;
-  namespace tc = dvie::tc;
-  int e = dvie::set_smem();
-  if (e) return e;
-  cudaStream_t st = (cudaStream_t)stream;
-  dvie::bb_bwd_kernel<<<tc::n_tiles(B, H, W), dvie::NT, dvie::SMEM, st>>>(
-      (const bf16 *)dy, (const bf16 *)y, (const bf16 *)h, (const bf16 *)w1f, (const bf16 *)w2f,
-      (bf16 *)dpre_y, (bf16 *)dpre_h, (bf16 *)dx, H, W);
-  if ((e = (int)cudaGetLastError())) return e;
-  tc::WJobs jobs;
-  jobs.n = 0;
-  const int C = dvie::C;
-  for (int t = 0; t < 9; ++t)
-    jobs.j[jobs.n++] = tc::job(x, C, dpre_h, C, (float *)pk1 + t * C * C, 9L * C * C, t / 3 - 1,
-                               t % 3 - 1);
-  for (int t = 0; t < 9; ++t)
-    jobs.j[jobs.n++] = tc::job(h, C, dpre_y, C, (float *)pk2 + t * C * C, 9L * C * C, t / 3 - 1,
-                               t % 3 - 1);
-  return tc::launch_wgrad(jobs, B * H * W, H, W, splits, st);
+// One BasicBlock backward but its weight grads.  dy, y, h (B,H,W,C): the
+// output grad and what the forward stored; w1u, w2u: the flipped and
+// transposed taps of k2 and k1 (the transposed convs as SAME convs), as
+// units.  Outputs: dx, dpre_h, dpre_y (B,H,W,C) bf16.
+extern "C" int dvie_bb_chain_bwd(const void *dy, const void *y, const void *h, const void *w1u,
+                                 const void *w2u, void *dx, void *dpre_h, void *dpre_y, int B,
+                                 int H, int W, int C, void *stream) {
+  return dvie::dispatch<true>(C, dy, y, h, w1u, w2u, dx, dpre_h, dpre_y, B, H, W, stream);
+}
+
+// The weight grads of n <= 16 convs of one chain in one launch.  ptrs (a
+// host array): n triples (a, d, out), a and d (B,H,W,C) bf16, out
+// (splits, 9, C, C) f32 partials over `splits` pixel ranges.
+extern "C" int dvie_bb_chain_wgrad(const void *ptrs, int n, int C, int B, int H, int W,
+                                   int splits, void *stream) {
+  using namespace dvie;
+  if (n < 1 || n > MAX_JOBS || C % 64 || splits < 1) return (int)cudaErrorInvalidValue;
+  GJobs jobs;
+  const void *const *p = (const void *const *)ptrs;
+  for (int i = 0; i < n; ++i) {
+    jobs.a[i] = (const bf16 *)p[3 * i];
+    jobs.d[i] = (const bf16 *)p[3 * i + 1];
+    jobs.out[i] = (float *)p[3 * i + 2];
+  }
+  cudaError_t e =
+      cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int nch = C / 64;
+  wgrad_kernel<<<dim3((unsigned)(nch * nch * splits), (unsigned)n), GNT, GSMEM,
+                 (cudaStream_t)stream>>>(jobs, C, B, H, W, splits);
+  return (int)cudaGetLastError();
 }

@@ -18,12 +18,14 @@ routes its Pallas kernels, by the JAX package's own shape predicates:
   the four whole Bottlenecks (``bottleneck_fwd`` / ``bottleneck_bwd``),
   and trans_0 is ``F.conv2d``, as ``_trainchain`` and the unpacked
   transition route them (hrnet.py:557-565, :351-354);
-- the four branch-0 BasicBlocks of each stage run through the BasicBlock
-  chain kernels (``bb_chain_fwd`` / ``bb_chain_bwd``) where
-  ``bb_chain_route`` holds (the JAX default ``DVIE_BBCHAIN=b0``,
-  hrnet.py:164-201: the 24x128x128 train recipe); else they take K1 for
-  both convs (the second with the residual) where the JAX ``packable``
-  test holds (hrnet.py:146-149: W even and >= 128, serving), else
+- the four BasicBlocks of a stage2/stage3 branch run through the
+  BasicBlock chain kernels (C = 64, 128 or 256; ``ops/bbchain``) where
+  ``bb_chain_route`` holds for the branch under ``DVIE_BBCHAIN``
+  (hrnet.py:164-201; default ``b0``: branch 0 at the 24x128x128 train
+  recipe; ``rest``: branches 1 and 2 where they fit; ``all``: every branch
+  that fits; ``0``: none); else a 64-ch branch 0 takes K1 for both convs
+  (the second with the residual) where the JAX ``packable`` test holds
+  (hrnet.py:146-149: W even and >= 128), and every other branch
   ``F.conv2d``;
 - K3 ``fuse_out0``: the out-0 fuse sum of stage2 and stage3 (2-3
   branches, ``_fuse0_gate`` at hrnet.py:124); stage4's out-0 is the plain
@@ -36,8 +38,9 @@ routes its Pallas kernels, by the JAX package's own shape predicates:
   always runs it, and a pyramid it cannot take raises.
 
 Every other conv (the stem conv1 at W >= 256, the 1x1 and stride-2 fuse
-convs, the transitions' stride-2 convs, branches 1-3) is ``F.conv2d``,
-as the JAX package leaves it to XLA.  Every kernel is differentiable.
+convs, the transitions' stride-2 convs, branches 1-3 off the chain route)
+is ``F.conv2d``, as the JAX package leaves it to XLA.  Every kernel is
+differentiable.
 ``use_kernels=False`` builds the same model on the kernels' plain versions
 (the reference the card's run is held to), differentiated by autograd.
 
@@ -47,6 +50,7 @@ are exactly those ``tools/torch_port.port_hrnet`` reads.
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence, Tuple
 
 import torch
@@ -110,31 +114,58 @@ def branch0_kernel(w: int) -> bool:
     return w % 2 == 0 and w >= 128
 
 
-def bb_chain_route(b: int, h: int, w: int, itemsize: int = 2,
-                   n_blocks: int = 4) -> bool:
-    """The JAX default route of a 64-ch branch 0 through the BasicBlock
-    chain (``DVIE_BBCHAIN=b0``, hrnet.py:164-186, without its TPU test):
-    ``packable`` and ``pallas_trainchain.bb_fits`` (:652-678) on the
-    width-packed shape (b, h, w/2, 128) with ``itemsize``-byte elements.
-    Pure shape arithmetic: true at the 24x128x128 train recipe, false at
-    2x128x256 and 2x512x1024.  The 40 MiB budget is the TPU kernel's VMEM
-    budget, kept so that the port takes the JAX package's route at every
-    shape; it is no limit of the Hopper chain kernels, whose 8x16 tiles
-    take any size."""
-    if not branch0_kernel(w):
+def bb_chain_mode() -> str:
+    """``DVIE_BBCHAIN`` as the JAX package reads it (hrnet.py:175): ``all``
+    | ``b0`` (the default) | ``rest`` | ``0``; any other value routes no
+    branch through the chain, as there."""
+    return os.environ.get("DVIE_BBCHAIN", "b0")
+
+
+def bb_fits(b: int, h: int, w2: int, c: int, n_blocks: int,
+            itemsize: int) -> bool:
+    """``pallas_trainchain.bb_fits`` (:652-678) on a (b, h, w2, c) shape:
+    its tiling rules and ``_bb_pick_bt``'s 40 MiB budget for some batch
+    tile.  The budget is the TPU kernel's VMEM budget, kept so that the
+    port takes the JAX package's route at every shape; it is no limit of
+    the Hopper chain kernels, whose pixel tiles take any size."""
+    if w2 % 8 or h < 8 or c % 128:
         return False
-    w2, c = w // 2, 128
-    if w2 % 8 or h < 8:
-        return False
-    budget = 40 * 2**20                          # _bb_pick_bt's budget
+    budget = 40 * 2**20
     plane = h * w2 * c * itemsize
     weights = 2 * n_blocks * 9 * c * c * 4 * 2
     return any(b % bt == 0 and 2 * bt * plane * 3 + bt * plane * (n_blocks + 3)
                + weights < budget for bt in (8, 4, 2, 1))
 
 
+def bb_chain_route(b: int, h: int, w: int, itemsize: int = 2,
+                   n_blocks: int = 4, c: int = 64, mode: str = "b0") -> bool:
+    """Whether a branch of ``c`` channels at (b, h, w) takes the BasicBlock
+    chain under ``DVIE_BBCHAIN=mode`` (hrnet.py:146-186, without its TPU
+    tests): the mode allows the branch (``all``; ``b0`` if ``packable``;
+    ``rest`` if not), and ``bb_fits`` holds on the shape the JAX kernel
+    sees, width-packed (b, h, w/2, 128) for a ``packable`` 64-ch branch,
+    else unpacked (b, h, w, c) with ``itemsize``-byte elements.  Pure shape
+    arithmetic.  At the 24x128x128 train recipe: ``b0`` takes branch 0
+    (64 ch at 128x128), ``rest`` branch 1 (128 ch at 64x64), ``all`` both;
+    branch 2 (256 ch at 32x32) never fits there, but does at 16x32 (a
+    64x128 input).  Serving shapes (2x128x256, 2x512x1024) take none."""
+    packable = c == 64 and branch0_kernel(w)
+    allowed = (mode == "all" or (mode == "b0" and packable)
+               or (mode == "rest" and not packable))
+    if not allowed:
+        return False
+    if packable:
+        return bb_fits(b, h, w // 2, 128, n_blocks, itemsize)
+    return bb_fits(b, h, w, c, n_blocks, itemsize)
+
+
 class HighResolutionModule(nn.Module):
-    """Parallel multi-resolution branches + full fuse (hrnet.py:83-319)."""
+    """Parallel multi-resolution branches + full fuse (hrnet.py:83-319).
+
+    Each branch's BasicBlocks take the chain (``bb_chain``, or
+    ``bb_chain_plain`` in the plain model) where ``bb_chain_route`` holds
+    for its shape and the ``DVIE_BBCHAIN`` mode, read at each forward;
+    else block by block, on K1 for a packable 64-ch branch 0."""
 
     def __init__(self, num_branches: int, num_blocks: Sequence[int],
                  num_channels: Sequence[int], use_kernels: bool = True):
@@ -165,10 +196,11 @@ class HighResolutionModule(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         ys = []
+        mode = bb_chain_mode()
         for i, blocks in enumerate(self.branches):
             h = xs[i]
-            if i == 0 and h.shape[-1] == 64 and bb_chain_route(
-                    *h.shape[:3], h.element_size(), len(blocks)):
+            if bb_chain_route(*h.shape[:3], h.element_size(), len(blocks),
+                              h.shape[-1], mode):
                 pairs = [(blk.conv1.weight, blk.conv2.weight)
                          for blk in blocks]
                 h = (bb_chain if self.use_kernels else bb_chain_plain)(

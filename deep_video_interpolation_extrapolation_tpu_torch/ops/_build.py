@@ -54,11 +54,12 @@ SIGNATURES = {
     # x, dy, w1, w2, w3, wres, w1t, w2f, w3t, wrest, h1, h2, dpre_y, dpre2,
     # dpre1, dx, pk1, pk2, pk3, pkres, B, H, W, Ci, splits, stream
     "dvie_bottleneck_bwd": [P] * 20 + [I] * 5 + [P],
-    # x, w1, w2, y, h, B, H, W, stream
-    "dvie_bb_chain_fwd": [P] * 5 + [I] * 3 + [P],
-    # x, y, h, dy, w1f, w2f, dpre_y, dpre_h, dx, pk1, pk2, B, H, W, splits,
-    # stream
-    "dvie_bb_chain_bwd": [P] * 11 + [I] * 4 + [P],
+    # x, w1u, w2u, y, h, B, H, W, C, stream
+    "dvie_bb_chain_fwd": [P] * 5 + [I] * 4 + [P],
+    # dy, y, h, w1u, w2u, dx, dpre_h, dpre_y, B, H, W, C, stream
+    "dvie_bb_chain_bwd": [P] * 8 + [I] * 4 + [P],
+    # host array of n (a, d, out) pointers, n, C, B, H, W, splits, stream
+    "dvie_bb_chain_wgrad": [P] + [I] * 6 + [P],
     # p0, p1, p2, p3, w1, b1, w2t, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
     # C1, C2, C3, N1, N2, stream
     "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],

@@ -212,16 +212,22 @@ def _check_stem(x, k1, k2):
     hw.check_bf16("x", x)
 
 
-def _call(name: str, *args) -> None:
-    """Call the exported C function ``name``: tensors go as device
-    pointers (None as NULL), ints as ints, then the stream of the first
-    tensor.  ``args`` holds every operand until the launch is queued."""
+def _launch(fn: str, count: str, like: torch.Tensor, *args) -> None:
+    """Call the exported C function ``dvie_{fn}``: tensors go as device
+    pointers (None as NULL), ints as ints, then the stream of ``like``'s
+    device; add one to the launch counter ``count``.  ``args`` holds every
+    operand until the launch is queued."""
     ptrs = [_build.ptr(a) if a is None or torch.is_tensor(a) else a
             for a in args]
-    stream = _build.stream(next(a for a in args if torch.is_tensor(a)))
-    _build.check_launch(name, getattr(_build.library(), f"dvie_{name}")(
-        *ptrs, stream))
-    hw.launches[name] += 1
+    _build.check_launch(fn, getattr(_build.library(), f"dvie_{fn}")(
+        *ptrs, _build.stream(like)))
+    hw.launches[count] += 1
+
+
+def _call(name: str, *args) -> None:
+    """``_launch`` of ``dvie_{name}`` on the first tensor's stream, counted
+    under ``name``."""
+    _launch(name, name, next(a for a in args if torch.is_tensor(a)), *args)
 
 
 def stem_fwd_kernel(x, k1, b1, k2, b2):

@@ -10,7 +10,9 @@ the same setup as ``chip_smoke.py``'s train phase.  For each model
 3 steps (host clock, synchronized), the peak device memory of those steps,
 then one step under ``torch.profiler``: the time of every device event
 (kernels, copies, fills; the rows do not overlap) summed, as the profiler's
-own table totals it.  Prints one summary line per model and its top
+own table totals it.  Prints one summary line per model, the per-step
+device time of the BasicBlock chain (its forward and backward launches and
+its weight-grad launch: the events named in ``CHAIN``), and its top
 ``ROWS`` device events by time, also written to ``<out>/<model>.txt``.
 The idle share is 1 - (device time / the mean wall time of the unprofiled
 steps): the profiler's own host work slows the profiled step.
@@ -38,6 +40,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
 
 B, H, W = 24, 128, 128
 ROWS = 30
+# device events of the BasicBlock chain kernels (csrc/trainchain_basicblock.cu):
+# the forward/backward kernel and the chain's weight-grad kernel (its jobs
+# struct, GJobs, tells it from the stem's and Bottleneck's wgrad_kernel)
+CHAIN = ("bb_kernel", "GJobs")
 CFG = Config(model="InterNet", coarse_model="HRNet", syn_type="inter",
              compute_dtype="bfloat16", train_coarse=True)
 
@@ -92,13 +98,16 @@ def profile_model(dev, use_kernels: bool):
     avgs = sorted((e for e in prof.key_averages() if _on_device(e)),
                   key=_self_device_us, reverse=True)
     device_ms = sum(_self_device_us(e) for e in avgs) / 1e3
+    chain_ms = sum(_self_device_us(e) for e in avgs
+                   if any(k in e.key for k in CHAIN)) / 1e3
     lines = [f"{'device ms':>10}  {'share':>7}  {'calls':>5}  event"]
     for e in avgs[:ROWS]:
         ms = _self_device_us(e) / 1e3
         lines.append(f"{ms:10.3f}  {ms / device_ms:7.2%}  {e.count:5d}  "
                      f"{e.key[:110]}")
     return dict(wall_ms=wall_ms, peak_gib=peak_gib, prof_ms=prof_ms,
-                device_ms=device_ms, idle=1 - device_ms / wall_ms,
+                device_ms=device_ms, chain_ms=chain_ms,
+                idle=1 - device_ms / wall_ms,
                 table="\n".join(lines))
 
 
@@ -117,7 +126,8 @@ def main(argv=None) -> int:
         print(f"{name} model {B}x{H}x{W}: wall {r['wall_ms']:.3f} ms/step "
               f"(mean of 3), peak {r['peak_gib']:.3f} GiB; profiled step "
               f"{r['prof_ms']:.3f} ms, self device {r['device_ms']:.3f} ms, "
-              f"idle {r['idle']:.2%}")
+              f"idle {r['idle']:.2%}; BasicBlock chain {r['chain_ms']:.3f} "
+              f"ms per step")
         print(r["table"])
     return 0
 
