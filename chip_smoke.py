@@ -29,9 +29,12 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    outputs by max|d|/max|ref| <= 2e-2, weight and bias grads by rel-L2 <=
    1e-2; each backward on inputs whose lrelu masks are fixed per channel
    (dx by max|d|/max|ref| <= 2e-2) and on random inputs, whose masks vary
-   per pixel (dx by rel-L2 <= 1e-2); and K1's backward (autograd of its
-   plain version recomputed) against plain autograd, now that the train
-   step no longer runs it;
+   per pixel (dx by rel-L2 <= 1e-2); the Bottleneck at block 0 (Ci = 64,
+   kres) and block 1 (Ci = 256), each timed, and its weight-grad launch on
+   its own; K1's backward (autograd of its plain version recomputed)
+   against plain autograd, now that the train step no longer runs it; and
+   K4's whole backward (``ups_head_taps_bwd``, bf16 products) against its
+   f32-operand form, timed;
 5. training: the INTER train step (``train/inter.make_train_step``) of
    InterNet/HRNet at full width on seeded 24x128x128 batches, bf16 with f32
    masters, frozen seeded VGG19, default loss weights:
@@ -44,9 +47,9 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    - 20 Adamax steps on one fixed batch per model: loss_all falls for
      both, and the kernel model ends within 10% of the plain model;
    - the launches of one counted step (stem fwd/bwd 1/1, Bottleneck
-     fwd/bwd 4/4, BasicBlock chain fwd/bwd 8/8 (one per block) and its
-     weight grads 2 (one per chain), K1 0, K2 0, K3 2, K4 taps 1 and h
-     mode 1, every other kernel 0);
+     fwd/bwd/weight grads 4/4/4, BasicBlock chain fwd/bwd 8/8 (one per
+     block) and its weight grads 2 (one per chain), K1 0, K2 0, K3 2, K4
+     taps 1 and h mode 1, every other kernel 0);
    - samples/s of both models: median of the 18 steps after 2 warm-ups;
    all under the default ``DVIE_BBCHAIN=b0``; then the same step under
    ``0`` (branch 0 on K1: 16 launches), ``rest`` (branch 1 on the C = 128
@@ -91,11 +94,13 @@ results (``launches``: the serve rollout's count plus the counted train
 step's plus the highres_large, stage3 and vae runs', as counted there: 0
 for the dual head and the bounded grid sample, which no model runs; the
 chain forward's N = 1 row, ``bb_chain_fwd_n1``, reads the chain's counter,
-one launch per block; ``bound_ms``: the least
-time of the timed call from its bytes and operations; ``library_ms``: one
-PyTorch call of the same function where there is one, else null), and last
-``{"ok": true, "device": {...}}``.  Any failed phase raises: the exit code
-is then non-zero and no result line is printed.  Needs a CUDA card of
+one launch per block, and the Bottleneck's block-0 rows,
+``bottleneck_fwd_b0`` and ``bottleneck_bwd_b0``, read the counters of all
+four blocks; ``bound_ms``: the least time of the timed call from its
+bytes and operations; ``library_ms``: one PyTorch call of the same
+function where there is one, else null), and last ``{"ok": true,
+"device": {...}}``.  Any failed phase raises: the exit code is then
+non-zero and no result line is printed.  Needs a CUDA card of
 compute capability (9, 0); there is no CPU fallback.
 """
 
@@ -160,7 +165,8 @@ PER_FORWARD_HL = {**PER_FORWARD, "conv3x3_bias_res_lrelu": 26,
 # one train step at 24x128x128: the train chain for stem + layer1 and for
 # the 8 branch-0 BasicBlocks of stages 2 and 3, no K1, no K2
 PER_TRAIN_STEP = {"stem_fwd": 1, "stem_bwd": 1, "bottleneck_fwd": 4,
-                  "bottleneck_bwd": 4, "bb_chain_fwd": 8, "bb_chain_bwd": 8,
+                  "bottleneck_bwd": 4, "bottleneck_wgrad": 4,
+                  "bb_chain_fwd": 8, "bb_chain_bwd": 8,
                   "bb_chain_wgrad": 2,
                   "conv3x3_bias_res_lrelu": 0, "bottleneck_tail": 0,
                   "fuse_out0": 2, "ups_head_taps": 1, "ups_head_1x1": 1,
@@ -207,6 +213,12 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:400"),
     "bottleneck_bwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:445"),
+    "bottleneck_wgrad": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
+                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:445"),
+    "bottleneck_fwd_b0": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:400"),
+    "bottleneck_bwd_b0": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:445"),
     "bb_chain_fwd": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
                      "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:704"),
     "bb_chain_bwd": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
@@ -237,8 +249,11 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
 }
 # a row timed on another row's counter: the chain forward launches once per
-# block, so each of its launches computes the one-block function
-COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd"}
+# block, so each of its launches computes the one-block function; the
+# Bottleneck's block-0 rows (Ci = 64, kres) share the counters of blocks 1-3
+COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
+           "bottleneck_fwd_b0": "bottleneck_fwd",
+           "bottleneck_bwd_b0": "bottleneck_bwd"}
 # the video VAE serving forward: one grid sample per step
 VAE_T = 2
 PER_FORWARD_VAE = {"grid_sample": VAE_T}
@@ -312,6 +327,11 @@ def operations(name, args):
     if name == "bb_chain_wgrad":   # 9 taps of a C x C product per pixel
         return sum(2 * 9 * a.shape[-1] * d.shape[-1] * _px(a)
                    for a, d in args[0]), BF16_PEAK
+    if name == "bottleneck_wgrad":  # dk1, dk2 (9 taps), dk3, dkres per pixel
+        ci = args[0].shape[-1]
+        res = ci * 256 if ci != 256 else 0
+        return 2 * _px(args[0]) * (ci * 64 + 9 * 64 * 64 + 64 * 256 + res), \
+            BF16_PEAK
     if name == "window_attention":
         q, _, _, v1, _, win_h, win_w = args
         return (2 * _px(q) * 2 * win_h * win_w * (q.shape[-1] + v1.shape[-1]),
@@ -822,6 +842,61 @@ def k1_backward_check(dev):
         raise AssertionError(f"K1 backward: dw rel-L2 {l2:.4g}")
 
 
+def k4_backward_check(dev):
+    """K4's backward (``upshead.ups_head_taps_bwd``: h by the kernel's h
+    mode, then the products on bf16 operands, dh and dcat rounded once to
+    bf16, dw1 and dw2t f32 results) at the recipe shape, 24x128x128,
+    against its f32-operand form: the same function on f32 copies of the
+    operands and of the same h, TF32 off.  dp0, dp1, dp2 by max|d|/max|ref|
+    <= KERNEL_TOL (bf16 results), dw1, db1, dw2t by rel-L2 <= WGRAD_TOL.
+    Prints the median CUDA-event ms of both forms."""
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def act(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) / (
+            shape[1] * shape[2] * shape[3]) ** 0.5
+
+    B, H, W = 24, 128, 128
+    args = (act(B, H, W, 64), act(B, H // 2, W // 2, 128),
+            act(B, H // 4, W // 4, 256), w(896, 448, 1, 1)[:, :, 0, 0].t(),
+            w(896, 1, 1, 1).flatten(),
+            k4.build_dual_tap_kernel(w(3, 448, 3, 3), w(20, 448, 3, 3),
+                                     torch.float32),
+            act(B, H, W, 207, scale=1e-2))
+    h32 = k4.ups_head_1x1(*args[:5]).float()
+
+    def f32_form():
+        return k4.ups_head_taps_bwd(*(t.float() for t in args), h=h32)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, ref = k4.ups_head_taps_bwd(*args), f32_form()
+        torch.cuda.synchronize()
+        for name, o, r in zip(("dp0", "dp1", "dp2"), got[:3], ref[:3]):
+            if o.dtype != torch.bfloat16:
+                raise AssertionError(f"K4 backward {name}: dtype {o.dtype}")
+            _held("ups_head_taps_bwd", name, o, r)
+        for name, o, r in zip(("dw1", "db1", "dw2t"), got[3:], ref[3:]):
+            l2 = rel_l2(o, r)
+            print(f"  ups_head_taps_bwd [{name}] rel-L2={l2:.6g}")
+            if (o.dtype != torch.float32 or not torch.isfinite(o).all()
+                    or l2 > WGRAD_TOL):
+                raise AssertionError(f"K4 backward {name}: rel-L2 {l2:.4g} "
+                                     f"or dtype {o.dtype}")
+        ms = median_ms(lambda: k4.ups_head_taps_bwd(*args), iters=3, reps=3)
+        f32_ms = median_ms(f32_form, iters=3, reps=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"  ups_head_taps_bwd [24x128x128] bf16 {ms:.4f} ms (h mode "
+          f"included), f32-operand form {f32_ms:.4f} ms")
+    return ms
+
+
 def train_kernel_phase(dev):
     """The train-chain kernels and K4's h mode against their plain
     versions at the recipe shapes (24x128x128 bf16): outputs by
@@ -885,6 +960,7 @@ def train_kernel_phase(dev):
     bb_fwd = (bb.bb_chain_fwd_kernel, bb.bb_chain_plain)
     bb_bwd = (_bb_bwd_kernel, _bb_bwd_plain)
     x14 = act(B, H, W, 14)
+    bn_ops = [act(B, H, W, 64) for _ in range(4)]   # h1, h2, dpre2, dpre1
     cases = {
         "stem_fwd": [("stem", tc.stem_fwd_kernel, tc.stem_plain,
                       (x14, *stem_w), "max", "stem_fwd")],
@@ -893,7 +969,8 @@ def train_kernel_phase(dev):
              (c_stem[0], dy64, *c_stem[1:]), "max", None),
             ("stem, random", tc.stem_bwd_kernel, tc.stem_bwd_plain,
              (x14, dy64, *stem_w), "l2", "stem_bwd")],
-        "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max", None),
+        "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max",
+                            "bottleneck_fwd_b0"),
                            ("block 1", *fwd, (x256, *blk1), "max",
                             "bottleneck_fwd")],
         "bottleneck_bwd": [
@@ -901,7 +978,8 @@ def train_kernel_phase(dev):
              "max", None),
             ("block 1, fixed masks", *bwd, (c_blk1[0], dy256, *c_blk1[1:]),
              "max", None),
-            ("block 0, random", *bwd, (x64, dy256, *blk0), "l2", None),
+            ("block 0, random", *bwd, (x64, dy256, *blk0), "l2",
+             "bottleneck_bwd_b0"),
             ("block 1, random", *bwd, (x256, dy256, *blk1), "l2",
              "bottleneck_bwd")],
         # N = 1 is pallas_resblock.fused_basicblock and
@@ -926,6 +1004,13 @@ def train_kernel_phase(dev):
                                  wide[c][6]), "max", None),
             (f"C={c}, N=4, random", *bb_bwd, wide[c][:4], "l2",
              f"bb_chain_bwd_c{c}")] for c in wide},
+        # the Bottleneck's weight-grad launch on its operands (x, h1, h2,
+        # dpre2, dpre1, dpre_y), as the backward stores them
+        "bottleneck_wgrad": [
+            ("block 0", tc.bottleneck_wgrad_kernel, tc.bottleneck_wgrad_plain,
+             (x64, *bn_ops, act(B, H, W, 256)), "l2", None),
+            ("block 1", tc.bottleneck_wgrad_kernel, tc.bottleneck_wgrad_plain,
+             (x256, *bn_ops, act(B, H, W, 256)), "l2", "bottleneck_wgrad")],
         "bb_chain_wgrad": [("C=64, 8 weights of N=4", _wgrad_kernel,
                             _wgrad_plain, (wjobs,), "l2", "bb_chain_wgrad")],
         "ups_head_1x1": [("heads", k4.ups_head_1x1, k4.ups_head_1x1_plain,
@@ -1377,6 +1462,7 @@ def main():
     counts = serve_phase(dev, card)
     kernels.update(train_kernel_phase(dev))
     k1_backward_check(dev)
+    k4_backward_check(dev)
     train_counts, g_ref = train_phase(dev, card)
     runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
             highres_phase(dev, card), stage3_phase(dev, card),

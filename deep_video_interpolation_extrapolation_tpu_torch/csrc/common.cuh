@@ -2,7 +2,8 @@
 //
 // Every kernel here is an NHWC bf16 kernel with f32 accumulation on the
 // tensor cores, through WMMA 16x16x16 bf16 tiles read from shared memory
-// (the BasicBlock chain through wgmma instead: hopper.cuh).
+// (the BasicBlock chain, the layer1 Bottleneck and K4 through wgmma
+// instead: hopper.cuh).
 // Pixels are flattened to rows m = (b*H + y)*W + x, so a tile of rows is a
 // run of consecutive pixels and an output tile is one contiguous span of
 // device memory.

@@ -1,6 +1,5 @@
-// Shared pieces of the train-chain kernels (trainchain_stem.cu,
-// trainchain_bottleneck.cu): 2-D pixel tiles with halo regions, and the
-// split-K weight-grad kernel.
+// Pieces of the stem's train-chain kernels (trainchain_stem.cu): 2-D pixel
+// tiles with halo regions, and the split-K weight-grad kernel.
 //
 // 2-D tiles.  A block owns TH x TW output pixels of one image.  A 3x3 conv
 // on the tile needs its input on a ring of halo pixels around it; such a

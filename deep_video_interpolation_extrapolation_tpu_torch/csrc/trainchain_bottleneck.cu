@@ -5,469 +5,801 @@
 //   pre_y = bf16(h2 . k3) + (bf16(x . kres) if kres else x)   (-> 256)
 //   y = lrelu(pre_y)
 // with residual adds and lrelu in bf16, as ops/pallas_trainchain.py rounds.
+// The kernels take the two blocks of the main path: Ci = 64 with kres
+// (block 0) and Ci = 256 with the identity residual (blocks 1-3).
 //
 // Replaces ops/pallas_trainchain.py:packed_bottleneck: the forward kernel
 // _bn_fwd_kernel (pallas_call at :400; also pallas_resblock.fused_bottleneck,
 // :270, the same function) and the backward _bn_bwd_kernel (:445), which
 // recomputes h1, h2 and pre_y and returns dx and per-program f32 dk1, dk2,
 // dk3, dkres partials.  Width packing, the A+E split of the taps and the
-// batch-only grid are TPU devices and are dropped: a block owns an 8x16
-// pixel tile and recomputes h1 on the ring its conv3x3 needs
-// (trainchain.cuh).
+// batch-only grid are TPU devices and are dropped.
 //
 // Bound on the H100 at the recipe shape (24x128x128, M = 393,216 pixels):
-//   forward: 2*M*(Ci*64 + 576*64 + 64*256) = 54.8 GFLOP at Ci = 256 (+12%
-//   for h1 on the ring; + 2*M*64*256 with kres at Ci = 64); x 201 MB +
-//   y 201 MB at Ci = 256: 55 us of tensor cores vs 120 us of HBM at peak:
-//   memory-bound.  h1 and h2 (64 ch each) never reach device memory.
-//   backward: about 2.5x the forward's products plus the weight grads
-//   (2*M*(Ci*64 + 576*64 + 64*256 [+ Ci*256]) again), and the round trips
-//   of h1, h2, dpre2, dpre1 (50 MB each) and dpre_y (201 MB).
-// Design.  Forward, one launch of bottleneck_front: x staged in 64-channel
-// chunks on the 1-pixel ring (10x18 positions) -> h1 on the ring in shared
-// memory -> conv2 on the tile (all 9 taps of k2, 83 KB, in shared memory)
-// -> h2 -> the 256 output channels in four 64-wide chunks, each with its
-// residual, rounded and stored.  8 warps, one output row each.
-// Backward, three launches (dh1 on the tile needs dpre2 one ring out, and
-// dpre2 there needs h2, so h1, two rings out: one launch would redo
-// conv2 on the ring as well):
-//   1. bottleneck_front in backward mode: the forward recomputed, then
-//      dpre_y = lrelu'(pre_y) * dy, dh2 = bf16(dpre_y . k3^T), dpre2 =
-//      lrelu'(h2) * dh2; stores h1, h2, dpre_y and dpre2 (bf16);
-//   2. bottleneck_bwd2 on 64-pixel rows: dh1 = bf16(conv_t(dpre2, k2)) from
-//      device memory (shifted, zero-filled loads), dpre1 = lrelu'(h1) * dh1
-//      (stored), dx = bf16(dpre1 . k1^T + (dpre_y . kres^T or dpre_y));
-//   3. wgrad_kernel: dk1 (x, dpre1), dk2 (h1, dpre2), dk3 (h2, dpre_y),
-//      dkres (x, dpre_y) as split-K f32 partials (trainchain.cuh).
-#include "trainchain.cuh"
+//   forward: 2*M*(Ci*64 + 576*64 + 64*256) = 54.8 GFLOP at Ci = 256 (55 us
+//   at 989 TFLOP/s) against x 201 MB + y 201 MB (120 us at 3.35 TB/s):
+//   memory-bound.  h1 and h2 never reach device memory.
+//   backward: the forward again, the three transposed products and the
+//   four weight grads (about 3x the forward's operations), and the round
+//   trips of h1, h2, dpre2, dpre1 (50 MB each) and dpre_y (201 MB).
+//
+// Design: every product runs on wgmma m64n64k16 (hopper.cuh), B from
+// shared memory, A from registers, f32 accumulators in registers.
+// - Weights: every (64 input x 64 output channel) block of k1, k2's nine
+//   taps, k3, kres and their transposes is an 8 KB unit in the no-swizzle
+//   K-major core-matrix order, laid out by the wrapper in the order a tile
+//   consumes them; one producer warp streams the units of every tile into
+//   an 8-slot ring by bulk TMA copies under full/empty mbarriers.
+// - front_kernel (the forward, and the first backward launch): a block
+//   owns an 8x16 pixel tile.  x is staged (cp.async) on the 1-pixel ring
+//   (10x18 positions, 16 bytes of padding per position against bank
+//   conflicts); conv1 runs on the ring positions (3 m-tiles, one per
+//   consumer warpgroup; A by ldmatrix at each lane's own row, so the rows
+//   are exactly the ring's positions) and writes h1 (zero outside the
+//   image) to a ring buffer in shared memory; conv2 reads shifted views of
+//   that buffer (one per tap; a shifted view of a swizzled tile would be no
+//   valid descriptor, so A again comes by ldmatrix); h2 stays in registers
+//   goes through a small per-warpgroup buffer (each warp its own rows) to
+//   conv3's A operand, 64 output channels at a time, each chunk with
+//   its residual (x . kres from the staged x, or x from device memory),
+//   rounded and stored.  The third warpgroup repeats the second's tile
+//   rows in conv2 and conv3 and stores nothing: a wgmma under a
+//   thread-dependent branch is serialized by ptxas (C7518).  Persistent
+//   blocks: the next tile's x lands while conv2 and conv3 run (at Ci = 64
+//   into a second buffer, since x . kres still reads the current one).
+//   In the backward (BWD) each pre_y chunk becomes dpre_y = lrelu'(pre_y)
+//   * dy, is stored and feeds dh2 = dpre_y . k3^T from registers (FA3's
+//   P.V: acc_to_a); dpre2 = lrelu'(h2) * bf16(dh2).
+// - back_kernel (second backward launch; dh1 on the tile needs dpre2 one
+//   ring out, and dpre2 there needs h2 and so h1 two rings out): dpre2
+//   staged on the 1-ring, dh1 = bf16(conv_t(dpre2, k2)) as conv2 with the
+//   flipped transposed taps, dpre1 = lrelu'(h1) * dh1 (stored), then dx =
+//   bf16(dpre1 . k1^T + (dpre_y . kres^T | dpre_y)) per 64 input channels,
+//   dpre1 from registers, dpre_y staged by cp.async; rounded once.
+// - wgrad_kernel: all four weight grads in one launch, each a sum over
+//   pixels of a(p)^T . d(p) (K = pixels): 9 products of 64x64 channel
+//   pairs per block, 3 per warpgroup, A = a^T by ldmatrix.trans, B = d in
+//   MN-major core matrices.  blockIdx.y = 0: dk2's nine taps, from shifted
+//   views of h1 staged on the 1-ring of an 8x16 tile (the BasicBlock
+//   chain's weight-grad kernel); 1: the 1x1 products dk1 (x, dpre1), dk3
+//   (h2, dpre_y) and dkres (x, dpre_y) on 4x16 tiles, every operand chunk
+//   staged once per tile and read by every product that needs it; job 1
+//   reads about four times job 0's bytes and gets that many more blocks.
+//   f32 partials per pixel range, summed by the wrapper: deterministic, no
+//   atomics (pallas_trainchain.py:26-33).  No split-K job per tap.
+//
+// Prediction (written before the first chip run of this design, NVIDIA
+// H100 at 700 W): at 24x128x128, Ci = 256, the forward falls from 1.11 to
+// 0.3-0.6 ms and the backward with its weight grads from 3.01 to 0.8-1.5
+// ms.
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace dvie {
 namespace {
 
-using namespace tc;
+using namespace hop;
 
-constexpr int NT = 256;                 // 8 warps, one output row each
-constexpr int P = 64, CO = 256;
-constexpr int PW = TW + 2;              // region pitch: a ring of 1 (18)
-constexpr int RPOS = (TH + 2) * PW;     // 180 positions
-constexpr int NFR = 12, RALLOC = NFR * 16;  // h1 fragments: positions [0, 192)
-constexpr int TP = TH * TW;             // 128 tile pixels
-constexpr int LDX = 64 + 8, LDW = 64 + 8, LDH2 = P + 8, LDC = 64 + 4;
-constexpr int LDH = P + 16;             // 160-byte positions: 32-byte aligned views
-constexpr int LDY = CO + 8;
+constexpr int TH = 8, TW = 16, TP = TH * TW;         // the pixel tile
+constexpr int P = 64, CO = 256;                      // planes, planes * 4
+constexpr int PW = TW + 2, NPOS = (TH + 2) * PW;     // its 1-ring: 180 positions
+constexpr int LDP = P + 8;                           // pitch of a 64-channel buffer
+constexpr int UB = 64 * 64 * 2;                      // a weight unit
+constexpr int NST = 8;                               // weight ring slots
 
-// shared memory: one union region U whose use changes by phase, the h1
-// ring (dead after conv2) sharing room with the 256-ch pre_y / dpre_y
-constexpr int SZ_U = 9 * P * LDW * 2;                     // 82944: all of k2
-constexpr int U_X = 0, U_W = align128(RALLOC * LDX * 2);  // phase A: x chunk, k1 chunk
-constexpr int U_W3 = 0, U_XT = align128(64 * LDW * 2), U_WR = align128(U_XT + TP * LDX * 2);
-static_assert(U_W + 64 * LDW * 2 <= SZ_U && U_WR + 64 * LDW * 2 <= SZ_U &&
-                  CO * LDW * 2 <= SZ_U, "every phase fits the union");
-constexpr int OFF_HY = SZ_U;
-constexpr int SZ_HY = RALLOC * LDH * 2 > TP * LDY * 2 ? RALLOC * LDH * 2 : TP * LDY * 2;
-constexpr int OFF_H2 = align128(OFF_HY + SZ_HY);
-constexpr int OFF_C = align128(OFF_H2 + TP * LDH2 * 2);
-constexpr int SMEM = OFF_C + NT / 32 * 16 * LDC * 4;
-static_assert(SMEM <= 232448, "shared memory per block");
-
-__device__ __forceinline__ int toff(int t) { return (t / 3 - 1) * PW + (t % 3 - 1); }
-
-// mode 0: out = y.  mode 1 (backward launch 1): out = dpre2; h1, h2 and
-// dpre_y stored at the tile's pixels.
-__global__ void __launch_bounds__(NT, 1)
-bottleneck_front_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1,
-                        const bf16 *__restrict__ w2, const bf16 *__restrict__ w3,
-                        const bf16 *__restrict__ wres, const bf16 *__restrict__ w3t,
-                        const bf16 *__restrict__ dy, bf16 *__restrict__ out,
-                        bf16 *__restrict__ h1_out, bf16 *__restrict__ h2_out,
-                        bf16 *__restrict__ dpre_y, int H, int W, int Ci, int mode) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char *U = smem;
-  bf16 *Hs = reinterpret_cast<bf16 *>(smem + OFF_HY);  // h1 ring, phases A-B
-  bf16 *Ys = reinterpret_cast<bf16 *>(smem + OFF_HY);  // pre_y / dpre_y, phases C-D
-  bf16 *H2s = reinterpret_cast<bf16 *>(smem + OFF_H2);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float *Cw = reinterpret_cast<float *>(smem + OFF_C) + warp * 16 * LDC;
-  const Tile t = tile_of(H, W);
-  const int nk = Ci / 64;
-
-  // ---- phase A: h1 = lrelu(bf16(x . k1)) on the ring (zero outside the
-  // image, as x is); warps 0-3 own two fragments, 4-7 one
-  {
-    bf16 *Xs = reinterpret_cast<bf16 *>(U + U_X);
-    bf16 *Ws = reinterpret_cast<bf16 *>(U + U_W);
-    const int nf = warp + 8 < NFR ? 2 : 1;
-    FragC acc[2][4];
-    zero(acc[0]);
-    zero(acc[1]);
-    for (int kc = 0; kc < nk; ++kc) {
-      load_region(Xs, LDX, x, Ci, kc * 64, 8, t, -1, -1, PW, RPOS, RALLOC, H, W);
-      load_block_async(Ws, LDW, w1 + (long)kc * 64 * P, P, 64, P);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      warp_mma(acc[0], Xs + warp * 16 * LDX, LDX, Ws, LDW, 4);
-      if (nf == 2) warp_mma(acc[1], Xs + (warp + 8) * 16 * LDX, LDX, Ws, LDW, 4);
-      __syncthreads();
-    }
-    for (int q = 0; q < nf; ++q) {
-      const int l0 = (warp + 8 * q) * 16;
-      store(Cw, LDC, acc[q]);
-      __syncwarp();
-      for (int i = lane; i < 16 * P; i += 32) {
-        const int r = i / P, c = i % P;
-        Hs[(l0 + r) * LDH + c] = __float2bfloat16(lrelu_bf(rbf(Cw[r * LDC + c])));
-      }
-      __syncwarp();
-    }
-  }
-  bf16 *W2s = reinterpret_cast<bf16 *>(U);
-  load_block_async(W2s, LDW, w2, P, 9 * P, P);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int r = warp, l0 = (r + 1) * PW + 1, yy = t.y0 + r;
-  if (mode == 1) {  // h1 at the tile's pixels, for the weight grads
-    for (int i = lane; i < 16 * (P / 8); i += 32) {
-      const int px = i / (P / 8), c = (i % (P / 8)) * 8, xx = t.x0 + px;
-      if (yy < H && xx < W)
-        st16(h1_out + pix(t, yy, xx, H, W) * P + c,
-             *reinterpret_cast<const uint4 *>(Hs + (l0 + px) * LDH + c));
-    }
-  }
-
-  // ---- phase B: h2 = lrelu(bf16(conv3x3(h1, k2))) on this warp's row
-  FragC acc[4];
-  zero(acc);
-#pragma unroll 1
-  for (int tp = 0; tp < 9; ++tp)
-    warp_mma(acc, Hs + (l0 + toff(tp)) * LDH, LDH, W2s + tp * P * LDW, LDW, P / 16);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  bf16 *H2w = H2s + r * 16 * LDH2;
-  for (int i = lane; i < 16 * P; i += 32) {
-    const int px = i / P, c = i % P;
-    H2w[px * LDH2 + c] = __float2bfloat16(lrelu_bf(rbf(Cw[px * LDC + c])));
-  }
-  __syncwarp();
-  if (mode == 1) {
-    for (int i = lane; i < 16 * (P / 8); i += 32) {
-      const int px = i / (P / 8), c = (i % (P / 8)) * 8, xx = t.x0 + px;
-      if (yy < H && xx < W)
-        st16(h2_out + pix(t, yy, xx, H, W) * P + c,
-             *reinterpret_cast<const uint4 *>(H2w + px * LDH2 + c));
-    }
-  }
-  __syncthreads();  // U (k2) and the h1 ring are free from here
-
-  // ---- phase C: pre_y, 64 output channels at a time
-  bf16 *Yw = Ys + r * 16 * LDY;
-  bf16 *W3s = reinterpret_cast<bf16 *>(U + U_W3);
-  bf16 *XTs = reinterpret_cast<bf16 *>(U + U_XT);
-  bf16 *WRs = reinterpret_cast<bf16 *>(U + U_WR);
-  for (int nc = 0; nc < CO / 64; ++nc) {
-    load_block_async(W3s, LDW, w3 + nc * 64, CO, P, 64);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    zero(acc);
-    warp_mma(acc, H2w, LDH2, W3s, LDW, P / 16);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    for (int i = lane; i < 16 * 64; i += 32) {
-      const int px = i / 64, c = i % 64;
-      Yw[px * LDY + nc * 64 + c] = __float2bfloat16(Cw[px * LDC + c]);
-    }
-    __syncwarp();
-    if (wres) {  // + bf16(x . kres)
-      zero(acc);
-      for (int kc = 0; kc < nk; ++kc) {
-        __syncthreads();
-        load_region(XTs, LDX, x, Ci, kc * 64, 8, t, 0, 0, TW, TP, TP, H, W);
-        load_block_async(WRs, LDW, wres + (long)kc * 64 * CO + nc * 64, CO, 64, 64);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        warp_mma(acc, XTs + r * 16 * LDX, LDX, WRs, LDW, 4);
-      }
-      store(Cw, LDC, acc);
-      __syncwarp();
-      for (int i = lane; i < 16 * 64; i += 32) {
-        const int px = i / 64, c = i % 64;
-        bf16 &yv = Yw[px * LDY + nc * 64 + c];
-        yv = __float2bfloat16(rbf(bf(yv) + rbf(Cw[px * LDC + c])));
-      }
-    } else {  // + x (Ci == CO)
-      for (int i = lane; i < 16 * 8; i += 32) {
-        const int px = i / 8, c = nc * 64 + (i % 8) * 8, xx = t.x0 + px;
-        float xv[8], v[8];
-        if (yy < H && xx < W) {
-          unpack8(ldg16(x + pix(t, yy, xx, H, W) * CO + c), xv);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 8; ++k) xv[k] = 0.f;
-        }
-        unpack8(*reinterpret_cast<const uint4 *>(Yw + px * LDY + c), v);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = rbf(v[k] + xv[k]);
-        st16(Yw + px * LDY + c, pack8(v));
-      }
-    }
-    __syncwarp();
-    __syncthreads();  // U is refilled by the next chunk
-  }
-
-  // ---- pre_y -> y (mode 0), or dpre_y = lrelu'(pre_y) * dy (mode 1)
-  for (int i = lane; i < 16 * (CO / 8); i += 32) {
-    const int px = i / (CO / 8), c = (i % (CO / 8)) * 8, xx = t.x0 + px;
-    if (yy >= H || xx >= W) continue;
-    const long m = pix(t, yy, xx, H, W);
-    float v[8];
-    unpack8(*reinterpret_cast<const uint4 *>(Yw + px * LDY + c), v);
-    if (mode == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = lrelu_bf(v[k]);
-      st16(out + m * CO + c, pack8(v));
-    } else {
-      float g[8];
-      unpack8(ldg16(dy + m * CO + c), g);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = v[k] >= 0.f ? g[k] : rbf(0.2f * g[k]);
-      const uint4 d = pack8(v);
-      st16(Yw + px * LDY + c, d);
-      st16(dpre_y + m * CO + c, d);
-    }
-  }
-  if (mode == 0) return;
-
-  // ---- phase D: dh2 = bf16(dpre_y . k3^T), dpre2 = lrelu'(h2) * dh2
-  // (rows of dpre_y past the image are garbage and only feed rows that are
-  // not stored)
-  bf16 *W3Ts = reinterpret_cast<bf16 *>(U);
-  load_block_async(W3Ts, LDW, w3t, P, CO, P);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  zero(acc);
-  warp_mma(acc, Yw, LDY, W3Ts, LDW, CO / 16);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  for (int i = lane; i < 16 * (P / 8); i += 32) {
-    const int px = i / (P / 8), c = (i % (P / 8)) * 8, xx = t.x0 + px;
-    if (yy >= H || xx >= W) continue;
-    float h[8], v[8];
-    unpack8(*reinterpret_cast<const uint4 *>(H2w + px * LDH2 + c), h);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float d = rbf(Cw[px * LDC + c + k]);
-      v[k] = h[k] >= 0.f ? d : rbf(0.2f * d);
-    }
-    st16(out + pix(t, yy, xx, H, W) * P + c, pack8(v));
-  }
-}
-
-// ---- backward launch 2, on rows of 64 consecutive pixels ----------------
-
-constexpr int TM2 = 64, NT2 = 128, TK = 64, LDS2 = TK + 8;
-constexpr int RPT = TM2 * (TK / 8) / NT2;       // staged rows per thread (4)
-constexpr int STAGE2 = 2 * TM2 * LDS2 * 2;      // one A + one B tile
-constexpr int OFF2_D = align128(2 * STAGE2);
-constexpr int OFF2_C = align128(OFF2_D + TM2 * LDS2 * 2);
-constexpr int SMEM2 = OFF2_C + NT2 / 32 * 16 * LDC * 4;
-
-struct Rows {
-  int m[RPT], y[RPT], x[RPT];  // flat pixel, row, column (y = -2 past the end)
+struct Tile {
+  int b, y0, x0;
 };
 
-// A tile: 64 pixels x channels [c0, c0+64) of src (C channels) at the pixel
-// shifted by (dy, dx), zeros outside the image
-__device__ __forceinline__ void load_a(bf16 *As, const Rows &rows, const bf16 *src, int C, int c0,
-                                       int dy, int dx, int H, int W) {
-  const int v = threadIdx.x % (TK / 8);
+__device__ __forceinline__ Tile tile_at(int t, int th, int H, int W) {
+  const int tx = (W + TW - 1) / TW, ty = (H + th - 1) / th;
+  Tile r;
+  r.x0 = (t % tx) * TW;
+  t /= tx;
+  r.y0 = (t % ty) * th;
+  r.b = t / ty;
+  return r;
+}
+
+__device__ __forceinline__ bool inside(int yy, int xx, int H, int W) {
+  return yy >= 0 && yy < H && xx >= 0 && xx < W;
+}
+
+__device__ __forceinline__ long pix(int b, int yy, int xx, int H, int W) {
+  return ((long)b * H + yy) * W + xx;
+}
+
+__device__ __forceinline__ void zero32(float (&d)[32]) {
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int r = threadIdx.x / (TK / 8) + k * (NT2 / (TK / 8));
-    const bool ok = inside(rows.y[k] + dy, rows.x[k] + dx, H, W);
-    const bf16 *p = ok ? src + (long)(rows.m[k] + dy * W + dx) * C + c0 + v * 8 : src;
-    cp_async16(As + r * LDS2 + v * 8, p, ok);
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ float2 ld2(const bf16 *p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(p));
+}
+
+__device__ __forceinline__ void st2(bf16 *p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162 *>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float masked(float s, float g) { return s >= 0.f ? g : rbf(0.2f * g); }
+
+// ---- the weight ring -------------------------------------------------------
+
+struct Ring {
+  uint64_t *full, *empty;
+  uint32_t base;  // shared address of slot 0
+  int seq;        // units consumed so far
+};
+
+// the producer warp's lane 0: `units` units of w for every tile of this block
+__device__ __forceinline__ void produce(uint64_t *full, uint64_t *empty, unsigned char *ring,
+                                        const bf16 *__restrict__ w, int units, int nt) {
+  int seq = 0;
+  for (int t = blockIdx.x; t < nt; t += gridDim.x)
+    for (int u = 0; u < units; ++u, ++seq) {
+      const int s = seq % NST;
+      mbar_wait(&empty[s], ((seq / NST) & 1) ^ 1);
+      mbar_expect_tx(&full[s], UB);
+      bulk_load(ring + s * UB, w + (long)u * (UB / 2), UB, &full[s]);
+    }
+}
+
+__device__ __forceinline__ void init_ring(uint64_t *full, uint64_t *empty, int consumer_warps) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumer_warps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// One unit: acc += A . unit (4 k-steps; A in registers).  After the wait
+// for all but this unit's wgmmas, the previous unit's slot is released when
+// `release_prev` (it belongs to the same sequence).  No wgmma sits under a
+// thread-dependent branch.
+__device__ __forceinline__ void step(float (&acc)[32], const uint32_t (&a)[4][4], Ring &r,
+                                     bool release_prev) {
+  const int s = r.seq % NST;
+  mbar_wait(&r.full[s], (r.seq / NST) & 1);
+  wg_fence();
+  const uint64_t d0 = desc(r.base + s * UB, 1024, 128);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma64<0>(acc, a[j], d0 + ((j * 2048) >> 4));
+  wg_commit();
+  wg_wait<1>();
+  mbar_arrive_if(&r.empty[(r.seq + NST - 1) % NST], release_prev && (threadIdx.x & 31) == 0);
+  ++r.seq;
+}
+
+// the end of a sequence of units: every wgmma done, the last slot released
+__device__ __forceinline__ void finish(float (&acc)[32], Ring &r) {
+  wg_wait<0>();
+  fence_acc(acc);
+  mbar_arrive_if(&r.empty[(r.seq + NST - 1) % NST], (threadIdx.x & 31) == 0);
+}
+
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4][4], uint32_t addr) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ldsm4(a[j], addr + j * 32);
+}
+
+// acc += sum over nu units of A(u) . unit u, A(u) by ldmatrix at abase +
+// off(u) (this lane's row; 16 k per k-step); the next unit's A is loaded
+// while the current unit's wgmmas run.  `after`: a unit of the same
+// sequence precedes this one (its slot is released here).
+template <class Off>
+__device__ __forceinline__ void gemm_ld(float (&acc)[32], uint32_t abase, int nu, Off off, Ring &r,
+                                        bool after) {
+  uint32_t a0[4][4], a1[4][4];
+  ld_a(a0, abase + off(0));
+#pragma unroll 1
+  for (int u = 0; u < nu; u += 2) {
+    step(acc, a0, r, after || u > 0);
+    if (u + 1 < nu) {
+      ld_a(a1, abase + off(u + 1));
+      step(acc, a1, r, true);
+      if (u + 2 < nu) ld_a(a0, abase + off(u + 2));
+    }
   }
 }
 
-// acc += A . B over `steps` 64-deep steps, double-buffered; load(step, As,
-// Bs) issues a step's loads.  A comes from the stage when a_s is null, else
-// from shared memory at a_s (this warp's rows, step * 64 columns).
-template <class Load>
-__device__ __forceinline__ void pipe_gemm(FragC (&acc)[4], unsigned char *smem, int steps,
-                                          Load load, const bf16 *a_s, int lda) {
-  const int row0 = (threadIdx.x >> 5) * 16;
-  auto stage = [&](int i) { return reinterpret_cast<bf16 *>(smem + (i & 1) * STAGE2); };
-  load(0, stage(0), stage(0) + TM2 * LDS2);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) load(s + 1, stage(s + 1), stage(s + 1) + TM2 * LDS2);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16 *As = stage(s);
-    if (a_s)
-      warp_mma(acc, a_s + row0 * lda + s * TK, lda, As + TM2 * LDS2, LDS2, TK / 16);
-    else
-      warp_mma(acc, As + row0 * LDS2, LDS2, As + TM2 * LDS2, LDS2, TK / 16);
-    __syncthreads();
+// A offsets of unit u: 64 channels further on; or tap u of a 3x3 conv
+// on a 1-ring buffer of 64 channels
+struct ChanOff {
+  __device__ __forceinline__ uint32_t operator()(int u) const { return (uint32_t)u * 128; }
+};
+struct TapOff {
+  __device__ __forceinline__ uint32_t operator()(int u) const {
+    return (uint32_t)(((u / 3 - 1) * PW + u % 3 - 1) * LDP * 2);
   }
-}
+};
 
-__global__ void __launch_bounds__(NT2)
-bottleneck_bwd2_kernel(const bf16 *__restrict__ dpre2, const bf16 *__restrict__ h1,
-                       const bf16 *__restrict__ dpre_y, const bf16 *__restrict__ w2f,
-                       const bf16 *__restrict__ w1t, const bf16 *__restrict__ wrest,
-                       bf16 *__restrict__ dpre1, bf16 *__restrict__ dx, int B, int H, int W,
-                       int Ci) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *Ds = reinterpret_cast<bf16 *>(smem + OFF2_D);
+// ---- the forward, and the first backward launch -----------------------------
+
+template <int CI>
+struct Front {
+  static constexpr bool RES = CI != CO;
+  static constexpr int NK = CI / 64;
+  static constexpr int LDX = CI + 8;
+  static constexpr int NBUF = RES ? 2 : 1;  // x buffers: x . kres reads the current one late
+  static constexpr int XB = align128(NPOS * LDX * 2);
+  static constexpr int O_X = NST * UB;
+  static constexpr int O_H = O_X + NBUF * XB;
+  static constexpr int NWG = 3, CT = NWG * 128, NT = CT + 32;
+  static constexpr int O_H2 = align128(O_H + NPOS * LDP * 2);  // h2, 64 rows per warpgroup
+  static constexpr int O_BAR = align128(O_H2 + NWG * 64 * LDP * 2);
+  static constexpr int SMEM = O_BAR + 2 * NST * 8;
+  // units per tile: k1 (NK), k2 (9), then per 64 outputs k3 (1), kres (NK),
+  // and in the backward k3^T (1)
+  static constexpr int U_FWD = NK + 9 + 4 * (1 + (RES ? NK : 0));
+  static constexpr int U_BWD = U_FWD + 4;
+  static_assert(SMEM <= 232448, "shared memory per block");
+};
+
+// BWD = false: out = y (B,H,W,256).  BWD = true: out = dpre2 (B,H,W,64);
+// h1 and h2 (B,H,W,64) and dpre_y (B,H,W,256) stored too.
+template <int CI, bool BWD>
+__global__ void __launch_bounds__(Front<CI>::NT, 1)
+front_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ wu, const bf16 *__restrict__ dy,
+             bf16 *__restrict__ out, bf16 *__restrict__ h1o, bf16 *__restrict__ h2o,
+             bf16 *__restrict__ dpy, int B, int H, int W) {
+  using K = Front<CI>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16 *Hs = reinterpret_cast<bf16 *>(smem + K::O_H);
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + K::O_BAR), *empty = full + NST;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;
-  float *Cw = reinterpret_cast<float *>(smem + OFF2_C) + row0 * LDC;
-  const long M = (long)B * H * W;
-  const long m0 = (long)blockIdx.x * TM2;
-  Rows rows;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const long m = m0 + threadIdx.x / (TK / 8) + k * (NT2 / (TK / 8));
-    rows.m[k] = (int)m;
-    rows.x[k] = (int)(m % W);
-    rows.y[k] = m < M ? (int)((m / W) % H) : -2;  // -2: every tap invalid
+  const int nt = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  init_ring(full, empty, 4 * K::NWG);
+  if (warp == 4 * K::NWG) {
+    if (lane == 0) produce(full, empty, smem, wu, BWD ? K::U_BWD : K::U_FWD, nt);
+    return;
   }
-  auto load_b = [&](bf16 *Bs, const bf16 *w, int ld, int k0, int n0) {
-    load_block_async(Bs, LDS2, w + (long)k0 * ld + n0, ld, TK, 64);
+
+  const int wg = warp >> 2, wq = warp & 3;
+  Ring r{full, empty, smem_u32(smem), 0};
+  // this lane's ldmatrix row (of its warp's 16) and channel offset
+  const int lr = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  const int i1 = min(wg * 64 + lr, NPOS - 1);  // conv1: a 1-ring position
+  const int i2 = min(wg * 64 + lr, TP - 1);    // conv2, conv3: a tile pixel
+  const int p2 = (i2 / TW + 1) * PW + i2 % TW + 1;
+  // accumulator rows and columns of this thread
+  const int er = wg * 64 + wq * 16 + (lane >> 2), ec = 2 * (lane & 3);
+  const int lrow = er - wg * 64;  // its row in the warpgroup's h2 buffer
+  bf16 *H2s = reinterpret_cast<bf16 *>(smem + K::O_H2) + wg * 64 * LDP;
+  const uint32_t h2base = smem_u32(H2s) + (lr * LDP + lk) * 2;
+  constexpr int V = CI / 8;
+
+  auto xbuf = [&](int k) {
+    return reinterpret_cast<bf16 *>(smem + K::O_X + (k % K::NBUF) * K::XB);
+  };
+  auto load_region = [&](bf16 *Xs, const Tile &t) {
+    for (int i = threadIdx.x; i < NPOS * V; i += K::CT) {
+      const int l = i / V, c = (i % V) * 8;
+      const int yy = t.y0 - 1 + l / PW, xx = t.x0 - 1 + l % PW;
+      const bool ok = inside(yy, xx, H, W);
+      cp_async16(Xs + l * K::LDX + c, ok ? x + pix(t.b, yy, xx, H, W) * CI + c : x, ok);
+    }
   };
 
-  // dh1 = bf16(conv_t(dpre2, k2)): a SAME conv with the flipped taps
-  FragC acc[4];
-  zero(acc);
-  pipe_gemm(acc, smem, 9, [&](int s, bf16 *As, bf16 *Bs) {
-    load_a(As, rows, dpre2, P, 0, s / 3 - 1, s % 3 - 1, H, W);
-    load_b(Bs, w2f, P, s * P, 0);
-  }, nullptr, 0);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  for (int i = lane; i < 16 * (P / 8); i += 32) {
-    const int r = i / (P / 8), c = (i % (P / 8)) * 8;
-    const long m = m0 + row0 + r;
-    float h[8], v[8];
-    if (m < M) {
-      unpack8(ldg16(h1 + m * P + c), h);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float d = rbf(Cw[r * LDC + c + k]);
-        v[k] = h[k] >= 0.f ? d : rbf(0.2f * d);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = 0.f;
-    }
-    const uint4 d = pack8(v);
-    st16(Ds + (row0 + r) * LDS2 + c, d);
-    if (m < M) st16(dpre1 + m * P + c, d);
-  }
-  __syncwarp();
+  if (blockIdx.x < nt) load_region(xbuf(0), tile_at(blockIdx.x, TH, H, W));
+  cp_async_commit();
+  int k = 0;
+  for (int ti = blockIdx.x; ti < nt; ti += gridDim.x, ++k) {
+    const Tile t = tile_at(ti, TH, H, W);
+    bf16 *Xs = xbuf(k);
+    cp_async_wait<0>();
+    bar_sync(1, K::CT);
 
-  // dx = bf16(dpre1 . k1^T + (dpre_y . kres^T | dpre_y)), 64 channels at a time
-  for (int cc = 0; cc < Ci / 64; ++cc) {
-    zero(acc);
-    pipe_gemm(acc, smem, 1, [&](int, bf16 *, bf16 *Bs) { load_b(Bs, w1t, Ci, 0, cc * 64); },
-              Ds, LDS2);
-    if (wrest)
-      pipe_gemm(acc, smem, CO / TK, [&](int s, bf16 *As, bf16 *Bs) {
-        load_a(As, rows, dpre_y, CO, s * TK, 0, 0, H, W);
-        load_b(Bs, wrest, Ci, s * TK, cc * 64);
-      }, nullptr, 0);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    for (int i = lane; i < 16 * 8; i += 32) {
-      const int r = i / 8, c = cc * 64 + (i % 8) * 8;
-      const long m = m0 + row0 + r;
-      if (m >= M) continue;
-      float v[8];
+    // ---- conv1 on the 1-ring: h1 = lrelu(bf16(x . k1)), zero outside
+    float acc[32];
+    zero32(acc);
+    gemm_ld(acc, smem_u32(Xs) + (i1 * K::LDX + lk) * 2, K::NK, ChanOff(), r, false);
+    finish(acc, r);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = Cw[r * LDC + (i % 8) * 8 + k];
-      if (!wrest) {  // identity residual: Ci == CO
-        float g[8];
-        unpack8(ldg16(dpre_y + m * CO + c), g);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = er + 8 * hh;
+      if (i >= NPOS) continue;
+      const bool ok = inside(t.y0 - 1 + i / PW, t.x0 - 1 + i % PW, H, W);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] += g[k];
+      for (int j = 0; j < 8; ++j) {
+        const float v0 = ok ? lrelu_bf(rbf(acc[4 * j + 2 * hh])) : 0.f;
+        const float v1 = ok ? lrelu_bf(rbf(acc[4 * j + 2 * hh + 1])) : 0.f;
+        st2(Hs + i * LDP + 8 * j + ec, v0, v1);
       }
-      st16(dx + m * Ci + c, pack8(v));
     }
+    bar_sync(1, K::CT);  // h1 is whole; conv1 is done with x
+    if (BWD) {           // h1 at the tile's pixels
+      for (int i = threadIdx.x; i < TP * (P / 8); i += K::CT) {
+        const int px = i / (P / 8), c = (i % (P / 8)) * 8;
+        const int yy = t.y0 + px / TW, xx = t.x0 + px % TW;
+        if (inside(yy, xx, H, W))
+          st16(h1o + pix(t.b, yy, xx, H, W) * P + c,
+               *reinterpret_cast<const uint4 *>(Hs + ((px / TW + 1) * PW + px % TW + 1) * LDP + c));
+      }
+    }
+    if (ti + gridDim.x < nt) load_region(xbuf(k + 1), tile_at(ti + gridDim.x, TH, H, W));
+    cp_async_commit();
+
+    // ---- conv2 on the tile: h2 = lrelu(bf16(conv3x3(h1, k2))), kept in registers
+    zero32(acc);
+    gemm_ld(acc, smem_u32(Hs) + (p2 * LDP + lk) * 2, 9, TapOff(), r, false);
+    finish(acc, r);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = lrelu_bf(rbf(acc[e]));
+    // h2 to this warp's own rows of the warpgroup's buffer, read back by
+    // ldmatrix as conv3's A for each 64 outputs: an A operand kept in
+    // registers across other wgmma sequences came back corrupted (Ci = 64:
+    // outputs 64-255 wrong; H100, sm_90a)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        st2(H2s + (lrow + 8 * hh) * LDP + 8 * j + ec, acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     __syncwarp();
+    bool vrow[2];
+    long mrow[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = er + 8 * hh, yy = t.y0 + i / TW, xx = t.x0 + i % TW;
+      vrow[hh] = wg < 2 && inside(yy, xx, H, W);
+      mrow[hh] = vrow[hh] ? pix(t.b, yy, xx, H, W) : 0;
+      if (BWD && vrow[hh]) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          st2(h2o + mrow[hh] * P + 8 * j + ec, acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      }
+    }
+
+    // ---- conv3 + residual, 64 output channels at a time
+    float accd[32];  // the backward's dh2 = dpre_y . k3^T
+    zero32(accd);
+#pragma unroll 1
+    for (int nc = 0; nc < CO / 64; ++nc) {
+      float pre[32];
+      zero32(pre);
+      uint32_t h2a[4][4];
+      ld_a(h2a, h2base);
+      step(pre, h2a, r, false);
+      finish(pre, r);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pre[e] = rbf(pre[e]);
+      if constexpr (K::RES) {  // + bf16(x . kres)
+        float accr[32];
+        zero32(accr);
+        gemm_ld(accr, smem_u32(Xs) + (p2 * K::LDX + lk) * 2, K::NK, ChanOff(), r, false);
+        finish(accr, r);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pre[e] = rbf(pre[e] + rbf(accr[e]));
+      } else {  // + x
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 xv = vrow[hh] ? ld2(x + mrow[hh] * CO + nc * 64 + 8 * j + ec)
+                                       : make_float2(0.f, 0.f);
+            pre[4 * j + 2 * hh] = rbf(pre[4 * j + 2 * hh] + xv.x);
+            pre[4 * j + 2 * hh + 1] = rbf(pre[4 * j + 2 * hh + 1] + xv.y);
+          }
+      }
+      if constexpr (!BWD) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          if (vrow[hh]) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              st2(out + mrow[hh] * CO + nc * 64 + 8 * j + ec, lrelu_bf(pre[4 * j + 2 * hh]),
+                  lrelu_bf(pre[4 * j + 2 * hh + 1]));
+          }
+      } else {  // dpre_y = lrelu'(pre_y) * dy, stored, then dh2 += dpre_y . k3^T
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int e = 4 * j + 2 * hh;
+            const float2 g = vrow[hh] ? ld2(dy + mrow[hh] * CO + nc * 64 + 8 * j + ec)
+                                      : make_float2(0.f, 0.f);
+            pre[e] = masked(pre[e], g.x);
+            pre[e + 1] = masked(pre[e + 1], g.y);
+            if (vrow[hh]) st2(dpy + mrow[hh] * CO + nc * 64 + 8 * j + ec, pre[e], pre[e + 1]);
+          }
+        uint32_t da[4][4];
+        acc_to_a(da, pre);
+        step(accd, da, r, false);
+        finish(accd, r);
+      }
+    }
+    if constexpr (BWD) {  // dpre2 = lrelu'(h2) * bf16(dh2)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (vrow[hh]) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int e = 4 * j + 2 * hh;
+            const float2 hv = ld2(H2s + (lrow + 8 * hh) * LDP + 8 * j + ec);
+            st2(out + mrow[hh] * P + 8 * j + ec, masked(hv.x, rbf(accd[e])),
+                masked(hv.y, rbf(accd[e + 1])));
+          }
+        }
+    }
   }
 }
 
-int set_smem() {
-  cudaError_t e = cudaFuncSetAttribute(bottleneck_front_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+// ---- the second backward launch ---------------------------------------------
+
+template <int CI>
+struct Back {
+  static constexpr bool RES = CI != CO;
+  static constexpr int NK = CI / 64;
+  static constexpr int LDY = CO + 8;
+  static constexpr int DB = align128(NPOS * LDP * 2);
+  static constexpr int O_D = NST * UB;                          // dpre2 rings, 2 buffers
+  static constexpr int O_Y = O_D + 2 * DB;                      // dpre_y at the tile
+  static constexpr int O_BAR = align128(O_Y + (RES ? TP * LDY * 2 : 0));
+  static constexpr int SMEM = O_BAR + 2 * NST * 8;
+  static constexpr int NWG = 2, CT = NWG * 128, NT = CT + 32;
+  // units per tile: k2's flipped transposed taps (9), then per 64 input
+  // channels k1^T (1) and kres^T (4)
+  static constexpr int U = 9 + NK * (1 + (RES ? 4 : 0));
+  static_assert(SMEM <= 232448, "shared memory per block");
+};
+
+template <int CI>
+__global__ void __launch_bounds__(Back<CI>::NT, 1)
+back_kernel(const bf16 *__restrict__ dpre2, const bf16 *__restrict__ h1,
+            const bf16 *__restrict__ dpy, const bf16 *__restrict__ wu, bf16 *__restrict__ dpre1,
+            bf16 *__restrict__ dx, int B, int H, int W) {
+  using K = Back<CI>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16 *Ys = reinterpret_cast<bf16 *>(smem + K::O_Y);
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + K::O_BAR), *empty = full + NST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  init_ring(full, empty, 4 * K::NWG);
+  if (warp == 4 * K::NWG) {
+    if (lane == 0) produce(full, empty, smem, wu, K::U, nt);
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;
+  Ring r{full, empty, smem_u32(smem), 0};
+  const int lr = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  const int i2 = wg * 64 + lr;
+  const int p2 = (i2 / TW + 1) * PW + i2 % TW + 1;
+  const int er = wg * 64 + wq * 16 + (lane >> 2), ec = 2 * (lane & 3);
+
+  auto dbuf = [&](int k) { return reinterpret_cast<bf16 *>(smem + K::O_D + (k & 1) * K::DB); };
+  auto load_ring = [&](bf16 *Ds, const Tile &t) {  // dpre2 on the 1-ring, zeros outside
+    for (int i = threadIdx.x; i < NPOS * (P / 8); i += K::CT) {
+      const int l = i / (P / 8), c = (i % (P / 8)) * 8;
+      const int yy = t.y0 - 1 + l / PW, xx = t.x0 - 1 + l % PW;
+      const bool ok = inside(yy, xx, H, W);
+      cp_async16(Ds + l * LDP + c, ok ? dpre2 + pix(t.b, yy, xx, H, W) * P + c : dpre2, ok);
+    }
+  };
+
+  if (blockIdx.x < nt) load_ring(dbuf(0), tile_at(blockIdx.x, TH, H, W));
+  cp_async_commit();
+  int k = 0;
+  for (int ti = blockIdx.x; ti < nt; ti += gridDim.x, ++k) {
+    const Tile t = tile_at(ti, TH, H, W);
+    cp_async_wait<0>();
+    bar_sync(1, K::CT);  // the ring has landed; the previous tile is done with Ys
+    if constexpr (K::RES) {
+      for (int i = threadIdx.x; i < TP * (CO / 8); i += K::CT) {
+        const int px = i / (CO / 8), c = (i % (CO / 8)) * 8;
+        const int yy = t.y0 + px / TW, xx = t.x0 + px % TW;
+        const bool ok = inside(yy, xx, H, W);
+        cp_async16(Ys + px * K::LDY + c, ok ? dpy + pix(t.b, yy, xx, H, W) * CO + c : dpy, ok);
+      }
+    }
+    cp_async_commit();
+    if (ti + gridDim.x < nt) load_ring(dbuf(k + 1), tile_at(ti + gridDim.x, TH, H, W));
+    cp_async_commit();
+
+    // ---- dh1 = bf16(conv_t(dpre2, k2)); dpre1 = lrelu'(h1) * dh1
+    float acc[32];
+    zero32(acc);
+    gemm_ld(acc, smem_u32(dbuf(k)) + (p2 * LDP + lk) * 2, 9, TapOff(), r, false);
+    finish(acc, r);
+    bool vrow[2];
+    long mrow[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = er + 8 * hh, yy = t.y0 + i / TW, xx = t.x0 + i % TW;
+      vrow[hh] = inside(yy, xx, H, W);
+      mrow[hh] = vrow[hh] ? pix(t.b, yy, xx, H, W) : 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 4 * j + 2 * hh;
+        const float2 hv = vrow[hh] ? ld2(h1 + mrow[hh] * P + 8 * j + ec) : make_float2(0.f, 0.f);
+        acc[e] = vrow[hh] ? masked(hv.x, rbf(acc[e])) : 0.f;
+        acc[e + 1] = vrow[hh] ? masked(hv.y, rbf(acc[e + 1])) : 0.f;
+        if (vrow[hh]) st2(dpre1 + mrow[hh] * P + 8 * j + ec, acc[e], acc[e + 1]);
+      }
+    }
+    uint32_t d1a[4][4];
+    acc_to_a(d1a, acc);
+    if constexpr (K::RES) {  // dpre_y at the tile has landed
+      cp_async_wait<1>();
+      bar_sync(1, K::CT);
+    }
+
+    // ---- dx = bf16(dpre1 . k1^T + (dpre_y . kres^T | dpre_y)), 64 channels at a time
+#pragma unroll 1
+    for (int cc = 0; cc < K::NK; ++cc) {
+      zero32(acc);
+      step(acc, d1a, r, false);
+      if constexpr (K::RES)
+        gemm_ld(acc, smem_u32(Ys) + (i2 * K::LDY + lk) * 2, CO / 64, ChanOff(), r, true);
+      finish(acc, r);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (vrow[hh]) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int e = 4 * j + 2 * hh, c = cc * 64 + 8 * j + ec;
+            float v0 = acc[e], v1 = acc[e + 1];
+            if constexpr (!K::RES) {
+              const float2 g = ld2(dpy + mrow[hh] * CO + c);
+              v0 += g.x;
+              v1 += g.y;
+            }
+            st2(dx + mrow[hh] * CI + c, v0, v1);
+          }
+        }
+    }
+  }
+}
+
+// ---- the weight grads ---------------------------------------------------------
+
+constexpr int GLD = 64 + 8;
+constexpr int G_REG = align128(NPOS * GLD * 2);    // job 0: h1 on the 1-ring
+constexpr int G_STAGE0 = G_REG + TP * 64 * 2;      // + dpre2 at the tile
+constexpr int G_ABUF = 64 * GLD * 2;               // job 1: 64 pixels of a 64-ch chunk
+constexpr int G_DBUF = 64 * 64 * 2;                // the same, MN-major core matrices
+constexpr int G_NA = 5, G_ND = 5;                  // x chunks + h2; dpre1 + dpre_y chunks
+constexpr int G_STAGE1 = G_NA * G_ABUF + G_ND * G_DBUF;
+constexpr int G_STAGE = G_STAGE0 > G_STAGE1 ? G_STAGE0 : G_STAGE1;
+constexpr int GSMEM = 2 * G_STAGE;
+constexpr int GNT = 384;  // 3 warpgroups, 3 products each
+static_assert(GSMEM <= 232448, "shared memory per block");
+
+// stage 64-channel chunk `c` of `src` (C channels) at pixel p of a tile
+// into an MN-major d buffer: core matrix (pixel group, channel group)
+__device__ __forceinline__ void stage_d(bf16 *Ds, const bf16 *src, long m, bool ok, int C, int c,
+                                        int p, int v) {
+  cp_async16(Ds + ((p >> 3) * 8 + v) * 64 + (p & 7) * 8, ok ? src + m * C + c * 64 + v * 8 : src,
+             ok);
+}
+
+// Blocks [0, s0): job 0 (dk2's nine taps on 8x16 tiles), one pixel range
+// each; blocks [s0, s0 + s1): job 1 (the 1x1 products on 4x16 tiles, which
+// read about four times the bytes).  out (s0 + s1, 9, 64, 64) f32: [block]
+// [product][a channel][d channel].
+__global__ void __launch_bounds__(GNT, 1)
+wgrad_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ h1, const bf16 *__restrict__ h2,
+             const bf16 *__restrict__ dpre2, const bf16 *__restrict__ dpre1,
+             const bf16 *__restrict__ dpy, float *__restrict__ out, int B, int H, int W, int Ci,
+             int s0, int s1) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int job = blockIdx.x < s0 ? 0 : 1, nk = Ci / 64;
+  const int s = job ? blockIdx.x - s0 : blockIdx.x, splits = job ? s1 : s0;
+  const int th = job ? 4 : TH;  // tile rows; one k-step (16 pixels) per row
+  const int nt = B * ((H + th - 1) / th) * ((W + TW - 1) / TW);
+  const int t0 = (int)((long)s * nt / splits), t1 = (int)((long)(s + 1) * nt / splits);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wq = warp & 3;
+
+  // this warpgroup's three products: where its a and d sit in a stage
+  uint32_t aoff[3], doff[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int q = 3 * wg + k;
+    if (job == 0) {  // tap q of dk2
+      aoff[k] = ((q / 3) * PW + q % 3) * GLD * 2;
+      doff[k] = G_REG;
+    } else {  // dk1 per x chunk, dk3 and dkres per dpre_y chunk (a 9th slot repeats dk1's first)
+      int ia = 0, id = 0;
+      if (q < nk) {
+        ia = q;
+      } else if (q < nk + 4) {
+        ia = nk;  // h2
+        id = 1 + q - nk;
+      } else if (nk == 1 && q < 9) {
+        id = q - 4;  // x . dpre_y: dkres
+      }
+      aoff[k] = ia * G_ABUF;
+      doff[k] = G_NA * G_ABUF + id * G_DBUF;
+    }
+  }
+  const uint32_t astride = (job ? 16 : PW) * GLD * 2;
+
+  auto load = [&](int ti, int buf) {
+    unsigned char *st = smem + buf * G_STAGE;
+    const Tile t = tile_at(ti, th, H, W);
+    if (job == 0) {
+      bf16 *As = reinterpret_cast<bf16 *>(st);
+      for (int i = threadIdx.x; i < NPOS * 8; i += GNT) {
+        const int l = i >> 3, v = i & 7;
+        const int yy = t.y0 - 1 + l / PW, xx = t.x0 - 1 + l % PW;
+        const bool ok = inside(yy, xx, H, W);
+        cp_async16(As + l * GLD + v * 8, ok ? h1 + pix(t.b, yy, xx, H, W) * P + v * 8 : h1, ok);
+      }
+      for (int i = threadIdx.x; i < TP * 8; i += GNT) {
+        const int p = i >> 3, v = i & 7, yy = t.y0 + p / TW, xx = t.x0 + p % TW;
+        const bool ok = inside(yy, xx, H, W);
+        stage_d(reinterpret_cast<bf16 *>(st + G_REG), dpre2, ok ? pix(t.b, yy, xx, H, W) : 0, ok, P,
+                0, p, v);
+      }
+    } else {
+      // a chunks: x (nk) then h2; d chunks: dpre1 then dpre_y (4)
+      const int va = (nk + 1) * 8, vd = 5 * 8;
+      for (int i = threadIdx.x; i < 64 * (va + vd); i += GNT) {
+        const int p = i / (va + vd), q = i % (va + vd);
+        const int yy = t.y0 + p / TW, xx = t.x0 + p % TW;
+        const bool ok = inside(yy, xx, H, W);
+        const long m = ok ? pix(t.b, yy, xx, H, W) : 0;
+        if (q < va) {
+          const int c = q >> 3, v = q & 7;
+          const bf16 *src = c < nk ? x + m * Ci + c * 64 : h2 + m * P;
+          cp_async16(reinterpret_cast<bf16 *>(st + c * G_ABUF) + p * GLD + v * 8,
+                     ok ? src + v * 8 : x, ok);
+        } else {
+          const int c = (q - va) >> 3, v = q & 7;
+          bf16 *Ds = reinterpret_cast<bf16 *>(st + G_NA * G_ABUF + c * G_DBUF);
+          if (c == 0)
+            stage_d(Ds, dpre1, m, ok, P, 0, p, v);
+          else
+            stage_d(Ds, dpy, m, ok, CO, c - 1, p, v);
+        }
+      }
+    }
+  };
+
+  float acc[3][32];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) zero32(acc[k]);
+  // ldmatrix.trans: lane gives pixel (lane & 7) + 8 (lane >> 4) of the
+  // k-step's 16, channels 16 wq + 8 ((lane >> 3) & 1) ...
+  const int lp = (lane & 7) + 8 * (lane >> 4), lc = 16 * wq + 8 * ((lane >> 3) & 1);
+  const uint32_t lpart = (lp * GLD + lc) * 2;
+
+  if (t0 < t1) load(t0, 0);
+  cp_async_commit();
+  for (int ti = t0, it = 0; ti < t1; ++ti, ++it) {
+    if (ti + 1 < t1) load(ti + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();  // d is read by wgmma
+    __syncthreads();
+    const uint32_t sb = smem_u32(smem + (it & 1) * G_STAGE);
+    uint32_t a0[3][4], a1[3][4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ldsm4t(a0[k], sb + aoff[k] + lpart);
+    // one k-step (16 pixels) of the three products; the next one's A loads
+    auto kstep = [&](uint32_t(&cur)[3][4], uint32_t(&nxt)[3][4], int kk) {
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        wgmma64<1>(acc[k], cur[k], desc(sb + doff[k] + kk * 2048, 1024, 128));
+      wg_commit();
+      wg_wait<1>();
+      if (kk + 1 < th) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) ldsm4t(nxt[k], sb + aoff[k] + lpart + (kk + 1) * astride);
+      }
+    };
+#pragma unroll 1
+    for (int ks = 0; ks < th; ks += 2) {
+      kstep(a0, a1, ks);
+      kstep(a1, a0, ks + 1);
+    }
+    wg_wait<0>();
+    __syncthreads();  // this stage is refilled next iteration
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fence_acc(acc[k]);
+  float *o = out + (long)blockIdx.x * 9 * 64 * 64;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ci = 16 * wq + (lane >> 2) + 8 * hh;
+      float *row = o + ((long)(3 * wg + k) * 64 + ci) * 64 + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2 *>(row + 8 * j) =
+            make_float2(acc[k][4 * j + 2 * hh], acc[k][4 * j + 2 * hh + 1]);
+    }
+}
+
+// a persistent launch of `kern` (nt tiles) with `smem` bytes and `threads`
+template <class Kern, class... Args>
+int launch(Kern kern, int threads, int smem_bytes, int nt, cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int dev = 0, sms = 0, occ = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(bottleneck_bwd2_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM2);
-  return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  kern<<<min(nt, sms * occ), threads, smem_bytes, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+int n_tiles(int B, int H, int W) { return B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW); }
+
+template <int CI, bool BWD>
+int launch_front(const void *x, const void *wu, const void *dy, void *out, void *h1, void *h2,
+                 void *dpy, int B, int H, int W, cudaStream_t st) {
+  using K = Front<CI>;
+  return launch(front_kernel<CI, BWD>, K::NT, K::SMEM, n_tiles(B, H, W), st, (const bf16 *)x,
+                (const bf16 *)wu, (const bf16 *)dy, (bf16 *)out, (bf16 *)h1, (bf16 *)h2,
+                (bf16 *)dpy, B, H, W);
+}
+
+template <int CI>
+int launch_back(const void *dpre2, const void *h1, const void *dpy, const void *wu, void *dpre1,
+                void *dx, int B, int H, int W, cudaStream_t st) {
+  using K = Back<CI>;
+  return launch(back_kernel<CI>, K::NT, K::SMEM, n_tiles(B, H, W), st, (const bf16 *)dpre2,
+                (const bf16 *)h1, (const bf16 *)dpy, (const bf16 *)wu, (bf16 *)dpre1, (bf16 *)dx,
+                B, H, W);
 }
 
 }  // namespace
 }  // namespace dvie
 
-// x (B,H,W,Ci); w1 (Ci,64) = k1 as a matrix; w2 (9,64,64) the taps of k2;
-// w3 (64,256); wres (Ci,256) or NULL (then Ci must be 256); y (B,H,W,256).
-// All bf16, Ci % 64 == 0.
-extern "C" int dvie_bottleneck_fwd(const void *x, const void *w1, const void *w2, const void *w3,
-                                   const void *wres, void *y, int B, int H, int W, int Ci,
-                                   void *stream) {
-  using dvie::bf16;
-  int e = dvie::set_smem();
-  if (e) return e;
-  dvie::bottleneck_front_kernel<<<dvie::tc::n_tiles(B, H, W), dvie::NT, dvie::SMEM,
-                                  (cudaStream_t)stream>>>(
-      (const bf16 *)x, (const bf16 *)w1, (const bf16 *)w2, (const bf16 *)w3,
-      (const bf16 *)wres, nullptr, nullptr, (bf16 *)y, nullptr, nullptr, nullptr, H, W, Ci, 0);
-  return (int)cudaGetLastError();
+// The forward.  x (B,H,W,Ci), Ci = 64 (with kres) or 256 (identity
+// residual); wu: the forward's weight units in the order of
+// Front<Ci>::U_FWD (ops/trainchain.py: bottleneck_units); y (B,H,W,256).
+extern "C" int dvie_bottleneck_fwd(const void *x, const void *wu, void *y, int B, int H, int W,
+                                   int Ci, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Ci == 64) return dvie::launch_front<64, false>(x, wu, nullptr, y, nullptr, nullptr, nullptr, B, H, W, st);
+  if (Ci == 256) return dvie::launch_front<256, false>(x, wu, nullptr, y, nullptr, nullptr, nullptr, B, H, W, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The backward.  Inputs as dvie_bottleneck_fwd plus dy (B,H,W,256), w1t
-// (64,Ci), w2f (9,64,64) (taps of k2 flipped and transposed), w3t (256,64),
-// wrest (256,Ci) or NULL.  Scratch: h1, h2, dpre2, dpre1 (B,H,W,64), dpre_y
-// (B,H,W,256).  Outputs: dx (B,H,W,Ci) bf16; f32 partials over `splits`
-// pixel ranges: pk1 (splits,Ci,64), pk2 (splits,9,64,64), pk3
-// (splits,64,256), pkres (splits,Ci,256) or NULL.
-extern "C" int dvie_bottleneck_bwd(const void *x, const void *dy, const void *w1, const void *w2,
-                                   const void *w3, const void *wres, const void *w1t,
-                                   const void *w2f, const void *w3t, const void *wrest, void *h1,
-                                   void *h2, void *dpre_y, void *dpre2, void *dpre1, void *dx,
-                                   void *pk1, void *pk2, void *pk3, void *pkres, int B, int H,
-                                   int W, int Ci, int splits, void *stream) {
-  using dvie::bf16;
-  namespace tc = dvie::tc;
-  int e = dvie::set_smem();
-  if (e) return e;
+// The backward but its weight grads: two launches.  x, dy (B,H,W,256); wf
+// and wb: the units of the first (Front<Ci>::U_BWD) and second
+// (Back<Ci>::U) launch.  Outputs h1, h2, dpre2, dpre1 (B,H,W,64), dpre_y
+// (B,H,W,256) (what the weight grads read) and dx (B,H,W,Ci), bf16.
+extern "C" int dvie_bottleneck_bwd(const void *x, const void *dy, const void *wf, const void *wb,
+                                   void *h1, void *h2, void *dpre_y, void *dpre2, void *dpre1,
+                                   void *dx, int B, int H, int W, int Ci, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  dvie::bottleneck_front_kernel<<<tc::n_tiles(B, H, W), dvie::NT, dvie::SMEM, st>>>(
-      (const bf16 *)x, (const bf16 *)w1, (const bf16 *)w2, (const bf16 *)w3,
-      (const bf16 *)wres, (const bf16 *)w3t, (const bf16 *)dy, (bf16 *)dpre2, (bf16 *)h1,
-      (bf16 *)h2, (bf16 *)dpre_y, H, W, Ci, 1);
-  if ((e = (int)cudaGetLastError())) return e;
-  const long M = (long)B * H * W;
-  dvie::bottleneck_bwd2_kernel<<<(unsigned)((M + dvie::TM2 - 1) / dvie::TM2), dvie::NT2,
-                                 dvie::SMEM2, st>>>(
-      (const bf16 *)dpre2, (const bf16 *)h1, (const bf16 *)dpre_y, (const bf16 *)w2f,
-      (const bf16 *)w1t, (const bf16 *)wrest, (bf16 *)dpre1, (bf16 *)dx, B, H, W, Ci);
-  if ((e = (int)cudaGetLastError())) return e;
-  const int P = dvie::P, CO = dvie::CO;
-  tc::WJobs jobs;
-  jobs.n = 0;
-  jobs.j[jobs.n++] = tc::job(x, Ci, dpre1, P, (float *)pk1, (long)Ci * P);
-  for (int t = 0; t < 9; ++t)
-    jobs.j[jobs.n++] = tc::job(h1, P, dpre2, P, (float *)pk2 + t * P * P, 9L * P * P, t / 3 - 1,
-                               t % 3 - 1);
-  jobs.j[jobs.n++] = tc::job(h2, P, dpre_y, CO, (float *)pk3, (long)P * CO);
-  if (wres) jobs.j[jobs.n++] = tc::job(x, Ci, dpre_y, CO, (float *)pkres, (long)Ci * CO);
-  return tc::launch_wgrad(jobs, (int)M, H, W, splits, st);
+  int e;
+  if (Ci == 64) {
+    if ((e = dvie::launch_front<64, true>(x, wf, dy, dpre2, h1, h2, dpre_y, B, H, W, st))) return e;
+    return dvie::launch_back<64>(dpre2, h1, dpre_y, wb, dpre1, dx, B, H, W, st);
+  }
+  if (Ci == 256) {
+    if ((e = dvie::launch_front<256, true>(x, wf, dy, dpre2, h1, h2, dpre_y, B, H, W, st))) return e;
+    return dvie::launch_back<256>(dpre2, h1, dpre_y, wb, dpre1, dx, B, H, W, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The four weight grads in one launch, from what dvie_bottleneck_bwd
+// stored: out (s0 + s1, 9, 64, 64) f32 partials over pixel ranges; [0,
+// s0): dk2 per tap (input, output channel); [s0, s0 + s1): Ci = 256: dk1
+// per 64 x channels (4), dk3 per 64 dpre_y channels (4), unused; Ci = 64:
+// dk1, dk3 (4), dkres (4); each (a channel, d channel).
+extern "C" int dvie_bottleneck_wgrad(const void *x, const void *h1, const void *h2,
+                                     const void *dpre2, const void *dpre1, const void *dpre_y,
+                                     void *out, int B, int H, int W, int Ci, int s0, int s1,
+                                     void *stream) {
+  using namespace dvie;
+  if ((Ci != 64 && Ci != 256) || s0 < 1 || s1 < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+  if (e != cudaSuccess) return (int)e;
+  wgrad_kernel<<<(unsigned)(s0 + s1), GNT, GSMEM, (cudaStream_t)stream>>>(
+      (const bf16 *)x, (const bf16 *)h1, (const bf16 *)h2, (const bf16 *)dpre2, (const bf16 *)dpre1,
+      (const bf16 *)dpre_y, (float *)out, B, H, W, Ci, s0, s1);
+  return (int)cudaGetLastError();
 }

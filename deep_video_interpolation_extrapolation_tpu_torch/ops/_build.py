@@ -39,21 +39,22 @@ SIGNATURES = {
     "dvie_conv3x3": [P, P, P, P, P, I, I, I, I, I, I, P],
     # h1, x, w2, w3, wres, w1n, y, h1n, B, H, W, Cx, stream
     "dvie_bottleneck_tail": [P, P, P, P, P, P, P, P, I, I, I, I, P],
-    # p0, p1, p2, w1, b1, w2t, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2,
+    # p0, p1, p2, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2,
     # N1, N2, stream
     "dvie_ups_head_taps": [P, P, P, P, P, P, P] + [I] * 12 + [P],
-    # p0, p1, p2, w1, b1, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, stream
+    # p0, p1, p2, w1u, b1, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, stream
     "dvie_ups_head_1x1": [P] * 6 + [I] * 11 + [P],
     # x16, w1, b1, w2, b2, y, B, H, W, stream
     "dvie_stem_fwd": [P] * 6 + [I] * 3 + [P],
     # x16, dy, w1, b1, w2, b2, w1f, w2f, dpre2, s1, dpre1, dx16, pk1, pb1,
     # pk2, pb2, B, H, W, splits, stream
     "dvie_stem_bwd": [P] * 16 + [I] * 4 + [P],
-    # x, w1, w2, w3, wres, y, B, H, W, Ci, stream
-    "dvie_bottleneck_fwd": [P] * 6 + [I] * 4 + [P],
-    # x, dy, w1, w2, w3, wres, w1t, w2f, w3t, wrest, h1, h2, dpre_y, dpre2,
-    # dpre1, dx, pk1, pk2, pk3, pkres, B, H, W, Ci, splits, stream
-    "dvie_bottleneck_bwd": [P] * 20 + [I] * 5 + [P],
+    # x, wu, y, B, H, W, Ci, stream
+    "dvie_bottleneck_fwd": [P] * 3 + [I] * 4 + [P],
+    # x, dy, wf, wb, h1, h2, dpre_y, dpre2, dpre1, dx, B, H, W, Ci, stream
+    "dvie_bottleneck_bwd": [P] * 10 + [I] * 4 + [P],
+    # x, h1, h2, dpre2, dpre1, dpre_y, out, B, H, W, Ci, s0, s1, stream
+    "dvie_bottleneck_wgrad": [P] * 7 + [I] * 6 + [P],
     # x, w1u, w2u, y, h, B, H, W, C, stream
     "dvie_bb_chain_fwd": [P] * 5 + [I] * 4 + [P],
     # dy, y, h, w1u, w2u, dx, dpre_h, dpre_y, B, H, W, C, stream
@@ -69,7 +70,7 @@ SIGNATURES = {
     "dvie_shifted_add_bias": [P] * 3 + [I] * 4 + [P],
     # x, grid, out, B, H, W, C, max_disp (-1: unbounded), x is bf16, stream
     "dvie_grid_sample": [P] * 3 + [I] * 6 + [P],
-    # feat, w1, b1, w2t, yt, B, H, W, C, N1, N2, stream
+    # feat, w1u, b1, w2u, yt, B, H, W, C, N1, N2, stream
     "dvie_dual_head_taps": [P] * 5 + [I] * 6 + [P],
 }
 

@@ -39,7 +39,8 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
     CT_MAX,
     N2_MAX,
     build_dual_tap_kernel,
-    padded_taps,
+    w1_units,
+    w2_chunks,
 )
 
 NAME = "dual_head"
@@ -86,9 +87,9 @@ def _kernel(feat, w1, b1, w2t, b2):
     hw.check_bf16("feat", feat)
     dev = feat.device
     # weights converted and held in locals until the launch is queued
-    w1k = w1.to(device=dev, dtype=torch.bfloat16).contiguous()
+    w1k = w1_units(w1, dev)
     b1k = b1.to(device=dev, dtype=torch.float32).contiguous()
-    w2k = padded_taps(w2t, dev)
+    w2k = w2_chunks(w2t, dev)
     yt = torch.empty((b, h, w, n2), device=dev, dtype=torch.bfloat16)
     p = _build.ptr
     err = _build.library().dvie_dual_head_taps(

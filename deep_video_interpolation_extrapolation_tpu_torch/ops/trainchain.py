@@ -11,7 +11,8 @@ The forward kernels keep s1 / h1 and h2 on chip; the backward kernels
 recompute them from the saved block input and return dx in the compute
 dtype and f32 weight grads.  The kernels are ``csrc/trainchain_stem.cu`` and
 ``csrc/trainchain_bottleneck.cu``; their notes say how each pass is split
-into launches.
+into launches.  The Bottleneck kernels take the blocks of the main path:
+Ci = 64 with the projection residual, Ci = 256 with the identity one.
 
 Rounding follows the JAX kernels (pallas_trainchain.py module docstring):
 every product is an f32-accumulated product of compute-dtype operands,
@@ -46,6 +47,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
 
 STEM_FWD, STEM_BWD = "stem_fwd", "stem_bwd"
 BN_FWD, BN_BWD = "bottleneck_fwd", "bottleneck_bwd"
+BN_WGRAD = "bottleneck_wgrad"
 P, CO = 64, 256      # layer1 widths: planes and planes * expansion
 STEM_CIN_PAD = 16    # the stem kernels take x zero-padded to 16 channels
 
@@ -143,21 +145,33 @@ def bottleneck_bwd_plain(x, dy, k1, k2, k3, kres=None):
     res = _dot(x, kres) if kres is not None else x
     pre_y = _dot(h2, k3) + res
     dpre_y = _masked(pre_y, dy.to(dt))
-    dk3 = (_flat(dpre_y).t() @ _flat(h2))[:, :, None, None]
     dh2 = torch.matmul(dpre_y.float(), _mat(k3).to(dt).float()).to(dt)
     dpre2 = _masked(h2, dh2)
-    dk2 = _conv_wgrad(h1, dpre2, tuple(k2.shape))
     dh1 = _conv_t(dpre2, k2, h1.shape[-1]).to(dt)
     dpre1 = _masked(h1, dh1)
-    dk1 = (_flat(dpre1).t() @ _flat(x))[:, :, None, None]
     dx = torch.matmul(dpre1.float(), _mat(k1).to(dt).float())
-    dkres = None
     if kres is not None:
-        dkres = (_flat(dpre_y).t() @ _flat(x))[:, :, None, None]
         dx = dx + torch.matmul(dpre_y.float(), _mat(kres).to(dt).float())
     else:
         dx = dx + dpre_y.float()
+    dk1, dk2, dk3, dkres = bottleneck_wgrad_plain(
+        x, h1, h2, dpre2, dpre1, dpre_y, kres is not None)
     return dx.to(dt), dk1, dk2, dk3, dkres
+
+
+def bottleneck_wgrad_plain(x, h1, h2, dpre2, dpre1, dpre_y, has_res=None):
+    """The Bottleneck's weight grads from its backward's operands (x;
+    h1, h2, dpre2, dpre1 at P channels; dpre_y at Co), each a sum over
+    pixels in f32: (dk1, dk2, dk3, dkres) OIHW f32, dkres None without the
+    projection residual (by default: Ci == Co)."""
+    if has_res is None:
+        has_res = x.shape[-1] != CO
+    dk1 = (_flat(dpre1).t() @ _flat(x))[:, :, None, None]
+    dk2 = _conv_wgrad(h1, dpre2, (P, P, 3, 3))
+    dk3 = (_flat(dpre_y).t() @ _flat(h2))[:, :, None, None]
+    dkres = ((_flat(dpre_y).t() @ _flat(x))[:, :, None, None] if has_res
+             else None)
+    return dk1, dk2, dk3, dkres
 
 
 # ---- kernel wrappers ------------------------------------------------------
@@ -269,36 +283,125 @@ def stem_bwd_kernel(x, dy, k1, b1, k2, b2):
 
 def _check_bottleneck(x, k1, k2, k3, kres):
     b, h, w, ci = x.shape
-    if (ci % 64 or tuple(k1.shape) != (P, ci, 1, 1)
-            or tuple(k2.shape) != (P, P, 3, 3)
+    if (tuple(k1.shape) != (P, ci, 1, 1) or tuple(k2.shape) != (P, P, 3, 3)
             or tuple(k3.shape) != (CO, P, 1, 1)):
-        raise ValueError(f"bottleneck kernel takes Ci % 64 == 0, P = {P}, "
-                         f"Co = {CO}: x {tuple(x.shape)}, k1 "
-                         f"{tuple(k1.shape)}, k2 {tuple(k2.shape)}, k3 "
-                         f"{tuple(k3.shape)}")
-    if kres is None and ci != CO:
-        raise ValueError(f"identity residual needs Ci == {CO}, got {ci}")
+        raise ValueError(f"bottleneck kernel takes P = {P}, Co = {CO}: x "
+                         f"{tuple(x.shape)}, k1 {tuple(k1.shape)}, k2 "
+                         f"{tuple(k2.shape)}, k3 {tuple(k3.shape)}")
+    if (ci, kres is None) not in ((P, False), (CO, True)):
+        raise ValueError(f"bottleneck kernel takes Ci = {P} with kres or Ci "
+                         f"= {CO} without, got Ci = {ci}, kres "
+                         f"{'given' if kres is not None else 'None'}")
     if kres is not None and tuple(kres.shape) != (CO, ci, 1, 1):
         raise ValueError(f"kres {tuple(kres.shape)} for Ci={ci}")
+    if min(b, h, w) < 1:
+        raise ValueError(f"bottleneck kernel: empty input {b}x{h}x{w}")
     _check_pixels(b, h, w)
     hw.check_bf16("x", x)
+
+
+def _blocks(wm: torch.Tensor) -> torch.Tensor:
+    """(K, N) matrix, K and N multiples of 64 -> its (64 x 64) weight units
+    (K/64, N/64, 8, 64, 8): wm[kc*64 + 8*kg + k, nc*64 + n] at [kc, nc,
+    kg, n, k], the no-swizzle K-major core-matrix order (csrc/hopper.cuh)."""
+    k, n = wm.shape
+    return (wm.reshape(k // 64, 8, 8, n // 64, 64).permute(0, 3, 1, 4, 2)
+            .contiguous())
+
+
+def _tap_units(taps: torch.Tensor) -> torch.Tensor:
+    """(9, 64, 64) taps (K rows, N columns) -> their units (9, 8, 64, 8)."""
+    return taps.reshape(9, 8, 8, P).permute(0, 1, 3, 2)
+
+
+def bottleneck_units(k1, k2, k3, kres, dev, bwd: bool = False
+                     ) -> torch.Tensor:
+    """The weight units of the forward kernel, bf16 (U, 8, 64, 8), in the
+    order a tile takes them: k1 per 64 input channels; k2's nine taps;
+    then per 64 outputs k3 and kres per 64 input channels; in the backward
+    (``bwd``) k3^T after each such group (dh2 = dpre_y . k3^T)."""
+    b1 = _blocks(_bf(_mat(k1).t(), dev))
+    t2 = list(_tap_units(_taps(k2, dev)))
+    b3 = _blocks(_bf(_mat(k3).t(), dev))
+    br = _blocks(_bf(_mat(kres).t(), dev)) if kres is not None else None
+    b3t = _blocks(_bf(_mat(k3), dev))
+    seq = [b1[kc, 0] for kc in range(b1.shape[0])] + t2
+    for nc in range(CO // 64):
+        seq.append(b3[0, nc])
+        if br is not None:
+            seq += [br[kc, nc] for kc in range(br.shape[0])]
+        if bwd:
+            seq.append(b3t[nc, 0])
+    return torch.stack(seq).contiguous()
+
+
+def bottleneck_back_units(k1, k2, kres, dev) -> torch.Tensor:
+    """The weight units of the second backward launch, bf16 (U, 8, 64, 8):
+    k2's flipped transposed taps (conv_t as a SAME conv), then per 64
+    input channels k1^T and kres^T per 64 of its 256 rows."""
+    b1t = _blocks(_bf(_mat(k1), dev))
+    brt = _blocks(_bf(_mat(kres), dev)) if kres is not None else None
+    seq = list(_tap_units(_taps_t(k2, dev)))
+    for cc in range(b1t.shape[1]):
+        seq.append(b1t[0, cc])
+        if brt is not None:
+            seq += [brt[kc, cc] for kc in range(CO // 64)]
+    return torch.stack(seq).contiguous()
 
 
 def bottleneck_fwd_kernel(x, k1, k2, k3, kres=None):
     """The Bottleneck forward on the card (``csrc/trainchain_bottleneck.cu``)."""
     _check_bottleneck(x, k1, k2, k3, kres)
     b, h, w, ci = x.shape
-    dev = x.device
-    y = torch.empty((b, h, w, CO), device=dev, dtype=torch.bfloat16)
-    wres = _bf(_mat(kres).t(), dev) if kres is not None else None
-    _call(BN_FWD, x, _bf(_mat(k1).t(), dev), _taps(k2, dev),
-          _bf(_mat(k3).t(), dev), wres, y, b, h, w, ci)
+    y = torch.empty((b, h, w, CO), device=x.device, dtype=torch.bfloat16)
+    _call(BN_FWD, x, bottleneck_units(k1, k2, k3, kres, x.device), y,
+          b, h, w, ci)
     return y
 
 
+def wgrad_splits(b: int, h: int, w: int) -> Tuple[int, int]:
+    """Pixel ranges of the weight-grad launch's two jobs (dk2's taps; the
+    1x1 grads, about four times the bytes): together one block per SM of
+    an H100 (132), in that ratio, at least one 8x16 tile per range."""
+    tiles = b * -(-h // 8) * -(-w // 16)
+    return max(1, min(26, tiles)), max(1, min(106, 2 * tiles))
+
+
+def bottleneck_wgrad_kernel(x, h1, h2, dpre2, dpre1, dpre_y):
+    """The four weight grads in one launch from what the backward stored
+    (a sum over pixels of a(p)^T . d(p) per weight): (dk1, dk2, dk3,
+    dkres or None), f32 OIHW."""
+    b, h, w, ci = x.shape
+    if ci not in (P, CO) or min(b, h, w) < 1:
+        raise ValueError(f"bottleneck weight-grad kernel takes Ci in "
+                         f"({P}, {CO}), got x {tuple(x.shape)}")
+    _check_pixels(b, h, w)
+    hw.check_bf16("x", x)
+    for name, t in (("h1", h1), ("h2", h2), ("dpre2", dpre2),
+                    ("dpre1", dpre1)):
+        hw.check_bf16(name, t, (b, h, w, P))
+    hw.check_bf16("dpre_y", dpre_y, (b, h, w, CO))
+    nk = ci // 64
+    s0, s1 = wgrad_splits(b, h, w)
+    pk = torch.empty((s0 + s1, 9, P, P), device=x.device,
+                     dtype=torch.float32)
+    _launch(BN_WGRAD, BN_WGRAD, x, x, h1, h2, dpre2, dpre1, dpre_y, pk,
+            b, h, w, ci, s0, s1)
+    part = (pk[:s0].sum(0), pk[s0:].sum(0))
+    dk2 = part[0].reshape(3, 3, P, P).permute(3, 2, 0, 1).contiguous()
+    dk1 = part[1][:nk].reshape(ci, P).t()[:, :, None, None].contiguous()
+
+    def per_output(slots):   # (4, a channel, 64 outputs) -> (256, a channel)
+        return slots.permute(0, 2, 1).reshape(CO, -1)[:, :, None, None]
+
+    dk3 = per_output(part[1][nk:nk + 4]).contiguous()
+    dkres = per_output(part[1][5:9]).contiguous() if ci == P else None
+    return dk1, dk2, dk3, dkres
+
+
 def bottleneck_bwd_kernel(x, dy, k1, k2, k3, kres=None):
-    """The Bottleneck backward on the card: three launches (see the .cu
-    note), then the f32 weight-grad partials summed here."""
+    """The Bottleneck backward on the card: two launches for dx (see the
+    .cu note), then one for the four weight grads."""
     _check_bottleneck(x, k1, k2, k3, kres)
     hw.check_bf16("dy", dy, (*x.shape[:3], CO))
     b, h, w, ci = x.shape
@@ -307,28 +410,10 @@ def bottleneck_bwd_kernel(x, dy, k1, k2, k3, kres=None):
     h1, h2, dpre2, dpre1 = (torch.empty((b, h, w, P), **act) for _ in range(4))
     dpre_y = torch.empty((b, h, w, CO), **act)
     dx = torch.empty((b, h, w, ci), **act)
-    has_res = kres is not None
-    s = _splits(ci // 64 + 9 + CO // 64 + (ci // 64) * (CO // 64) * has_res,
-                b * h * w)
-    f32 = dict(device=dev, dtype=torch.float32)
-    pk1 = torch.empty((s, ci, P), **f32)
-    pk2 = torch.empty((s, 9, P, P), **f32)
-    pk3 = torch.empty((s, P, CO), **f32)
-    pkres = torch.empty((s, ci, CO), **f32) if has_res else None
-    w1, w3 = _mat(k1).t(), _mat(k3).t()
-    wres = _mat(kres).t() if has_res else None
-    _call(BN_BWD, x, dy, _bf(w1, dev), _taps(k2, dev), _bf(w3, dev),
-          _bf(wres, dev) if has_res else None, _bf(w1.t(), dev),
-          _taps_t(k2, dev), _bf(w3.t(), dev),
-          _bf(wres.t(), dev) if has_res else None,
-          h1, h2, dpre_y, dpre2, dpre1, dx, pk1, pk2, pk3, pkres,
-          b, h, w, ci, s)
-    dk1 = pk1.sum(0).t()[:, :, None, None].contiguous()
-    dk2 = pk2.sum(0).reshape(3, 3, P, P).permute(3, 2, 0, 1).contiguous()
-    dk3 = pk3.sum(0).t()[:, :, None, None].contiguous()
-    dkres = (pkres.sum(0).t()[:, :, None, None].contiguous()
-             if has_res else None)
-    return dx, dk1, dk2, dk3, dkres
+    _call(BN_BWD, x, dy, bottleneck_units(k1, k2, k3, kres, dev, bwd=True),
+          bottleneck_back_units(k1, k2, kres, dev), h1, h2, dpre_y, dpre2,
+          dpre1, dx, b, h, w, ci)
+    return (dx, *bottleneck_wgrad_kernel(x, h1, h2, dpre2, dpre1, dpre_y))
 
 
 # ---- autograd -------------------------------------------------------------

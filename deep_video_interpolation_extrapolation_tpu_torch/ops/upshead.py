@@ -38,6 +38,8 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.recompute import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     interpolate_bilinear,
+    nchw,
+    nhwc,
 )
 
 NAME, NAME_1X1, NAME4 = "ups_head_taps", "ups_head_1x1", "ups_head_taps4"
@@ -111,6 +113,17 @@ def _check(p0, p1, p2, w1, b1, n1):
         hw.check_bf16(name, t)
 
 
+def w1_units(w1: torch.Tensor, dev) -> torch.Tensor:
+    """W1 (CT, N1) -> the kernel's weight units, bf16 (N1/64, CT/64, 8, 64,
+    8): unit (nc, kc) holds W1[kc*64 + 8*kg + k, nc*64 + n] at [kg, n, k],
+    the no-swizzle K-major core-matrix order (csrc/hopper.cuh), in the
+    order the kernel's ring takes them (hidden chunk by hidden chunk)."""
+    ct, n1 = w1.shape
+    return (w1.to(device=dev, dtype=torch.bfloat16)
+            .reshape(ct // 64, 8, 8, n1 // 64, 64).permute(3, 0, 1, 4, 2)
+            .contiguous())
+
+
 def padded_taps(w2t: torch.Tensor, dev) -> torch.Tensor:
     """The taps matrix (N1, N2) in bf16, zero-padded to the kernels' tile
     width N2_MAX so each row is one run of 16-byte words (yt itself keeps
@@ -121,10 +134,19 @@ def padded_taps(w2t: torch.Tensor, dev) -> torch.Tensor:
     return w2k
 
 
+def w2_chunks(w2t: torch.Tensor, dev) -> torch.Tensor:
+    """``padded_taps`` as K4's bf16 chunks (N1/64, 8, N2_MAX, 8) of 64
+    hidden rows: W2t[nc*64 + 8*kg + k, n] at [nc, kg, n, k], K-major core
+    matrices."""
+    n1 = w2t.shape[0]
+    return (padded_taps(w2t, dev).reshape(n1 // 64, 8, 8, N2_MAX)
+            .permute(0, 1, 3, 2).contiguous())
+
+
 def _launch(fn, p0, p1, p2, w1, b1, w2k, out, *tail):
     dev = p0.device
     # converted weights held in locals until the launch is queued
-    w1k = w1.to(device=dev, dtype=torch.bfloat16).contiguous()
+    w1k = w1_units(w1, dev)
     b1k = b1.to(device=dev, dtype=torch.float32).contiguous()
     b, h, w, c0 = p0.shape
     _, h1, w1_, c1 = p1.shape
@@ -144,7 +166,7 @@ def _taps_kernel(p0, p1, p2, w1, b1, w2t):
     yt = torch.empty((*p0.shape[:3], n2), device=p0.device,
                      dtype=torch.bfloat16)
     err = _launch(_build.library().dvie_ups_head_taps, p0, p1, p2, w1, b1,
-                  padded_taps(w2t, p0.device), yt, n2)
+                  w2_chunks(w2t, p0.device), yt, n2)
     _build.check_launch(NAME, err)
     hw.launches[NAME] += 1
     return yt
@@ -169,34 +191,64 @@ def ups_head_1x1(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1, t.shape[-1]).float()
+    return t.reshape(-1, t.shape[-1])
 
 
-def ups_head_taps_bwd(p0, p1, p2, w1, b1, w2t, g):
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b summed in f32 and returned in f32, on the operands as they are
+    (no f32 copy of a bf16 operand): on the card one product of bf16
+    operands with an f32 output (``torch.mm(..., out_dtype=float32)``); on
+    the CPU, which has no kernel for that, the product in the operands'
+    dtype."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a, b).float()
+
+
+def ups_head_taps_bwd(p0, p1, p2, w1, b1, w2t, g, h=None):
     """``pallas_upshead._explicit_taps_bwd`` (:415-472): grads of yt
-    w.r.t. (p0, p1, p2, w1, b1, w2t) given its cotangent g.  Pyramid
-    grads in the compute dtype; dw1, db1, dw2t f32."""
+    w.r.t. (p0, p1, p2, w1, b1, w2t) given its cotangent g; ``h``, the
+    hidden map, is recomputed through ``ups_head_1x1`` unless given.  The
+    products
+    take the JAX dtypes (:450-466): dh = g . W2t^T and dcat = dpre . W1^T
+    on compute-dtype operands, rounded once to it; dw2t = h^T . g and dw1 =
+    part^T . dpre (per pyramid part, no 448-ch concat is built) on
+    compute-dtype operands with f32 results; db1 summed in f32; dp1 and dp2
+    the upsampling's vjp of dcat's slices."""
     dt = p0.dtype
     c0, c1 = p0.shape[-1], p1.shape[-1]
     size = tuple(p0.shape[1:3])
-    h = ups_head_1x1(p0, p1, p2, w1, b1)                 # recomputed once
-    dw2t = _flat(h).t() @ _flat(g)
-    dh = torch.matmul(g.float(), w2t.to(dt).float().t()).to(dt)
+    g = g.to(dt)
+    if h is None:
+        h = ups_head_1x1(p0, p1, p2, w1, b1)             # recomputed once
+    dw2t = _mm_f32(_flat(h).t(), _flat(g))
+    dh = torch.matmul(g, w2t.to(dt).t())
     dpre = torch.where(h >= 0, dh, 0.2 * dh)
     dflat = _flat(dpre)
-    db1 = dflat.sum(0)
-    with torch.enable_grad():
-        p1v = p1.detach().requires_grad_()
-        p2v = p2.detach().requires_grad_()
-        up1 = interpolate_bilinear(p1v, size=size)
-        up2 = interpolate_bilinear(p2v, size=size)
-    # dw1 per pyramid part: no 448-ch concat is built
-    dw1 = torch.cat([_flat(part).t() @ dflat
-                     for part in (p0, up1.detach(), up2.detach())], dim=0)
-    dcat = torch.matmul(dpre.float(), w1.to(dt).float().t()).to(dt)
-    (dp1,) = torch.autograd.grad(up1, p1v, dcat[..., c0:c0 + c1])
-    (dp2,) = torch.autograd.grad(up2, p2v, dcat[..., c0 + c1:])
+    db1 = dflat.sum(0, dtype=torch.float32)
+    up1 = interpolate_bilinear(p1, size=size)
+    up2 = interpolate_bilinear(p2, size=size)
+    dw1 = torch.cat([_mm_f32(_flat(part).t(), dflat)
+                     for part in (p0, up1, up2)], dim=0)
+    dcat = torch.matmul(dpre, w1.to(dt).t())
+    dp1 = _upsample_vjp(dcat[..., c0:c0 + c1], p1.shape)
+    dp2 = _upsample_vjp(dcat[..., c0 + c1:], p2.shape)
     return dcat[..., :c0], dp1, dp2, dw1, db1, dw2t
+
+
+def _upsample_vjp(g: torch.Tensor, shape) -> torch.Tensor:
+    """The vjp of ``interpolate_bilinear`` from an NHWC input of ``shape``
+    to g's size, given the cotangent g: summed in f32 and rounded once to
+    g's dtype, as the JAX vjp (an f32-accumulated einsum) rounds; the
+    kernel's bf16 form adds into bf16 one contribution at a time (its dp2
+    drifted 2.3% of max from the f32 sum at 24x128x128)."""
+    b, hi, wi, c = shape
+    if (hi, wi) == tuple(g.shape[1:3]):
+        return g
+    d = torch.ops.aten.upsample_bilinear2d_backward(
+        nchw(g.float()), list(g.shape[1:3]), [b, c, hi, wi], False, None,
+        None)
+    return nhwc(d).to(g.dtype)
 
 
 class _UpsHeadTaps(torch.autograd.Function):

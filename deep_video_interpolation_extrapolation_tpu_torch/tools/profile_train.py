@@ -11,9 +11,9 @@ the same setup as ``chip_smoke.py``'s train phase.  For each model
 then one step under ``torch.profiler``: the time of every device event
 (kernels, copies, fills; the rows do not overlap) summed, as the profiler's
 own table totals it.  Prints one summary line per model, the per-step
-device time of the BasicBlock chain (its forward and backward launches and
-its weight-grad launch: the events named in ``CHAIN``), and its top
-``ROWS`` device events by time, also written to ``<out>/<model>.txt``.
+device time of each kernel group in ``GROUPS`` (the BasicBlock chain, the
+layer1 Bottleneck train chain, K4), and its top ``ROWS`` device events by
+time, also written to ``<out>/<model>.txt``.
 The idle share is 1 - (device time / the mean wall time of the unprofiled
 steps): the profiler's own host work slows the profiled step.
 """
@@ -40,10 +40,16 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
 
 B, H, W = 24, 128, 128
 ROWS = 30
-# device events of the BasicBlock chain kernels (csrc/trainchain_basicblock.cu):
-# the forward/backward kernel and the chain's weight-grad kernel (its jobs
-# struct, GJobs, tells it from the stem's and Bottleneck's wgrad_kernel)
-CHAIN = ("bb_kernel", "GJobs")
+# device events of kernel groups, by a part of their names: the BasicBlock
+# chain (csrc/trainchain_basicblock.cu: bb_kernel, and its weight-grad
+# kernel, told from the others by its jobs struct GJobs), the layer1
+# Bottleneck (csrc/trainchain_bottleneck.cu: front_kernel, back_kernel and
+# its weight-grad kernel, the one whose first argument is a bf16 pointer),
+# K4's taps and h modes (csrc/upshead.cu)
+GROUPS = {"BasicBlock chain": ("bb_kernel", "GJobs"),
+          "Bottleneck": ("front_kernel", "back_kernel",
+                         "wgrad_kernel(__nv_bfloat16"),
+          "K4": ("ups_head_kernel",)}
 CFG = Config(model="InterNet", coarse_model="HRNet", syn_type="inter",
              compute_dtype="bfloat16", train_coarse=True)
 
@@ -98,15 +104,16 @@ def profile_model(dev, use_kernels: bool):
     avgs = sorted((e for e in prof.key_averages() if _on_device(e)),
                   key=_self_device_us, reverse=True)
     device_ms = sum(_self_device_us(e) for e in avgs) / 1e3
-    chain_ms = sum(_self_device_us(e) for e in avgs
-                   if any(k in e.key for k in CHAIN)) / 1e3
+    groups = {g: sum(_self_device_us(e) for e in avgs
+                     if any(k in e.key for k in keys)) / 1e3
+              for g, keys in GROUPS.items()}
     lines = [f"{'device ms':>10}  {'share':>7}  {'calls':>5}  event"]
     for e in avgs[:ROWS]:
         ms = _self_device_us(e) / 1e3
         lines.append(f"{ms:10.3f}  {ms / device_ms:7.2%}  {e.count:5d}  "
                      f"{e.key[:110]}")
     return dict(wall_ms=wall_ms, peak_gib=peak_gib, prof_ms=prof_ms,
-                device_ms=device_ms, chain_ms=chain_ms,
+                device_ms=device_ms, groups=groups,
                 idle=1 - device_ms / wall_ms,
                 table="\n".join(lines))
 
@@ -126,8 +133,8 @@ def main(argv=None) -> int:
         print(f"{name} model {B}x{H}x{W}: wall {r['wall_ms']:.3f} ms/step "
               f"(mean of 3), peak {r['peak_gib']:.3f} GiB; profiled step "
               f"{r['prof_ms']:.3f} ms, self device {r['device_ms']:.3f} ms, "
-              f"idle {r['idle']:.2%}; BasicBlock chain {r['chain_ms']:.3f} "
-              f"ms per step")
+              f"idle {r['idle']:.2%}; per step: " + ", ".join(
+                  f"{g} {ms:.3f} ms" for g, ms in r["groups"].items()))
         print(r["table"])
     return 0
 

@@ -220,3 +220,146 @@ def test_kernel_pair_matches_packed_kernel(which):
     assert len(grads) == len(g_j)
     _check_grads(g_j, [g.numpy() for g in grads], 1e-2)
     _check_dx(grads[0].numpy(), g_j[0])
+
+
+# ---- the Bottleneck kernels' weight units and shape checks ------------------
+
+def test_blocks_layout():
+    """``_blocks`` puts wm[k, n] at [k // 64, n // 64, (k % 64) // 8, n % 64,
+    k % 8]: 64 x 64 units in the no-swizzle K-major core-matrix order."""
+    wm = torch.arange(128 * 256, dtype=torch.float32).reshape(128, 256)
+    u = trainchain._blocks(wm)
+    assert u.shape == (2, 4, 8, 64, 8) and u.is_contiguous()
+    rng = np.random.RandomState(4)
+    for k, n in rng.randint(0, [128, 256], (60, 2)):
+        assert u[k // 64, n // 64, (k % 64) // 8, n % 64, k % 8] == wm[k, n]
+    taps = torch.arange(9 * 64 * 64, dtype=torch.float32).reshape(9, 64, 64)
+    t = trainchain._tap_units(taps)
+    for tap, k, n in rng.randint(0, [9, 64, 64], (60, 3)):
+        assert t[tap, k // 8, n, k % 8] == taps[tap, k, n]
+
+
+def _unit_matrix(u):
+    """A (8, 64, 8) unit back to its (64 k, 64 n) matrix."""
+    return u.permute(0, 2, 1).reshape(64, 64)
+
+
+@pytest.mark.parametrize("proj", [True, False])
+@pytest.mark.parametrize("bwd", [False, True])
+def test_forward_units_order(proj, bwd):
+    """The forward kernel's units, in the order a tile takes them: k1 per
+    64 input channels, k2's taps (tap ky*3+kx: (in, out)), then per 64
+    outputs k3, kres per 64 inputs and, in the backward, k3^T."""
+    rng = np.random.RandomState(5)
+    ci = 64 if proj else 256
+    k1, k2, k3 = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in ((64, ci, 1, 1), (64, 64, 3, 3), (256, 64, 1, 1)))
+    kres = (torch.from_numpy(rng.normal(size=(256, ci, 1, 1)).astype(
+        np.float32)) if proj else None)
+    u = trainchain.bottleneck_units(k1, k2, k3, kres, "cpu", bwd=bwd)
+    want = [k1[:, i * 64:(i + 1) * 64, 0, 0].t() for i in range(ci // 64)]
+    want += [k2[:, :, t // 3, t % 3].t() for t in range(9)]
+    for nc in range(4):
+        o = slice(nc * 64, (nc + 1) * 64)
+        want.append(k3[o, :, 0, 0].t())
+        if proj:
+            want += [kres[o, i * 64:(i + 1) * 64, 0, 0].t()
+                     for i in range(ci // 64)]
+        if bwd:
+            want.append(k3[o, :, 0, 0])
+    assert u.shape == (len(want), 8, 64, 8) and u.dtype == torch.bfloat16
+    for i, m in enumerate(want):
+        assert torch.equal(_unit_matrix(u[i]), m.to(torch.bfloat16)), i
+
+
+@pytest.mark.parametrize("proj", [True, False])
+def test_back_units_order(proj):
+    """The second backward launch's units: k2's flipped transposed taps
+    (conv_t as a SAME conv: tap t of the flip holds k2[:, :, 2 - ky, 2 -
+    kx] as (out, in)), then per 64 input channels k1^T and kres^T per 64
+    of its 256 rows."""
+    rng = np.random.RandomState(6)
+    ci = 64 if proj else 256
+    k1 = torch.from_numpy(rng.normal(size=(64, ci, 1, 1)).astype(np.float32))
+    k2 = torch.from_numpy(rng.normal(size=(64, 64, 3, 3)).astype(np.float32))
+    kres = (torch.from_numpy(rng.normal(size=(256, ci, 1, 1)).astype(
+        np.float32)) if proj else None)
+    u = trainchain.bottleneck_back_units(k1, k2, kres, "cpu")
+    want = [k2[:, :, 2 - t // 3, 2 - t % 3] for t in range(9)]
+    for cc in range(ci // 64):
+        c = slice(cc * 64, (cc + 1) * 64)
+        want.append(k1[:, c, 0, 0])
+        if proj:
+            want += [kres[kc * 64:(kc + 1) * 64, c, 0, 0] for kc in range(4)]
+    assert u.shape == (len(want), 8, 64, 8)
+    for i, m in enumerate(want):
+        assert torch.equal(_unit_matrix(u[i]), m.to(torch.bfloat16)), i
+
+
+def _bn_weights(ci, proj):
+    k = [torch.zeros((64, ci, 1, 1)), torch.zeros((64, 64, 3, 3)),
+         torch.zeros((256, 64, 1, 1))]
+    return k + [torch.zeros((256, ci, 1, 1)) if proj else None]
+
+
+@pytest.mark.parametrize("ci,proj", [(128, True), (64, False), (256, True),
+                                     (128, False)])
+def test_bottleneck_wrappers_refuse_other_blocks(ci, proj):
+    """The Bottleneck kernels take block 0 (Ci = 64, kres) and blocks 1-3
+    (Ci = 256, identity): any other block is a ``ValueError`` before any
+    launch (the check comes before the device check, so it shows on the
+    CPU)."""
+    x = torch.zeros((1, 8, 16, ci), dtype=torch.bfloat16)
+    dy = torch.zeros((1, 8, 16, 256), dtype=torch.bfloat16)
+    ks = _bn_weights(ci, proj)
+    with pytest.raises(ValueError, match="Ci = 64 with kres"):
+        trainchain.bottleneck_fwd_kernel(x, *ks)
+    with pytest.raises(ValueError, match="Ci = 64 with kres"):
+        trainchain.bottleneck_bwd_kernel(x, dy, *ks)
+
+
+def test_weight_grad_wrapper_refuses():
+    """The weight-grad launch refuses Ci other than 64 and 256, and
+    operands that are not CUDA bf16 tensors of the block's shape."""
+    a64 = torch.zeros((1, 8, 16, 64), dtype=torch.bfloat16)
+    a256 = torch.zeros((1, 8, 16, 256), dtype=torch.bfloat16)
+    a128 = torch.zeros((1, 8, 16, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Ci in"):
+        trainchain.bottleneck_wgrad_kernel(a128, a64, a64, a64, a64, a256)
+    with pytest.raises(ValueError, match="CUDA"):
+        trainchain.bottleneck_wgrad_kernel(a256, a64, a64, a64, a64, a256)
+
+
+@pytest.mark.parametrize("proj", [True, False])
+def test_wgrad_plain_matches_backward(proj):
+    """``bottleneck_wgrad_plain`` (the weight-grad half of the
+    hand-written backward, and the weight-grad kernel's oracle on the
+    card): each grad is the sum over pixels of a(p)^T . d(p), dk2 per tap
+    on h1 shifted by the tap with zeros outside."""
+    rng = np.random.RandomState(7)
+    ci = 64 if proj else 256
+    ops = [_t(rng.normal(size=(2, 8, 16, c))) for c in (ci, 64, 64, 64, 64,
+                                                        256)]
+    x, h1, h2, dpre2, dpre1, dpre_y = ops
+    dk1, dk2, dk3, dkres = trainchain.bottleneck_wgrad_plain(*ops)
+    assert (dkres is None) == (not proj)
+    np.testing.assert_allclose(
+        dk1[:, :, 0, 0].numpy(),
+        np.einsum("bhwo,bhwi->oi", dpre1.numpy(), x.numpy()), rtol=1e-4,
+        atol=1e-3)
+    np.testing.assert_allclose(
+        dk3[:, :, 0, 0].numpy(),
+        np.einsum("bhwo,bhwi->oi", dpre_y.numpy(), h2.numpy()), rtol=1e-4,
+        atol=1e-3)
+    hp = np.pad(h1.numpy(), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    for ky in range(3):
+        for kx in range(3):
+            ref = np.einsum("bhwo,bhwi->oi", dpre2.numpy(),
+                            hp[:, ky:ky + 8, kx:kx + 16])
+            np.testing.assert_allclose(dk2[:, :, ky, kx].numpy(), ref,
+                                       rtol=1e-4, atol=1e-3)
+    if proj:
+        np.testing.assert_allclose(
+            dkres[:, :, 0, 0].numpy(),
+            np.einsum("bhwo,bhwi->oi", dpre_y.numpy(), x.numpy()), rtol=1e-4,
+            atol=1e-3)
