@@ -8,7 +8,12 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
 1. kernels: each serving kernel against its plain PyTorch version on the
    card, in bf16 at the main-path shapes (B=1, 512x1024; the 4-part head
    ``ups_head_taps4`` of ``--highres_large`` included),
-   max|d|/max|ref| <= 2e-2, with median CUDA-event times of both; the
+   max|d|/max|ref| <= 2e-2, with median CUDA-event times of both (K1's
+   three sites and K2's three blocks each timed on a row of their own,
+   host issue included and by device time alone, K1 beside one
+   ``F.conv2d`` with its bias; K1 at 2x37x130 at Cin 64 and 256 and K2 at
+   1x66x260 in its three block forms checked too: tiles cut at both
+   edges); the
    stage-3 window attention at its serving shape (B=1, 128x256x128, k1 = v1
    and k2 = v2 as on the path): out max|d|/max|ref| <= 2e-2 and flow
    agreement >= 90% on random inputs, and on an input whose k1 is q rolled
@@ -197,8 +202,16 @@ PKG = "deep_video_interpolation_extrapolation_tpu_torch"
 META = {
     "conv3x3_bias_res_lrelu": ("cuda", f"{PKG}/csrc/conv3x3.cu",
                                "deep_video_interpolation_extrapolation_tpu/ops/pallas_ae_conv.py:400"),
+    "conv3x3_stem": ("cuda", f"{PKG}/csrc/conv3x3.cu",
+                     "deep_video_interpolation_extrapolation_tpu/ops/pallas_ae_conv.py:400"),
+    "conv3x3_trans0": ("cuda", f"{PKG}/csrc/conv3x3.cu",
+                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_ae_conv.py:400"),
     "bottleneck_tail": ("cuda", f"{PKG}/csrc/bottleneck_tail.cu",
                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_chain.py:495"),
+    "bottleneck_tail_b0": ("cuda", f"{PKG}/csrc/bottleneck_tail.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_chain.py:495"),
+    "bottleneck_tail_b3": ("cuda", f"{PKG}/csrc/bottleneck_tail.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_chain.py:495"),
     "fuse_out0": ("triton", f"{PKG}/ops/fuse0.py",
                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_fuse0.py:419"),
     "ups_head_taps": ("cuda", f"{PKG}/csrc/upshead.cu",
@@ -250,10 +263,16 @@ META = {
 }
 # a row timed on another row's counter: the chain forward launches once per
 # block, so each of its launches computes the one-block function; the
-# Bottleneck's block-0 rows (Ci = 64, kres) share the counters of blocks 1-3
+# Bottleneck's block-0 rows (Ci = 64, kres) share the counters of blocks
+# 1-3; K1's stem conv2 and trans_0 rows and K2's block-0 and block-3 rows
+# share their kernel's counter
 COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "bottleneck_fwd_b0": "bottleneck_fwd",
-           "bottleneck_bwd_b0": "bottleneck_bwd"}
+           "bottleneck_bwd_b0": "bottleneck_bwd",
+           "conv3x3_stem": "conv3x3_bias_res_lrelu",
+           "conv3x3_trans0": "conv3x3_bias_res_lrelu",
+           "bottleneck_tail_b0": "bottleneck_tail",
+           "bottleneck_tail_b3": "bottleneck_tail"}
 # the video VAE serving forward: one grid sample per step
 VAE_T = 2
 PER_FORWARD_VAE = {"grid_sample": VAE_T}
@@ -372,15 +391,25 @@ def rel_err(out, ref):
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
-def median_ms(fn, iters=10, reps=5):
+SPIN_CYCLES = 20_000_000   # ~10 ms of the card's clock
+
+
+def median_ms(fn, iters=10, reps=5, spin=False):
     """Median over ``reps`` of the mean CUDA-event time of ``iters``
-    back-to-back calls (after two warm-up calls)."""
+    back-to-back calls (after two warm-up calls).  The window counts the
+    host's issue time wherever the host queues slower than the card runs
+    (a wrapper's Python against a 0.1 ms kernel).  With ``spin`` each
+    window opens behind a spin of the card (``torch.cuda._sleep``) while
+    the host queues the window's calls, so the time is the card's alone
+    (K1's and K2's rows print both)."""
     fn()
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         for _ in range(iters):
             fn()
@@ -404,42 +433,57 @@ def kernel_phase(dev):
     B, H, W = 1, 512, 1024
     cases = {}
     # K1: stem conv2 (bias), transition1 trans_0 (Cin 256), BasicBlock
-    # conv2 (residual) — the timed one, 16 of the 18 launches per forward
+    # conv2 (residual: 16 of the 18 launches per forward), each timed on
+    # its own row; and a ragged shape (tiles cut at both edges), checked
     x64, x256, res = rnd(B, H, W, 64), rnd(B, H, W, 256), rnd(B, H, W, 64)
     w64, w256, bias = w(64, 64, 3, 3), w(64, 256, 3, 3), w(64, 1, 1, 1).flatten()
+    xr, rr, xr256 = rnd(2, 37, 130, 64), rnd(2, 37, 130, 64), \
+        rnd(2, 37, 130, 256)
     cases["conv3x3_bias_res_lrelu"] = [
-        ("stem conv2", (x64, w64, bias, None, True)),
-        ("trans_0", (x256, w256, None, None, True)),
-        ("basicblock conv2", (x64, w64, None, res, True)),
+        ("conv3x3_stem", "stem conv2", (x64, w64, bias, None, True)),
+        ("conv3x3_trans0", "trans_0", (x256, w256, None, None, True)),
+        ("conv3x3_bias_res_lrelu", "basicblock conv2",
+         (x64, w64, None, res, True)),
+        (None, "ragged 2x37x130", (xr, w64, bias, rr, True)),
+        (None, "ragged 2x37x130 trans_0", (xr256, w256, None, None, True)),
     ]
-    # K2: block 0 (projection residual), blocks 1-2, block 3 (no next h1)
+    # K2: block 0 (projection residual), blocks 1-2, block 3 (no next h1),
+    # each timed; and a ragged shape, checked
     h1 = torch.nn.functional.leaky_relu(rnd(B, H, W, 64), 0.2)
     w2, w3 = w(64, 64, 3, 3), w(256, 64, 1, 1)
     wres, w1n = w(256, 64, 1, 1), w(64, 256, 1, 1)
+    h1r = torch.nn.functional.leaky_relu(rnd(1, 66, 260, 64), 0.2)
     cases["bottleneck_tail"] = [
-        ("block 0", (h1, x64, w2, w3, wres, w1n)),
-        ("block 3", (h1, x256, w2, w3, None, None)),
-        ("block 1", (h1, x256, w2, w3, None, w1n)),
+        ("bottleneck_tail_b0", "block 0", (h1, x64, w2, w3, wres, w1n)),
+        ("bottleneck_tail_b3", "block 3", (h1, x256, w2, w3, None, None)),
+        ("bottleneck_tail", "block 1", (h1, x256, w2, w3, None, w1n)),
+        (None, "ragged 1x66x260 block 1",
+         (h1r, rnd(1, 66, 260, 256), w2, w3, None, w1n)),
+        (None, "ragged 1x66x260 block 0",
+         (h1r, rnd(1, 66, 260, 64), w2, w3, wres, w1n)),
+        (None, "ragged 1x66x260 block 3",
+         (h1r, rnd(1, 66, 260, 256), w2, w3, None, None)),
     ]
     # K3: stage2 (no t2), stage3 (with t2)
     t1, t2 = rnd(B, H // 2, W // 2, 64), rnd(B, H // 4, W // 4, 64)
-    cases["fuse_out0"] = [("stage2", (x64, t1, None)),
-                          ("stage3", (x64, t1, t2))]
+    cases["fuse_out0"] = [(None, "stage2", (x64, t1, None)),
+                          ("fuse_out0", "stage3", (x64, t1, t2))]
     # K4: the head at its one site
     p1, p2 = rnd(B, H // 2, W // 2, 128), rnd(B, H // 4, W // 4, 256)
     w1 = w(896, 448, 1, 1)[:, :, 0, 0].t()
     b1 = w(896, 1, 1, 1).flatten()
     w2t = k4.build_dual_tap_kernel(w(3, 448, 3, 3), w(20, 448, 3, 3),
                                    torch.bfloat16)
-    cases["ups_head_taps"] = [("heads", (x64, p1, p2, w1, b1, w2t))]
+    cases["ups_head_taps"] = [("ups_head_taps", "heads",
+                                (x64, p1, p2, w1, b1, w2t))]
     # the 4-part head of --highres_large
     p3 = rnd(B, H // 8, W // 8, 512)
     w1_4 = w(1920, 960, 1, 1)[:, :, 0, 0].t()
     b1_4 = w(1920, 1, 1, 1).flatten()
     w2t_4 = k4.build_dual_tap_kernel(w(3, 960, 3, 3), w(20, 960, 3, 3),
                                      torch.bfloat16)
-    cases["ups_head_taps4"] = [("heads", (x64, p1, p2, p3, w1_4, b1_4,
-                                          w2t_4))]
+    cases["ups_head_taps4"] = [("ups_head_taps4", "heads",
+                                 (x64, p1, p2, p3, w1_4, b1_4, w2t_4))]
 
     fns = {"conv3x3_bias_res_lrelu": (k1.conv3x3_bias_res_lrelu,
                                       k1.conv3x3_bias_res_lrelu_plain),
@@ -450,8 +494,8 @@ def kernel_phase(dev):
     results = {}
     for name, variants in cases.items():
         kern, plain = fns[name]
-        worst_abs, worst_rel = 0.0, 0.0
-        for label, args in variants:
+        worst_rel, err = 0.0, {}
+        for _, label, args in variants:
             out, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
             outs = out if isinstance(out, tuple) else (out,)
@@ -468,20 +512,39 @@ def kernel_phase(dev):
                 d, rel = rel_err(o, r)
                 print(f"  {name} [{label}] max|d|={d:.6g} "
                       f"max|d|/max|ref|={rel:.6g}")
-                worst_abs, worst_rel = max(worst_abs, d), max(worst_rel, rel)
+                err[label] = max(err.get(label, 0.0), d)
+                worst_rel = max(worst_rel, rel)
         if worst_rel > KERNEL_TOL:
             raise AssertionError(f"{name}: max|d|/max|ref| {worst_rel:.4g} > "
                                  f"{KERNEL_TOL}")
-        label, args = variants[-1]
-        ms = median_ms(lambda: kern(*args))
-        plain_ms = median_ms(lambda: plain(*args))
-        results[name] = timed(name, label, args, kern(*args), worst_abs, ms,
-                              plain_ms)
+        for row, label, args in variants:
+            if row is None:
+                continue
+            fs = {"": lambda: kern(*args), "plain_": lambda: plain(*args)}
+            if name == "conv3x3_bias_res_lrelu":   # product + bias alone
+                fs["library_"] = lambda: k1_library(*args)
+            ms = {k: median_ms(f) for k, f in fs.items()}
+            device = ({f"{k}device_ms": median_ms(f, spin=True)
+                       for k, f in fs.items()}
+                      if name in ("conv3x3_bias_res_lrelu", "bottleneck_tail")
+                      else None)
+            results[row] = timed(name, label, args, kern(*args), err[label],
+                                 ms[""], ms["plain_"], ms.get("library_"),
+                                 device)
     results["window_attention"] = window_attention_check(dev)
     results["shifted_add_bias"] = shifted_add_check(dev)
     results.update(grid_sample_check(dev))
     results["dual_head"] = dual_head_check(dev)
     return results
+
+
+def k1_library(x, w, bias, res, relu):
+    """K1's library call: one cuDNN ``F.conv2d`` of the channels_last bf16
+    view with the bias, no residual and no lrelu (the port never calls
+    it)."""
+    return torch.nn.functional.conv2d(
+        nchw(x), w.to(x.dtype), None if bias is None else bias.to(x.dtype),
+        padding=1)
 
 
 def _held(name, label, out, ref, tol=KERNEL_TOL):
@@ -630,14 +693,19 @@ def dual_head_check(dev):
 
 
 def timed(name, label, args, out, max_abs_err, ms, plain_ms,
-          library_ms=None):
-    """A kernel's row of the result line, from its timed call."""
+          library_ms=None, device=None):
+    """A kernel's row of the result line, from its timed call; ``device``:
+    the same calls' device times (``median_ms(spin=True)``), by key."""
     bound_ms, bound_by = bound(name, args, out)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    dev = "" if device is None else "; device " + ", ".join(
+        f"{k.replace('device_ms', '').rstrip('_') or 'kernel'} {v:.4f} ms"
+        for k, v in device.items())
     print(f"  {name} [{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-          f"{lib}, bound {bound_ms:.4f} ms ({bound_by})")
+          f"{lib}{dev}, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                **(device or {}))
 
 
 def flow_agreement(a, b) -> float:

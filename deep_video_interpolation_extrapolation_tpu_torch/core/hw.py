@@ -1,4 +1,4 @@
-"""Kernel routing and launch counters.
+"""Kernel routing, launch counters, and kernel weight layouts kept per weight.
 
 Counterpart of the JAX package's ``core/hw.pallas_enabled``, without an
 environment kill-switch: the route is decided by the tensor alone.
@@ -16,7 +16,10 @@ went through the kernels.
 
 from __future__ import annotations
 
+from typing import Callable, Sequence
+
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 KERNELS = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
            "ups_head_taps", "ups_head_1x1", "stem_fwd", "stem_bwd",
@@ -74,3 +77,31 @@ def check_bf16(name: str, t: torch.Tensor, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+# per weight tensor (the first of a set), while it lives: {key: (stamp, value)}
+_derived = WeakIdKeyDictionary()
+
+
+def derived(key: str, weights: Sequence, build: Callable):
+    """``build()``, kept from an earlier call with the same ``key`` and the
+    same ``weights`` (tensors or None) unchanged: a kernel's weight layout
+    is built once per weight, not once per call.  A weight counts as
+    changed when its storage or its version counter (bumped by every
+    in-place update, an optimizer step included) has moved.  Inference
+    tensors keep no version counter, so for them ``build()`` runs on every
+    call."""
+    ts = [t for t in weights if t is not None]
+    if any(t.is_inference() for t in ts):
+        return build()
+    stamp = tuple(None if t is None else (id(t), t.data_ptr(), t._version)
+                  for t in weights)
+    slot = _derived.get(ts[0])
+    if slot is None:
+        slot = _derived[ts[0]] = {}
+    kept = slot.get(key)
+    if kept is not None and kept[0] == stamp:
+        return kept[1]
+    value = build()
+    slot[key] = (stamp, value)
+    return value

@@ -1,155 +1,271 @@
 // K1: 3x3 stride-1 zero-padded conv + bias + residual + leaky-ReLU(0.2),
-// NHWC bf16 in and out, f32 accumulation.
+// NHWC bf16 in and out, f32 accumulation, Cout = 64.
 //
 // Replaces ops/pallas_ae_conv.py:conv3x3_packed_ae_hwnc (the HWNC A+E
 // kernel, pallas_call at :400) and also covers conv3x3_packed_ae (:183, the
 // NHWC-packed form of the same function).  The TPU width packing, the A+E
 // split of the taps and the HWNC view exist for the 128-lane MXU and are
-// dropped: this is a plain implicit GEMM over logical NHWC pixels.
+// dropped: this is an implicit GEMM over logical NHWC pixels.
 //
 // Bound on the H100 at the main-path shape (B=1, 512x1024, Cout=64):
 //   Cin=64 : 2*524288*576*64 = 38.7 GFLOP; x + res + out = 3 * 64 MiB.
 //            39 us of tensor-core time at 989 TFLOP/s vs 60 us of HBM time
 //            at 3.35 TB/s: memory-bound (192 FLOP/byte < 295).
 //   Cin=256: 154.6 GFLOP vs 256 + 64 MiB: compute-bound (156 vs 100 us).
-// Design: one block of 4 warps owns 128 consecutive output pixels x 64
-// output channels.  The K loop walks the 9 taps x Cin/64 channel chunks;
-// each step stages the shifted 128x64 input tile (cp.async zero-fill
-// outside the image: the SAME padding) and the 64x64 weight slab in shared
-// memory, double-buffered so the next step's loads fly during this step's
-// MMAs, and each warp accumulates a 32x64 tile in WMMA fragments.  The
-// epilogue adds bias and residual and applies the lrelu in f32, then rounds
-// once to bf16.  Simple first: no wgmma/TMA; the 3x3 input halo is re-read
-// from L2 once per tap.
+//
+// Design (hopper.cuh, namespace tiled): the conv runs on wgmma m64n64k16
+// (M = pixels, N = the 64 output channels, K = 9 taps x Cin), A from
+// registers, B from shared memory, f32 accumulators in registers.
+// - Persistent blocks walk 2-D pixel tiles 16 wide, each warpgroup 4 tile
+//   rows (one m-tile), each warp one row.  At Cin = 64 a block holds three
+//   independent groups of one warpgroup, each walking its own 4x16 tiles
+//   on its own named barrier, so that one group's loads and epilogue
+//   overlap the others' wgmmas (0.106 ms against 0.125 ms for two
+//   warpgroups in lockstep on 8x16 tiles, B=1 512x1024, one call, H100
+//   700 W).  At Cin = 256 one group of two warpgroups takes 8x16 tiles.
+// - A: the tile's input and its 1-pixel halo (16 bytes of padding per
+//   position so that ldmatrix of 8 positions hits 8 distinct bank groups)
+//   are staged once per 64 input channels by cp.async, zero outside the
+//   image (the SAME padding).  Each lane gives ldmatrix its own row
+//   shifted by the tap, so there is no im2col and every tap reads the one
+//   staged region.  Regions are double-buffered per group: the next region
+//   (the next 64 channels, or the group's next tile) is issued once the
+//   first tap's wgmmas run, and lands while the rest run.
+// - B at Cin = 64: the 72 KB of weights (9 tap units of 64 x 64 in the
+//   no-swizzle K-major core-matrix order, laid out by the wrapper) are
+//   loaded once per block by bulk TMA copies and stay resident.
+// - B at Cin = 256 (transition1's trans_0, 288 KB of weights): a producer
+//   warp streams the 8 KB (64-channel chunk, tap) units of each tile
+//   through an 8-slot ring (full/empty mbarriers), in the order the
+//   consumers take them.
+// - Epilogue from the accumulator registers: bias, residual and lrelu in
+//   f32, one rounding to bf16.  Each warp stages its tile row's residual
+//   by cp.async (16 bytes a lane) with the next region's loads into its
+//   own rows of a shared buffer, adds it there, writes the bf16 result in
+//   place and stores its row with 16-byte stores.
+// - No wgmma under a thread-dependent branch (C7518); the next unit's A is
+//   loaded while the current unit's wgmmas run, and no A register set is
+//   kept across another's wgmmas beyond that.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace dvie {
 namespace {
 
-constexpr int TM = 128, TN = 64, TK = 64;
-constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;
-constexpr int STAGE = (TM * LDA + TK * LDB) * 2;  // 27648 bytes: one A + one B tile
-constexpr int SMEM_C = TM * LDC * 4;              // 34816 bytes, reuses the stages
-constexpr int SMEM = 2 * STAGE > SMEM_C ? 2 * STAGE : SMEM_C;
+using namespace hop;
+using namespace hop::tiled;
 
-constexpr int NT = 128;                 // threads per block
-constexpr int RPT = TM * (TK / 8) / NT;  // staged input rows per thread per step (8)
+constexpr int LDR = 64 + 8;  // region and staging pitch, elements
 
-// The input rows a thread stages: rows threadIdx.x / 8 + 16 k (k < RPT),
-// always at channel vector threadIdx.x % 8.  Their pixel coordinates are
-// computed once per block, outside the K loop.
-struct Rows {
-  int m[RPT], y[RPT], x[RPT];  // flat pixel, row, column (y = -2 past the end)
+// A group of consumer warpgroups shares one tile (TH = 4 rows a warpgroup)
+// and its region buffers, and syncs on its own named barrier.  Cin = 64:
+// three groups of one warpgroup, each walking its own 4x16 tiles, so that
+// one group's loads and epilogue overlap another's wgmmas; the nine tap
+// units are resident.  Cin = 256: one group of two warpgroups (8x16
+// tiles), fed by a producer warp through the weight ring.
+template <int NK>  // Cin / 64
+struct K1 {
+  static constexpr int CIN = 64 * NK;
+  static constexpr bool RESIDENT = NK == 1;
+  static constexpr int GWG = RESIDENT ? 1 : 2;     // warpgroups a group
+  static constexpr int NG = RESIDENT ? 3 : 1;      // groups a block
+  static constexpr int TH = 4 * GWG, GT = 128 * GWG, CT = NG * GT;
+  static constexpr int PW = TW + 2, NPOS = (TH + 2) * PW;  // the tile's 1-ring region
+  static constexpr int NSLOT = RESIDENT ? 9 : NST;  // weight slots
+  static constexpr int NT = CT + (RESIDENT ? 0 : 32);
+  static constexpr int RB = align128(NPOS * LDR * 2);
+  static constexpr int SB = 64 * LDR * 2;  // a warpgroup's output rows
+  static constexpr int O_X = NSLOT * UB;   // 2 region buffers a group
+  static constexpr int O_S = O_X + 2 * NG * RB;
+  static constexpr int O_BAR = align128(O_S + NG * GWG * SB);
+  static constexpr int SMEM = O_BAR + 2 * NSLOT * 8;
+  static_assert(SMEM <= 232448, "shared memory per block");
 };
 
-// issue the cp.async loads of pipeline step s (tap s / kchunks, channel
-// chunk s % kchunks) into stage buffer buf
-__device__ __forceinline__ void load_step(unsigned char *smem, int buf, int s, int kchunks,
-                                          const Rows &rows, const bf16 *__restrict__ x,
-                                          const bf16 *__restrict__ w, int H, int W, int Cin,
-                                          int Cout, int n0) {
-  bf16 *As = reinterpret_cast<bf16 *>(smem + buf * STAGE);
-  bf16 *Bs = As + TM * LDA;
-  const int tap = s / kchunks, kc = s % kchunks;
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int v = threadIdx.x % (TK / 8);
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int r = threadIdx.x / (TK / 8) + k * (NT / (TK / 8));
-    const int sy = rows.y[k] + dy, sx = rows.x[k] + dx;
-    const bool valid = sy >= 0 && sy < H && sx >= 0 && sx < W;
-    const bf16 *src =
-        valid ? x + (long)(rows.m[k] + dy * W + dx) * Cin + kc * TK + v * 8 : x;
-    cp_async16(As + r * LDA + v * 8, src, valid);
+// the cp.async loads of 64-channel chunk kc of tile ti's region into Xs,
+// by the group's threads (gi: this thread's index in the group)
+template <class K>
+__device__ __forceinline__ void load_region(bf16 *Xs, const bf16 *__restrict__ x, int kc, int ti,
+                                            int gi, int H, int W) {
+  const Tile t = tile_at(ti, K::TH, H, W);
+  for (int i = gi; i < K::NPOS * 8; i += K::GT) {
+    const int l = i >> 3, v = i & 7;
+    const int yy = t.y0 - 1 + l / K::PW, xx = t.x0 - 1 + l % K::PW;
+    const bool ok = inside(yy, xx, H, W);
+    cp_async16(Xs + l * LDR + v * 8,
+               ok ? x + pix(t.b, yy, xx, H, W) * K::CIN + kc * 64 + v * 8 : x, ok);
   }
-  load_block_async(Bs, LDB, w + ((long)tap * Cin + kc * TK) * Cout + n0, Cout, TK, TN);
 }
 
-__global__ void __launch_bounds__(NT)
-conv3x3_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w,
+// acc += the 9 taps of one staged region: A by ldmatrix at abase + the
+// tap's offset, B the resident tap units at wbase or the ring's next units.
+// `loads` (the next region's cp.async) is issued once the first unit's
+// wgmmas run.
+template <class K, class Loads>
+__device__ __forceinline__ void conv9(float (&acc)[32], uint32_t abase, uint32_t wbase, Ring &r,
+                                      Loads loads) {
+  const TapOff<K::PW, LDR> off;
+  uint32_t a0[4][4], a1[4][4];
+  auto unit = [&](const uint32_t(&a)[4][4], int u) {
+    if constexpr (K::RESIDENT)
+      mma_unit(acc, a, desc(wbase + u * UB, 1024, 128));
+    else
+      step(acc, a, r, u > 0);
+  };
+  ld_a(a0, abase + off(0));
+  unit(a0, 0);
+  loads();
+#pragma unroll 1
+  for (int u = 1; u < 9; u += 2) {
+    ld_a(a1, abase + off(u));
+    unit(a1, u);
+    ld_a(a0, abase + off(u + 1));
+    unit(a0, u + 1);
+  }
+  if constexpr (K::RESIDENT) {
+    wg_wait<0>();
+    fence_acc(acc);
+  } else {
+    finish(acc, r);
+  }
+}
+
+template <int NK>
+__global__ void __launch_bounds__(K1<NK>::NT, 1)
+conv3x3_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ wu,
                const bf16 *__restrict__ bias, const bf16 *__restrict__ res,
-               bf16 *__restrict__ out, int B, int H, int W, int Cin, int Cout, int relu) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float *Cs = reinterpret_cast<float *>(smem);  // reused after the K loop
-
-  const long M = (long)B * H * W;
-  const long m0 = (long)blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  const int warp = threadIdx.x >> 5;
-
-  Rows rows;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const long m = m0 + threadIdx.x / (TK / 8) + k * (NT / (TK / 8));
-    rows.m[k] = (int)m;
-    rows.x[k] = (int)(m % W);
-    rows.y[k] = m < M ? (int)((m / W) % H) : -2;  // -2: every tap invalid
+               bf16 *__restrict__ out, int B, int H, int W, int relu) {
+  using K = K1<NK>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + K::O_BAR), *empty = full + K::NSLOT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = n_tiles(B, H, W, K::TH);
+  if constexpr (K::RESIDENT) {  // the nine tap units, once per block
+    if (threadIdx.x == 0) {
+      mbar_init(&full[0], 1);
+      mbar_init_fence();
+      mbar_expect_tx(&full[0], 9 * UB);
+      for (int u = 0; u < 9; ++u) bulk_load(smem + u * UB, wu + u * (UB / 2), UB, &full[0]);
+    }
+    __syncthreads();
+  } else {
+    init_ring(full, empty, K::CT / 32);
+    if (warp == K::CT / 32) {  // the producer: every tile's 9 * NK units
+      if (lane == 0) produce(full, empty, smem, wu, 9 * NK, nt);
+      return;
+    }
   }
 
-  FragC acc[2][4];
-  zero(acc[0]);
-  zero(acc[1]);
+  const int g = threadIdx.x / K::GT, gi = threadIdx.x % K::GT;  // group, index in it
+  const int wg = gi >> 7, wq = warp & 3;  // warpgroup in the group, warp in it
+  Ring r{full, empty, smem_u32(smem), 0};
+  // this lane's ldmatrix row (tile pixel wg * 64 + lr) and channel offset
+  const int lr = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  const int ia = wg * 64 + lr;
+  const uint32_t aoff = (((ia / TW + 1) * K::PW + ia % TW + 1) * LDR + lk) * 2;
+  // accumulator rows (of the warpgroup's 64) and columns of this thread
+  const int er = wq * 16 + (lane >> 2), ec = 2 * (lane & 3);
+  bf16 *Ss = reinterpret_cast<bf16 *>(smem + K::O_S + (warp >> 2) * K::SB);
+  auto xbuf = [&](int s) {
+    return reinterpret_cast<bf16 *>(smem + K::O_X + (2 * g + (s & 1)) * K::RB);
+  };
+  const int t0 = blockIdx.x * K::NG + g, dt = gridDim.x * K::NG;  // this group's tiles
+  if constexpr (K::RESIDENT) mbar_wait(&full[0], 0);
 
-  const int kchunks = Cin / TK, steps = 9 * kchunks;
-  load_step(smem, 0, 0, kchunks, rows, x, w, H, W, Cin, Cout, n0);
+  if (t0 < nt) load_region<K>(xbuf(0), x, 0, t0, gi, H, W);
   cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps)
-      load_step(smem, (s + 1) & 1, s + 1, kchunks, rows, x, w, H, W, Cin, Cout, n0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16 *As = reinterpret_cast<const bf16 *>(smem + (s & 1) * STAGE);
-    warp_mma2(acc[0], acc[1], As + (warp * 32) * LDA, LDA, As + TM * LDA, LDB, TK / 16);
-    __syncthreads();
-  }
+  int s = 0;  // regions (tile, channel chunk) consumed
+  for (int ti = t0; ti < nt; ti += dt) {
+    const Tile t = tile_at(ti, K::TH, H, W);
+    const int yy = t.y0 + wg * 4 + wq;  // this warp's tile row
+    float acc[32];
+    zero32(acc);
+#pragma unroll 1
+    for (int kc = 0; kc < NK; ++kc, ++s) {
+      cp_async_wait<0>();
+      bar_sync(1 + g, K::GT);  // region s has landed; region s - 1 is no longer read
+      conv9<K>(acc, smem_u32(xbuf(s)) + aoff, smem_u32(smem), r, [&] {
+        if (kc == 0 && res) {  // this warp's row of the residual, 16 bytes a lane
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int i = lane + 32 * k, col = i >> 3, v = i & 7;
+            const bool ok = inside(yy, t.x0 + col, H, W);
+            cp_async16(Ss + (wq * 16 + col) * LDR + v * 8,
+                       ok ? res + pix(t.b, yy, t.x0 + col, H, W) * 64 + v * 8 : res, ok);
+          }
+        }
+        cp_async_commit();
+        if (kc + 1 < NK)
+          load_region<K>(xbuf(s + 1), x, kc + 1, ti, gi, H, W);
+        else if (ti + dt < nt)
+          load_region<K>(xbuf(s + 1), x, 0, ti + dt, gi, H, W);
+        cp_async_commit();
+      });
+    }
 
-  store(Cs + (warp * 32) * LDC, LDC, acc[0]);
-  store(Cs + (warp * 32 + 16) * LDC, LDC, acc[1]);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < TM * (TN / 8); i += blockDim.x) {
-    const int r = i / (TN / 8), c = (i % (TN / 8)) * 8;
-    const long m = m0 + r;
-    if (m >= M) continue;
-    float v[8];
+    // ---- epilogue: out = lrelu(acc + bias + res), rounded once
+    cp_async_wait<1>();  // the residual (all but the next region)
+    __syncwarp();
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = Cs[r * LDC + c + k];
-    if (bias) {
+    for (int hh = 0; hh < 2; ++hh) {
+      bf16 *row = Ss + (er + 8 * hh) * LDR;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] += bf(bias[n0 + c + k]);
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + ec;
+        float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+        if (bias) {
+          const float2 b = ld2(bias + c);
+          v0 += b.x;
+          v1 += b.y;
+        }
+        if (res) {
+          const float2 rv = ld2(row + c);
+          v0 += rv.x;
+          v1 += rv.y;
+        }
+        if (relu) {
+          v0 = lrelu(v0);
+          v1 = lrelu(v1);
+        }
+        st2(row + c, v0, v1);
+      }
     }
-    if (res) {
-      float rv[8];
-      unpack8(ldg16(res + m * Cout + n0 + c), rv);
+    __syncwarp();
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] += rv[k];
+    for (int k = 0; k < 4; ++k) {
+      const int i = lane + 32 * k, col = i >> 3, v = i & 7;
+      if (inside(yy, t.x0 + col, H, W))
+        st16(out + pix(t.b, yy, t.x0 + col, H, W) * 64 + v * 8,
+             *reinterpret_cast<const uint4 *>(Ss + (wq * 16 + col) * LDR + v * 8));
     }
-    if (relu) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = lrelu(v[k]);
-    }
-    st16(out + m * Cout + n0 + c, pack8(v));
   }
+  cp_async_wait<0>();
+}
+
+template <int NK>
+int launch_k1(const void *x, const void *wu, const void *bias, const void *res, void *out, int B,
+              int H, int W, int relu, cudaStream_t st) {
+  using K = K1<NK>;
+  const int blocks = (n_tiles(B, H, W, K::TH) + K::NG - 1) / K::NG;  // at most one tile a group
+  return launch(conv3x3_kernel<NK>, K::NT, K::SMEM, blocks, st, (const bf16 *)x,
+                (const bf16 *)wu, (const bf16 *)bias, (const bf16 *)res, (bf16 *)out, B, H, W,
+                relu);
 }
 
 }  // namespace
 }  // namespace dvie
 
-// x (B,H,W,Cin), w (3,3,Cin,Cout) HWIO, bias (Cout,) or NULL, res
-// (B,H,W,Cout) or NULL, out (B,H,W,Cout); all bf16.  Cin % 64 == 0,
-// Cout % 64 == 0 (checked by the Python wrapper).
-extern "C" int dvie_conv3x3(const void *x, const void *w, const void *bias, const void *res,
+// x (B,H,W,Cin); wu: the weights as 9 * Cin / 64 units of (8 k-groups, 64
+// outputs, 8 k) bf16, ordered (64-channel chunk, tap ky*3+kx)
+// (ops/conv3x3.py: conv_units); bias (64,) or NULL; res (B,H,W,64) or
+// NULL; out (B,H,W,64); all bf16.  Cin in {64, 256}, Cout == 64 (checked
+// by the Python wrapper; anything else returns cudaErrorInvalidValue).
+extern "C" int dvie_conv3x3(const void *x, const void *wu, const void *bias, const void *res,
                             void *out, int B, int H, int W, int Cin, int Cout, int relu,
                             void *stream) {
-  using dvie::bf16;
-  cudaError_t e = cudaFuncSetAttribute(dvie::conv3x3_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, dvie::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const long M = (long)B * H * W;
-  dim3 grid((unsigned)((M + dvie::TM - 1) / dvie::TM), (unsigned)(Cout / dvie::TN));
-  dvie::conv3x3_kernel<<<grid, dvie::NT, dvie::SMEM, (cudaStream_t)stream>>>(
-      (const bf16 *)x, (const bf16 *)w, (const bf16 *)bias, (const bf16 *)res, (bf16 *)out,
-      B, H, W, Cin, Cout, relu);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Cout != 64) return (int)cudaErrorInvalidValue;
+  if (Cin == 64) return dvie::launch_k1<1>(x, wu, bias, res, out, B, H, W, relu, st);
+  if (Cin == 256) return dvie::launch_k1<4>(x, wu, bias, res, out, B, H, W, relu, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Hopper building blocks (sm_90a): warpgroup MMA (wgmma) with A from
 // registers or shared memory and B from shared memory (N = 64, and N = 208
 // for K4's taps product), ldmatrix, mbarriers and the bulk (non-tensor) TMA
-// copy.
+// copy; and (namespace tiled) the pixel tiles and weight ring of the
+// persistent conv kernels.
 //
 // Shared-memory B operands use the no-swizzle ("interleaved") canonical
 // layout: every 8 x 16-byte core matrix is 128 contiguous bytes, so a wgmma
@@ -15,6 +16,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dvie {
@@ -231,5 +233,180 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- 2-D pixel tiles and the weight-unit ring --------------------------------
+//
+// The pieces of the persistent wgmma conv kernels (the layer1 Bottleneck
+// train chain, K1 and K2).  A block walks TH x 16 pixel tiles of NHWC
+// images; a warpgroup owns 64 tile pixels (4 tile rows), and each of its
+// warps one tile row, so a warp's accumulator rows are 16 consecutive
+// pixels of one image row.  A comes by ldmatrix at each lane's own row of
+// a region staged in shared memory (a shifted view of a staged tile is no
+// valid wgmma descriptor).  Weights come as 8 KB units of 64 K x 64 N bf16
+// in the no-swizzle K-major core-matrix order, streamed by one producer
+// warp into a ring of NST slots by bulk TMA copies under full/empty
+// mbarriers, in the order the consumers take them.  No wgmma sits under a
+// thread-dependent branch: ptxas serializes wgmmas on a divergent path
+// (C7518).
+namespace tiled {
+
+constexpr int TW = 16;            // tile width
+constexpr int UB = 64 * 64 * 2;   // a weight unit
+constexpr int NST = 8;            // weight ring slots
+
+struct Tile {
+  int b, y0, x0;
+};
+
+__host__ __device__ inline int n_tiles(int B, int H, int W, int th) {
+  return B * ((H + th - 1) / th) * ((W + TW - 1) / TW);
+}
+
+__device__ __forceinline__ Tile tile_at(int t, int th, int H, int W) {
+  const int tx = (W + TW - 1) / TW, ty = (H + th - 1) / th;
+  Tile r;
+  r.x0 = (t % tx) * TW;
+  t /= tx;
+  r.y0 = (t % ty) * th;
+  r.b = t / ty;
+  return r;
+}
+
+__device__ __forceinline__ bool inside(int yy, int xx, int H, int W) {
+  return yy >= 0 && yy < H && xx >= 0 && xx < W;
+}
+
+__device__ __forceinline__ long pix(int b, int yy, int xx, int H, int W) {
+  return ((long)b * H + yy) * W + xx;
+}
+
+__device__ __forceinline__ void zero32(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16 *p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(p));
+}
+
+__device__ __forceinline__ void st2(__nv_bfloat16 *p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162 *>(p) = __floats2bfloat162_rn(a, b);
+}
+
+struct Ring {
+  uint64_t *full, *empty;
+  uint32_t base;  // shared address of slot 0
+  int seq;        // units consumed so far
+};
+
+// the producer warp's lane 0: `units` units of w for every tile of this
+// block (tiles blockIdx.x, + gridDim.x, ... below nt)
+__device__ __forceinline__ void produce(uint64_t *full, uint64_t *empty, unsigned char *ring,
+                                        const __nv_bfloat16 *__restrict__ w, int units, int nt) {
+  int seq = 0;
+  for (int t = blockIdx.x; t < nt; t += gridDim.x)
+    for (int u = 0; u < units; ++u, ++seq) {
+      const int s = seq % NST;
+      mbar_wait(&empty[s], ((seq / NST) & 1) ^ 1);
+      mbar_expect_tx(&full[s], UB);
+      bulk_load(ring + s * UB, w + (long)u * (UB / 2), UB, &full[s]);
+    }
+}
+
+__device__ __forceinline__ void init_ring(uint64_t *full, uint64_t *empty, int consumer_warps) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumer_warps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// acc += A . unit at descriptor d (4 k-steps; A in registers), then wait
+// for all but these wgmmas
+__device__ __forceinline__ void mma_unit(float (&acc)[32], const uint32_t (&a)[4][4], uint64_t d) {
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma64<0>(acc, a[j], d + ((j * 2048) >> 4));
+  wg_commit();
+  wg_wait<1>();
+}
+
+// One unit of the ring: acc += A . unit.  After the wait for all but this
+// unit's wgmmas, the previous unit's slot is released when `release_prev`
+// (it belongs to the same sequence).
+__device__ __forceinline__ void step(float (&acc)[32], const uint32_t (&a)[4][4], Ring &r,
+                                     bool release_prev) {
+  const int s = r.seq % NST;
+  mbar_wait(&r.full[s], (r.seq / NST) & 1);
+  mma_unit(acc, a, desc(r.base + s * UB, 1024, 128));
+  mbar_arrive_if(&r.empty[(r.seq + NST - 1) % NST], release_prev && (threadIdx.x & 31) == 0);
+  ++r.seq;
+}
+
+// the end of a sequence of units: every wgmma done, the last slot released
+__device__ __forceinline__ void finish(float (&acc)[32], Ring &r) {
+  wg_wait<0>();
+  fence_acc(acc);
+  mbar_arrive_if(&r.empty[(r.seq + NST - 1) % NST], (threadIdx.x & 31) == 0);
+}
+
+// a 64 x 64 A operand (4 k-steps) by ldmatrix from this lane's row address
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4][4], uint32_t addr) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ldsm4(a[j], addr + j * 32);
+}
+
+// acc += sum over nu units of A(u) . unit u, A(u) by ldmatrix at abase +
+// off(u) (this lane's row; 16 k per k-step); the next unit's A is loaded
+// while the current unit's wgmmas run.  `after`: a unit of the same
+// sequence precedes this one (its slot is released here).
+template <class Off>
+__device__ __forceinline__ void gemm_ld(float (&acc)[32], uint32_t abase, int nu, Off off, Ring &r,
+                                        bool after) {
+  uint32_t a0[4][4], a1[4][4];
+  ld_a(a0, abase + off(0));
+#pragma unroll 1
+  for (int u = 0; u < nu; u += 2) {
+    step(acc, a0, r, after || u > 0);
+    if (u + 1 < nu) {
+      ld_a(a1, abase + off(u + 1));
+      step(acc, a1, r, true);
+      if (u + 2 < nu) ld_a(a0, abase + off(u + 2));
+    }
+  }
+}
+
+// A offsets of unit u: 64 channels further on; or tap u of a 3x3 conv on a
+// 1-ring region of pitch PW positions, LD elements per position
+struct ChanOff {
+  __device__ __forceinline__ uint32_t operator()(int u) const { return (uint32_t)u * 128; }
+};
+template <int PW, int LD>
+struct TapOff {
+  __device__ __forceinline__ uint32_t operator()(int u) const {
+    return (uint32_t)(((u / 3 - 1) * PW + u % 3 - 1) * LD * 2);
+  }
+};
+
+// a persistent launch of `kern` over nt tiles: at most one block per tile,
+// as many blocks as fit on the card at once
+template <class Kern, class... Args>
+int launch(Kern kern, int threads, int smem_bytes, int nt, cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int dev = 0, sms = 0, occ = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  if (nt < 1) return (int)cudaErrorInvalidValue;
+  kern<<<nt < sms * occ ? nt : sms * occ, threads, smem_bytes, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiled
 }  // namespace hop
 }  // namespace dvie

@@ -23,8 +23,10 @@
 //   four weight grads (about 3x the forward's operations), and the round
 //   trips of h1, h2, dpre2, dpre1 (50 MB each) and dpre_y (201 MB).
 //
-// Design: every product runs on wgmma m64n64k16 (hopper.cuh), B from
-// shared memory, A from registers, f32 accumulators in registers.
+// Design: every product runs on wgmma m64n64k16 (hopper.cuh; the pixel
+// tiles and the weight ring are its namespace tiled, shared with K1 and
+// K2), B from shared memory, A from registers, f32 accumulators in
+// registers.
 // - Weights: every (64 input x 64 output channel) block of k1, k2's nine
 //   taps, k3, kres and their transposes is an 8 KB unit in the no-swizzle
 //   K-major core-matrix order, laid out by the wrapper in the order a tile
@@ -79,143 +81,16 @@ namespace dvie {
 namespace {
 
 using namespace hop;
+using namespace hop::tiled;
 
-constexpr int TH = 8, TW = 16, TP = TH * TW;         // the pixel tile
+constexpr int TH = 8, TP = TH * TW;                  // the pixel tile
 constexpr int P = 64, CO = 256;                      // planes, planes * 4
 constexpr int PW = TW + 2, NPOS = (TH + 2) * PW;     // its 1-ring: 180 positions
 constexpr int LDP = P + 8;                           // pitch of a 64-channel buffer
-constexpr int UB = 64 * 64 * 2;                      // a weight unit
-constexpr int NST = 8;                               // weight ring slots
-
-struct Tile {
-  int b, y0, x0;
-};
-
-__device__ __forceinline__ Tile tile_at(int t, int th, int H, int W) {
-  const int tx = (W + TW - 1) / TW, ty = (H + th - 1) / th;
-  Tile r;
-  r.x0 = (t % tx) * TW;
-  t /= tx;
-  r.y0 = (t % ty) * th;
-  r.b = t / ty;
-  return r;
-}
-
-__device__ __forceinline__ bool inside(int yy, int xx, int H, int W) {
-  return yy >= 0 && yy < H && xx >= 0 && xx < W;
-}
-
-__device__ __forceinline__ long pix(int b, int yy, int xx, int H, int W) {
-  return ((long)b * H + yy) * W + xx;
-}
-
-__device__ __forceinline__ void zero32(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
-
-__device__ __forceinline__ float2 ld2(const bf16 *p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(p));
-}
-
-__device__ __forceinline__ void st2(bf16 *p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162 *>(p) = __floats2bfloat162_rn(a, b);
-}
 
 __device__ __forceinline__ float masked(float s, float g) { return s >= 0.f ? g : rbf(0.2f * g); }
 
-// ---- the weight ring -------------------------------------------------------
-
-struct Ring {
-  uint64_t *full, *empty;
-  uint32_t base;  // shared address of slot 0
-  int seq;        // units consumed so far
-};
-
-// the producer warp's lane 0: `units` units of w for every tile of this block
-__device__ __forceinline__ void produce(uint64_t *full, uint64_t *empty, unsigned char *ring,
-                                        const bf16 *__restrict__ w, int units, int nt) {
-  int seq = 0;
-  for (int t = blockIdx.x; t < nt; t += gridDim.x)
-    for (int u = 0; u < units; ++u, ++seq) {
-      const int s = seq % NST;
-      mbar_wait(&empty[s], ((seq / NST) & 1) ^ 1);
-      mbar_expect_tx(&full[s], UB);
-      bulk_load(ring + s * UB, w + (long)u * (UB / 2), UB, &full[s]);
-    }
-}
-
-__device__ __forceinline__ void init_ring(uint64_t *full, uint64_t *empty, int consumer_warps) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < NST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], consumer_warps);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-}
-
-// One unit: acc += A . unit (4 k-steps; A in registers).  After the wait
-// for all but this unit's wgmmas, the previous unit's slot is released when
-// `release_prev` (it belongs to the same sequence).  No wgmma sits under a
-// thread-dependent branch.
-__device__ __forceinline__ void step(float (&acc)[32], const uint32_t (&a)[4][4], Ring &r,
-                                     bool release_prev) {
-  const int s = r.seq % NST;
-  mbar_wait(&r.full[s], (r.seq / NST) & 1);
-  wg_fence();
-  const uint64_t d0 = desc(r.base + s * UB, 1024, 128);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wgmma64<0>(acc, a[j], d0 + ((j * 2048) >> 4));
-  wg_commit();
-  wg_wait<1>();
-  mbar_arrive_if(&r.empty[(r.seq + NST - 1) % NST], release_prev && (threadIdx.x & 31) == 0);
-  ++r.seq;
-}
-
-// the end of a sequence of units: every wgmma done, the last slot released
-__device__ __forceinline__ void finish(float (&acc)[32], Ring &r) {
-  wg_wait<0>();
-  fence_acc(acc);
-  mbar_arrive_if(&r.empty[(r.seq + NST - 1) % NST], (threadIdx.x & 31) == 0);
-}
-
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4][4], uint32_t addr) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ldsm4(a[j], addr + j * 32);
-}
-
-// acc += sum over nu units of A(u) . unit u, A(u) by ldmatrix at abase +
-// off(u) (this lane's row; 16 k per k-step); the next unit's A is loaded
-// while the current unit's wgmmas run.  `after`: a unit of the same
-// sequence precedes this one (its slot is released here).
-template <class Off>
-__device__ __forceinline__ void gemm_ld(float (&acc)[32], uint32_t abase, int nu, Off off, Ring &r,
-                                        bool after) {
-  uint32_t a0[4][4], a1[4][4];
-  ld_a(a0, abase + off(0));
-#pragma unroll 1
-  for (int u = 0; u < nu; u += 2) {
-    step(acc, a0, r, after || u > 0);
-    if (u + 1 < nu) {
-      ld_a(a1, abase + off(u + 1));
-      step(acc, a1, r, true);
-      if (u + 2 < nu) ld_a(a0, abase + off(u + 2));
-    }
-  }
-}
-
-// A offsets of unit u: 64 channels further on; or tap u of a 3x3 conv
-// on a 1-ring buffer of 64 channels
-struct ChanOff {
-  __device__ __forceinline__ uint32_t operator()(int u) const { return (uint32_t)u * 128; }
-};
-struct TapOff {
-  __device__ __forceinline__ uint32_t operator()(int u) const {
-    return (uint32_t)(((u / 3 - 1) * PW + u % 3 - 1) * LDP * 2);
-  }
-};
+using TapOffP = TapOff<PW, LDP>;  // a tap of a 3x3 conv on a 1-ring buffer of 64 channels
 
 // ---- the forward, and the first backward launch -----------------------------
 
@@ -325,7 +200,7 @@ front_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ wu, const bf16
 
     // ---- conv2 on the tile: h2 = lrelu(bf16(conv3x3(h1, k2))), kept in registers
     zero32(acc);
-    gemm_ld(acc, smem_u32(Hs) + (p2 * LDP + lk) * 2, 9, TapOff(), r, false);
+    gemm_ld(acc, smem_u32(Hs) + (p2 * LDP + lk) * 2, 9, TapOffP(), r, false);
     finish(acc, r);
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = lrelu_bf(rbf(acc[e]));
@@ -502,7 +377,7 @@ back_kernel(const bf16 *__restrict__ dpre2, const bf16 *__restrict__ h1,
     // ---- dh1 = bf16(conv_t(dpre2, k2)); dpre1 = lrelu'(h1) * dh1
     float acc[32];
     zero32(acc);
-    gemm_ld(acc, smem_u32(dbuf(k)) + (p2 * LDP + lk) * 2, 9, TapOff(), r, false);
+    gemm_ld(acc, smem_u32(dbuf(k)) + (p2 * LDP + lk) * 2, 9, TapOffP(), r, false);
     finish(acc, r);
     bool vrow[2];
     long mrow[2];
@@ -716,28 +591,11 @@ wgrad_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ h1, const bf16
     }
 }
 
-// a persistent launch of `kern` (nt tiles) with `smem` bytes and `threads`
-template <class Kern, class... Args>
-int launch(Kern kern, int threads, int smem_bytes, int nt, cudaStream_t st, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  int dev = 0, sms = 0, occ = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-  kern<<<min(nt, sms * occ), threads, smem_bytes, st>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-int n_tiles(int B, int H, int W) { return B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW); }
-
 template <int CI, bool BWD>
 int launch_front(const void *x, const void *wu, const void *dy, void *out, void *h1, void *h2,
                  void *dpy, int B, int H, int W, cudaStream_t st) {
   using K = Front<CI>;
-  return launch(front_kernel<CI, BWD>, K::NT, K::SMEM, n_tiles(B, H, W), st, (const bf16 *)x,
+  return launch(front_kernel<CI, BWD>, K::NT, K::SMEM, n_tiles(B, H, W, TH), st, (const bf16 *)x,
                 (const bf16 *)wu, (const bf16 *)dy, (bf16 *)out, (bf16 *)h1, (bf16 *)h2,
                 (bf16 *)dpy, B, H, W);
 }
@@ -746,7 +604,7 @@ template <int CI>
 int launch_back(const void *dpre2, const void *h1, const void *dpy, const void *wu, void *dpre1,
                 void *dx, int B, int H, int W, cudaStream_t st) {
   using K = Back<CI>;
-  return launch(back_kernel<CI>, K::NT, K::SMEM, n_tiles(B, H, W), st, (const bf16 *)dpre2,
+  return launch(back_kernel<CI>, K::NT, K::SMEM, n_tiles(B, H, W, TH), st, (const bf16 *)dpre2,
                 (const bf16 *)h1, (const bf16 *)dpy, (const bf16 *)wu, (bf16 *)dpre1, (bf16 *)dx,
                 B, H, W);
 }

@@ -37,8 +37,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x, w, bias, res, out, B, H, W, Cin, Cout, relu, stream
     "dvie_conv3x3": [P, P, P, P, P, I, I, I, I, I, I, P],
-    # h1, x, w2, w3, wres, w1n, y, h1n, B, H, W, Cx, stream
-    "dvie_bottleneck_tail": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+    # h1, x, wu, y, h1n, B, H, W, res, next, stream
+    "dvie_bottleneck_tail": [P] * 5 + [I] * 5 + [P],
     # p0, p1, p2, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2,
     # N1, N2, stream
     "dvie_ups_head_taps": [P, P, P, P, P, P, P] + [I] * 12 + [P],

@@ -314,24 +314,30 @@ def _tap_units(taps: torch.Tensor) -> torch.Tensor:
     return taps.reshape(9, 8, 8, P).permute(0, 1, 3, 2)
 
 
-def bottleneck_units(k1, k2, k3, kres, dev, bwd: bool = False
-                     ) -> torch.Tensor:
-    """The weight units of the forward kernel, bf16 (U, 8, 64, 8), in the
-    order a tile takes them: k1 per 64 input channels; k2's nine taps;
-    then per 64 outputs k3 and kres per 64 input channels; in the backward
-    (``bwd``) k3^T after each such group (dh2 = dpre_y . k3^T)."""
-    b1 = _blocks(_bf(_mat(k1).t(), dev))
-    t2 = list(_tap_units(_taps(k2, dev)))
-    b3 = _blocks(_bf(_mat(k3).t(), dev))
-    br = _blocks(_bf(_mat(kres).t(), dev)) if kres is not None else None
-    b3t = _blocks(_bf(_mat(k3), dev))
-    seq = [b1[kc, 0] for kc in range(b1.shape[0])] + t2
+def bottleneck_units(k1, k2, k3, kres, dev, bwd: bool = False,
+                     k1_next=None) -> torch.Tensor:
+    """The weight units of a Bottleneck kernel, bf16 (U, 8, 64, 8), in the
+    order a tile takes them: k1 per 64 input channels (none for None, the
+    tail kernel of ops/bottleneck_tail.py); k2's nine taps; then per 64
+    outputs nc k3, kres per 64 input channels, and either k3^T in the
+    backward (``bwd``: dh2 = dpre_y . k3^T) or the next block's k1 rows
+    [64 nc, 64 nc + 64) (``k1_next``: h1_next = y . k1_next)."""
+    def blocks(k, t=True):   # (O, I, 1, 1) -> its (I, O) matrix's units
+        return None if k is None else _blocks(
+            _bf(_mat(k).t() if t else _mat(k), dev))
+
+    b1, b3, br, bn = blocks(k1), blocks(k3), blocks(kres), blocks(k1_next)
+    b3t = blocks(k3, t=False) if bwd else None
+    seq = [] if b1 is None else [b1[kc, 0] for kc in range(b1.shape[0])]
+    seq += list(_tap_units(_taps(k2, dev)))
     for nc in range(CO // 64):
         seq.append(b3[0, nc])
         if br is not None:
             seq += [br[kc, nc] for kc in range(br.shape[0])]
-        if bwd:
+        if b3t is not None:
             seq.append(b3t[nc, 0])
+        if bn is not None:
+            seq.append(bn[nc, 0])
     return torch.stack(seq).contiguous()
 
 

@@ -1,11 +1,12 @@
 """Profile of one serving forward on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_serve \
-        [--model InterStage3Net|VAE] [--out DIR]
+        [--model InterNet|InterStage3Net|VAE] [--out DIR]
 
 ``InterStage3Net`` (the default): SRNRefine, then MSResAttnRefine at
 ``--n_sc 1``, over HRNet at full width on a seeded 2x512x1024 input, the
-shape of ``chip_smoke.py``'s rollouts.  ``VAE``: the video VAE at
+shape of ``chip_smoke.py``'s rollouts; ``InterNet``: that HRNet alone, the
+same input.  ``VAE``: the video VAE at
 ``--vid_len 2`` on a seeded 8x128x128 batch (``serve.predict_video``, the
 code drawn from a seeded generator), the shape of ``chip_smoke.py``'s vae
 phase.  Random seeded weights, bf16 compute with f32 masters.  For each
@@ -42,6 +43,8 @@ from deep_video_interpolation_extrapolation_tpu_torch.tools.profile_train import
 
 B, H, W = 2, 512, 1024
 CONFIGS = {
+    "InterNet": Config(model="InterNet", coarse_model="HRNet",
+                       syn_type="inter", compute_dtype="bfloat16"),
     "InterStage3Net": Config(model="InterStage3Net", coarse_model="HRNet",
                              syn_type="inter", refine_model="SRNRefine",
                              compute_dtype="bfloat16"),
@@ -114,7 +117,8 @@ def profile_model(dev, cfg: Config, use_kernels: bool):
         run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-    stages = stage_ms(model, rgb, seg) if cfg.model != "VAE" else None
+    stages = (stage_ms(model, rgb, seg) if cfg.model == "InterStage3Net"
+              else None)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
