@@ -10,10 +10,11 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    ``ups_head_taps4`` of ``--highres_large`` included),
    max|d|/max|ref| <= 2e-2, with median CUDA-event times of both (K1's
    three sites and K2's three blocks each timed on a row of their own,
-   host issue included and by device time alone, K1 beside one
-   ``F.conv2d`` with its bias; K1 at 2x37x130 at Cin 64 and 256 and K2 at
-   1x66x260 in its three block forms checked too: tiles cut at both
-   edges); the
+   host issue included and by device time alone, as the 4-part head is,
+   K1 beside one ``F.conv2d`` with its bias; K1 at 2x37x130 at Cin 64 and
+   256, K2 at 1x66x260 in its three block forms and the 4-part head at
+   1x37x130 (its pyramid at 19x65, 10x33, 5x17) checked too: tiles cut at
+   the edges); the
    stage-3 window attention at its serving shape (B=1, 128x256x128, k1 = v1
    and k2 = v2 as on the path): out max|d|/max|ref| <= 2e-2 and flow
    agreement >= 90% on random inputs, and on an input whose k1 is q rolled
@@ -26,7 +27,13 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    counter must move by its count per forward (K1 18, K2 4, K3 2, K4 1);
    outputs finite, seg ids in [0, 20); frames/s;
 4. train kernels: the stem, Bottleneck and BasicBlock chain kernels
-   (forward and backward; the chain at C = 64, 24x128x128, N = 4 and N =
+   (forward and backward; the stem also at 2x36x120, the s1 and y its
+   forward stores for the backward held as outputs, and timed on a row of
+   their own, ``stem_fwd_saved``; its backward on the
+   s1 and y its kernel forward kept, against ``stem_bwd_saved_plain`` on
+   random inputs and against the recomputing ``stem_bwd_plain`` on
+   fixed-mask ones, and timed by device time alone too; the chain at C =
+   64, 24x128x128, N = 4 and N =
    1, at C = 128, 24x64x64 (branch 1 of the recipe), and at C = 256,
    24x16x32 (branch 2 of a 24x64x128 input), all N = 4; and the chain's
    weight-grad kernel on the C = 64 chain's 8 weights) and K4's h mode
@@ -220,6 +227,8 @@ META = {
                      "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:362"),
     "stem_fwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
                  "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
+    "stem_fwd_saved": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
     "stem_bwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
                  "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:565"),
     "bottleneck_fwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
@@ -265,8 +274,9 @@ META = {
 # block, so each of its launches computes the one-block function; the
 # Bottleneck's block-0 rows (Ci = 64, kres) share the counters of blocks
 # 1-3; K1's stem conv2 and trans_0 rows and K2's block-0 and block-3 rows
-# share their kernel's counter
+# share their kernel's counter, as does the stem forward that stores s1
 COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
+           "stem_fwd_saved": "stem_fwd",
            "bottleneck_fwd_b0": "bottleneck_fwd",
            "bottleneck_bwd_b0": "bottleneck_bwd",
            "conv3x3_stem": "conv3x3_bias_res_lrelu",
@@ -281,6 +291,9 @@ WA_FLOW_AGREE = 0.90       # window-attention flow agreement, kernel vs plain
 # InterStage3Net: the coarse HRNet as InterNet, one window attention
 PER_FORWARD_S3 = {**PER_FORWARD, "window_attention": 1}
 SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
+# the rows timed on the card alone too (``median_ms(spin=True)``)
+DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "ups_head_taps4",
+                "stem_fwd", "stem_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
 # peaks (at the 700 W limit)
 HBM_RATE, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -317,14 +330,15 @@ WEIGHT_ARGS = {
     "ups_head_taps": slice(3, None), "ups_head_taps4": slice(4, None),
     "ups_head_1x1": slice(3, None), "dual_head": slice(1, None),
     "stem_fwd": slice(1, None),
-    "stem_bwd": slice(2, None), "bottleneck_fwd": slice(1, None),
+    "stem_bwd": slice(4, None), "bottleneck_fwd": slice(1, None),
     "bottleneck_bwd": slice(2, None), "bb_chain_fwd": slice(1, None),
     "bb_chain_bwd": slice(2, 3), "bb_chain_fwd_c128": slice(1, None),
     "bb_chain_bwd_c128": slice(2, 3), "bb_chain_fwd_c256": slice(1, None),
     "bb_chain_bwd_c256": slice(2, 3)}
 # a backward without saved activations recomputes its forward (3 passes);
-# the chain's backward reads the kept ones (2: dh and dx, the weight grads)
-PASSES = {"stem_bwd": 3, "bottleneck_bwd": 3, "bb_chain_bwd": 2,
+# the chain's and the stem's backwards read the kept ones (2: the input
+# grads, the weight grads)
+PASSES = {"stem_bwd": 2, "bottleneck_bwd": 3, "bb_chain_bwd": 2,
           "bb_chain_bwd_c128": 2, "bb_chain_bwd_c256": 2}
 
 
@@ -482,8 +496,12 @@ def kernel_phase(dev):
     b1_4 = w(1920, 1, 1, 1).flatten()
     w2t_4 = k4.build_dual_tap_kernel(w(3, 960, 3, 3), w(20, 960, 3, 3),
                                      torch.bfloat16)
-    cases["ups_head_taps4"] = [("ups_head_taps4", "heads",
-                                 (x64, p1, p2, p3, w1_4, b1_4, w2t_4))]
+    cases["ups_head_taps4"] = [
+        ("ups_head_taps4", "heads", (x64, p1, p2, p3, w1_4, b1_4, w2t_4)),
+        # not fits4: tiles and the x2/x4/x8 parts cut at the edge
+        (None, "ragged 1x37x130", (rnd(1, 37, 130, 64), rnd(1, 19, 65, 128),
+                                   rnd(1, 10, 33, 256), rnd(1, 5, 17, 512),
+                                   w1_4, b1_4, w2t_4))]
 
     fns = {"conv3x3_bias_res_lrelu": (k1.conv3x3_bias_res_lrelu,
                                       k1.conv3x3_bias_res_lrelu_plain),
@@ -526,8 +544,7 @@ def kernel_phase(dev):
             ms = {k: median_ms(f) for k, f in fs.items()}
             device = ({f"{k}device_ms": median_ms(f, spin=True)
                        for k, f in fs.items()}
-                      if name in ("conv3x3_bias_res_lrelu", "bottleneck_tail")
-                      else None)
+                      if name in DEVICE_TIMED else None)
             results[row] = timed(name, label, args, kern(*args), err[label],
                                  ms[""], ms["plain_"], ms.get("library_"),
                                  device)
@@ -836,6 +853,24 @@ def _carrier_chain(dev, g, B, H, W, n, c=64):
     return x.to(torch.bfloat16), pairs
 
 
+def _stem_bwd_plain_own(x, dy, s1, y, k1, b1, k2, b2):
+    """The plain backward on its own forward (``stem_bwd_plain``
+    recomputes pre1, s1 and pre2 from x): on the carrier inputs no mask
+    can flip, so each side runs its own forward."""
+    return tc.stem_bwd_plain(x[..., :k1.shape[1]], dy, k1, b1, k2, b2)
+
+
+def _stem_fwd_saved(x, k1, b1, k2, b2):
+    """The stem forward of the train step: (y, s1), s1 stored."""
+    return tc.stem_fwd_kernel(x, k1, b1, k2, b2, save=True)
+
+
+def _stem_fwd_saved_plain(x, k1, b1, k2, b2):
+    """(y, s1) of the plain stem: s1 = lrelu(conv3x3(x, k1) + b1)."""
+    s1 = tc._lrelu(tc._conv(x, k1) + b1.to(x.dtype))
+    return tc.stem_plain(x, k1, b1, k2, b2), s1
+
+
 def _flat_grads(dx, grads):
     return (dx, *(d for pair in grads for d in pair))
 
@@ -1029,14 +1064,47 @@ def train_kernel_phase(dev):
     bb_bwd = (_bb_bwd_kernel, _bb_bwd_plain)
     x14 = act(B, H, W, 14)
     bn_ops = [act(B, H, W, 64) for _ in range(4)]   # h1, h2, dpre2, dpre1
+    # the stem's backward reads what the kernel forward kept (s1, y) and,
+    # as in the train step, the zero-padded x; a ragged shape (tiles cut at
+    # both edges) on random and fixed-mask inputs
+    xr14, dyr = act(2, 36, 120, 14), act(2, 36, 120, 64, scale=1e-3)
+    c_stem_r = _carrier_inputs(dev, g, 2, 36, 120)[0]
+    stem_bwd_cases = []
+    for label, xs, dys, ws, hold, row in (
+            ("stem, fixed masks", c_stem[0], dy64, c_stem[1:], "max", None),
+            ("stem, random", x14, dy64, stem_w, "l2", "stem_bwd"),
+            ("ragged 2x36x120, fixed masks", c_stem_r[0], dyr, c_stem_r[1:],
+             "max", None),
+            ("ragged 2x36x120, random", xr14, dyr, stem_w, "l2", None)):
+        y_k, s1_k = tc.stem_fwd_kernel(xs, *ws, save=True)
+        torch.cuda.synchronize()
+        # what the backward reads is held as the forward's output is
+        for what, o, r in zip(("y", "s1"), (y_k, s1_k),
+                              _stem_fwd_saved_plain(xs, *ws)):
+            d, rel = rel_err(o, r)
+            print(f"  stem_fwd [{label}, save] {what} max|d|={d:.6g} "
+                  f"max|d|/max|ref|={rel:.6g}")
+            if (o.shape != r.shape or not torch.isfinite(o).all()
+                    or rel > KERNEL_TOL):
+                raise AssertionError(
+                    f"stem_fwd [{label}, save]: {what} shape "
+                    f"{tuple(o.shape)} vs {tuple(r.shape)}, max|d|/max|ref| "
+                    f"{rel:.4g} (bound {KERNEL_TOL})")
+        plain = (_stem_bwd_plain_own if hold == "max"
+                 else tc.stem_bwd_saved_plain)
+        stem_bwd_cases.append((label, tc.stem_bwd_kernel, plain,
+                               (tc._pad16(xs), dys, s1_k, y_k, *ws), hold,
+                               row))
     cases = {
         "stem_fwd": [("stem", tc.stem_fwd_kernel, tc.stem_plain,
-                      (x14, *stem_w), "max", "stem_fwd")],
-        "stem_bwd": [
-            ("stem, fixed masks", tc.stem_bwd_kernel, tc.stem_bwd_plain,
-             (c_stem[0], dy64, *c_stem[1:]), "max", None),
-            ("stem, random", tc.stem_bwd_kernel, tc.stem_bwd_plain,
-             (x14, dy64, *stem_w), "l2", "stem_bwd")],
+                      (x14, *stem_w), "max", "stem_fwd"),
+                     ("ragged 2x36x120", tc.stem_fwd_kernel, tc.stem_plain,
+                      (xr14, *stem_w), "max", None),
+                     # the train step's forward: s1 stored for the backward
+                     ("stem, s1 stored", _stem_fwd_saved,
+                      _stem_fwd_saved_plain, (x14, *stem_w), "max",
+                      "stem_fwd_saved")],
+        "stem_bwd": stem_bwd_cases,
         "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max",
                             "bottleneck_fwd_b0"),
                            ("block 1", *fwd, (x256, *blk1), "max",
@@ -1124,10 +1192,15 @@ def train_kernel_phase(dev):
                 f"{worst_l2:.4g} (bound {WGRAD_TOL})")
         for label, kern, plain, args, _, row in variants:
             if row is not None:
+                fs = {"": lambda: kern(*args), "plain_": lambda: plain(*args)}
+                device = ({f"{k}device_ms": median_ms(f, iters=5, reps=3,
+                                                      spin=True)
+                           for k, f in fs.items()}
+                          if name in DEVICE_TIMED else None)
                 results[row] = timed(
                     name, label, args, kern(*args), worst_abs,
-                    median_ms(lambda: kern(*args), iters=5, reps=3),
-                    median_ms(lambda: plain(*args), iters=5, reps=3))
+                    median_ms(fs[""], iters=5, reps=3),
+                    median_ms(fs["plain_"], iters=5, reps=3), None, device)
     return results
 
 

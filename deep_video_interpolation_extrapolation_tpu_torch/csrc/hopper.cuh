@@ -1,7 +1,7 @@
 // Hopper building blocks (sm_90a): warpgroup MMA (wgmma) with A from
-// registers or shared memory and B from shared memory (N = 64, and N = 208
-// for K4's taps product), ldmatrix, mbarriers and the bulk (non-tensor) TMA
-// copy; and (namespace tiled) the pixel tiles and weight ring of the
+// registers or shared memory and B from shared memory (N = 64; N = 208 for
+// the heads' taps products, N = 16 for the stem's dx), ldmatrix, mbarriers,
+// setmaxnreg and the bulk (non-tensor) TMA copy; and (namespace tiled) the pixel tiles and weight ring of the
 // persistent conv kernels.
 //
 // Shared-memory B operands use the no-swizzle ("interleaved") canonical
@@ -48,6 +48,17 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// move this warpgroup's registers a thread to R (all its warps execute it):
+// a producer warpgroup gives up what its consumers take
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // make this thread's generic-proxy writes to shared memory (st.shared,
 // cp.async) visible to the async proxy that wgmma reads operands through
 __device__ __forceinline__ void fence_async_smem() {
@@ -82,6 +93,21 @@ __device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4], 
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+// d[64 x 16] += A[64 x 16] . B[16 x 16], A from registers (as wgmma64),
+// K-major B.  d[4j + {0,1,2,3}] as wgmma64, j < 2.
+__device__ __forceinline__ void wgmma16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d[64 x 64] += A[64 x 16] . B[16 x 64] with both operands in shared memory

@@ -3,317 +3,590 @@
 //   pre1 = bf16(conv3x3(x, k1)) + b1    s1 = lrelu(pre1)      (14 -> 64 ch)
 //   pre2 = bf16(conv3x3(s1, k2)) + b2   y  = lrelu(pre2)      (64 -> 64 ch)
 // with bias adds and lrelu in bf16, as ops/pallas_trainchain.py rounds.
+// Backward: dpre2 = lrelu'(y) * dy; ds1 = bf16(conv_t(dpre2, k2)); dpre1 =
+// lrelu'(s1) * ds1; dx = bf16(conv_t(dpre1, k1)); dk1, db1, dk2, db2 in f32.
 //
 // Replaces ops/pallas_trainchain.py:packed_stem: the forward kernel
 // _stem_fwd_kernel (pallas_call at :530) and the backward _stem_bwd_kernel
-// (:565), which recomputes pre1, s1 and pre2 and returns dx and per-program
-// f32 dk1, db1, dk2, db2 partials.  The TPU kernel's width packing and its
-// batch-only grid (one whole 128x128 plane per program, no halo logic)
-// exist for its 128-lane VMEM and are dropped: here a block owns an 8x16
-// pixel tile and recomputes the halo rings it needs (trainchain.cuh).
-//
-// x arrives zero-padded from 14 to 16 channels (the wrapper pads it), and
-// conv1's K is 9 taps x 16 = 144: each tap is then one 16-deep WMMA step
-// over a shifted view of the staged x region (trainchain.cuh), where K =
-// 126 padded to 128 as one flat dimension would need an im2col copy.
+// (:565).  The TPU kernel's width packing and its batch-only grid (one
+// whole 128x128 plane per program) exist for its 128-lane VMEM and are
+// dropped.  Its backward recomputes pre1, s1 and pre2; here the forward
+// stores s1 when autograd will need it, y is the output it stores anyway,
+// and the lrelu masks are their signs (a bf16 lrelu keeps the sign), so the
+// backward recomputes nothing.
 //
 // Bound on the H100 at the recipe shape (24x128x128, M = 393,216 pixels):
-//   forward: conv1 2*M*144*64 + conv2 2*M*576*64 = 36.2 GFLOP (the halo
-//   recompute of s1 adds 63% of conv1: 13 row fragments for 8 output rows);
-//   x 12.6 MB (16 ch) + y 50.3 MB: 37 us of tensor cores at peak vs 19 us
-//   of HBM: compute-bound, at the small N = 64 of WMMA tiles.
-//   backward: conv2 twice (recompute, ds1 on the 13-fragment ring), conv1
-//   twice, dx (2*M*576*16), dk1 and dk2 (2*M*(144+576)*64): about 130
-//   GFLOP; dpre2, s1, dpre1 round trips through HBM, 4 x 50 MB.
-// Design.  Forward, one launch: stage x on a 2-pixel ring (12x20
-// positions), conv1 -> s1 on the 1-pixel ring in shared memory (zeroed
-// outside the image: conv2's SAME padding), conv2 on the tile, bias,
-// lrelu, one bf16 store.  All weights (k1 20 KB, k2 83 KB) sit in shared
-// memory for the whole block; 8 warps, one output row each.
-// Backward, three launches (the dx path needs dpre1 one ring out, which
-// needs dpre2 two rings out: recomputing that chain inside one block would
-// mean conv2 on a 3-pixel ring and conv1 on a 4-pixel one):
-//   1. stem_front in backward mode: the forward recomputed, then dpre2 =
-//      lrelu'(pre2) * dy; stores dpre2 and s1 (bf16, device memory);
-//   2. stem_bwd2: dpre2 on the 2-pixel ring from device memory -> ds1 on
-//      the 1-pixel ring (conv with the flipped, transposed k2), pre1
-//      recomputed there, dpre1 = lrelu'(pre1) * ds1 (zero outside the
-//      image), stored, then dx on the tile (conv with the flipped,
-//      transposed k1);
-//   3. wgrad_kernel: dk1 (x, dpre1), dk2 (s1, dpre2), db1, db2 as split-K
-//      f32 partials (trainchain.cuh).
-#include "trainchain.cuh"
+//   forward: 2*M*(126*64 + 576*64) = 35.3 GFLOP (k1's 14 input channels):
+//   36 us of tensor cores at 989 TFLOP/s; x 11 MB + y 50 MB (+ s1 50 MB
+//   when stored): 18-33 us of HBM.  Operations.
+//   backward: ds1, dx, dk2 and dk1, 2*M*(576*64 + 576*14 + 576*64 +
+//   126*64) = 70 GFLOP (71 us) against dy, y, s1, x in, dx out and dpre2,
+//   dpre1 out and back in (~320 MB, 96 us): bytes, barely.  (chip_smoke's
+//   yardstick for this row still counts the recompute of the JAX kernel:
+//   three passes, 0.107 ms.)
+//
+// Design: every conv is an implicit GEMM on wgmma (hopper.cuh), M = pixels,
+// A from registers by ldmatrix at each lane's tap-shifted row of a region
+// staged in shared memory (16 bytes of padding per position: conflict-free
+// ldmatrix), B resident in shared memory for the whole block (loaded once
+// by bulk TMA copies, laid out by ops/trainchain.stem_units).  Persistent
+// blocks of three warpgroups walk 8x16 pixel tiles; the next tile's region
+// is loaded (cp.async) while the tile's second conv runs, which no longer
+// reads it.  As in the BasicBlock chain (trainchain_basicblock.cu), conv1's
+// output rows are the tile's 1-ring positions (10 x 18, three m-tiles, one
+// a warpgroup) and conv2's the tile's 128 pixels (two m-tiles; the third
+// warpgroup recomputes the last and stores nothing: no wgmma sits under a
+// thread-dependent branch, C7518).
+// - Forward, one launch: x (16 ch, zero-padded from 14 by the wrapper) on
+//   the 2-ring; conv1 (K = 9 taps x 16: one k16 step a tap, 18 KB of k1)
+//   -> s1 on the 1-ring in shared memory, zero outside the image (conv2's
+//   SAME padding), stored at the tile when autograd needs it; conv2 (72 KB
+//   of k2); bias, lrelu and the bf16 rounding from the accumulators, staged
+//   per warp for 16-byte stores.
+// - Backward, one launch: dy on the 2-ring, masked in place by the sign of
+//   y (dpre2, stored at the tile); ds1 on the 1-ring with the flipped k2
+//   (72 KB), dpre1 = lrelu'(s1) * ds1 there, zero outside the image, stored
+//   at the tile; dx on the tile with the flipped k1 (wgmma m64n16, 18 KB).
+// - Weight grads, one launch (stem_wgrad_kernel), the BasicBlock chain's
+//   wgrad_kernel at K = pixels: a block stages d (dpre2 or dpre1) at a
+//   pixel tile as MN-major core matrices (B by descriptor) and the 1-ring
+//   of a (s1 or x) and forms the tap products from shifted views of a by
+//   ldmatrix.trans.  dk2 (64 x 64 a tap): each warpgroup three taps of one
+//   tile.  dk1 (16 x 64 a tap): four taps stacked in the 64 rows of one
+//   wgmma, one per warp, so three accumulators cover the nine taps, and
+//   each warpgroup takes its own tile.  db2 and db1: f32 sums of the staged
+//   d by the CUDA cores.  f32 partials per pixel range, summed by the
+//   wrapper: deterministic, no atomics.
+//
+// Prediction (written before the first chip run of this design, NVIDIA
+// H100 at 700 W): at 24x128x128 the forward 0.666 -> 0.15-0.30 ms, the
+// backward with its weight grads 2.684 -> 0.6-1.1 ms; the b0 train step up
+// 2-4%.
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace dvie {
 namespace {
 
-using namespace tc;
+using namespace hop;
+using hop::tiled::inside;
+using hop::tiled::n_tiles;
+using hop::tiled::pix;
+using hop::tiled::Tile;
+using hop::tiled::tile_at;
 
-constexpr int NT = 256;                // 8 warps, one output row each
-constexpr int CI = 16, C = 64;         // padded input channels, planes
-constexpr int PW = TW + 4;             // region pitch: a ring of 2 (20)
-constexpr int XPOS = (TH + 4) * PW;    // 240 positions of the 2-ring region
-constexpr int XALLOC = 256;            // zero positions past it: shifted reads
-constexpr int R1 = PW + 1;             // first position of the 1-ring (21)
-constexpr int NF1 = 13;                // 1-ring fragments: positions [21, 229)
-constexpr int LDX = CI;                // 32-byte positions
-constexpr int LDW = C + 8, LDWF = CI + 8;
-constexpr int LDS = C + 16;            // 160-byte positions: 32-byte aligned views
-constexpr int LDC = C + 4;
-constexpr int SPOS = 240;              // 1-ring positions allocated
+constexpr int TH = 8, TW = 16;
+constexpr int NWG = 3, NT = NWG * 128;
+constexpr int CI = 16, C = 64;
+constexpr int PW2 = TW + 4, NPOS2 = (TH + 4) * PW2;  // the 2-ring region: 240
+constexpr int PW1 = TW + 2, NPOS1 = (TH + 2) * PW1;  // the 1-ring: 180
+constexpr int LDX = CI + 8, LDS = C + 8;             // region pitches, elements
+constexpr int UK1 = 2 * 64 * 8 * 2;   // a k1 tap: (2 k-groups, 64 n, 8 k) bf16
+constexpr int UK2 = 8 * 64 * 8 * 2;   // a k2 tap: (8, 64, 8)
+constexpr int UKX = 8 * 16 * 8 * 2;   // a flipped k1 tap for dx: (8, 16, 8)
+constexpr int ST = 16 * LDS * 2;      // a warp's y staging rows
 
-constexpr int SZ_X = XALLOC * LDX * 2;         // 8192
-constexpr int SZ_W1 = 9 * CI * LDW * 2;        // 20736
-constexpr int SZ_W2 = 9 * C * LDW * 2;         // 82944
-constexpr int SZ_S = SPOS * LDS * 2;           // 38400
-constexpr int SZ_C = NT / 32 * 16 * LDC * 4;   // 34816
-
-// forward / backward-launch-1 layout
-constexpr int F_X = 0, F_W1 = F_X + SZ_X, F_W2 = align128(F_W1 + SZ_W1);
-constexpr int F_S = align128(F_W2 + SZ_W2), F_C = align128(F_S + SZ_S);
-constexpr int F_SMEM = F_C + SZ_C;
-// backward launch 2: phase 1 (D2, W2f) and phase 2 (X, W1, W1f) share U
-constexpr int B_D2 = 0, B_W2F = align128(B_D2 + XALLOC * LDS * 2);
-constexpr int B_X = 0, B_W1 = B_X + SZ_X, B_W1F = align128(B_W1 + SZ_W1);
-constexpr int B_U = align128(B_W2F + SZ_W2);
-static_assert(B_W1F + 9 * C * LDWF * 2 <= B_U, "phase-2 operands fit the union");
-constexpr int B_S = B_U, B_C = align128(B_S + SZ_S);
-constexpr int B_SMEM = B_C + SZ_C;
+// forward
+constexpr int F_W1 = 0, F_W2 = F_W1 + 9 * UK1, F_X = F_W2 + 9 * UK2;
+constexpr int F_H = F_X + NPOS2 * LDX * 2, F_ST = F_H + NPOS1 * LDS * 2;
+constexpr int F_BAR = F_ST + 8 * ST, F_SMEM = F_BAR + 8;
+// backward
+constexpr int B_W2 = 0, B_WX = B_W2 + 9 * UK2, B_D = B_WX + 9 * UKX;
+constexpr int B_H = B_D + NPOS2 * LDS * 2, B_BAR = B_H + NPOS1 * LDS * 2, B_SMEM = B_BAR + 8;
 static_assert(F_SMEM <= 232448 && B_SMEM <= 232448, "shared memory per block");
 
-// offset of tap t (ky*3 + kx) in region positions
-__device__ __forceinline__ int toff(int t) { return (t / 3 - 1) * PW + (t % 3 - 1); }
-
-// image row / column of region position l (origin two pixels up-left)
-__device__ __forceinline__ int ry(const Tile &t, int l) { return t.y0 - 2 + l / PW; }
-__device__ __forceinline__ int rx(const Tile &t, int l) { return t.x0 - 2 + l % PW; }
-
-// conv1 over the 1-ring: fragment f (positions R1 + 16 f ...), f32 in acc
-__device__ __forceinline__ void conv1_frag(FragC (&acc)[4], const bf16 *Xs, const bf16 *W1s,
-                                           int f) {
-  zero(acc);
-  const int l0 = R1 + 16 * f;
-#pragma unroll 1
-  for (int tp = 0; tp < 9; ++tp)
-    warp_mma(acc, Xs + (l0 + toff(tp)) * LDX, LDX, W1s + tp * CI * LDW, LDW, 1);
+__device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma64<0>(d, a, b);
+}
+__device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  wgmma16(d, a, b);
 }
 
-// mode 0: y = the stem output.  mode 1 (backward launch 1): out = dpre2 =
-// lrelu'(pre2) * dy, and s1 stored at the tile's pixels.
+// the A fragments of tap t: KS k-steps of 16 channels at this lane's row
+// `abase` (centre tap) shifted by the tap, on a region of pitch PW
+// positions of LD elements
+template <int KS, int PW, int LD>
+__device__ __forceinline__ void ld_tap(uint32_t (&a)[KS][4], uint32_t abase, int t) {
+  const uint32_t off = ((t / 3 - 1) * PW + t % 3 - 1) * LD * 2;
+#pragma unroll
+  for (int j = 0; j < KS; ++j) ldsm4(a[j], abase + off + j * 32);
+}
+
+template <int KS, int N, int LBO>
+__device__ __forceinline__ void mma_tap(float (&acc)[N], const uint32_t (&a)[KS][4],
+                                        uint32_t wtap) {
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < KS; ++j) mma(acc, a[j], desc(wtap + j * 2 * LBO, LBO, 128));
+  wg_commit();
+  wg_wait<1>();
+}
+
+// acc = conv3x3 over this warpgroup's m-tile: A at `abase`, the resident
+// tap units at `wbase` (TB bytes a tap, LBO between k-groups); the next
+// tap's A is loaded while the current tap's wgmmas run
+template <int KS, int PW, int LD, int TB, int LBO, int N>
+__device__ __forceinline__ void conv9(float (&acc)[N], uint32_t abase, uint32_t wbase) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+  uint32_t a0[KS][4], a1[KS][4];
+  ld_tap<KS, PW, LD>(a0, abase, 0);
+#pragma unroll 1
+  for (int t = 0; t < 8; t += 2) {
+    mma_tap<KS, N, LBO>(acc, a0, wbase + t * TB);
+    ld_tap<KS, PW, LD>(a1, abase, t + 1);
+    mma_tap<KS, N, LBO>(acc, a1, wbase + (t + 1) * TB);
+    ld_tap<KS, PW, LD>(a0, abase, t + 2);
+  }
+  mma_tap<KS, N, LBO>(acc, a0, wbase + 8 * TB);
+  wg_wait<0>();
+  fence_acc(acc);
+}
+
+// the nine tap units of each resident weight, once per block
+__device__ __forceinline__ void load_weights(uint64_t *bar, unsigned char *d0,
+                                             const bf16 *__restrict__ w0, int b0,
+                                             unsigned char *d1, const bf16 *__restrict__ w1,
+                                             int b1) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar, 9 * (b0 + b1));
+    for (int t = 0; t < 9; ++t) {
+      bulk_load(d0 + t * b0, w0 + t * (b0 / 2), b0, bar);
+      bulk_load(d1 + t * b1, w1 + t * (b1 / 2), b1, bar);
+    }
+  }
+  __syncthreads();
+}
+
+// cp.async the 2-ring region of tile t of an NHWC tensor of CH channels
+// (zeros outside the image), position pitch LD
+template <int CH, int LD>
+__device__ __forceinline__ void load_region(bf16 *Xs, const bf16 *__restrict__ src, const Tile &t,
+                                            int H, int W) {
+  constexpr int V = CH / 8;
+  for (int i = threadIdx.x; i < NPOS2 * V; i += NT) {
+    const int l = i / V, c = (i % V) * 8;
+    const int yy = t.y0 - 2 + l / PW2, xx = t.x0 - 2 + l % PW2;
+    const bool ok = inside(yy, xx, H, W);
+    cp_async16(Xs + l * LD + c, ok ? src + pix(t.b, yy, xx, H, W) * CH + c : src, ok);
+  }
+}
+
+// 64 channels of the 1-ring buffer Hs at the tile's pixels -> dst
+__device__ __forceinline__ void store_tile(bf16 *__restrict__ dst, const bf16 *Hs, const Tile &t,
+                                           int H, int W) {
+  for (int i = threadIdx.x; i < TH * TW * 8; i += NT) {
+    const int px = i >> 3, v = i & 7;
+    const int yy = t.y0 + px / TW, xx = t.x0 + px % TW;
+    if (inside(yy, xx, H, W))
+      st16(dst + pix(t.b, yy, xx, H, W) * C + v * 8,
+           *reinterpret_cast<const uint4 *>(Hs + ((px / TW + 1) * PW1 + px % TW + 1) * LDS + v * 8));
+  }
+}
+
+__device__ __forceinline__ float masked(float s, float g) { return s >= 0.f ? g : rbf(0.2f * g); }
+
+// this lane's ldmatrix rows: conv1 on the 1-ring (row i of m-tile wg is
+// 1-ring position i, clamped past the end) over a 2-ring region of pitch
+// LD; conv2 on the tile (row i is tile pixel i) over the 1-ring buffer
+struct Rows {
+  uint32_t a1, a2;
+  int er, ec;  // accumulator row (of the block's) and column of this thread
+};
+
+template <int LD>
+__device__ __forceinline__ Rows rows_of(uint32_t region, uint32_t ring1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wq = warp & 3;
+  const int lr = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  const int i1 = min(wg * 64 + lr, NPOS1 - 1), i2 = min(wg * 64 + lr, TH * TW - 1);
+  Rows r;
+  r.a1 = region + (((i1 / PW1 + 1) * PW2 + i1 % PW1 + 1) * LD + lk) * 2;
+  r.a2 = ring1 + (((i2 / TW + 1) * PW1 + i2 % TW + 1) * LDS + lk) * 2;
+  r.er = wg * 64 + wq * 16 + (lane >> 2);
+  r.ec = 2 * (lane & 3);
+  return r;
+}
+
+// ---- forward ------------------------------------------------------------------
+
+// x (B,H,W,16); w1u, w2u: the tap units of k1 and k2; b1, b2 (64,); y
+// (B,H,W,64); s1o (B,H,W,64) or null
 __global__ void __launch_bounds__(NT, 1)
-stem_front_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1,
-                  const bf16 *__restrict__ b1, const bf16 *__restrict__ w2,
-                  const bf16 *__restrict__ b2, const bf16 *__restrict__ dy,
-                  bf16 *__restrict__ out, bf16 *__restrict__ s1_out, int H, int W, int mode) {
-  extern __shared__ __align__(128) unsigned char smem[];
+stem_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1u,
+                const bf16 *__restrict__ b1, const bf16 *__restrict__ w2u,
+                const bf16 *__restrict__ b2, bf16 *__restrict__ y, bf16 *__restrict__ s1o, int B,
+                int H, int W) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t *wbar = reinterpret_cast<uint64_t *>(smem + F_BAR);
   bf16 *Xs = reinterpret_cast<bf16 *>(smem + F_X);
-  bf16 *W1s = reinterpret_cast<bf16 *>(smem + F_W1);
-  bf16 *W2s = reinterpret_cast<bf16 *>(smem + F_W2);
-  bf16 *Ss = reinterpret_cast<bf16 *>(smem + F_S);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float *Cw = reinterpret_cast<float *>(smem + F_C) + warp * 16 * LDC;
-  const Tile t = tile_of(H, W);
+  bf16 *Hs = reinterpret_cast<bf16 *>(smem + F_H);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wq = warp & 3;
+  const int nt = n_tiles(B, H, W, TH);
+  load_weights(wbar, smem + F_W1, w1u, UK1, smem + F_W2, w2u, UK2);
+  const Rows rw = rows_of<LDX>(smem_u32(Xs), smem_u32(Hs));
+  bf16 *Ss = reinterpret_cast<bf16 *>(smem + F_ST + (warp & 7) * ST);
+  float bias1[16], bias2[16];  // this thread's columns 8j + ec, + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 u = tiled::ld2(b1 + 8 * j + rw.ec), v = tiled::ld2(b2 + 8 * j + rw.ec);
+    bias1[2 * j] = u.x, bias1[2 * j + 1] = u.y, bias2[2 * j] = v.x, bias2[2 * j + 1] = v.y;
+  }
 
-  load_region(Xs, LDX, x, CI, 0, CI / 8, t, -2, -2, PW, XPOS, XALLOC, H, W);
-  load_block_async(W1s, LDW, w1, C, 9 * CI, C);
-  load_block_async(W2s, LDW, w2, C, 9 * C, C);
+  if (blockIdx.x < nt) load_region<CI, LDX>(Xs, x, tile_at(blockIdx.x, TH, H, W), H, W);
   cp_async_commit();
+  mbar_wait(wbar, 0);
+  for (int ti = blockIdx.x; ti < nt; ti += gridDim.x) {
+    const Tile t = tile_at(ti, TH, H, W);
+    cp_async_wait<0>();
+    __syncthreads();  // the region has landed; the last tile's conv2 is done with Hs
+
+    // ---- conv1 on the 1-ring -> s1 = lrelu(bf16(acc) + b1), 0 outside
+    float acc[32];
+    conv9<1, PW2, LDX, UK1, 1024>(acc, rw.a1, smem_u32(smem + F_W1));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = rw.er + 8 * hh;
+      if (i >= NPOS1) continue;
+      const bool ok = inside(t.y0 - 1 + i / PW1, t.x0 - 1 + i % PW1, H, W);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float v0 = lrelu_bf(rbf(rbf(acc[4 * j + 2 * hh]) + bias1[2 * j]));
+        float v1 = lrelu_bf(rbf(rbf(acc[4 * j + 2 * hh + 1]) + bias1[2 * j + 1]));
+        tiled::st2(Hs + i * LDS + 8 * j + rw.ec, ok ? v0 : 0.f, ok ? v1 : 0.f);
+      }
+    }
+    __syncthreads();  // Hs is whole; nothing reads Xs any more
+    if (s1o) store_tile(s1o, Hs, t, H, W);
+    if (ti + gridDim.x < nt) load_region<CI, LDX>(Xs, x, tile_at(ti + gridDim.x, TH, H, W), H, W);
+    cp_async_commit();
+
+    // ---- conv2 on the tile -> y = lrelu(bf16(acc) + b2), one tile row a warp
+    conv9<4, PW1, LDS, UK2, 1024>(acc, rw.a2, smem_u32(smem + F_W2));
+    if (wg < 2) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          tiled::st2(Ss + ((lane >> 2) + 8 * hh) * LDS + 8 * j + rw.ec,
+                     lrelu_bf(rbf(rbf(acc[4 * j + 2 * hh]) + bias2[2 * j])),
+                     lrelu_bf(rbf(rbf(acc[4 * j + 2 * hh + 1]) + bias2[2 * j + 1])));
+      __syncwarp();
+      const int yy = t.y0 + wg * 4 + wq;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = lane + 32 * k, col = i >> 3, v = i & 7;
+        if (inside(yy, t.x0 + col, H, W))
+          st16(y + pix(t.b, yy, t.x0 + col, H, W) * C + v * 8,
+               *reinterpret_cast<const uint4 *>(Ss + col * LDS + v * 8));
+      }
+    }
+  }
   cp_async_wait<0>();
-  __syncthreads();
-
-  // s1 on the 1-ring, zero outside the image
-  for (int f = warp; f < NF1; f += NT / 32) {
-    FragC acc[4];
-    conv1_frag(acc, Xs, W1s, f);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    for (int i = lane; i < 16 * C; i += 32) {
-      const int r = i / C, c = i % C, l = R1 + 16 * f + r;
-      const float v = inside(ry(t, l), rx(t, l), H, W)
-                          ? lrelu_bf(rbf(rbf(Cw[r * LDC + c]) + bf(b1[c])))
-                          : 0.f;
-      Ss[l * LDS + c] = __float2bfloat16(v);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // conv2 on the tile: warp = output row
-  const int r = warp, l0 = (r + 2) * PW + 2, yy = t.y0 + r;
-  FragC acc[4];
-  zero(acc);
-#pragma unroll 1
-  for (int tp = 0; tp < 9; ++tp)
-    warp_mma(acc, Ss + (l0 + toff(tp)) * LDS, LDS, W2s + tp * C * LDW, LDW, C / 16);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  for (int i = lane; i < 16 * (C / 8); i += 32) {
-    const int px = i / (C / 8), c = (i % (C / 8)) * 8, xx = t.x0 + px;
-    if (yy >= H || xx >= W) continue;
-    const long m = pix(t, yy, xx, H, W);
-    float v[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = rbf(rbf(Cw[px * LDC + c + k]) + bf(b2[c + k]));
-    if (mode == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = lrelu_bf(v[k]);
-    } else {
-      float g[8];
-      unpack8(ldg16(dy + m * C + c), g);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = v[k] >= 0.f ? g[k] : rbf(0.2f * g[k]);
-      st16(s1_out + m * C + c, *reinterpret_cast<const uint4 *>(Ss + (l0 + px) * LDS + c));
-    }
-    st16(out + m * C + c, pack8(v));
-  }
 }
 
-// backward launch 2: ds1, dpre1 (stored) and dx on the tile
+// ---- backward -----------------------------------------------------------------
+
+// dy, y, s1 (B,H,W,64); w2f: the flipped k2 tap units; wxf: the flipped k1
+// tap units (64 -> 16); out: dpre2, dpre1 (B,H,W,64), dx (B,H,W,cx)
 __global__ void __launch_bounds__(NT, 1)
-stem_bwd2_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ dpre2,
-                 const bf16 *__restrict__ w1, const bf16 *__restrict__ b1,
-                 const bf16 *__restrict__ w1f, const bf16 *__restrict__ w2f,
-                 bf16 *__restrict__ dpre1, bf16 *__restrict__ dx, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *D2s = reinterpret_cast<bf16 *>(smem + B_D2);
-  bf16 *W2Fs = reinterpret_cast<bf16 *>(smem + B_W2F);
-  bf16 *Xs = reinterpret_cast<bf16 *>(smem + B_X);
-  bf16 *W1s = reinterpret_cast<bf16 *>(smem + B_W1);
-  bf16 *W1Fs = reinterpret_cast<bf16 *>(smem + B_W1F);
-  bf16 *Ds = reinterpret_cast<bf16 *>(smem + B_S);  // ds1, then dpre1 in place
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float *Cw = reinterpret_cast<float *>(smem + B_C) + warp * 16 * LDC;
-  const Tile t = tile_of(H, W);
+stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
+                const bf16 *__restrict__ s1, const bf16 *__restrict__ w2f,
+                const bf16 *__restrict__ wxf, bf16 *__restrict__ dpre2, bf16 *__restrict__ dpre1,
+                bf16 *__restrict__ dx, int B, int H, int W, int cx) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t *wbar = reinterpret_cast<uint64_t *>(smem + B_BAR);
+  bf16 *Ds = reinterpret_cast<bf16 *>(smem + B_D);
+  bf16 *Hs = reinterpret_cast<bf16 *>(smem + B_H);
+  const int warp = threadIdx.x >> 5, wg = warp >> 2;
+  const int nt = n_tiles(B, H, W, TH);
+  load_weights(wbar, smem + B_W2, w2f, UK2, smem + B_WX, wxf, UKX);
+  const Rows rw = rows_of<LDS>(smem_u32(Ds), smem_u32(Hs));
 
-  // ---- phase 1: ds1 = bf16(conv_t(dpre2, k2)) on the 1-ring
-  load_region(D2s, LDS, dpre2, C, 0, C / 8, t, -2, -2, PW, XPOS, XALLOC, H, W);
-  load_block_async(W2Fs, LDW, w2f, C, 9 * C, C);
+  if (blockIdx.x < nt) load_region<C, LDS>(Ds, dy, tile_at(blockIdx.x, TH, H, W), H, W);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int f = warp; f < NF1; f += NT / 32) {
-    FragC acc[4];
-    zero(acc);
-    const int l0 = R1 + 16 * f;
-#pragma unroll 1
-    for (int tp = 0; tp < 9; ++tp)
-      warp_mma(acc, D2s + (l0 + toff(tp)) * LDS, LDS, W2Fs + tp * C * LDW, LDW, C / 16);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    for (int i = lane; i < 16 * C; i += 32) {
-      const int r = i / C, c = i % C;
-      Ds[(l0 + r) * LDS + c] = __float2bfloat16(Cw[r * LDC + c]);
+  mbar_wait(wbar, 0);
+  for (int ti = blockIdx.x; ti < nt; ti += gridDim.x) {
+    const Tile t = tile_at(ti, TH, H, W);
+    cp_async_wait<0>();
+    __syncthreads();
+    // dpre2 = lrelu'(y) * dy on the region, in place; stored at the tile
+    for (int i = threadIdx.x; i < NPOS2 * 8; i += NT) {
+      const int l = i >> 3, c = (i & 7) * 8, ry = l / PW2, rx = l % PW2;
+      const int yy = t.y0 - 2 + ry, xx = t.x0 - 2 + rx;
+      if (!inside(yy, xx, H, W)) continue;
+      const long m = pix(t.b, yy, xx, H, W) * C + c;
+      float sv[8], gv[8];
+      unpack8(ldg16(y + m), sv);
+      unpack8(*reinterpret_cast<const uint4 *>(Ds + l * LDS + c), gv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) gv[k] = masked(sv[k], gv[k]);
+      const uint4 g = pack8(gv);
+      st16(Ds + l * LDS + c, g);
+      if (ry >= 2 && ry < TH + 2 && rx >= 2 && rx < TW + 2) st16(dpre2 + m, g);
     }
-    __syncwarp();
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // ---- phase 2: pre1 recomputed on the 1-ring; dpre1 = lrelu'(pre1) * ds1
-  load_region(Xs, LDX, x, CI, 0, CI / 8, t, -2, -2, PW, XPOS, XALLOC, H, W);
-  load_block_async(W1s, LDW, w1, C, 9 * CI, C);
-  load_block_async(W1Fs, LDWF, w1f, CI, 9 * C, CI);
+    // ---- ds1 on the 1-ring; dpre1 = lrelu'(s1) * bf16(ds1), 0 outside
+    float acc[32];
+    conv9<4, PW2, LDS, UK2, 1024>(acc, rw.a1, smem_u32(smem + B_W2));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = rw.er + 8 * hh;
+      if (i >= NPOS1) continue;
+      const int yy = t.y0 - 1 + i / PW1, xx = t.x0 - 1 + i % PW1;
+      const bool ok = inside(yy, xx, H, W);
+      const long m = ok ? pix(t.b, yy, xx, H, W) * C : 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + rw.ec;
+        const float2 s = tiled::ld2(s1 + m + c);
+        const float v0 = masked(s.x, rbf(acc[4 * j + 2 * hh]));
+        const float v1 = masked(s.y, rbf(acc[4 * j + 2 * hh + 1]));
+        tiled::st2(Hs + i * LDS + c, ok ? v0 : 0.f, ok ? v1 : 0.f);
+      }
+    }
+    __syncthreads();  // Hs is whole; nothing reads Ds any more
+    store_tile(dpre1, Hs, t, H, W);
+    if (ti + gridDim.x < nt) load_region<C, LDS>(Ds, dy, tile_at(ti + gridDim.x, TH, H, W), H, W);
+    cp_async_commit();
+
+    // ---- dx = bf16(conv_t(dpre1, k1)) on the tile, 16 columns (cx kept)
+    float ax[8];
+    conv9<4, PW1, LDS, UKX, 256>(ax, rw.a2, smem_u32(smem + B_WX));
+    if (wg < 2) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = rw.er + 8 * hh;
+        const int yy = t.y0 + i / TW, xx = t.x0 + i % TW;
+        if (!inside(yy, xx, H, W)) continue;
+        bf16 *o = dx + pix(t.b, yy, xx, H, W) * cx;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 8 * j + rw.ec;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(ax[4 * j + 2 * hh], ax[4 * j + 2 * hh + 1]);
+          if (c + 1 < cx && !(cx & 1)) {
+            *reinterpret_cast<__nv_bfloat162 *>(o + c) = v;
+          } else {
+            if (c < cx) o[c] = v.x;
+            if (c + 1 < cx) o[c + 1] = v.y;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- weight grads -------------------------------------------------------------
+//
+// Blocks [0, s0): dk2 and db2 over pixel range blockIdx.x of s0 (a = s1, d
+// = dpre2); blocks [s0, s0 + s1): dk1 and db1 over range blockIdx.x - s0 of
+// s1 (a = x, 16 channels; d = dpre1).  Per pipeline step a dk2 block takes
+// one 8x16 tile (three taps a warpgroup), a dk1 block three (one a
+// warpgroup, its four warps' rows four taps of each wgmma).  Both run the
+// same instructions on other addresses.
+
+constexpr int G_D = TH * TW * 64 * 2;                 // d at a tile: 16 KB
+constexpr int G_SLOT2 = align128(NPOS1 * LDS * 2 + G_D), G_SLOT1 = align128(NPOS1 * LDX * 2 + G_D);
+constexpr int G_STAGE = G_SLOT2 > 3 * G_SLOT1 ? G_SLOT2 : 3 * G_SLOT1;
+constexpr int G_SUM = 2 * G_STAGE, G_SMEM = G_SUM + 6 * 64 * 4;
+static_assert(G_SMEM <= 232448, "shared memory per block");
+
+// dk2p (s0, 9, 64, 64), dk1p (3 s1, 9, 16, 64): f32 partials [tap, input
+// channel, output channel]; dbp (s0 + s1, 64): db2 then db1 partials
+__global__ void __launch_bounds__(NT, 1)
+stem_wgrad_kernel(const bf16 *__restrict__ s1, const bf16 *__restrict__ dpre2,
+                  const bf16 *__restrict__ x, const bf16 *__restrict__ dpre1,
+                  float *__restrict__ dk2p, float *__restrict__ dk1p, float *__restrict__ dbp,
+                  int B, int H, int W, int s0, int s1n) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const bool k1job = blockIdx.x >= s0;
+  const int split = k1job ? blockIdx.x - s0 : blockIdx.x, splits = k1job ? s1n : s0;
+  const bf16 *__restrict__ a = k1job ? x : s1;
+  const bf16 *__restrict__ dg = k1job ? dpre1 : dpre2;
+  const int ca = k1job ? CI : C, lda = k1job ? LDX : LDS;  // a's channels and pitch
+  const int nslot = k1job ? 3 : 1, slot_b = k1job ? G_SLOT1 : G_SLOT2;
+  const int a_b = NPOS1 * lda * 2;  // a's region, then d, in a slot
+  const int nt = n_tiles(B, H, W, TH);
+  const int t0 = (int)((long)split * nt / splits), t1 = (int)((long)(split + 1) * nt / splits);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wq = warp & 3;
+
+  auto load = [&](int ti, int buf) {  // tiles ti .. ti + nslot - 1 (zeros past t1)
+    for (int g = 0; g < nslot; ++g) {
+      const int tg = ti + g;
+      const bool have = tg < t1;
+      const Tile t = tile_at(have ? tg : t0, TH, H, W);
+      bf16 *As = reinterpret_cast<bf16 *>(smem + buf * G_STAGE + g * slot_b);
+      bf16 *Ds = reinterpret_cast<bf16 *>(smem + buf * G_STAGE + g * slot_b + a_b);
+      const int va = ca / 8;
+      for (int i = threadIdx.x; i < NPOS1 * va; i += NT) {
+        const int l = i / va, v = i % va;
+        const int yy = t.y0 - 1 + l / PW1, xx = t.x0 - 1 + l % PW1;
+        const bool ok = have && inside(yy, xx, H, W);
+        cp_async16(As + l * lda + v * 8, ok ? a + pix(t.b, yy, xx, H, W) * ca + v * 8 : a, ok);
+      }
+      // d in MN-major core matrices: (pixel group of 8, channel group of 8)
+      for (int i = threadIdx.x; i < TH * TW * 8; i += NT) {
+        const int p = i >> 3, v = i & 7;
+        const int yy = t.y0 + p / TW, xx = t.x0 + p % TW;
+        const bool ok = have && inside(yy, xx, H, W);
+        cp_async16(Ds + ((p >> 3) * 8 + v) * 64 + (p & 7) * 8,
+                   ok ? dg + pix(t.b, yy, xx, H, W) * C + v * 8 : dg, ok);
+      }
+    }
+  };
+
+  // this warpgroup's slot, and the tap of each accumulator k at this warp:
+  // dk2 3 wg + k (rows: input channels 16 wq ...); dk1 4 k + wq (rows:
+  // the 16 input channels; taps 9-11 are computed and dropped)
+  const int sg = k1job ? wg : 0;
+  // ldmatrix.trans: lane gives pixel (lane & 7) + 8 (lane >> 4) of the
+  // k-step's tile row, channels lc ...
+  const int lp = (lane & 7) + 8 * (lane >> 4);
+  const int lc = (k1job ? 0 : 16 * wq) + 8 * ((lane >> 3) & 1);
+  uint32_t abase[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int tap = k1job ? min(4 * k + wq, 8) : 3 * wg + k;
+    abase[k] = smem_u32(smem + sg * slot_b) + (((tap / 3) * PW1 + tap % 3 + lp) * lda + lc) * 2;
+  }
+  const uint32_t kstride = PW1 * lda * 2;  // one tile row further down
+
+  float acc[3][32];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[k][i] = 0.f;
+  float bsum = 0.f;  // db of channel threadIdx.x % 64 over pixels threadIdx.x / 64 + 6 i
+
+  if (t0 < t1) load(t0, 0);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int f = warp; f < NF1; f += NT / 32) {
-    FragC acc[4];
-    conv1_frag(acc, Xs, W1s, f);
-    store(Cw, LDC, acc);
-    __syncwarp();
-    for (int i = lane; i < 16 * C; i += 32) {
-      const int r = i / C, c = i % C, l = R1 + 16 * f + r;
-      const float pre = rbf(rbf(Cw[r * LDC + c]) + bf(b1[c]));
-      const float d = bf(Ds[l * LDS + c]);
-      const float v = inside(ry(t, l), rx(t, l), H, W) ? (pre >= 0.f ? d : rbf(0.2f * d)) : 0.f;
-      Ds[l * LDS + c] = __float2bfloat16(v);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // ---- phase 3: dpre1 out at the tile's pixels; dx = conv_t(dpre1, k1)
-  const int r = warp, l0 = (r + 2) * PW + 2, yy = t.y0 + r;
-  for (int i = lane; i < 16 * (C / 8); i += 32) {
-    const int px = i / (C / 8), c = (i % (C / 8)) * 8, xx = t.x0 + px;
-    if (yy < H && xx < W)
-      st16(dpre1 + pix(t, yy, xx, H, W) * C + c,
-           *reinterpret_cast<const uint4 *>(Ds + (l0 + px) * LDS + c));
-  }
-  FragC acc[1];
-  zero(acc);
+  for (int ti = t0, it = 0; ti < t1; ti += nslot, ++it) {
+    if (ti + nslot < t1) load(ti + nslot, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();  // d is read by wgmma
+    __syncthreads();
+    const uint32_t stage = (it & 1) * G_STAGE;
+    const uint32_t dsm = smem_u32(smem + stage + sg * slot_b + a_b);
+    uint32_t a0[3][4], a1[3][4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ldsm4t(a0[k], abase[k] + stage);
 #pragma unroll 1
-  for (int tp = 0; tp < 9; ++tp)
-    warp_mma(acc, Ds + (l0 + toff(tp)) * LDS, LDS, W1Fs + tp * C * LDWF, LDWF, C / 16);
-  store(Cw, LDC, acc);
-  __syncwarp();
-  {
-    const int px = lane / 2, c = (lane % 2) * 8, xx = t.x0 + px;
-    if (yy < H && xx < W) st16(dx + pix(t, yy, xx, H, W) * CI + c, pack8(Cw + px * LDC + c));
+    for (int ks = 0; ks < TH; ks += 2) {
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) wgmma64<1>(acc[k], a0[k], desc(dsm + ks * 2048, 1024, 128));
+      wg_commit();
+      wg_wait<1>();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ldsm4t(a1[k], abase[k] + stage + (ks + 1) * kstride);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        wgmma64<1>(acc[k], a1[k], desc(dsm + (ks + 1) * 2048, 1024, 128));
+      wg_commit();
+      wg_wait<1>();
+      if (ks + 2 < TH) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) ldsm4t(a0[k], abase[k] + stage + (ks + 2) * kstride);
+      }
+    }
+    // the bias grads from the staged d, while the last wgmmas run
+    {
+      const int c = threadIdx.x & 63;
+      for (int g = 0; g < nslot; ++g) {
+        const bf16 *Ds = reinterpret_cast<const bf16 *>(smem + stage + g * slot_b + a_b);
+        for (int p = threadIdx.x >> 6; p < TH * TW; p += NT / 64)
+          bsum += bf(Ds[((p >> 3) * 8 + (c >> 3)) * 64 + (p & 7) * 8 + (c & 7)]);
+      }
+    }
+    wg_wait<0>();
+    __syncthreads();  // this stage is refilled next iteration
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fence_acc(acc[k]);
+  // weight-grad partials
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = (lane >> 2) + 8 * hh;
+      const int tap = k1job ? 4 * k + wq : 3 * wg + k;
+      if (tap > 8) continue;
+      float *row = k1job ? dk1p + (((long)(3 * split + wg) * 9 + tap) * CI + r) * C
+                         : dk2p + (((long)split * 9 + tap) * C + 16 * wq + r) * C;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2 *>(row + 8 * j + 2 * (lane & 3)) =
+            make_float2(acc[k][4 * j + 2 * hh], acc[k][4 * j + 2 * hh + 1]);
+    }
+  // bias-grad partial: the six pixel groups of each channel summed in order
+  float *sums = reinterpret_cast<float *>(smem + G_SUM);
+  sums[threadIdx.x] = bsum;
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    float s = 0.f;
+    for (int r = 0; r < NT / 64; ++r) s += sums[r * 64 + threadIdx.x];
+    dbp[(long)blockIdx.x * 64 + threadIdx.x] = s;
   }
 }
 
-int set_smem() {
-  cudaError_t e = cudaFuncSetAttribute(stem_front_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(stem_bwd2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             B_SMEM);
-  return (int)e;
+template <class Kern, class... Args>
+int launch(Kern kern, int smem_bytes, int blocks, cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  kern<<<blocks < sms ? blocks : sms, NT, smem_bytes, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace dvie
 
-// x16 (B,H,W,16): x zero-padded from 14 channels; w1 (9,16,64) taps of k1
-// (rows 14, 15 of each tap zero), b1 (64,), w2 (9,64,64), b2 (64,); y
-// (B,H,W,64).  All bf16.
-extern "C" int dvie_stem_fwd(const void *x16, const void *w1, const void *b1, const void *w2,
-                             const void *b2, void *y, int B, int H, int W, void *stream) {
-  using dvie::bf16;
-  int e = dvie::set_smem();
-  if (e) return e;
-  dvie::stem_front_kernel<<<dvie::tc::n_tiles(B, H, W), dvie::NT, dvie::F_SMEM,
-                            (cudaStream_t)stream>>>(
-      (const bf16 *)x16, (const bf16 *)w1, (const bf16 *)b1, (const bf16 *)w2, (const bf16 *)b2,
-      nullptr, (bf16 *)y, nullptr, H, W, 0);
-  return (int)cudaGetLastError();
-}
-
-// The backward.  Inputs as dvie_stem_fwd plus dy (B,H,W,64), w1f (9,64,16)
-// and w2f (9,64,64): the taps of k1 and k2 flipped and transposed (the
-// transposed convs as SAME convs).  Scratch: dpre2, s1, dpre1 (B,H,W,64)
-// bf16.  Outputs: dx16 (B,H,W,16) bf16; f32 partials over `splits` pixel
-// ranges: pk1 (splits,9,16,64), pb1 (splits,16,64) (every row the same
-// sum), pk2 (splits,9,64,64), pb2 (splits,16,64).
-extern "C" int dvie_stem_bwd(const void *x16, const void *dy, const void *w1, const void *b1,
-                             const void *w2, const void *b2, const void *w1f, const void *w2f,
-                             void *dpre2, void *s1, void *dpre1, void *dx16, void *pk1, void *pb1,
-                             void *pk2, void *pb2, int B, int H, int W, int splits,
+// The forward.  x16 (B,H,W,16): x zero-padded from 14 channels; w1u: k1 as
+// 9 tap units (2, 64, 8) bf16 (rows 14, 15 of each tap zero); w2u: k2 as 9
+// tap units (8, 64, 8); b1, b2 (64,); y (B,H,W,64); s1 (B,H,W,64) or NULL
+// (not stored).  All bf16 (ops/trainchain.py: stem_units).
+extern "C" int dvie_stem_fwd(const void *x16, const void *w1u, const void *b1, const void *w2u,
+                             const void *b2, void *y, void *s1, int B, int H, int W,
                              void *stream) {
   using dvie::bf16;
-  namespace tc = dvie::tc;
-  int e = dvie::set_smem();
-  if (e) return e;
+  return dvie::launch(dvie::stem_fwd_kernel, dvie::F_SMEM,
+                      (int)dvie::hop::tiled::n_tiles(B, H, W, dvie::TH), (cudaStream_t)stream,
+                      (const bf16 *)x16, (const bf16 *)w1u, (const bf16 *)b1, (const bf16 *)w2u,
+                      (const bf16 *)b2, (bf16 *)y, (bf16 *)s1, B, H, W);
+}
+
+// The backward: one launch for dx, one for the weight grads.  dy, y, s1
+// (B,H,W,64): the output grad and what the forward stored; x16 (B,H,W,16);
+// w2f: the flipped transposed k2 as 9 tap units (8, 64, 8); wxf: the
+// flipped transposed k1 as 9 tap units (8, 16, 8).  Scratch: dpre2, dpre1
+// (B,H,W,64) bf16.  Outputs: dx (B,H,W,cx) bf16, cx <= 16; f32 partials
+// dk2p (s0, 9, 64, 64), dk1p (3 s1, 9, 16, 64), dbp (s0 + s1, 64): db2's
+// s0 rows, then db1's.
+extern "C" int dvie_stem_bwd(const void *dy, const void *y, const void *s1, const void *x16,
+                             const void *w2f, const void *wxf, void *dpre2, void *dpre1, void *dx,
+                             void *dk2p, void *dk1p, void *dbp, int B, int H, int W, int cx,
+                             int s0, int s1n, void *stream) {
+  using dvie::bf16;
   cudaStream_t st = (cudaStream_t)stream;
-  const unsigned grid = tc::n_tiles(B, H, W);
-  dvie::stem_front_kernel<<<grid, dvie::NT, dvie::F_SMEM, st>>>(
-      (const bf16 *)x16, (const bf16 *)w1, (const bf16 *)b1, (const bf16 *)w2, (const bf16 *)b2,
-      (const bf16 *)dy, (bf16 *)dpre2, (bf16 *)s1, H, W, 1);
-  if ((e = (int)cudaGetLastError())) return e;
-  dvie::stem_bwd2_kernel<<<grid, dvie::NT, dvie::B_SMEM, st>>>(
-      (const bf16 *)x16, (const bf16 *)dpre2, (const bf16 *)w1, (const bf16 *)b1,
-      (const bf16 *)w1f, (const bf16 *)w2f, (bf16 *)dpre1, (bf16 *)dx16, H, W);
-  if ((e = (int)cudaGetLastError())) return e;
-  tc::WJobs jobs;
-  jobs.n = 0;
-  const int C = dvie::C, CI = dvie::CI;
-  for (int t = 0; t < 9; ++t)
-    jobs.j[jobs.n++] = tc::job(x16, CI, dpre1, C, (float *)pk1 + t * CI * C, 9L * CI * C,
-                               t / 3 - 1, t % 3 - 1);
-  for (int t = 0; t < 9; ++t)
-    jobs.j[jobs.n++] = tc::job(s1, C, dpre2, C, (float *)pk2 + t * C * C, 9L * C * C, t / 3 - 1,
-                               t % 3 - 1);
-  jobs.j[jobs.n++] = tc::job(nullptr, CI, dpre1, C, (float *)pb1, (long)CI * C);
-  jobs.j[jobs.n++] = tc::job(nullptr, CI, dpre2, C, (float *)pb2, (long)CI * C);
-  return tc::launch_wgrad(jobs, B * H * W, H, W, splits, st);
+  if (cx < 1 || cx > dvie::CI || s0 < 1 || s1n < 1) return (int)cudaErrorInvalidValue;
+  int e = dvie::launch(dvie::stem_bwd_kernel, dvie::B_SMEM,
+                       (int)dvie::hop::tiled::n_tiles(B, H, W, dvie::TH), st, (const bf16 *)dy,
+                       (const bf16 *)y, (const bf16 *)s1, (const bf16 *)w2f, (const bf16 *)wxf,
+                       (bf16 *)dpre2, (bf16 *)dpre1, (bf16 *)dx, B, H, W, cx);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(dvie::stem_wgrad_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, dvie::G_SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  dvie::stem_wgrad_kernel<<<(unsigned)(s0 + s1n), dvie::NT, dvie::G_SMEM, st>>>(
+      (const bf16 *)s1, (const bf16 *)dpre2, (const bf16 *)x16, (const bf16 *)dpre1,
+      (float *)dk2p, (float *)dk1p, (float *)dbp, B, H, W, s0, s1n);
+  return (int)cudaGetLastError();
 }

@@ -29,8 +29,8 @@
 // of two consumer warpgroups and one producer warp walks 128-pixel tiles;
 // each warpgroup owns 64 pixel rows.
 // - The concat is built in shared memory by the consumers (p0 copied,
-//   p1/p2 interpolated in f32 from 16-byte neighbour loads with
-//   bilerp8's arithmetic, rounded to bf16) straight into the no-swizzle K-major core-matrix
+//   p1/p2 interpolated in f32 from 16-byte neighbour loads (Bil, bil8),
+//   rounded to bf16) straight into the no-swizzle K-major core-matrix
 //   layout (8 pixels x 8 channels per 128 bytes), so the first product
 //   reads A by descriptor (wgmma with both operands in shared memory).
 // - W1 streams through a 4-slot ring in units of 64 input x 64 hidden
@@ -76,7 +76,8 @@ static_assert(NWG * 64 * LDH * 2 <= NS2 * UB2, "h staging fits the W2t ring");
 
 // the four neighbours (element offsets of their channel 0) and weights of
 // the bilinear sample of (B,Hi,Wi,C) at output pixel (yy, xx) of image b:
-// bilerp8's arithmetic (common.cuh), split so the taps are found once
+// F.interpolate's half-pixel, edge-clamped rule (align_corners=False),
+// split so the taps are found once
 struct Bil {
   long o00, o01, o10, o11;
   float ly, lx;

@@ -56,6 +56,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     BasicBlock,
     Bottleneck,
@@ -388,19 +389,38 @@ class HRNet(nn.Module):
             xs = self.stage4[0](self.transition3(xs))
         return xs
 
+    def _head_weights(self, dt: torch.dtype):
+        """(w1, b1, w2t) of both heads: the two 1x1s side by side, their
+        biases in f32 and the taps matrix of the two 3x3s.  Without grad
+        (serving) the three are kept per weight (``hw.derived``): they are
+        built once, not once a forward, and so are the 4-part kernel's
+        units of them (ops/upshead.taps4_weights)."""
+        rgb_fc, seg_fc = self.rgb_layer[0], self.seg_layer[0]
+        rgb_k, seg_k = self.rgb_layer[2].weight, self.seg_layer[2].weight
+
+        def build():
+            w1 = torch.cat([rgb_fc.weight[:, :, 0, 0].t(),
+                            seg_fc.weight[:, :, 0, 0].t()], dim=1)
+            b1 = torch.cat([rgb_fc.bias, seg_fc.bias]).float()
+            return w1, b1, build_dual_tap_kernel(rgb_k, seg_k, dt)
+
+        if torch.is_grad_enabled():
+            return build()
+
+        def kept():   # plain tensors, though built under inference mode
+            with torch.inference_mode(False), torch.no_grad():
+                return build()
+        return hw.derived(f"heads:{dt}", (rgb_fc.weight, rgb_fc.bias,
+                                          seg_fc.weight, seg_fc.bias,
+                                          rgb_k, seg_k), kept)
+
     def _apply_heads(self, parts: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both heads through K4 (3 parts) or ``ups_head_taps4`` (4 parts),
         then the shifted-add tail (hrnet.py:788-865) on its kernel: the JAX
         package leaves that tail to XLA unless ``DVIE_SHIFTADD=1``, a
         default resting on a TPU measurement."""
-        rgb_fc, seg_fc = self.rgb_layer[0], self.seg_layer[0]
-        w1 = torch.cat([rgb_fc.weight[:, :, 0, 0].t(),
-                        seg_fc.weight[:, :, 0, 0].t()], dim=1)
-        b1 = torch.cat([rgb_fc.bias, seg_fc.bias]).float()
-        dt = parts[0].dtype
-        w2t = build_dual_tap_kernel(self.rgb_layer[2].weight,
-                                    self.seg_layer[2].weight, dt)
+        w1, b1, w2t = self._head_weights(parts[0].dtype)
         if len(parts) == 4:
             fused = ups_head_taps4 if self.use_kernels else ups_head_taps4_plain
         else:

@@ -10,7 +10,7 @@ compiler's output; nothing falls back.
 
 Every exported function takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches (a backward
-queues two or three and stops at the first error).
+queues two and stops at the first error).
 """
 
 from __future__ import annotations
@@ -44,11 +44,11 @@ SIGNATURES = {
     "dvie_ups_head_taps": [P, P, P, P, P, P, P] + [I] * 12 + [P],
     # p0, p1, p2, w1u, b1, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, stream
     "dvie_ups_head_1x1": [P] * 6 + [I] * 11 + [P],
-    # x16, w1, b1, w2, b2, y, B, H, W, stream
-    "dvie_stem_fwd": [P] * 6 + [I] * 3 + [P],
-    # x16, dy, w1, b1, w2, b2, w1f, w2f, dpre2, s1, dpre1, dx16, pk1, pb1,
-    # pk2, pb2, B, H, W, splits, stream
-    "dvie_stem_bwd": [P] * 16 + [I] * 4 + [P],
+    # x16, w1u, b1, w2u, b2, y, s1 (or NULL), B, H, W, stream
+    "dvie_stem_fwd": [P] * 7 + [I] * 3 + [P],
+    # dy, y, s1, x16, w2f, wxf, dpre2, dpre1, dx, dk2p, dk1p, dbp, B, H, W,
+    # cx, s0, s1, stream
+    "dvie_stem_bwd": [P] * 12 + [I] * 6 + [P],
     # x, wu, y, B, H, W, Ci, stream
     "dvie_bottleneck_fwd": [P] * 3 + [I] * 4 + [P],
     # x, dy, wf, wb, h1, h2, dpre_y, dpre2, dpre1, dx, B, H, W, Ci, stream
@@ -61,7 +61,7 @@ SIGNATURES = {
     "dvie_bb_chain_bwd": [P] * 8 + [I] * 4 + [P],
     # host array of n (a, d, out) pointers, n, C, B, H, W, splits, stream
     "dvie_bb_chain_wgrad": [P] + [I] * 6 + [P],
-    # p0, p1, p2, p3, w1, b1, w2t, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
+    # p0, p1, p2, p3, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
     # C1, C2, C3, N1, N2, stream
     "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],
     # q, k1, k2, v1, v2, out, flow, B, H, W, win_h, win_w, stream

@@ -7,18 +7,22 @@ Counterpart of ``ops/pallas_trainchain.packed_stem`` and
     bottleneck:  h1 = lrelu(x . k1);  h2 = lrelu(conv3x3(h1, k2));
                  y  = lrelu(h2 . k3 + (x . kres  if kres is given  else x))
 
-The forward kernels keep s1 / h1 and h2 on chip; the backward kernels
-recompute them from the saved block input and return dx in the compute
-dtype and f32 weight grads.  The kernels are ``csrc/trainchain_stem.cu`` and
-``csrc/trainchain_bottleneck.cu``; their notes say how each pass is split
-into launches.  The Bottleneck kernels take the blocks of the main path:
-Ci = 64 with the projection residual, Ci = 256 with the identity one.
+The Bottleneck's forward kernel keeps h1 and h2 on chip and its backward
+kernels recompute them from the saved block input; the stem's forward
+stores s1 when autograd needs it and its backward reads s1 and y, the
+lrelu masks their signs (``stem_bwd_saved_plain``).  Both return dx in the
+compute dtype and f32 weight grads.  The kernels are
+``csrc/trainchain_stem.cu`` and ``csrc/trainchain_bottleneck.cu``; their
+notes say how each pass is split into launches.  The Bottleneck kernels
+take the blocks of the main path: Ci = 64 with the projection residual,
+Ci = 256 with the identity one.
 
 Rounding follows the JAX kernels (pallas_trainchain.py module docstring):
 every product is an f32-accumulated product of compute-dtype operands,
 rounded to the compute dtype before a bias or residual add; bias and
 residual adds and the lrelu run in the compute dtype; the lrelu masks of
-the backward come from the recomputed pre-activation signs; dx is rounded
+the backward come from the pre-activation signs (recomputed, or the kept
+activations', the same but at -0.0); dx is rounded
 once, weight grads stay f32.  The ``*_plain`` functions below write that
 arithmetic out in PyTorch: the forward ones are what a plain model
 differentiates with autograd, the backward ones are the hand-written
@@ -108,17 +112,34 @@ def stem_plain(x, k1, b1, k2, b2):
 
 def stem_bwd_plain(x, dy, k1, b1, k2, b2):
     """Hand-written backward of ``stem_plain`` (``_stem_bwd_kernel``,
-    pallas_trainchain.py:482-508).  Returns (dx in x's dtype; dk1, db1,
-    dk2, db2 in f32)."""
+    pallas_trainchain.py:482-508): pre1, s1 and pre2 recomputed, the lrelu
+    masks from the pre-activations' signs.  Returns (dx in x's dtype; dk1,
+    db1, dk2, db2 in f32)."""
     dt = x.dtype
     pre1 = _conv(x, k1) + b1.to(dt)
     s1 = _lrelu(pre1)
     pre2 = _conv(s1, k2) + b2.to(dt)
-    dpre2 = _masked(pre2, dy.to(dt))
+    return _stem_bwd(x, dy, s1, pre1, pre2, k1, k2)
+
+
+def stem_bwd_saved_plain(x, dy, s1, y, k1, b1, k2, b2):
+    """The same backward from what the forward kept, as the backward
+    kernel computes it: s1 and y, whose signs are the lrelu masks (a bf16
+    lrelu keeps the sign, so they are the pre-activations' masks but at
+    -0.0).  x: the stem input, or its copy zero-padded to 16 channels.
+    What the card holds the backward kernel against."""
+    return _stem_bwd(x[..., :k1.shape[1]], dy, s1, s1, y, k1, k2)
+
+
+def _stem_bwd(x, dy, s1, m1, m2, k1, k2):
+    """The stem's backward with the lrelu masks from the signs of m1 (pre1
+    or s1) and m2 (pre2 or y)."""
+    dt = x.dtype
+    dpre2 = _masked(m2, dy.to(dt))
     db2 = _flat(dpre2).sum(0)
     dk2 = _conv_wgrad(s1, dpre2, tuple(k2.shape))
     ds1 = _conv_t(dpre2, k2, s1.shape[-1]).to(dt)
-    dpre1 = _masked(pre1, ds1)
+    dpre1 = _masked(m1, ds1)
     db1 = _flat(dpre1).sum(0)
     dk1 = _conv_wgrad(x, dpre1, tuple(k1.shape))
     dx = _conv_t(dpre1, k1, x.shape[-1]).to(dt)
@@ -198,31 +219,62 @@ def _taps_t(w: torch.Tensor, dev) -> torch.Tensor:
                                                         w.shape[1]), dev)
 
 
-def _splits(tiles: int, m: int) -> int:
-    """Pixel splits of the weight-grad launch: about two blocks per SM of
-    an H100 (132 SMs), at least 64 pixels per split."""
-    return max(1, min(-(-264 // tiles), m // 64))
-
-
 def _pad16(t: torch.Tensor) -> torch.Tensor:
     return F.pad(t, (0, STEM_CIN_PAD - t.shape[-1])).contiguous()
 
 
-def _stem_weights(x, k1, b1, k2, b2):
-    dev = x.device
-    k1p = F.pad(k1, (0, 0, 0, 0, 0, STEM_CIN_PAD - k1.shape[1]))
-    return dict(w1=_taps(k1p, dev), b1=_bf(b1, dev), w2=_taps(k2, dev),
-                b2=_bf(b2, dev), k1p=k1p)
+def stem_units(k1, b1, k2, b2, dev) -> dict:
+    """The stem kernels' weights, bf16 on ``dev``, built once per weight
+    set (``hw.derived``: a train step's forward and backward share them),
+    as tap units (tap ky*3+kx; (k-group, n, k) in the no-swizzle K-major
+    core-matrix order of csrc/hopper.cuh), in the order the kernels keep
+    them: ``w1u`` k1 (9, 2, 64, 8), its input channels zero-padded to 16;
+    ``w2u`` k2 (9, 8, 64, 8); ``w2f`` and ``wxf`` the flipped, transposed
+    k2 (9, 8, 64, 8) and k1 (9, 8, 16, 8) of the backward (the transposed
+    convs as SAME convs); ``b1``, ``b2``."""
+    def build():
+        k1p = F.pad(k1, (0, 0, 0, 0, 0, STEM_CIN_PAD - k1.shape[1]))
+        return dict(
+            w1u=_taps(k1p, dev).reshape(9, 2, 8, P).permute(0, 1, 3, 2)
+            .contiguous(),
+            w2u=_tap_units(_taps(k2, dev)).contiguous(),
+            w2f=_tap_units(_taps_t(k2, dev)).contiguous(),
+            wxf=_taps_t(k1p, dev).reshape(9, 8, 8, STEM_CIN_PAD)
+            .permute(0, 1, 3, 2).contiguous(),
+            b1=_bf(b1, dev), b2=_bf(b2, dev))
+    return hw.derived(f"stem:{dev}", (k1, b1, k2, b2), build)
+
+
+def stem_tiles(b: int, h: int, w: int) -> int:
+    """The stem kernels' 8x16 pixel tiles of a (b, h, w) input; raises
+    ``ValueError`` for an empty input or too many pixels for the kernels'
+    32-bit indices.  Ragged edges are masked in the kernels, so every other
+    shape is taken."""
+    if min(b, h, w) < 1:
+        raise ValueError(f"stem kernel: empty input {b}x{h}x{w}")
+    _check_pixels(b, h, w)
+    return b * -(-h // 8) * -(-w // 16)
+
+
+def stem_wgrad_splits(b: int, h: int, w: int) -> Tuple[int, int]:
+    """Pixel ranges of the stem's weight-grad launch: s0 for dk2 and db2,
+    s1 for dk1 and db1 (a third of the work a tile: 16 input channels
+    against 64), together one block per SM of an H100 (132), at least one
+    tile (dk1: three) per range."""
+    tiles = stem_tiles(b, h, w)
+    return max(1, min(99, tiles)), max(1, min(33, -(-tiles // 3)))
 
 
 def _check_stem(x, k1, k2):
     b, h, w, ci = x.shape
-    if ci > STEM_CIN_PAD or tuple(k1.shape) != (P, ci, 3, 3) \
+    cin = k1.shape[1]
+    if cin > STEM_CIN_PAD or ci not in (cin, STEM_CIN_PAD) \
+            or tuple(k1.shape) != (P, cin, 3, 3) \
             or tuple(k2.shape) != (P, P, 3, 3):
         raise ValueError(f"stem kernel takes Ci <= {STEM_CIN_PAD}, P = {P}: "
                          f"x {tuple(x.shape)}, k1 {tuple(k1.shape)}, "
                          f"k2 {tuple(k2.shape)}")
-    _check_pixels(b, h, w)
+    stem_tiles(b, h, w)
     hw.check_bf16("x", x)
 
 
@@ -244,41 +296,61 @@ def _call(name: str, *args) -> None:
     _launch(name, name, next(a for a in args if torch.is_tensor(a)), *args)
 
 
-def stem_fwd_kernel(x, k1, b1, k2, b2):
-    """The stem forward on the card (``csrc/trainchain_stem.cu``)."""
+def _stem_fwd(x16, k1, b1, k2, b2, save):
+    b, h, w, _ = x16.shape
+    wt = stem_units(k1, b1, k2, b2, x16.device)
+    act = dict(device=x16.device, dtype=torch.bfloat16)
+    y = torch.empty((b, h, w, P), **act)
+    s1 = torch.empty((b, h, w, P), **act) if save else None
+    _call(STEM_FWD, x16, wt["w1u"], wt["b1"], wt["w2u"], wt["b2"], y, s1,
+          b, h, w)
+    return y, s1
+
+
+def stem_fwd_kernel(x, k1, b1, k2, b2, save=False):
+    """The stem forward on the card (``csrc/trainchain_stem.cu``), one
+    launch: y, or (y, s1) with ``save`` (s1 stored for the backward)."""
+    _check_stem(x, k1, k2)
+    y, s1 = _stem_fwd(_pad16(x), k1, b1, k2, b2, save)
+    return (y, s1) if save else y
+
+
+def stem_wgrads(dk2p, dk1p, dbp, s0, ci):
+    """The weight-grad launch's f32 partials -> (dk1, db1, dk2, db2), dk1
+    and dk2 OIHW: dk2p (s0, 9, 64, 64) and dk1p (n, 9, 16, 64) [tap, input
+    channel, output channel] summed over pixel ranges, dk1 cut to ``ci``
+    input channels; the first s0 rows of dbp (s0 + s1, 64) db2's, the rest
+    db1's."""
+    dk2 = dk2p.sum(0).reshape(3, 3, P, P).permute(3, 2, 0, 1).contiguous()
+    dk1 = dk1p.sum(0).reshape(3, 3, STEM_CIN_PAD, P).permute(3, 2, 0, 1)
+    return (dk1[:, :ci].contiguous(), dbp[s0:].sum(0), dk2,
+            dbp[:s0].sum(0))
+
+
+def stem_bwd_kernel(x, dy, s1, y, k1, b1, k2, b2):
+    """The stem backward on the card from what the forward kept (s1, y):
+    one launch for dx (storing dpre2 and dpre1), one for the f32 weight and
+    bias grads, whose partials are summed here.  x: the stem input, or its
+    copy zero-padded to 16 channels; dx has k1's input channels."""
     _check_stem(x, k1, k2)
     b, h, w, _ = x.shape
-    wt = _stem_weights(x, k1, b1, k2, b2)
-    y = torch.empty((b, h, w, P), device=x.device, dtype=torch.bfloat16)
-    _call(STEM_FWD, _pad16(x), wt["w1"], wt["b1"], wt["w2"], wt["b2"], y,
-          b, h, w)
-    return y
-
-
-def stem_bwd_kernel(x, dy, k1, b1, k2, b2):
-    """The stem backward on the card: three launches (see the .cu note),
-    then the f32 weight-grad partials summed here."""
-    _check_stem(x, k1, k2)
-    hw.check_bf16("dy", dy, (*x.shape[:3], P))
-    b, h, w, ci = x.shape
+    ci = k1.shape[1]
+    for name, t in (("dy", dy), ("s1", s1), ("y", y)):
+        hw.check_bf16(name, t, (b, h, w, P))
     dev = x.device
-    wt = _stem_weights(x, k1, b1, k2, b2)
+    x16 = x if x.shape[-1] == STEM_CIN_PAD else _pad16(x)
+    wt = stem_units(k1, b1, k2, b2, dev)
     act = dict(device=dev, dtype=torch.bfloat16)
-    dpre2, s1, dpre1 = (torch.empty((b, h, w, P), **act) for _ in range(3))
-    dx16 = torch.empty((b, h, w, STEM_CIN_PAD), **act)
-    s = _splits(20, b * h * w)
+    dpre2, dpre1 = (torch.empty((b, h, w, P), **act) for _ in range(2))
+    dx = torch.empty((b, h, w, ci), **act)
+    s0, s1n = stem_wgrad_splits(b, h, w)
     f32 = dict(device=dev, dtype=torch.float32)
-    pk1 = torch.empty((s, 9, STEM_CIN_PAD, P), **f32)
-    pk2 = torch.empty((s, 9, P, P), **f32)
-    pb1 = torch.empty((s, STEM_CIN_PAD, P), **f32)
-    pb2 = torch.empty((s, STEM_CIN_PAD, P), **f32)
-    _call(STEM_BWD, _pad16(x), dy, wt["w1"], wt["b1"], wt["w2"], wt["b2"],
-          _taps_t(wt["k1p"], dev), _taps_t(k2, dev), dpre2, s1, dpre1, dx16,
-          pk1, pb1, pk2, pb2, b, h, w, s)
-    dk1 = pk1.sum(0).reshape(3, 3, STEM_CIN_PAD, P).permute(3, 2, 0, 1)
-    dk2 = pk2.sum(0).reshape(3, 3, P, P).permute(3, 2, 0, 1)
-    return (dx16[..., :ci].contiguous(), dk1[:, :ci].contiguous(),
-            pb1.sum(0)[0], dk2.contiguous(), pb2.sum(0)[0])
+    dk2p = torch.empty((s0, 9, P, P), **f32)
+    dk1p = torch.empty((3 * s1n, 9, STEM_CIN_PAD, P), **f32)
+    dbp = torch.empty((s0 + s1n, P), **f32)
+    _call(STEM_BWD, dy, y, s1, x16, wt["w2f"], wt["wxf"], dpre2, dpre1, dx,
+          dk2p, dk1p, dbp, b, h, w, ci, s0, s1n)
+    return (dx, *stem_wgrads(dk2p, dk1p, dbp, s0, ci))
 
 
 def _check_bottleneck(x, k1, k2, k3, kres):
@@ -429,20 +501,35 @@ def _grad_like(g: Optional[torch.Tensor], p: Optional[torch.Tensor]):
 
 
 class _Stem(torch.autograd.Function):
+    """On the card the forward keeps the zero-padded x, y and, when a
+    backward will run (``save``), s1; the backward kernel reads them and
+    recomputes nothing.  On the CPU the plain backward recomputes from x."""
+
     @staticmethod
-    def forward(ctx, x, k1, b1, k2, b2):
-        ctx.save_for_backward(x, k1, b1, k2, b2)
-        if hw.use_kernel(x):
-            return stem_fwd_kernel(x, k1, b1, k2, b2)
-        return stem_plain(x, k1, b1, k2, b2)
+    def forward(ctx, x, k1, b1, k2, b2, save):
+        ctx.kernel = hw.use_kernel(x)
+        if not ctx.kernel:
+            ctx.save_for_backward(x, k1, b1, k2, b2)
+            return stem_plain(x, k1, b1, k2, b2)
+        _check_stem(x, k1, k2)
+        x16 = _pad16(x)
+        y, s1 = _stem_fwd(x16, k1, b1, k2, b2, save)
+        if save:
+            ctx.save_for_backward(x16, y, s1, k1, b1, k2, b2)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, k1, b1, k2, b2 = ctx.saved_tensors
-        bwd = stem_bwd_kernel if hw.use_kernel(x) else stem_bwd_plain
-        dx, dk1, db1, dk2, db2 = bwd(x, dy.contiguous(), k1, b1, k2, b2)
+        if ctx.kernel:
+            x16, y, s1, k1, b1, k2, b2 = ctx.saved_tensors
+            grads = stem_bwd_kernel(x16, dy.contiguous(), s1, y, k1, b1, k2,
+                                    b2)
+        else:
+            x, k1, b1, k2, b2 = ctx.saved_tensors
+            grads = stem_bwd_plain(x, dy.contiguous(), k1, b1, k2, b2)
+        dx, dk1, db1, dk2, db2 = grads
         return (dx, _grad_like(dk1, k1), _grad_like(db1, b1),
-                _grad_like(dk2, k2), _grad_like(db2, b2))
+                _grad_like(dk2, k2), _grad_like(db2, b2), None)
 
 
 class _Bottleneck(torch.autograd.Function):
@@ -466,8 +553,11 @@ class _Bottleneck(torch.autograd.Function):
 def stem(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
          k2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Both stem convs; differentiable.  Kernels for a CUDA bf16 ``x``,
-    the plain versions for a CPU one."""
-    return _Stem.apply(x, k1, b1, k2, b2)
+    the plain versions for a CPU one.  The forward kernel stores s1 only
+    when a backward can follow (grad enabled and an input requiring it)."""
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, k1, b1, k2, b2))
+    return _Stem.apply(x, k1, b1, k2, b2, save)
 
 
 def bottleneck(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,

@@ -294,7 +294,45 @@ def build_dual_tap_kernel(w_rgb: torch.Tensor, w_seg: torch.Tensor,
 
 # ---- the 4-part head ------------------------------------------------------
 
-def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
+def w1_units4(w1: torch.Tensor, dev) -> torch.Tensor:
+    """W1 (CT, N1) -> the 4-part kernel's weight units, bf16 (N1p/128,
+    CT/64, 2, 8, 64, 8), N1 zero-padded to N1p, a multiple of 128: unit
+    [p, u, j] holds W1[64 u + 8 kg + k, 64 (2p + j) + n] at [kg, n, k]
+    (K4's K-major core-matrix units), the units of hidden chunks 2p and 2p
+    + 1 interleaved: the order in which the kernel's two warpgroups take
+    them, the even chunks warpgroup 0's and the odd ones warpgroup 1's."""
+    ct, n1 = w1.shape
+    n1p = -(-n1 // 128) * 128
+    wk = torch.zeros((ct, n1p), device=dev, dtype=torch.bfloat16)
+    wk[:, :n1] = w1
+    return (wk.reshape(ct // 64, 8, 8, n1p // 128, 2, 64)
+            .permute(3, 0, 4, 1, 5, 2).contiguous())
+
+
+def taps4_weights(w1: torch.Tensor, b1: torch.Tensor, w2t: torch.Tensor,
+                  dev):
+    """The 4-part kernel's weights on ``dev``, built once per weight
+    (``hw.derived``): W1 units (``w1_units4``), b1 in f32 and W2t chunks
+    (``w2_chunks``), all three zero-padded to the same N1p hidden channels
+    (a padded channel's h is lrelu(0 + 0) = 0 and adds nothing)."""
+    def build():
+        n1 = w1.shape[1]
+        n1p = -(-n1 // 128) * 128
+        b1k = torch.zeros((n1p,), device=dev, dtype=torch.float32)
+        b1k[:n1] = b1
+        w2p = torch.zeros((n1p, w2t.shape[1]), device=dev,
+                          dtype=torch.bfloat16)
+        w2p[:n1] = w2t
+        return w1_units4(w1, dev), b1k, w2_chunks(w2p, dev)
+    return hw.derived(f"{NAME4}:{dev}", (w1, b1, w2t), build)
+
+
+def check_taps4(p0, p1, p2, p3, w1, b1, w2t) -> None:
+    """Raises ``ValueError`` for what the 4-part kernel cannot take: the
+    batch differing between parts, a part's channels not a multiple of 8,
+    the concat's not a multiple of 64 or over 960, weights that do not
+    match, N2 over 208, an empty image or too many pixels for the kernel's
+    32-bit tile count.  Any pyramid size is taken (``fits4`` or not)."""
     parts = (p0, p1, p2, p3)
     b = p0.shape[0]
     cs = [p.shape[-1] for p in parts]
@@ -309,19 +347,29 @@ def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
     if n1 % 64 or n2 > N2_MAX:
         raise ValueError(f"kernel takes N1 % 64 == 0 and N2 <= {N2_MAX}, "
                          f"got N1={n1} N2={n2}")
+    if min(p.shape[1] * p.shape[2] for p in parts) < 1:
+        raise ValueError("4-part kernel: an empty image in the pyramid "
+                         f"{[tuple(p.shape) for p in parts]}")
+    if b * p0.shape[1] * p0.shape[2] >= 2**31:
+        raise ValueError(f"4-part kernel counts 64-pixel tiles in 32-bit "
+                         f"ints: {tuple(p0.shape[:3])} is too many pixels")
+
+
+def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
+    parts = (p0, p1, p2, p3)
+    check_taps4(*parts, w1, b1, w2t)
     for i, p in enumerate(parts):
         hw.check_bf16(f"p{i}", p)
     dev = p0.device
-    # weights converted and held in locals until the launch is queued
-    w1k = w1.to(device=dev, dtype=torch.bfloat16).contiguous()
-    b1k = b1.to(device=dev, dtype=torch.float32).contiguous()
-    w2k = padded_taps(w2t, dev)
+    w1u, b1k, w2u = taps4_weights(w1, b1, w2t, dev)
+    n2 = w2t.shape[1]
     yt = torch.empty((*p0.shape[:3], n2), device=dev, dtype=torch.bfloat16)
     p = _build.ptr
     sizes = [d for q in parts[1:] for d in q.shape[1:3]]
     err = _build.library().dvie_ups_head_taps4(
-        p(p0), p(p1), p(p2), p(p3), p(w1k), p(b1k), p(w2k), p(yt),
-        *p0.shape[:3], *sizes, *cs, n1, n2, _build.stream(p0))
+        p(p0), p(p1), p(p2), p(p3), p(w1u), p(b1k), p(w2u), p(yt),
+        *p0.shape[:3], *sizes, *(q.shape[-1] for q in parts), b1k.shape[0],
+        n2, _build.stream(p0))
     _build.check_launch(NAME4, err)
     hw.launches[NAME4] += 1
     return yt

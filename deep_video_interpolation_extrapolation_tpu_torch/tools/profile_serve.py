@@ -1,12 +1,13 @@
 """Profile of one serving forward on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_serve \
-        [--model InterNet|InterStage3Net|VAE] [--out DIR]
+        [--model InterNet|InterStage3Net|VAE|highres_large] [--out DIR]
 
 ``InterStage3Net`` (the default): SRNRefine, then MSResAttnRefine at
 ``--n_sc 1``, over HRNet at full width on a seeded 2x512x1024 input, the
 shape of ``chip_smoke.py``'s rollouts; ``InterNet``: that HRNet alone, the
-same input.  ``VAE``: the video VAE at
+same input; ``highres_large``: InterNet with the 4-branch HRNet
+(``--highres_large``, the 4-part head), the same input.  ``VAE``: the video VAE at
 ``--vid_len 2`` on a seeded 8x128x128 batch (``serve.predict_video``, the
 code drawn from a seeded generator), the shape of ``chip_smoke.py``'s vae
 phase.  Random seeded weights, bf16 compute with f32 masters.  For each
@@ -17,7 +18,7 @@ refine, whose difference is the refine stage; the whole forward, whose
 difference from that is stage 3), then one forward under
 ``torch.profiler``: its device events summed as in ``profile_train``.
 Prints one summary line per model and its top ``ROWS`` device events by
-time, also written to ``<out>/<model>_<kernel|plain>.txt``.  The idle
+time, also written to ``<out>/<--model>_<kernel|plain>.txt``.  The idle
 share is 1 - (device time / the mean wall time of the unprofiled
 forwards).
 """
@@ -50,6 +51,9 @@ CONFIGS = {
                              compute_dtype="bfloat16"),
     "VAE": Config(model="VAE", vid_length=2, input_h=128, input_w=128,
                   compute_dtype="bfloat16"),
+    "highres_large": Config(model="InterNet", coarse_model="HRNet",
+                            syn_type="inter", compute_dtype="bfloat16",
+                            highres_large=True),
 }
 VAE_B = 8
 
@@ -151,13 +155,13 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     for name, use_kernels in (("kernel", True), ("plain", False)):
         r = profile_model(dev, cfg, use_kernels)
-        (out / f"{cfg.model}_{name}.txt").write_text(r["table"] + "\n")
+        (out / f"{args.model}_{name}.txt").write_text(r["table"] + "\n")
         stages = ""
         if r["stages"] is not None:
             coarse, refine, stage3 = r["stages"]
             stages = (f" stages by CUDA events: coarse {coarse:.3f}, refine "
                       f"{refine:.3f}, stage3 {stage3:.3f} ms;")
-        print(f"{cfg.model} {name} model {shape} bf16: wall "
+        print(f"{args.model} {name} model {shape} bf16: wall "
               f"{r['wall_ms']:.3f} ms/forward (mean of 5);{stages} profiled "
               f"self device {r['device_ms']:.3f} ms, idle {r['idle']:.2%}")
         print(r["table"])

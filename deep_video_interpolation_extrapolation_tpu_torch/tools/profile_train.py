@@ -12,8 +12,8 @@ then one step under ``torch.profiler``: the time of every device event
 (kernels, copies, fills; the rows do not overlap) summed, as the profiler's
 own table totals it.  Prints one summary line per model, the per-step
 device time of each kernel group in ``GROUPS`` (the BasicBlock chain, the
-layer1 Bottleneck train chain, K4), and its top ``ROWS`` device events by
-time, also written to ``<out>/<model>.txt``.
+layer1 Bottleneck train chain, the stem, K4), and its top ``ROWS`` device
+events by time, also written to ``<out>/<model>.txt``.
 The idle share is 1 - (device time / the mean wall time of the unprofiled
 steps): the profiler's own host work slows the profiled step.
 """
@@ -45,10 +45,12 @@ ROWS = 30
 # kernel, told from the others by its jobs struct GJobs), the layer1
 # Bottleneck (csrc/trainchain_bottleneck.cu: front_kernel, back_kernel and
 # its weight-grad kernel, the one whose first argument is a bf16 pointer),
-# K4's taps and h modes (csrc/upshead.cu)
+# the stem (csrc/trainchain_stem.cu: its forward, backward and weight-grad
+# kernels, all named stem_*), K4's taps and h modes (csrc/upshead.cu)
 GROUPS = {"BasicBlock chain": ("bb_kernel", "GJobs"),
-          "Bottleneck": ("front_kernel", "back_kernel",
-                         "wgrad_kernel(__nv_bfloat16"),
+          "Bottleneck": ("::front_kernel", "::back_kernel",
+                         "::wgrad_kernel(__nv_bfloat16"),
+          "stem": ("::stem_",),
           "K4": ("ups_head_kernel",)}
 CFG = Config(model="InterNet", coarse_model="HRNet", syn_type="inter",
              compute_dtype="bfloat16", train_coarse=True)

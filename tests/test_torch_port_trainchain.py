@@ -187,17 +187,28 @@ def _packed_block(x, k1, k2, k3, kres):
         None if kres is None else pack_kernel_1x1(kres, 2)[0, 0], True), 2)
 
 
-@pytest.mark.parametrize("which", ["stem", "projection", "identity"])
+def _stem_bwd_saved(x, dy, k1, b1, k2, b2):
+    """``stem_bwd_saved_plain`` on the s1 and y of the plain forward."""
+    s1 = trainchain._lrelu(trainchain._conv(x, k1) + b1.to(x.dtype))
+    y = trainchain.stem_plain(x, k1, b1, k2, b2)
+    return trainchain.stem_bwd_saved_plain(x, dy, s1, y, k1, b1, k2, b2)
+
+
+@pytest.mark.parametrize("which", ["stem", "stem_saved", "projection",
+                                   "identity"])
 def test_kernel_pair_matches_packed_kernel(which):
     """Each plain forward / hand-written backward pair against its Pallas
     kernel pair (``packed_stem`` / ``packed_bottleneck``, interpret mode,
-    packed operands built by the JAX packers), f32."""
+    packed operands built by the JAX packers), f32.  ``stem_saved``: the
+    stem's backward from the forward's s1 and y (the masks their signs),
+    as the backward kernel computes it."""
     stem, blocks = _params(2)
     rng = np.random.RandomState(3)
-    if which == "stem":
+    if which.startswith("stem"):
         params, ci, co = stem, CI, 64
-        jfn, fwd, bwd = _packed_stem, trainchain.stem_plain, \
-            trainchain.stem_bwd_plain
+        jfn, fwd = _packed_stem, trainchain.stem_plain
+        bwd = (trainchain.stem_bwd_plain if which == "stem"
+               else _stem_bwd_saved)
     else:
         params = blocks[0] if which == "projection" else blocks[1]
         ci, co = params[0].shape[2], 256
