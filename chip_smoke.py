@@ -15,10 +15,14 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    256, K2 at 1x66x260 in its three block forms and the 4-part head at
    1x37x130 (its pyramid at 19x65, 10x33, 5x17) checked too: tiles cut at
    the edges); the
-   stage-3 window attention at its serving shape (B=1, 128x256x128, k1 = v1
-   and k2 = v2 as on the path): out max|d|/max|ref| <= 2e-2 and flow
+   stage-3 window attention at its serving shape (B=1 and B=2,
+   128x256x128; k1 = v1 and k2 = v2 as on the path, and distinct values,
+   the kernel's general route): out max|d|/max|ref| <= 2e-2 and flow
    agreement >= 90% on random inputs, and on an input whose k1 is q rolled
-   by a known shift, that shift as the flow on every interior pixel;
+   by a known shift, that shift as the flow on every interior pixel; each
+   case timed on a row of its own (``window_attention``, ``_b2``, ``_kv``,
+   ``_kv_b2``), host issue included and on the card alone; and a ragged
+   1x37x70, checked;
 2. slice: InterNet/HRNet at full width, 128x256, B=2, bf16, kernels against
    the plain model with the same seed weights: rgb max|d| <= 5e-2 *
    max(1, max|ref|), seg argmax agreement >= 98%;
@@ -91,11 +95,15 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    other kernel 0 (the bounded mode has a counter of its own,
    grid_sample_bounded); outputs finite; frames/s.
 
-The kernel phase also holds the shift-add kernel (at its serving shape, the
-heads' tail in every HRNet forward and train step: one launch each, counted
-in phases 3 and 5-7), the grid sample bounded (R = 8: flows up to 6 px, a
-band beyond the window that must give 0, a known integer shift) and
-unbounded (flows up to 40 px) at 8x512x1024x3 bf16, and the dual head
+The kernel phase also holds the shift-add kernel (the heads' tail in
+every HRNet forward and train step: one launch each, counted in phases 3
+and 5-7), bit for bit against its plain version at B=1 and B=2 512x1024,
+at the train shape 24x128x128 and at a ragged 1x37x70, each timed on a row
+of its own, host issue included and on the card alone; the grid sample
+bounded (R = 8: flows up to 6 px, a band beyond the window that must give
+0, a known integer shift) and unbounded (flows up to 40 px) at
+8x512x1024x3 bf16, and unbounded at the VideoVAE's 8x128x128x3 (row
+``grid_sample_vae``, also on the card alone); and the dual head
 (``fused_dual_head``) on the InterNet serving forward's own 1x512x1024x448
 concat map and head weights, against its plain version and against the
 model's K4-route heads.
@@ -249,10 +257,24 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
     "window_attention": ("cuda", f"{PKG}/csrc/window_attn.cu",
                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
+    "window_attention_b2": ("cuda", f"{PKG}/csrc/window_attn.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
+    "window_attention_kv": ("cuda", f"{PKG}/csrc/window_attn.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
+    "window_attention_kv_b2": ("cuda", f"{PKG}/csrc/window_attn.cu",
+                              "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
     "shifted_add_bias": ("cuda", f"{PKG}/csrc/shiftadd.cu",
                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
+    "shifted_add_bias_b2": ("cuda", f"{PKG}/csrc/shiftadd.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
+    "shifted_add_bias_train": ("cuda", f"{PKG}/csrc/shiftadd.cu",
+                              "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
+    "shifted_add_bias_ragged": ("cuda", f"{PKG}/csrc/shiftadd.cu",
+                               "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
     "grid_sample": ("cuda", f"{PKG}/csrc/grid_sample.cu",
                     "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "grid_sample_vae": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "grid_sample_bounded": ("cuda", f"{PKG}/csrc/grid_sample.cu",
                             "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "dual_head": ("cuda", f"{PKG}/csrc/upshead.cu",
@@ -274,7 +296,9 @@ META = {
 # block, so each of its launches computes the one-block function; the
 # Bottleneck's block-0 rows (Ci = 64, kres) share the counters of blocks
 # 1-3; K1's stem conv2 and trans_0 rows and K2's block-0 and block-3 rows
-# share their kernel's counter, as does the stem forward that stores s1
+# share their kernel's counter, as does the stem forward that stores s1; so
+# do the window attention's, the shifted add's and the grid sample's rows
+# at other shapes (each row computes the one function of its kernel)
 COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "stem_fwd_saved": "stem_fwd",
            "bottleneck_fwd_b0": "bottleneck_fwd",
@@ -282,16 +306,35 @@ COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "conv3x3_stem": "conv3x3_bias_res_lrelu",
            "conv3x3_trans0": "conv3x3_bias_res_lrelu",
            "bottleneck_tail_b0": "bottleneck_tail",
-           "bottleneck_tail_b3": "bottleneck_tail"}
+           "bottleneck_tail_b3": "bottleneck_tail",
+           "window_attention_b2": "window_attention",
+           "window_attention_kv": "window_attention",
+           "window_attention_kv_b2": "window_attention",
+           "shifted_add_bias_b2": "shifted_add_bias",
+           "shifted_add_bias_train": "shifted_add_bias",
+           "shifted_add_bias_ragged": "shifted_add_bias",
+           "grid_sample_vae": "grid_sample"}
 # the video VAE serving forward: one grid sample per step
 VAE_T = 2
 PER_FORWARD_VAE = {"grid_sample": VAE_T}
 VAE_FLOW_TOL = 1e-3        # flows and masks, kernel vs plain model, of max
 WA_FLOW_AGREE = 0.90       # window-attention flow agreement, kernel vs plain
+# the window attention's rows, by (B, k is v): B=1 with k = v is the row
+# of the InterStage3Net forward's launch at 1x512x1024
+WA_ROWS = {(1, True): "window_attention", (2, True): "window_attention_b2",
+           (1, False): "window_attention_kv", (2, False): "window_attention_kv_b2"}
+# the shifted add's rows: (row, label, (B, H, W)) -- the serving forward's
+# B=1 and B=2, the train step's and a ragged shape
+SHIFTADD_CASES = (("shifted_add_bias", "B=1 512x1024", (1, 512, 1024)),
+                  ("shifted_add_bias_b2", "B=2 512x1024", (2, 512, 1024)),
+                  ("shifted_add_bias_train", "24x128x128", (24, 128, 128)),
+                  ("shifted_add_bias_ragged", "ragged 1x37x70", (1, 37, 70)))
 # InterStage3Net: the coarse HRNet as InterNet, one window attention
 PER_FORWARD_S3 = {**PER_FORWARD, "window_attention": 1}
 SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
-# the rows timed on the card alone too (``median_ms(spin=True)``)
+# the rows of the kernel-phase loop timed on the card alone too
+# (``median_ms(spin=True)``); the window attention's and the shifted add's
+# rows are, in their own checks
 DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "ups_head_taps4",
                 "stem_fwd", "stem_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
@@ -548,8 +591,8 @@ def kernel_phase(dev):
             results[row] = timed(name, label, args, kern(*args), err[label],
                                  ms[""], ms["plain_"], ms.get("library_"),
                                  device)
-    results["window_attention"] = window_attention_check(dev)
-    results["shifted_add_bias"] = shifted_add_check(dev)
+    results.update(window_attention_check(dev))
+    results.update(shifted_add_check(dev))
     results.update(grid_sample_check(dev))
     results["dual_head"] = dual_head_check(dev)
     return results
@@ -579,32 +622,47 @@ def _held(name, label, out, ref, tol=KERNEL_TOL):
 
 
 def shifted_add_check(dev):
-    """The heads' shifted add + bias at its serving shape (B=1, 512x1024,
-    co = 23: yt (1,512,1024,207) bf16) against its plain version; its
-    library time is one ``F.conv2d`` of yt with the fixed one-hot (23,
-    207, 3, 3) kernel and b2, the same function."""
+    """The heads' shifted add + bias (co = 23) against its plain version,
+    bit for bit and within KERNEL_TOL: at the serving shapes (B=1 and B=2
+    512x1024: yt (B,512,1024,207) bf16), the train shape 24x128x128 and a
+    ragged 1x37x70 (strips and row blocks cut at the edges).  Each is timed
+    on a row of its own, host issue included and on the card alone; its
+    library time is one ``F.conv2d`` of yt with the fixed one-hot (23, 207,
+    3, 3) kernel and b2, the same function."""
     g = torch.Generator(device=dev).manual_seed(8)
     co = 23
-    yt = torch.randn((1, 512, 1024, 9 * co), generator=g, device=dev).to(
-        torch.bfloat16)
     b2 = torch.randn((co,), generator=g, device=dev)
-    out, ref = sa.shifted_add_bias(yt, b2), sa.shifted_add_bias_plain(yt, b2)
-    torch.cuda.synchronize()
-    d = _held("shifted_add_bias", "serving", out, ref)
     onehot = torch.zeros((co, 9 * co, 3, 3), device=dev, dtype=torch.bfloat16)
     for t in range(9):
         onehot[torch.arange(co), t * co + torch.arange(co), t // 3, t % 3] = 1
     bias = b2.to(torch.bfloat16)
+    rows = {}
+    for row, label, shape in SHIFTADD_CASES:
+        yt = torch.randn(shape + (9 * co,), generator=g, device=dev).to(
+            torch.bfloat16)
+        out, ref = sa.shifted_add_bias(yt, b2), sa.shifted_add_bias_plain(
+            yt, b2)
+        torch.cuda.synchronize()
+        d = _held("shifted_add_bias", label, out, ref)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"shifted_add_bias [{label}]: not bit-equal "
+                                 "to the plain version (the same f32 adds)")
 
-    def library():
-        return nhwc(torch.nn.functional.conv2d(nchw(yt), onehot, bias,
-                                               padding=1))
-    _held("shifted_add_bias", "library conv2d vs plain", library(), ref)
-    args = (yt, b2)
-    return timed("shifted_add_bias", "serving", args, out, d,
-                 median_ms(lambda: sa.shifted_add_bias(*args)),
-                 median_ms(lambda: sa.shifted_add_bias_plain(*args)),
-                 median_ms(library))
+        def library(yt=yt):
+            return nhwc(torch.nn.functional.conv2d(nchw(yt), onehot, bias,
+                                                   padding=1))
+        _held("shifted_add_bias", f"{label}, library conv2d vs plain",
+              library(), ref)
+        args = (yt, b2)
+        fs = {"": lambda: sa.shifted_add_bias(*args),
+              "plain_": lambda: sa.shifted_add_bias_plain(*args),
+              "library_": library}
+        rows[row] = timed(
+            "shifted_add_bias", label, args, out, d,
+            *(median_ms(f) for f in fs.values()),
+            {f"{k}device_ms": median_ms(f, spin=True) for k, f in fs.items()})
+        del yt, out, ref
+    return rows
 
 
 def grid_sample_check(dev):
@@ -666,6 +724,33 @@ def grid_sample_check(dev):
         median_ms(lambda: warp.grid_sample(*args_u)),
         median_ms(lambda: warp.grid_sample_plain(*args_u), iters=3, reps=3),
         median_ms(library))
+
+    # the shape the VideoVAE forward runs (models/vae_video.py: one warp of
+    # its 8x128x128x3 frame per step), flows up to 10 px, unbounded
+    hv = wv = 128
+    xv = torch.randn((b, hv, wv, c), generator=g, device=dev).to(
+        torch.bfloat16)
+    flow_v = (torch.rand((b, hv, wv, 2), generator=g, device=dev) * 2 - 1) * 10
+    grid_v = (warp.make_base_grid(hv, wv, device=dev)[None] + flow_v
+              * torch.tensor([2.0 / (wv - 1), 2.0 / (hv - 1)], device=dev)
+              ).contiguous()
+    out, ref = warp.grid_sample(xv, grid_v), warp.grid_sample_plain(xv, grid_v)
+    torch.cuda.synchronize()
+    d_v = _held("grid_sample", "unbounded, VAE 8x128x128", out, ref)
+    xv32 = nchw(xv.float()).contiguous()
+
+    def library_v():
+        return torch.nn.functional.grid_sample(
+            xv32, grid_v, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+    args_v = (xv, grid_v)
+    fs = {"": lambda: warp.grid_sample(*args_v),
+          "plain_": lambda: warp.grid_sample_plain(*args_v),
+          "library_": library_v}
+    rows["grid_sample_vae"] = timed(
+        "grid_sample", "unbounded, VAE 8x128x128", args_v, out, d_v,
+        *(median_ms(f) for f in fs.values()),
+        {f"{k}device_ms": median_ms(f, spin=True) for k, f in fs.items()})
     return rows
 
 
@@ -732,44 +817,75 @@ def flow_agreement(a, b) -> float:
 
 def window_attention_check(dev):
     """The window attention against its plain version at the serving shape
-    (B=1, 128x256x128 bf16: the 1/4-resolution features of 512x1024; k1 =
-    v1 and k2 = v2 as on the path): on random inputs out max|d|/max|ref|
-    <= KERNEL_TOL and flow agreement >= WA_FLOW_AGREE (near-tied
-    similarities can flip under sums taken in another order); with k1 =
-    q rolled by (1, 2) the flow is (dx, dy) = (-2, -1) on every interior
-    pixel."""
+    (B=1 and B=2, 128x256x128 bf16: the 1/4-resolution features of
+    512x1024), with k1 = v1 and k2 = v2 as on the path (one slab per
+    neighbour) and with distinct values (the general route): on random
+    inputs out max|d|/max|ref| <= KERNEL_TOL and flow agreement >=
+    WA_FLOW_AGREE (near-tied similarities can flip under sums taken in
+    another order); with k1 = q rolled by (1, 2) the flow is (dx, dy) =
+    (-2, -1) on every interior pixel.  Each case is timed on a row of its
+    own, host issue included and on the card alone."""
     g = torch.Generator(device=dev).manual_seed(7)
-    q, f, b = (torch.randn((1, 128, 256, 128), generator=g, device=dev).to(
+    rows = {}
+    for b in (1, 2):
+        q, f, bk, v1, v2 = (torch.randn((b, 128, 256, 128), generator=g,
+                                        device=dev).to(torch.bfloat16)
+                            for _ in range(5))
+        cases = {"k = v": (q, f, bk, f, bk, 5, 9),
+                 "k != v": (q, f, bk, v1, v2, 5, 9)}
+        for label, args in cases.items():
+            label = f"B={b}, {label}"
+            (out, flow), (ref, ref_flow) = wa.window_attention(*args), \
+                wa.window_attention_plain(*args)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"window_attention [{label}]: bad shape "
+                                     "or non-finite out")
+            d, rel = rel_err(out, ref)
+            agree = flow_agreement(flow, ref_flow)
+            print(f"  window_attention [{label}] out max|d|={d:.6g} "
+                  f"max|d|/max|ref|={rel:.6g}, flow agreement {agree:.6f}")
+            if rel > KERNEL_TOL or agree < WA_FLOW_AGREE:
+                raise AssertionError(
+                    f"window_attention [{label}]: out {rel:.4g} (bound "
+                    f"{KERNEL_TOL}), flow agreement {agree:.4f} (bound "
+                    f"{WA_FLOW_AGREE})")
+            fs = {"": lambda: wa.window_attention(*args),
+                  "plain_": lambda: wa.window_attention_plain(*args)}
+            ms = median_ms(fs[""])
+            plain_ms = median_ms(fs["plain_"], iters=3, reps=3)
+            device = {"device_ms": median_ms(fs[""], spin=True),
+                      "plain_device_ms": median_ms(fs["plain_"], iters=3,
+                                                   reps=3, spin=True)}
+            rows[WA_ROWS[(b, label.endswith("k = v"))]] = timed(
+                "window_attention", label, args, (out, flow), d, ms,
+                plain_ms, None, device)
+        k1 = torch.roll(q, shifts=(-1, -2), dims=(1, 2))
+        for label, args in (("k = v", (q, k1, bk, k1, bk)),
+                            ("k != v", (q, k1, bk, v1, v2))):
+            _, shift_flow = wa.window_attention(*args, 5, 9)
+            inner = shift_flow[:, 2:-2, 4:-4, :2]
+            want = torch.tensor([-2.0, -1.0], device=dev)
+            hit = (inner == want).all(-1).float().mean().item()
+            print(f"  window_attention [B={b}, {label}, known shift] interior "
+                  f"flow == (-2, -1) on {hit:.6f} of the pixels")
+            if hit != 1.0:
+                raise AssertionError(f"window_attention: known shift found on "
+                                     f"{hit:.4f} of the interior")
+        del q, f, bk, v1, v2, k1
+    # a ragged map: query tiles and key slabs cut at the right and bottom
+    q, f, bk = (torch.randn((1, 37, 70, 128), generator=g, device=dev).to(
         torch.bfloat16) for _ in range(3))
-    args = (q, f, b, f, b, 5, 9)
-    (out, flow), (ref, ref_flow) = wa.window_attention(*args), \
-        wa.window_attention_plain(*args)
+    (out, flow), (ref, ref_flow) = wa.window_attention(q, f, bk, f, bk, 5, 9), \
+        wa.window_attention_plain(q, f, bk, f, bk, 5, 9)
     torch.cuda.synchronize()
-    if out.shape != ref.shape or not torch.isfinite(out).all():
-        raise AssertionError("window_attention: bad shape or non-finite out")
-    d, rel = rel_err(out, ref)
+    _held("window_attention", "ragged 1x37x70, k = v", out, ref)
     agree = flow_agreement(flow, ref_flow)
-    print(f"  window_attention [random] out max|d|={d:.6g} max|d|/max|ref|="
-          f"{rel:.6g}, flow agreement {agree:.6f}")
-    if rel > KERNEL_TOL or agree < WA_FLOW_AGREE:
-        raise AssertionError(f"window_attention: out {rel:.4g} (bound "
-                             f"{KERNEL_TOL}), flow agreement {agree:.4f} "
-                             f"(bound {WA_FLOW_AGREE})")
-    k1 = torch.roll(q, shifts=(-1, -2), dims=(1, 2))
-    _, shift_flow = wa.window_attention(q, k1, b, k1, b, 5, 9)
-    inner = shift_flow[0, 2:-2, 4:-4, :2]
-    want = torch.tensor([-2.0, -1.0], device=dev)
-    hit = (inner == want).all(-1).float().mean().item()
-    print(f"  window_attention [known shift] interior flow == (-2, -1) on "
-          f"{hit:.6f} of the pixels")
-    if hit != 1.0:
-        raise AssertionError(f"window_attention: known shift found on "
-                             f"{hit:.4f} of the interior")
-    ms = median_ms(lambda: wa.window_attention(*args))
-    plain_ms = median_ms(lambda: wa.window_attention_plain(*args), iters=3,
-                         reps=3)
-    return timed("window_attention", "serving", args, (out, flow), d, ms,
-                 plain_ms)
+    print(f"  window_attention [ragged 1x37x70] flow agreement {agree:.6f}")
+    if agree < WA_FLOW_AGREE:
+        raise AssertionError(f"window_attention [ragged]: flow agreement "
+                             f"{agree:.4f} (bound {WA_FLOW_AGREE})")
+    return rows
 
 
 def rel_l2(out, ref):

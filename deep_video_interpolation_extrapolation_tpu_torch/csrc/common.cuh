@@ -51,14 +51,20 @@ __device__ __forceinline__ void st16(bf16 *p, const uint4 &v) {
   *reinterpret_cast<uint4 *>(p) = v;
 }
 
-// Asynchronous 16-byte global->shared copy (sm_80+).  With valid == false
-// nothing is read and the 16 destination bytes are zero-filled.
+// Asynchronous 16-byte global->shared copy (sm_80+) of the first `bytes`
+// (0..16) source bytes, the rest of the 16 destination bytes zero-filled
+// (a run's tail at the end of a tensor).
+__device__ __forceinline__ void cp_async_bytes16(void *smem_dst, const void *gmem_src, int bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(bytes));
+}
+
+// The same copy of all 16 bytes; with valid == false nothing is read and
+// the 16 destination bytes are zero-filled.
 __device__ __forceinline__ void cp_async16(void *smem_dst, const void *gmem_src,
                                            bool valid = true) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
-               "r"(src_bytes));
+  cp_async_bytes16(smem_dst, gmem_src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

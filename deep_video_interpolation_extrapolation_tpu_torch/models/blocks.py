@@ -49,8 +49,8 @@ class Conv(nn.Module):
         self.dilation = dilation
         self.padding = ((kh // 2) * dilation, (kw // 2) * dilation) \
             if padding is None else padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
-        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kh, kw))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -132,8 +132,8 @@ class ConvT(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cin, cout, 4, 4))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.weight = nn.Parameter(torch.zeros(cin, cout, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype

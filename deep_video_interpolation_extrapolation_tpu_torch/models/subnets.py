@@ -77,8 +77,8 @@ class Dense(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -100,8 +100,8 @@ class ConvTranspose(nn.Module):
                                                  and kernel % 2 == 0):
             raise ValueError(f"padding {padding!r} with kernel {kernel}")
         self.padding = 0 if padding == "VALID" else (kernel - 1) // 2
-        self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.weight = nn.Parameter(torch.zeros(cin, cout, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -118,8 +118,8 @@ class Conv3d(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3, 3))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -64,10 +64,10 @@ SIGNATURES = {
     # p0, p1, p2, p3, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
     # C1, C2, C3, N1, N2, stream
     "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],
-    # q, k1, k2, v1, v2, out, flow, B, H, W, win_h, win_w, stream
-    "dvie_window_attn": [P] * 7 + [I] * 5 + [P],
-    # yt, b2, out, B, H, W, co, stream
-    "dvie_shifted_add_bias": [P] * 3 + [I] * 4 + [P],
+    # q, k1, k2, v1, v2, out, flow, B, H, W, win_h, win_w, kv_same, stream
+    "dvie_window_attn": [P] * 7 + [I] * 6 + [P],
+    # yt, b2, out, B, H, W, stream (co = 23)
+    "dvie_shifted_add_bias": [P] * 3 + [I] * 3 + [P],
     # x, grid, out, B, H, W, C, max_disp (-1: unbounded), x is bf16, stream
     "dvie_grid_sample": [P] * 3 + [I] * 6 + [P],
     # feat, w1u, b1, w2u, yt, B, H, W, C, N1, N2, stream

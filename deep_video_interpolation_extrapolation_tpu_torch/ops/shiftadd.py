@@ -46,16 +46,32 @@ def shifted_add_bias_plain(yt: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return (out + b2.float()).to(yt.dtype)
 
 
+# the kernel's tiling (csrc/shiftadd.cu): co = CO, the width of every
+# head; a block owns STRIP_W output columns of STRIP_ROWS rows and keeps
+# RING yt row segments in shared memory
+CO, STRIP_W, STRIP_ROWS, RING = 23, 32, 16, 5
+
+
+def plan(b: int, h: int, w: int, co: int):
+    """The kernel's grid for a (b, h, w, 9*co) taps tensor, or a
+    ValueError for what it does not take."""
+    if co != CO:
+        raise ValueError(f"kernel takes co = {CO} (every head's width), "
+                         f"got {co}")
+    if b * h * w == 0:
+        raise ValueError("kernel takes a non-empty taps tensor")
+    return -(-w // STRIP_W), -(-h // STRIP_ROWS), b
+
+
 def _kernel(yt: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     co = _co(yt, b2)
     b, h, w, _ = yt.shape
-    if yt.numel() == 0:
-        raise ValueError("kernel takes a non-empty taps tensor")
+    plan(b, h, w, co)
     hw.check_bf16("yt", yt)
     b2k = b2.to(device=yt.device, dtype=torch.float32).contiguous()
     out = torch.empty((b, h, w, co), device=yt.device, dtype=torch.bfloat16)
     err = _build.library().dvie_shifted_add_bias(
-        _build.ptr(yt), _build.ptr(b2k), _build.ptr(out), b, h, w, co,
+        _build.ptr(yt), _build.ptr(b2k), _build.ptr(out), b, h, w,
         _build.stream(yt))
     _build.check_launch(NAME, err)
     hw.launches[NAME] += 1

@@ -12,7 +12,11 @@ train step (32 steps, median of 30, host clock); ``k1k2`` K1 and K2 per
 case at B=1 512x1024 with their plain versions and K1's library call (one
 ``F.conv2d`` with the bias); ``taps4`` the 4-part head at B=1 512x1024;
 ``stem`` the stem's forward and its backward with the weight grads
-at 24x128x128 (the backward on what the tree's forward keeps); each kernel
+at 24x128x128 (the backward on what the tree's forward keeps); ``wattn``
+the window attention at B=1 and B=2 128x256x128 (the stage-3 serving
+shapes), with k = v as on the path and with distinct values; ``shiftadd``
+the shifted add at B=1 and B=2 512x1024 and at the train shape
+24x128x128; each kernel
 timed two ways (median CUDA-event ms of 10 back-to-back calls: host issue
 included, as ``chip_smoke.median_ms`` times them, and behind a ~10 ms spin
 of the card, device time alone); ``serve`` serving frames/s (InterNet,
@@ -84,7 +88,7 @@ def main():
     sys.path.insert(0, os.getcwd())
     tag = sys.argv[1]
     what = (sys.argv[2] if len(sys.argv) > 2
-            else "b0,k1k2,taps4,stem,serve,modes").split(",")
+            else "b0,k1k2,taps4,stem,wattn,shiftadd,serve,modes").split(",")
     card_log = CardSampler(tag)
     try:
         run(tag, what, card_log)
@@ -99,8 +103,10 @@ def run(tag, what, card_log):
     from deep_video_interpolation_extrapolation_tpu_torch.ops import (
         bottleneck_tail as k2,
         conv3x3 as k1,
+        shiftadd as sa,
         trainchain as tc,
         upshead as k4,
+        window_attn as wa,
     )
 
     dev = c.require_card()
@@ -206,6 +212,22 @@ def run(tag, what, card_log):
         else:                                     # recomputes the forward
             report("stem bwd", "kernel",
                    lambda: tc.stem_bwd_kernel(x14, dy, *ws))
+        torch.cuda.empty_cache()
+    with torch.inference_mode():
+        for b in ((1, 2) if "wattn" in what else ()):
+            q, f, bk, v1, v2 = (rnd(b, 128, 256, 128) for _ in range(5))
+            report(f"window attention B={b} k = v", "kernel",
+                   lambda: wa.window_attention(q, f, bk, f, bk, 5, 9))
+            report(f"window attention B={b} k != v", "kernel",
+                   lambda: wa.window_attention(q, f, bk, v1, v2, 5, 9))
+            del q, f, bk, v1, v2
+        for shape in (((1, 512, 1024), (2, 512, 1024), (24, 128, 128))
+                      if "shiftadd" in what else ()):
+            yt = rnd(*shape, 207)
+            b2 = torch.randn((23,), generator=g, device=dev)
+            report("shift add " + "x".join(map(str, shape)), "kernel",
+                   lambda: sa.shifted_add_bias(yt, b2))
+            del yt
         torch.cuda.empty_cache()
     if "serve" in what:
         c.serve_phase(dev, card, label=f"{tag} InterNet")

@@ -18,7 +18,8 @@ refine, whose difference is the refine stage; the whole forward, whose
 difference from that is stage 3), then one forward under
 ``torch.profiler``: its device events summed as in ``profile_train``.
 Prints one summary line per model and its top ``ROWS`` device events by
-time, also written to ``<out>/<--model>_<kernel|plain>.txt``.  The idle
+time; every device event, by time, goes to
+``<out>/<--model>_<kernel|plain>.txt``.  The idle
 share is 1 - (device time / the mean wall time of the unprofiled
 forwards).
 """
@@ -131,12 +132,12 @@ def profile_model(dev, cfg: Config, use_kernels: bool):
                   key=_self_device_us, reverse=True)
     device_ms = sum(_self_device_us(e) for e in avgs) / 1e3
     lines = [f"{'device ms':>10}  {'share':>7}  {'calls':>5}  event"]
-    for e in avgs[:ROWS]:
+    for e in avgs:
         ms = _self_device_us(e) / 1e3
         lines.append(f"{ms:10.3f}  {ms / device_ms:7.2%}  {e.count:5d}  "
                      f"{e.key[:110]}")
     return dict(wall_ms=wall_ms, stages=stages, device_ms=device_ms,
-                idle=1 - device_ms / wall_ms, table="\n".join(lines))
+                idle=1 - device_ms / wall_ms, lines=lines)
 
 
 def main(argv=None) -> int:
@@ -155,7 +156,8 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     for name, use_kernels in (("kernel", True), ("plain", False)):
         r = profile_model(dev, cfg, use_kernels)
-        (out / f"{args.model}_{name}.txt").write_text(r["table"] + "\n")
+        (out / f"{args.model}_{name}.txt").write_text(
+            "\n".join(r["lines"]) + "\n")
         stages = ""
         if r["stages"] is not None:
             coarse, refine, stage3 = r["stages"]
@@ -164,7 +166,7 @@ def main(argv=None) -> int:
         print(f"{args.model} {name} model {shape} bf16: wall "
               f"{r['wall_ms']:.3f} ms/forward (mean of 5);{stages} profiled "
               f"self device {r['device_ms']:.3f} ms, idle {r['idle']:.2%}")
-        print(r["table"])
+        print("\n".join(r["lines"][:ROWS + 1]))
     return 0
 
 

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
-from deep_video_interpolation_extrapolation_tpu_torch.models import hrnet
+from deep_video_interpolation_extrapolation_tpu_torch.models import hrnet, registry
 from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     _build,
     trainchain,
@@ -173,8 +173,8 @@ def test_head_weights_kept_without_grad_until_a_weight_changes(highres_large):
     ``inference_mode`` as plain tensors (so the 4-part kernel's units of
     them are kept too), built again after an in-place update of a head
     weight, and built fresh, with grad, on every call under grad."""
-    torch.manual_seed(0)
-    model = hrnet.HRNet(dtype=torch.bfloat16, highres_large=highres_large)
+    model = registry.init_weights(
+        hrnet.HRNet(dtype=torch.bfloat16, highres_large=highres_large), 0)
     dt = torch.bfloat16
     with torch.inference_mode():
         first = model._head_weights(dt)
