@@ -93,7 +93,25 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    from a seeded generator:
    launches per forward grid_sample 2 (one per step, unbounded), every
    other kernel 0 (the bounded mode has a counter of its own,
-   grid_sample_bounded); outputs finite; frames/s.
+   grid_sample_bounded); outputs finite; frames/s;
+9. runner: the port's runner layer through its launcher (``cli/main``,
+   ``train/runner.Runner``): the INTER recipe on synthetic data at
+   24x128x128 bf16, ``--epochs 2`` (8 steps each, ``--disp_interval 1``),
+   ``--train_coarse``, ``b0``: the launches of the 16 steps (the train
+   step's per step), finite losses, each epoch's samples/s with the log's
+   load/comp split and checkpoint times beside the bare step's rate in
+   this process; the writer's val metrics (launches of the 4 val forwards
+   at 24x128x128: stem, Bottleneck and BasicBlock-chain forwards 1/4/8,
+   K3 2, K4 1, the shift add 1), then the ``--checkepoch_range`` sweep of
+   both checkpoints, whose epoch-2 metrics must equal the writer's within
+   1e-3 relative after an epoch-1 forward (stale kernel weight units
+   would fail it); ``--r --checkepoch 1``: its epoch-2 ``loss_all``
+   within 2e-2 of the uninterrupted run's; ``--split cycgen`` at
+   2x512x1024 from the epoch-2 checkpoint (the serving forward's launches,
+   4 forwards), its 72 PNGs decoded back by the zlib + numpy decoder of
+   ``native/png.py``; and one ``--dataset cityscape`` epoch (2 steps, 4
+   loader workers) on a 150 px PNG tree and clip pkl the phase writes to a
+   temporary directory.
 
 The kernel phase also holds the shift-add kernel (the heads' tail in
 every HRNet forward and train step: one launch each, counted in phases 3
@@ -108,10 +126,13 @@ bounded (R = 8: flows up to 6 px, a band beyond the window that must give
 concat map and head weights, against its plain version and against the
 model's K4-route heads.
 
+K3's rows are timed on the card alone too, as K1's and K2's are.
+
 Every rollout asserts every kernel's launches, the ones not named above at
 0.  Prints the card's name and power limit, one JSON line of per-kernel
 results (``launches``: the serve rollout's count plus the counted train
-step's plus the highres_large, stage3 and vae runs', as counted there: 0
+step's plus the highres_large, stage3, vae and runner runs', as counted
+there: 0
 for the dual head and the bounded grid sample, which no model runs; the
 chain forward's N = 1 row, ``bb_chain_fwd_n1``, reads the chain's counter,
 one launch per block, and the Bottleneck's block-0 rows,
@@ -126,18 +147,31 @@ compute capability (9, 0); there is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import pickle
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch import serve
+from deep_video_interpolation_extrapolation_tpu_torch.cli.main import (
+    get_logger,
+    run,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.cli.options import (
+    parse_args,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
@@ -145,9 +179,13 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
     _concat_pyramid,
     _encode_inputs,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.native import png
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     inter,
     state as state_lib,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
+    Runner,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     init_vgg_frozen,
@@ -335,8 +373,8 @@ SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
 # the rows of the kernel-phase loop timed on the card alone too
 # (``median_ms(spin=True)``); the window attention's and the shifted add's
 # rows are, in their own checks
-DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "ups_head_taps4",
-                "stem_fwd", "stem_bwd")
+DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
+                "ups_head_taps4", "stem_fwd", "stem_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
 # peaks (at the 700 W limit)
 HBM_RATE, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -1706,6 +1744,233 @@ def vae_phase(dev, card):
     return counts
 
 
+# the runner phase: the recipe's epochs through the launcher at
+# 24x128x128 (8 synthetic batches an epoch), its val forwards at the same
+# size (4 batches: stem and Bottlenecks on the train chain's forward, as W
+# < 256), its cycgen at 2x512x1024 (4 forwards, the serving route) and a
+# Cityscapes-layout epoch of 2 steps
+RUNNER_EPOCH_STEPS, RUNNER_VAL_BATCHES, RUNNER_CYCGEN_FORWARDS = 8, 4, 4
+PER_VAL_FORWARD = {"stem_fwd": 1, "bottleneck_fwd": 4, "bb_chain_fwd": 8,
+                   "fuse_out0": 2, "ups_head_taps": 1, "shifted_add_bias": 1}
+RESUME_LOSS_TOL = 2e-2     # resumed epoch-2 loss_all vs uninterrupted, rel
+RELOAD_VAL_TOL = 1e-3      # val metrics of a reloaded checkpoint, relative
+RECIPE = ("--dataset synthetic --split train --syn_type inter --input_h 128 "
+          "--input_w 128 --bs 24 --disp_interval 1")
+LOSS_LINE = re.compile(r"\[epoch +(\d+)\]\[iter +(\d+)\] loss: ([-0-9.naif]+)")
+EPOCH_LINE = re.compile(r"\[epoch +(\d+)\] (\d+) samples in ([0-9.]+)s: "
+                        r"([0-9.]+) samples/s, load: ([0-9.]+)s, comp: "
+                        r"([0-9.]+)s")
+
+
+def _log_of(exp_dir, split="train"):
+    with open(os.path.join(exp_dir, f"experiment_{split}.log")) as f:
+        return f.read()
+
+
+def _counted(label, per, n, fn):
+    """``fn()`` with the launch counters at 0 before it; every kernel's
+    count must be ``per`` x ``n`` (0 for those ``per`` does not name).
+    Returns (fn's result, the counts)."""
+    torch.cuda.synchronize()
+    hw.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(hw.launches)
+    print(f"{label} launches: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for name in hw.KERNELS:
+        if counts[name] != per.get(name, 0) * n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times, expected {per.get(name, 0)} x {n}")
+    return out, counts
+
+
+def _quiet(fn):
+    """``fn()`` with the launcher's stdout log kept off this output (the
+    experiment log file keeps it)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def _write_city_tree(root, n_clips, src=150):
+    """A Cityscapes-layout tree of ``n_clips`` 3-frame train clips (src x
+    src rgb and 20-class id maps, written by ``native/png.py``) and its
+    clip pkl; returns (img_dir, seg_dir)."""
+    g = torch.Generator().manual_seed(21)
+    clips = []
+    for c in range(n_clips):
+        clip = [f"train/scene/clip{c}_{i:06d}" for i in range(3)]
+        for rel in clip:
+            for d, ext, arr in (
+                    ("imgs", "_leftImg8bit.png", torch.randint(
+                        0, 256, (src, src, 3), generator=g, dtype=torch.uint8)),
+                    ("segs", "_gtFine_myseg_id.png", torch.randint(
+                        0, 20, (src, src), generator=g, dtype=torch.uint8))):
+                path = os.path.join(root, d, rel + ext)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                png.save_png(path, arr.numpy())
+        clips.append(clip)
+    os.makedirs(os.path.join(root, "load_files"))
+    with open(os.path.join(
+            root, "load_files",
+            "int_1_len_3_max_4bb_area_3000_extra_panet_lsclip.pkl"), "wb") as f:
+        pickle.dump({"train": clips, "val": clips}, f)
+    return os.path.join(root, "imgs"), os.path.join(root, "segs")
+
+
+def runner_phase(dev, card):
+    """Phase 9: the port's runner layer through its launcher
+    (``cli/main.run``, ``train/runner.Runner``) on the card.  Returns the
+    counted launches of each run."""
+    tmp = tempfile.mkdtemp(prefix="dvie_runner_")
+    old_root = os.environ.get("DVIE_DATA_ROOT")
+    runs = []
+    try:
+        # 9a: the recipe's epochs: 2 x 8 steps, a checkpoint each epoch;
+        # the writer runner is built as run() builds it, so that its own
+        # val metrics can be read after training
+        exp_a = os.path.join(tmp, "a")
+        os.makedirs(exp_a)
+        cfg = parse_args(f"{RECIPE} --epochs 2 INTER --model InterNet "
+                         "--train_coarse".split())
+        get_logger(exp_a, "train")
+        writer = _quiet(lambda: Runner(cfg, exp_a))
+        _, counts = _counted("runner train", PER_TRAIN_STEP,
+                             2 * RUNNER_EPOCH_STEPS,
+                             lambda: _quiet(writer.train_epochs))
+        runs.append(counts)
+        log_a = _log_of(exp_a)
+        losses_a = {(int(e), int(i)): float(v)
+                    for e, i, v in LOSS_LINE.findall(log_a)}
+        if len(losses_a) != 2 * RUNNER_EPOCH_STEPS or not all(
+                map(math.isfinite, losses_a.values())):
+            raise AssertionError(f"runner train: losses {losses_a}")
+        epochs = EPOCH_LINE.findall(log_a)
+        saves = re.findall(r"saved checkpoint \S+ in ([0-9.]+)s", log_a)
+        for e, n, wall, rate, load, comp in epochs:
+            print(f"runner epoch {e}: {n} samples in {wall} s, {rate} "
+                  f"samples/s, load {load} s, comp {comp} s on {card}")
+        print(f"runner checkpoint saves: {', '.join(saves)} s")
+        if sorted(os.listdir(os.path.join(exp_a, "checkpoint"))) != [
+                "InterNet_xs2xs_inter_0_1_0", "InterNet_xs2xs_inter_0_2_0"]:
+            raise AssertionError("runner train: checkpoints missing")
+        # the bare step's rate in this process, for the runner's beside it
+        _, times, _ = trajectory(dev, True, 24, 128, 128)
+        bare = 24 / statistics.median(times)
+        print(f"runner: epoch-2 rate {float(epochs[1][3]):.4f} samples/s "
+              f"against the bare step's {bare:.4f} (median of {len(times)} "
+              f"steps) on {card}")
+
+        # 9b: the writer's val metrics; then the sweep over both
+        # checkpoints, whose epoch-2 load follows an epoch-1 forward: stale
+        # kernel weight units would repeat epoch 1's metrics
+        m_writer, counts = _counted(
+            "runner val", PER_VAL_FORWARD, RUNNER_VAL_BATCHES,
+            lambda: _quiet(writer.validate))
+        runs.append(counts)
+        sweep = parse_args(
+            f"{RECIPE.replace('--split train', '--split val')} --load_dir "
+            f"{exp_a} --checksession 0 --checkepoch_range --checkepoch_low 1 "
+            "--checkepoch_up 2 INTER --model InterNet".split())
+        swept = _quiet(lambda: run(sweep, os.path.join(tmp, "sweep")))
+        for k, v in m_writer.items():
+            got = swept[2][k]
+            print(f"runner val {k}: writer {v:.6g}, reloaded {got:.6g}, "
+                  f"epoch 1 {swept[1][k]:.6g}")
+            if abs(got - v) > RELOAD_VAL_TOL * abs(v):
+                raise AssertionError(f"runner val: reloaded {k} {got} vs "
+                                     f"the writer's {v}")
+        if swept[1] == swept[2]:
+            raise AssertionError("runner val: epochs 1 and 2 alike")
+
+        # 9c: resume from the epoch-1 checkpoint
+        exp_b = os.path.join(tmp, "b")
+        resume = parse_args(
+            f"{RECIPE} --epochs 2 --r --checkepoch 1 --checksession 0 "
+            f"--load_dir {exp_a} INTER --model InterNet --train_coarse".split())
+        _quiet(lambda: run(resume, exp_b))
+        losses_b = {(int(e), int(i)): float(v)
+                    for e, i, v in LOSS_LINE.findall(_log_of(exp_b))}
+        if sorted(losses_b) != [(2, i) for i in range(RUNNER_EPOCH_STEPS)]:
+            raise AssertionError(f"runner resume: logged {sorted(losses_b)}")
+        gap = max(abs(v - losses_a[k]) / abs(losses_a[k])
+                  for k, v in losses_b.items())
+        print(f"runner resume: epoch-2 loss_all within {gap:.4g} of the "
+              f"uninterrupted run's (bound {RESUME_LOSS_TOL})")
+        if gap > RESUME_LOSS_TOL:
+            raise AssertionError(f"runner resume: loss_all off by {gap:.4g}")
+
+        # 9d: cycgen at 2x512x1024 from the epoch-2 checkpoint
+        cyc = parse_args(
+            "--dataset synthetic --split cycgen --syn_type inter --input_h 512 "
+            f"--input_w 1024 --bs 2 --load_dir {exp_a} --checksession 0 "
+            "--checkepoch 2 INTER --model InterNet --load_coarse".split())
+        t0 = time.perf_counter()
+        out_root, counts = _counted(
+            "runner cycgen", PER_FORWARD, RUNNER_CYCGEN_FORWARDS,
+            lambda: _quiet(lambda: run(cyc, os.path.join(tmp, "cyc"))))
+        dt = time.perf_counter() - t0
+        runs.append(counts)
+        files = sorted(os.path.join(b, f) for b, _, fs in os.walk(out_root)
+                       for f in fs)
+        n_clips = 2 * RUNNER_CYCGEN_FORWARDS
+        if len(files) != n_clips * 3 * 3:
+            raise AssertionError(f"runner cycgen: {len(files)} files")
+        for path in files:    # by the zlib + numpy decoder, not Pillow
+            kind = os.path.basename(os.path.dirname(path))
+            with open(path, "rb") as f:
+                arr = png.decode_png(f.read(), 1 if kind == "seg" else 3)
+            if arr.shape[:2] != (512, 1024) or (kind == "seg"
+                                                and int(arr.max()) >= 20):
+                raise AssertionError(f"runner cycgen: {path} {arr.shape}")
+        print(f"runner cycgen 2x512x1024: {n_clips} clips, {len(files)} PNGs "
+              f"written and decoded back, {dt:.3f} s with the build")
+
+        # 9e: one epoch on a Cityscapes-layout tree, loader workers on
+        root = os.path.join(tmp, "city")
+        img_dir, seg_dir = _write_city_tree(root, 48)
+        os.environ["DVIE_DATA_ROOT"] = root
+        city = parse_args(
+            f"{RECIPE.replace('synthetic', 'cityscape')} --epochs 1 --nw 4 "
+            f"--img_dir {img_dir} --seg_dir {seg_dir} INTER --model InterNet "
+            "--train_coarse".split())
+        exp_c = os.path.join(tmp, "city_exp")
+        torch.cuda.synchronize()
+        hw.reset_counters()
+        _quiet(lambda: run(city, exp_c))
+        torch.cuda.synchronize()
+        counts = dict(hw.launches)
+        runs.append(counts)
+        # with a TensorBoard writer, step 0 also logs the image grid: one
+        # eval forward
+        grids = int(os.path.isdir(os.path.join(
+            exp_c, "train_int_1_len_1_cityscape_logs")))
+        print(f"runner cityscape launches ({grids} image grid forward): "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        for name in hw.KERNELS:
+            want = 2 * PER_TRAIN_STEP.get(name, 0) + grids * PER_VAL_FORWARD.get(
+                name, 0)
+            if counts[name] != want:
+                raise AssertionError(f"runner cityscape: {name} launched "
+                                     f"{counts[name]} times, expected {want}")
+        log_c = _log_of(exp_c)
+        losses_c = [float(v) for _, _, v in LOSS_LINE.findall(log_c)]
+        if len(losses_c) != 2 or not all(map(math.isfinite, losses_c)):
+            raise AssertionError(f"runner cityscape: losses {losses_c}")
+        e, n, wall, rate, load, comp = EPOCH_LINE.findall(log_c)[0]
+        print(f"runner cityscape epoch: {n} samples in {wall} s, {rate} "
+              f"samples/s, load {load} s, comp {comp} s (PNG decoder: "
+              f"{'Pillow' if png.pil_available() else 'zlib + numpy'}) "
+              f"on {card}")
+    finally:
+        if old_root is None:
+            os.environ.pop("DVIE_DATA_ROOT", None)
+        else:
+            os.environ["DVIE_DATA_ROOT"] = old_root
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -1723,7 +1988,7 @@ def main():
     train_counts, g_ref = train_phase(dev, card)
     runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
             highres_phase(dev, card), stage3_phase(dev, card),
-            vae_phase(dev, card)]
+            vae_phase(dev, card), *runner_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

@@ -51,8 +51,8 @@ _QUEUE = "ROADMAP.md queue 1"
 def _check(cfg: Config) -> None:
     if cfg.model != "InterNet":
         raise NotImplementedError(
-            f"the {cfg.model} train step is not ported yet ({_QUEUE}, "
-            "items 5-7)")
+            f"the {cfg.model} train and eval steps are not ported yet "
+            f"({_QUEUE}, items 5-7)")
 
 
 def make_train_step(cfg: Config, model: nn.Module) -> Callable:

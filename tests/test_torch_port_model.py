@@ -126,12 +126,14 @@ def test_kernel_and_plain_models_agree_on_cpu(jax_model):
 
 
 def test_port_config_mirrors_the_jax_config():
-    """Every field of the port's Config exists in the JAX Config with the
-    same default, so a JAX Config builds the same port model."""
-    jax_defaults = {f.name: f.default for f in dataclasses.fields(Config)}
-    for f in dataclasses.fields(PortConfig):
-        assert f.name in jax_defaults, f.name
-        assert f.default == jax_defaults[f.name], f.name
+    """The port's Config has every field of the JAX Config, in the same
+    order, with the same default, so a JAX Config builds the same port
+    model and the port's parser fills every field."""
+    jax_fields = [(f.name, f.default) for f in dataclasses.fields(Config)]
+    port_fields = [(f.name, f.default) for f in dataclasses.fields(PortConfig)]
+    assert port_fields == jax_fields
+    assert PortConfig().n_classes == Config().n_classes
+    assert PortConfig().seg_encode_dim == Config().seg_encode_dim
     port = registry.build_model(PortConfig(syn_type="inter"), device="cpu",
                                   seed=5)
     ref = registry.build_model(_cfg("bfloat16"), device="cpu", seed=5)

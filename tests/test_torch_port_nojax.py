@@ -4,7 +4,12 @@ blocked imports every module of the port (the train modules included) and
 runs the CPU forward, a rollout and two INTER train steps at 32x64, a
 ``--highres_large`` rollout step, an InterStage3Net rollout step, the
 BasicBlock chain forward and backward, a VideoVAE eval forward (``--model
-VAE``, two warped steps at 32x32) and the shifted add."""
+VAE``, two warped steps at 32x32) and the shifted add; then the launcher
+(``cli.main.run(cfg, device="cpu")``) at 32x64: one epoch of 2 steps on a
+Cityscapes-layout PNG tree it writes (``--nw 2``), ``--split val`` on that
+epoch's checkpoint, and ``--split cycgen`` on synthetic data.  Pillow and
+TensorBoard are blocked too, as the card's machine has neither: the PNGs go
+through ``native/png.py`` and the runner logs without a writer."""
 
 import os
 import subprocess
@@ -16,8 +21,11 @@ PKG = "deep_video_interpolation_extrapolation_tpu_torch"
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax",
-             "deep_video_interpolation_extrapolation_tpu"):
+# the JAX side, and what the card's machine lacks: Pillow, TensorBoard
+BLOCKED = ("jax", "jaxlib", "flax", "optax",
+           "deep_video_interpolation_extrapolation_tpu", "PIL", "tensorboardX",
+           "tensorboard")
+for name in BLOCKED:
     sys.modules[name] = None          # any import of them now fails
 import torch
 import {pkg}
@@ -81,7 +89,55 @@ assert all(torch.isfinite(o).all() for o in out)
 from {pkg}.ops import dual_head, shiftadd, warp
 assert torch.isfinite(shiftadd.shifted_add_bias(
     torch.rand(1, 4, 4, 207, generator=g), torch.zeros(23))).all()
-assert not any(sys.modules.get(n) for n in ("jax", "flax", "optax"))
+import os, pickle, tempfile
+import numpy as np
+from {pkg}.cli.main import run
+from {pkg}.cli.options import parse_args
+from {pkg}.native import png
+tmp = tempfile.mkdtemp()
+rs = np.random.RandomState(0)
+clips = {{"train": [], "val": []}}
+for split, n in (("train", 4), ("val", 2)):
+    for c in range(n):
+        clip = [f"{{split}}/s/c{{c}}_{{i:06d}}" for i in range(3)]
+        for rel in clip:
+            for d, ext, arr in (
+                    ("imgs", "_leftImg8bit.png",
+                     rs.randint(0, 256, (40, 72, 3)).astype(np.uint8)),
+                    ("segs", "_gtFine_myseg_id.png",
+                     rs.randint(0, 20, (40, 72)).astype(np.uint8))):
+                path = os.path.join(tmp, d, rel + ext)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                png.save_png(path, arr)
+        clips[split].append(clip)
+os.makedirs(os.path.join(tmp, "load_files"))
+with open(os.path.join(tmp, "load_files",
+                       "int_1_len_3_max_4bb_area_3000_extra_panet_lsclip.pkl"),
+          "wb") as f:
+    pickle.dump(clips, f)
+os.environ["DVIE_DATA_ROOT"] = tmp
+g = ("--input_h 32 --input_w 64 --bs 2 --epochs 1 --nw 2 --disp_interval 1 "
+     "--compute_dtype float32 --syn_type inter")
+city = f"--dataset cityscape --img_dir {{tmp}}/imgs --seg_dir {{tmp}}/segs"
+exp = os.path.join(tmp, "exp")
+run(parse_args(f"{{g}} {{city}} --split train INTER --model InterNet "
+               "--train_coarse".split()), exp_dir=exp, device="cpu")
+assert os.listdir(os.path.join(exp, "checkpoint")) == [
+    "InterNet_xs2xs_inter_0_1_0"]
+log = open(os.path.join(exp, "experiment_train.log")).read()
+assert "[iter    1]" in log and "[iter    2]" not in log, log[-2000:]
+metrics = run(parse_args(f"{{g}} {{city}} --split val --load_dir {{exp}} "
+                         "--checksession 0 --checkepoch 1 INTER --model "
+                         "InterNet --load_coarse".split()),
+              exp_dir=os.path.join(tmp, "val"), device="cpu")
+assert np.isfinite(metrics["coarse_psnr"]) and 0 <= metrics["coarse_iou"] <= 1
+out = run(parse_args(f"{{g}} --dataset synthetic --split cycgen INTER "
+                     "--model InterNet".split()),
+          exp_dir=os.path.join(tmp, "cyc"), device="cpu")
+assert len(os.listdir(out)) == 8
+assert png.read_png(os.path.join(out, "clip_00000", "rgb", "001.png"),
+                    3).shape == (32, 64, 3)
+assert not any(sys.modules.get(n) for n in BLOCKED)
 print("modules", len(names))
 """
 
