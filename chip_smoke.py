@@ -111,7 +111,30 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    4 forwards), its 72 PNGs decoded back by the zlib + numpy decoder of
    ``native/png.py``; and one ``--dataset cityscape`` epoch (2 steps, 4
    loader workers) on a 150 px PNG tree and clip pkl the phase writes to a
-   temporary directory.
+   temporary directory;
+10. batch 27: the forward kernels of a refine recipe's frozen coarse at
+    27x128x128 bf16 (stem, the four Bottlenecks, the BasicBlock chain,
+    K3, K4 taps, the shift add) against their plain versions;
+11-12. recipes 2 and 3 (``docs/RECIPES.md:17-40``): InterRefineNet
+    (SRNRefine ``--n_sc 3`` trained, HRNet frozen) and InterStage3Net
+    (MSResAttnRefineV2 ``--stage3_prop`` trained, HRNet and SRNRefine
+    frozen, refine weights 20) at 27x128x128 bf16: the trained stage's
+    one-step gradient against the f32 plain model's (1.5 x the plain bf16
+    model's error + 1e-3), each loss term within 2e-2, 20 Adamax steps of
+    both models whose trained-stage terms fall and end within 10%, the
+    launches of one step (the frozen coarse's forward kernels once each,
+    every backward kernel 0), samples/s (median of 18 steps);
+13. the recipe-3 model served: kernel against plain model at 2x128x256,
+    its three flow maps >= 90% on a moving scene and, on random frames,
+    each as close to the f32 model's as the plain bf16 model's less 0.05;
+    the 3-step rollout at 2x512x1024 with the serving launches, ms a
+    forward, peak memory and frames/s;
+14. (inside phase 9) recipes 2 and 3 through the launcher at batch 27
+    from phase 9's InterNet experiment (``--load_coarse``, then
+    ``--load_coarse --load_refine``): launches, the loaded stages
+    unchanged, the epochs' samples/s; recipe 3's writer's val metrics
+    (``refine_*``, ``stage3_*``) against a ``--split val`` reload within
+    1e-3; ``--split cycgen`` of the recipe-3 model at 2x512x1024.
 
 The kernel phase also holds the shift-add kernel (the heads' tail in
 every HRNet forward and train step: one launch each, counted in phases 3
@@ -1370,25 +1393,37 @@ def _inputs(dev, b, h, w, seed):
     return imgs, ids
 
 
-def slice_phase(dev, cfg=CFG, label="slice"):
+def slice_phase(dev, cfg=CFG, label="slice", inputs=None, models=None,
+                flows=True):
     """Kernel model against the plain model on the final frame and seg
-    (``serve.final_output``); for InterStage3Net also the flow maps."""
+    (``serve.final_output``); for InterStage3Net also the flow maps (unless
+    ``flows`` is False).  ``inputs``: (rgb, seg), else the seeded random
+    frames; ``models``: (kernel, plain), else built from seed 0.  Returns
+    both outputs."""
     b, h, w = 2, 128, 256
-    fast = registry.build_model(cfg, device=dev, seed=0)
-    plain = registry.build_model(cfg, device=dev, seed=0, use_kernels=False)
-    imgs, ids = _inputs(dev, b, h, w, 1)
-    rgb = torch.cat(imgs, -1) * 2 - 1
-    seg = torch.cat([serve.seg_oh(i) for i in ids], -1)
+    fast, plain = models or (
+        registry.build_model(cfg, device=dev, seed=0),
+        registry.build_model(cfg, device=dev, seed=0, use_kernels=False))
+    if inputs is None:
+        imgs, ids = _inputs(dev, b, h, w, 1)
+        inputs = (torch.cat(imgs, -1) * 2 - 1,
+                  torch.cat([serve.seg_oh(i) for i in ids], -1))
+    rgb, seg = inputs
     with torch.inference_mode():
         o_k, o_p = fast(rgb, seg), plain(rgb, seg)
     torch.cuda.synchronize()
     (r_k, s_k), (r_p, s_p) = serve.final_output(o_k), serve.final_output(o_p)
-    if len(o_k) == 5:
-        agree = flow_agreement(o_k[4][0], o_p[4][0])
-        print(f"{label} 2x128x256 bf16: flow map agreement {agree:.6f} "
-              f"(bound {SLICE_FLOW_AGREE})")
-        if agree < SLICE_FLOW_AGREE:
-            raise AssertionError(f"{label}: flow agreement {agree:.4f}")
+    if len(o_k) == 5 and flows:     # each scale's or level's flow map
+        if len(o_k[4]) != len(o_p[4]):
+            raise AssertionError(f"{label}: {len(o_k[4])} flow maps")
+        for lv, (f_k, f_p) in enumerate(zip(o_k[4], o_p[4])):
+            agree = flow_agreement(f_k, f_p)
+            print(f"{label} 2x128x256 bf16: flow map {lv} "
+                  f"{tuple(f_k.shape)} agreement {agree:.6f} (bound "
+                  f"{SLICE_FLOW_AGREE})")
+            if agree < SLICE_FLOW_AGREE:
+                raise AssertionError(f"{label}: flow {lv} agreement "
+                                     f"{agree:.4f}")
     d = (r_k.float() - r_p.float()).abs().max().item()
     limit = SLICE_RGB_TOL * max(1.0, r_p.float().abs().max().item())
     agree = (s_k.argmax(-1) == s_p.argmax(-1)).float().mean().item()
@@ -1401,6 +1436,7 @@ def slice_phase(dev, cfg=CFG, label="slice"):
     if agree < SLICE_SEG_AGREE:
         raise AssertionError(f"{label}: seg agreement {agree:.4f} < "
                              f"{SLICE_SEG_AGREE}")
+    return o_k, o_p
 
 
 def serve_phase(dev, card, cfg=CFG, per_forward=PER_FORWARD,
@@ -1410,11 +1446,13 @@ def serve_phase(dev, card, cfg=CFG, per_forward=PER_FORWARD,
     imgs, ids = _inputs(dev, b, h, w, 2)
     serve.rollout(model, imgs, ids, 1)               # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     hw.reset_counters()
     t0 = time.perf_counter()
     preds, pred_ids = serve.rollout(model, imgs, ids, steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     counts = dict(hw.launches)
     for name in hw.KERNELS:
         per = per_forward.get(name, 0)
@@ -1428,7 +1466,8 @@ def serve_phase(dev, card, cfg=CFG, per_forward=PER_FORWARD,
             raise AssertionError(f"{label}: bad seg ids")
     fps = b * steps / dt
     print(f"{label} {steps} steps at {b}x{h}x{w} bf16: {dt:.4f} s, "
-          f"{fps:.4f} frames/s on {card}")
+          f"{fps:.4f} frames/s, {1e3 * dt / steps:.4f} ms a forward, peak "
+          f"memory {peak:.3f} GiB on {card}")
     return counts
 
 
@@ -1443,9 +1482,10 @@ def train_batch(dev, b, h, w, seed):
     return batch
 
 
-def train_setup(dev, use_kernels, dtype="bfloat16", train=True):
-    """InterNet/HRNet from seed 0, frozen VGG19 from seed 1, Adamax."""
-    cfg = dataclasses.replace(CFG, compute_dtype=dtype, train_coarse=train)
+def train_setup(dev, use_kernels, dtype="bfloat16", train=True, cfg=CFG):
+    """``cfg``'s model (InterNet/HRNet by default) from seed 0, frozen
+    VGG19 from seed 1, Adamax; ``train``: --train_coarse."""
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, train_coarse=train)
     model = registry.build_model(cfg, device=dev, seed=0,
                                  use_kernels=use_kernels)
     state = state_lib.create_train_state(
@@ -1537,11 +1577,14 @@ def grad_check(dev, b, h, w, branches=(0,), g_ref=None, label="train"):
     return g_ref
 
 
-def trajectory(dev, use_kernels, b, h, w, steps=20, warmup=2, count_at=2):
+def trajectory(dev, use_kernels, b, h, w, steps=20, warmup=2, count_at=2,
+               cfg=CFG, train=True, prefix=""):
     """Phase 5b: ``steps`` Adamax steps on one fixed batch.  Returns the
-    loss_all trajectory, the step times after the warm-ups (host clock,
-    synchronized around each step) and the launches of step ``count_at``."""
-    step, state = train_setup(dev, use_kernels)
+    trajectory of loss_all (with ``prefix``: of the sum of the loss terms
+    whose keys start with it), the step times after the warm-ups (host
+    clock, synchronized around each step) and the launches of step
+    ``count_at``."""
+    step, state = train_setup(dev, use_kernels, train=train, cfg=cfg)
     batch = train_batch(dev, b, h, w, seed=5)
     losses, times, counts = [], [], None
     for i in range(steps):
@@ -1555,7 +1598,8 @@ def trajectory(dev, use_kernels, b, h, w, steps=20, warmup=2, count_at=2):
             times.append(time.perf_counter() - t0)
         if i == count_at:
             counts = dict(hw.launches)
-        losses.append(float(ld["loss_all"]))
+        losses.append(float(ld["loss_all"]) if not prefix else sum(
+            float(v) for k, v in ld.items() if k.startswith(prefix)))
     return losses, times, counts
 
 
@@ -1962,12 +2006,342 @@ def runner_phase(dev, card):
               f"samples/s, load {load} s, comp {comp} s (PNG decoder: "
               f"{'Pillow' if png.pil_available() else 'zlib + numpy'}) "
               f"on {card}")
+
+        # 9f: recipes 2 and 3 from 9a's experiment (phase 14)
+        runs += recipe_runner_phase(dev, card, tmp, exp_a)
     finally:
         if old_root is None:
             os.environ.pop("DVIE_DATA_ROOT", None)
         else:
             os.environ["DVIE_DATA_ROOT"] = old_root
         shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+# ---- the refine stages: the author's recipes 2 and 3 ----------------------
+
+B27 = (27, 128, 128)           # the recipes' batch and crop (RECIPES.md:21,32)
+CFG_R2 = dataclasses.replace(CFG, model="InterRefineNet", refine=True,
+                             refine_model="SRNRefine", n_scales=3,
+                             train_refine=True)
+CFG_R3 = dataclasses.replace(
+    CFG_R2, model="InterStage3Net", train_refine=False, stage3=True,
+    stage3_model="MSResAttnRefineV2", stage3_prop=True, train_stage3=True,
+    refine_l1_weight=20.0, refine_gdl_weight=20.0, refine_vgg_weight=20.0,
+    refine_ssim_weight=20.0)
+
+
+def batch27_kernel_phase(dev):
+    """Phase 10: the forward kernels a recipe step launches in its frozen
+    coarse, at 27x128x128 bf16 (every train-kernel figure before ran at
+    24): the stem, the four Bottlenecks (block 0 with its projection, 1-3
+    at Ci = 256), the branch-0 BasicBlock chain (N = 4), K3 (stage 2 and
+    3), K4's taps mode and the shifted add, each against its plain version
+    by max|d|/max|ref| <= KERNEL_TOL."""
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) / (
+            shape[1] * shape[2] * shape[3]) ** 0.5
+
+    B, H, W = B27
+    x64, x256 = act(B, H, W, 64), act(B, H, W, 256)
+    blocks = [(w(64, 64, 1, 1), w(64, 64, 3, 3), w(256, 64, 1, 1),
+               w(256, 64, 1, 1))] + [
+        (w(64, 256, 1, 1), w(64, 64, 3, 3), w(256, 64, 1, 1), None)
+        for _ in range(3)]
+    t1, t2 = act(B, H // 2, W // 2, 64), act(B, H // 4, W // 4, 64)
+    p1, p2 = act(B, H // 2, W // 2, 128), act(B, H // 4, W // 4, 256)
+    w1, b1 = w(896, 448, 1, 1)[:, :, 0, 0].t(), w(896, 1, 1, 1).flatten()
+    w2t = k4.build_dual_tap_kernel(w(3, 448, 3, 3), w(20, 448, 3, 3),
+                                   torch.bfloat16)
+    head = (x64, p1, p2, w1, b1, w2t)
+    cases = [("stem_fwd", "stem", tc.stem_fwd_kernel, tc.stem_plain,
+              (act(B, H, W, 14), w(64, 14, 3, 3), w(64, 1, 1, 1).flatten(),
+               w(64, 64, 3, 3), w(64, 1, 1, 1).flatten()))]
+    cases += [("bottleneck_fwd", f"block {i}", tc.bottleneck_fwd_kernel,
+               tc.bottleneck_plain, (x64 if i == 0 else x256, *blk))
+              for i, blk in enumerate(blocks)]
+    cases += [("bb_chain_fwd", "N=4", bb.bb_chain_fwd_kernel,
+               bb.bb_chain_plain,
+               (x64, [(w(64, 64, 3, 3), w(64, 64, 3, 3)) for _ in range(4)])),
+              ("fuse_out0", "stage2", k3.fuse_out0, k3.fuse_out0_plain,
+               (x64, t1, None)),
+              ("fuse_out0", "stage3", k3.fuse_out0, k3.fuse_out0_plain,
+               (x64, t1, t2)),
+              ("ups_head_taps", "heads", k4.ups_head_taps,
+               k4.ups_head_taps_plain, head)]
+    yt = k4.ups_head_taps_plain(*head)
+    cases.append(("shifted_add_bias", "taps", sa.shifted_add_bias,
+                  sa.shifted_add_bias_plain,
+                  (yt, torch.randn((23,), generator=g, device=dev))))
+    print(f"batch-27 kernels at {B}x{H}x{W} bf16:")
+    for name, label, kern, plain, args in cases:
+        out, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        _held(name, f"{B}x{H}x{W} {label}", out, ref)
+
+
+def _recipe_step_grads(dev, cfg, trained, use_kernels, dtype, batch):
+    """One step of a recipe: its loss dict and the gradient of the trained
+    submodel (``trained``), flat in f32."""
+    step, state = train_setup(dev, use_kernels, dtype, train=False, cfg=cfg)
+    _, losses = step(state, batch)
+    sub = getattr(state.model, trained)
+    grads = torch.cat([p.grad.float().flatten() for p in sub.parameters()
+                       if p.grad is not None])
+    if any(p.grad is not None for n, p in state.model.named_parameters()
+           if not n.startswith(trained)):
+        raise AssertionError(f"{trained}: a frozen submodel got a gradient")
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def recipe_step_phase(dev, card, cfg, trained, label):
+    """Phases 11 and 12: a recipe's train step at 27x128x128 bf16 with f32
+    masters, its coarse (and, for recipe 3, its refiner) frozen: the
+    trained submodel's one-step gradient, kernel model and plain bf16
+    model against the plain f32 model (TF32 off), by GRAD_RATIO and
+    GRAD_FLOOR; each loss term within LOSS_TOL of the plain bf16 model's;
+    20 Adamax steps per model whose trained stage's loss terms (``refine_*``
+    or ``stage3_*``: the frozen stages' are constants) fall and end within
+    TRAJ_TOL of the plain model's; the launches of one counted step (the frozen
+    coarse's forward kernels once each, every backward kernel 0) and
+    samples/s (median of 18 steps after 2 warm-ups).  Returns the counted
+    launches."""
+    b, h, w = B27
+    batch = train_batch(dev, b, h, w, seed=4)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, g_ref = _recipe_step_grads(dev, cfg, trained, False, "float32",
+                                      batch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    l_k, g_k = _recipe_step_grads(dev, cfg, trained, True, "bfloat16", batch)
+    l_p, g_p = _recipe_step_grads(dev, cfg, trained, False, "bfloat16", batch)
+    print(f"{label} step {b}x{h}x{w}:")
+    fail = _check_grad(f"{trained} gradient ({g_ref.numel()} values)", g_k,
+                       g_p, g_ref)
+    if fail:
+        raise AssertionError(f"{label}: {fail}")
+    for k in l_p:
+        rel = abs(l_k[k] - l_p[k]) / max(abs(l_p[k]), 1e-30)
+        print(f"  {k}: kernel {l_k[k]:.6g} plain {l_p[k]:.6g} rel {rel:.3g}")
+        if not math.isfinite(l_k[k]) or rel > LOSS_TOL:
+            raise AssertionError(f"{label}: {k} differs by {rel:.4g} > "
+                                 f"{LOSS_TOL}")
+    del g_ref, g_k, g_p
+    # the frozen stages' terms are constants: the trajectory is held on
+    # the trained stage's terms
+    prefix = trained.replace("_model", "_")
+    runs = {}
+    for name, use_kernels in (("kernel", True), ("plain", False)):
+        losses, times, counts = trajectory(dev, use_kernels, b, h, w,
+                                           cfg=cfg, train=False,
+                                           prefix=prefix)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{label} {name}: the {prefix}* losses did "
+                                 f"not fall: {losses}")
+        rate = b / statistics.median(times)
+        print(f"{label} {name} model: {prefix}* losses {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g} over {len(losses)} steps; {rate:.4f} "
+              f"samples/s (median of {len(times)} steps) on {card}")
+        print(f"  {prefix}*: {' '.join(f'{v:.5g}' for v in losses)}")
+        runs[name] = (losses[-1], counts)
+    gap = abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    print(f"{label}: final {prefix}* losses kernel {runs['kernel'][0]:.6g} "
+          f"plain {runs['plain'][0]:.6g} (rel {gap:.4g}, bound {TRAJ_TOL})")
+    if gap > TRAJ_TOL:
+        raise AssertionError(f"{label}: final loss differs by {gap:.4g}")
+    counts = runs["kernel"][1]
+    print(f"{label} step launches: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}; the "
+          f"launches beyond the frozen coarse's forward: "
+          f"{sum(v for k, v in counts.items() if k not in PER_VAL_FORWARD)}")
+    _check_step_counts(label, counts, PER_VAL_FORWARD)
+    return counts
+
+
+FLOW_MARGIN = 0.05   # random frames: kernel model's flow agreement with
+                     # the f32 model >= the plain bf16 model's - this
+
+
+def shifted_scene(dev, b, h, w, seed, shift=(4, 8)):
+    """Two frames of a moving scene: a smooth random field in [-1, 1] and
+    its copy shifted by ``shift`` (dy, dx) pixels, with blocky seg ids
+    moved alike (one-hots): (rgb (b,h,w,6), seg (b,h,w,40))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy, dx = shift
+    hh, ww = h + dy + 8, w + dx + 8
+    z = torch.randn((b, 3, hh // 8 + 2, ww // 8 + 2), generator=g, device=dev)
+    field = torch.tanh(torch.nn.functional.interpolate(
+        z, size=(hh, ww), mode="bicubic", align_corners=False))
+    ids = torch.nn.functional.interpolate(torch.randint(
+        0, 20, (b, 1, hh // 16 + 1, ww // 16 + 1), generator=g,
+        device=dev).float(), size=(hh, ww), mode="nearest")[:, 0]
+    frames = [field[:, :, 4 + y:4 + y + h, 4 + x:4 + x + w].permute(0, 2, 3, 1)
+              for y, x in ((0, 0), (dy, dx))]
+    segs = [serve.seg_oh(ids[:, 4 + y:4 + y + h, 4 + x:4 + x + w].to(
+        torch.uint8)) for y, x in ((0, 0), (dy, dx))]
+    return torch.cat(frames, -1), torch.cat(segs, -1)
+
+
+def recipe3_serve_phase(dev, card):
+    """Phase 13: the recipe-3 model served (InterStage3Net: HRNet,
+    SRNRefine --n_sc 3, MSResAttnRefineV2 --stage3_prop), kernel against
+    plain model at 2x128x256, rgb and seg as the slice phase:
+    - on two frames of a moving scene (``shifted_scene``), the flow maps
+      of V2's three levels each on >= SLICE_FLOW_AGREE of the pixels;
+    - on the slice phase's random frames, whose window logits are near
+      ties that bf16 rounding reorders (the plain bf16 model's flows
+      agree with the f32 model's on only 81-90% of the pixels there, PR
+      12 call 2), each level's agreement with the plain f32 model (TF32
+      off) no lower than the plain bf16 model's - FLOW_MARGIN;
+    then the 3-step rollout at 2x512x1024 with the serving forward's
+    launches (V2 runs no kernel), its time, peak memory and frames/s."""
+    models = (registry.build_model(CFG_R3, device=dev, seed=0),
+              registry.build_model(CFG_R3, device=dev, seed=0,
+                                   use_kernels=False))
+    slice_phase(dev, CFG_R3, "recipe-3 slice, a moving scene",
+                shifted_scene(dev, 2, 128, 256, 9), models)
+    o_k, o_p = slice_phase(dev, CFG_R3, "recipe-3 slice, random frames",
+                           None, models, flows=False)
+    f32 = registry.build_model(dataclasses.replace(CFG_R3,
+                                                   compute_dtype="float32"),
+                               device=dev, seed=0, use_kernels=False)
+    imgs, ids = _inputs(dev, 2, 128, 256, 1)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            o_f = f32(torch.cat(imgs, -1) * 2 - 1,
+                      torch.cat([serve.seg_oh(i) for i in ids], -1))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for lv, (f_k, f_p, f_f) in enumerate(zip(o_k[4], o_p[4], o_f[4])):
+        a_k, a_p = flow_agreement(f_k, f_f), flow_agreement(f_p, f_f)
+        print(f"recipe-3 slice, random frames: flow map {lv} agreement with "
+              f"the f32 model: kernel {a_k:.6f}, plain bf16 {a_p:.6f} "
+              f"(bound {a_p - FLOW_MARGIN:.6f}); kernel vs plain "
+              f"{flow_agreement(f_k, f_p):.6f}")
+        if a_k < a_p - FLOW_MARGIN:
+            raise AssertionError(f"recipe-3 slice: flow {lv} agreement with "
+                                 f"f32 {a_k:.4f} < {a_p - FLOW_MARGIN:.4f}")
+    del models, f32
+    return serve_phase(dev, card, CFG_R3, PER_FORWARD, "recipe-3 rollout")
+
+
+def recipe_runner_phase(dev, card, tmp, exp_a):
+    """Phase 14: recipes 2 and 3 through the launcher, from the runner
+    phase's InterNet experiment ``exp_a`` (epoch 2): recipe 2 one epoch at
+    batch 27 (``--load_dir <it> --load_coarse --load_model InterNet``),
+    recipe 3 one epoch loading that (``--load_coarse --load_refine
+    --load_model InterRefineNet``), each step's launches those of the
+    frozen coarse's forward, the loaded stages unchanged; recipe 3's
+    writer's val metrics (``refine_*``, ``stage3_*``) against a ``--split
+    val`` run on its checkpoint within RELOAD_VAL_TOL; ``--split cycgen``
+    of the recipe-3 model at 2x512x1024.  Returns the counted launches."""
+    runs = []
+    recipe = RECIPE.replace("--bs 24", "--bs 27")
+    load = "--checksession 0 --checkpoint 0"
+    r2 = (f"INTER --model InterRefineNet --load_model InterNet --coarse_model "
+          "HRNet --load_coarse --refine --refine_model SRNRefine --n_sc 3 "
+          "--train_refine")
+    r3 = ("INTER --model InterStage3Net --load_model InterRefineNet "
+          "--coarse_model HRNet --load_coarse --load_refine --refine "
+          "--refine_model SRNRefine --n_sc 3 --stage3 --stage3_model "
+          "MSResAttnRefineV2 --train_stage3 --stage3_prop --refine_l1_w 20 "
+          "--refine_gdl_w 20 --refine_vgg_w 20 --refine_ssim_w 20")
+    exps = {k: os.path.join(tmp, k) for k in ("r2", "r3", "r3val", "r3cyc")}
+
+    def ckpt(exp, model):
+        return torch.load(os.path.join(exp, "checkpoint",
+                                       f"{model}_xs2xs_inter_0_1_0"),
+                          map_location="cpu", weights_only=True)
+
+    cfg2 = parse_args(f"{recipe} --epochs 1 --load_dir {exp_a} --checkepoch 2 "
+                      f"{load} {r2}".split())
+    _, counts = _counted("runner recipe 2", PER_VAL_FORWARD,
+                         RUNNER_EPOCH_STEPS,
+                         lambda: _quiet(lambda: run(cfg2, exps["r2"])))
+    runs.append(counts)
+    cfg3 = parse_args(f"{recipe} --epochs 1 --load_dir {exps['r2']} "
+                      f"--checkepoch 1 {load} {r3}".split())
+    os.makedirs(exps["r3"])
+    get_logger(exps["r3"], "train")
+    writer = _quiet(lambda: Runner(cfg3, exps["r3"]))
+    _, counts = _counted("runner recipe 3", PER_VAL_FORWARD,
+                         RUNNER_EPOCH_STEPS, lambda: _quiet(writer.train_epochs))
+    runs.append(counts)
+    a = torch.load(os.path.join(exp_a, "checkpoint",
+                                "InterNet_xs2xs_inter_0_2_0"),
+                   map_location="cpu", weights_only=True)
+    c2, c3 = ckpt(exps["r2"], "InterRefineNet"), ckpt(exps["r3"],
+                                                      "InterStage3Net")
+    for what, got, want in (("recipe 2 coarse", c2["coarse_model"],
+                             a["coarse_model"]),
+                            ("recipe 3 coarse", c3["coarse_model"],
+                             a["coarse_model"]),
+                            ("recipe 3 refiner", c3["refine_model"],
+                             c2["refine_model"])):
+        if sorted(got) != sorted(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"runner: {what} is not the loaded one")
+    for exp, name in ((exps["r2"], "recipe 2"), (exps["r3"], "recipe 3")):
+        log = _log_of(exp)
+        losses = [float(v) for _, _, v in LOSS_LINE.findall(log)]
+        if len(losses) != RUNNER_EPOCH_STEPS or not all(
+                map(math.isfinite, losses)):
+            raise AssertionError(f"runner {name}: losses {losses}")
+        e, n, wall, rate, ld, comp = EPOCH_LINE.findall(log)[0]
+        print(f"runner {name} epoch: {n} samples in {wall} s, {rate} "
+              f"samples/s, load {ld} s, comp {comp} s; loss_all "
+              f"{losses[0]:.6g} -> {losses[-1]:.6g} on {card}")
+    m_writer, counts = _counted("runner recipe 3 val", PER_VAL_FORWARD,
+                                RUNNER_VAL_BATCHES,
+                                lambda: _quiet(writer.validate))
+    runs.append(counts)
+    r3_loaded = r3.replace("--load_model InterRefineNet",
+                           "--load_model InterStage3Net") + " --load_stage3"
+    val = parse_args(f"{recipe.replace('--split train', '--split val')} "
+                     f"--load_dir {exps['r3']} --checkepoch 1 {load} "
+                     f"{r3_loaded}".split())
+    m_val = _quiet(lambda: run(val, exps["r3val"]))
+    if [k.split("_")[0] for k in m_val] != ["coarse"] * 5 + ["refine"] * 4 \
+            + ["stage3"] * 4 or sorted(m_val) != sorted(m_writer):
+        raise AssertionError(f"runner recipe 3 val: keys {list(m_val)}")
+    for k, v in m_writer.items():
+        print(f"runner recipe 3 val {k}: writer {v:.6g}, reloaded "
+              f"{m_val[k]:.6g}")
+        if not math.isfinite(v) or abs(m_val[k] - v) > RELOAD_VAL_TOL * abs(v):
+            raise AssertionError(f"runner recipe 3 val: reloaded {k} "
+                                 f"{m_val[k]} vs the writer's {v}")
+    cyc = parse_args(
+        "--dataset synthetic --split cycgen --syn_type inter --input_h 512 "
+        f"--input_w 1024 --bs 2 --load_dir {exps['r3']} --checkepoch 1 "
+        f"{load} {r3_loaded}".split())
+    t0 = time.perf_counter()
+    out_root, counts = _counted(
+        "runner recipe 3 cycgen", PER_FORWARD, RUNNER_CYCGEN_FORWARDS,
+        lambda: _quiet(lambda: run(cyc, exps["r3cyc"])))
+    runs.append(counts)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(out_root) for f in fs]
+    if len(files) != 2 * RUNNER_CYCGEN_FORWARDS * 3 * 3:
+        raise AssertionError(f"runner recipe 3 cycgen: {len(files)} files")
+    with open(sorted(f for f in files if "/rgb/" in f)[1], "rb") as f:
+        if png.decode_png(f.read(), 3).shape != (512, 1024, 3):
+            raise AssertionError("runner recipe 3 cycgen: frame shape")
+    print(f"runner recipe 3 cycgen 2x512x1024: {len(files)} PNGs, "
+          f"{time.perf_counter() - t0:.3f} s with the build")
     return runs
 
 
@@ -1983,12 +2357,16 @@ def main():
     slice_phase(dev)
     counts = serve_phase(dev, card)
     kernels.update(train_kernel_phase(dev))
+    batch27_kernel_phase(dev)
     k1_backward_check(dev)
     k4_backward_check(dev)
     train_counts, g_ref = train_phase(dev, card)
     runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
+            recipe_step_phase(dev, card, CFG_R2, "refine_model", "recipe 2"),
+            recipe_step_phase(dev, card, CFG_R3, "stage3_model", "recipe 3"),
             highres_phase(dev, card), stage3_phase(dev, card),
-            vae_phase(dev, card), *runner_phase(dev, card)]
+            recipe3_serve_phase(dev, card), vae_phase(dev, card),
+            *runner_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

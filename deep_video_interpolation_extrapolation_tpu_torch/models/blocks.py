@@ -34,6 +34,13 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
+def needs_grad(module: nn.Module) -> bool:
+    """Whether autograd needs ``module``'s gradient here: grad is enabled
+    and one of its parameters requires it (a frozen submodel's do not)."""
+    return torch.is_grad_enabled() and any(
+        p.requires_grad for p in module.parameters())
+
+
 class Conv(nn.Module):
     """torch-style Conv2d on NHWC tensors: symmetric padding
     ``(kh // 2, kw // 2) * dilation`` (unless given), optional bias,

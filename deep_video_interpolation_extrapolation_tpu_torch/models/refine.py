@@ -1,5 +1,11 @@
-"""SRN-style refinement network (counterpart of models/refine.py, reference
-nets/refine_nets.py:27-135), at ``n_scales == 1``.
+"""SRN-style multi-scale refinement network (counterpart of
+models/refine.py, reference nets/refine_nets.py:27-135).
+
+The scales run coarsest first.  At each scale the rgb and the other
+inputs are downscaled bilinearly with align_corners=True, the previous
+scale's prediction (detached) and the hidden state are upsampled x2, and
+one core, shared by every scale, maps them to this scale's prediction and
+hidden state.
 
 The layers of the JAX ``_SRNCore`` are the reference's ``nn.Sequential``s
 here, so the state_dict keys are the reference's (``port_srn_refine``,
@@ -9,7 +15,7 @@ tools/torch_port.py:95-142, maps the same names).  Every layer computes in
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +25,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     ConvT,
     ResnetBlock,
     conv_lrelu,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
+    interpolate_bilinear,
 )
 
 IN_CHANNELS = 3 + 3 + 20 + 14   # rgb, previous prediction, seg, encoded feat
@@ -30,16 +39,13 @@ def _res(features: int, n: int = 3) -> List[nn.Module]:
 
 class SRNRefine(nn.Module):
     """``forward(input_rgb, input_seg, encoded_feat)``: (B,H,W,3),
-    (B,H,W,20), (B,H,W,14) -> the list of per-scale predictions (one at
-    ``n_scales == 1``), (B,H,W,3) in ``dtype``."""
+    (B,H,W,20), (B,H,W,14) -> the list of ``n_scales`` predictions,
+    coarsest first, the last at (B,H,W,3), in ``dtype``."""
 
     def __init__(self, n_scales: int = 1,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if n_scales != 1:
-            raise NotImplementedError(
-                f"SRNRefine at n_scales={n_scales} (align_corners=True "
-                "resizes) is not ported yet (ROADMAP.md queue 1 item 7)")
+        self.n_scales = n_scales
         self.dtype = dtype
         self.input_layer = nn.Sequential(
             *conv_lrelu(IN_CHANNELS, 32), *conv_lrelu(32, 32),
@@ -60,22 +66,45 @@ class SRNRefine(nn.Module):
         self.output_layer = nn.Sequential(*_res(64), *conv_lrelu(64, 32),
                                           Conv(32, 3, 3))
 
-    def _core(self, x: torch.Tensor) -> torch.Tensor:
-        """One scale pass (``_SRNCore``, refine.py:30-75) with no previous
-        hidden state, which the single scale feeds as its own bottleneck."""
+    def _core(self, x: torch.Tensor, hidden: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One scale pass (``_SRNCore``, refine.py:30-75): (prediction,
+        hidden state).  The coarsest scale, with no hidden state yet,
+        feeds its own bottleneck as one."""
         in_out = self.input_layer(x)
         e1 = self.encoder_1(in_out)
         e2 = self.encoder_2(e1)
         b = self.bottle_dilated(e2)
-        hc = self.hidden_comb(torch.cat([b, b], dim=-1))
+        hc = self.hidden_comb(torch.cat([b, b if hidden is None else hidden],
+                                        dim=-1))
         d1 = self.decoder_2(hc + e2) + e1
         o = self.decoder_1(d1) + in_out
-        return self.output_layer(o)
+        return self.output_layer(o), hc
 
     def forward(self, input_rgb: torch.Tensor, input_seg: torch.Tensor,
                 encoded_feat: torch.Tensor) -> List[torch.Tensor]:
-        # the first (and only) scale feeds the input rgb as the previous
-        # prediction (refine.py:100-118)
-        parts = (input_rgb, input_rgb, input_seg, encoded_feat)
-        x = torch.cat([t.to(self.dtype) for t in parts], dim=-1)
-        return [self._core(x)]
+        # the seg and the encoded features are resized together, in their
+        # promoted dtype, as the JAX module concatenates them first
+        dt = torch.promote_types(input_seg.dtype, encoded_feat.dtype)
+        others = torch.cat([input_seg.to(dt), encoded_feat.to(dt)], dim=-1)
+        preds: List[torch.Tensor] = []
+        hidden = None
+        for scale_idx in range(self.n_scales - 1, -1, -1):
+            scale = 1.0 / (2 ** scale_idx)
+
+            def down(t):
+                return t if scale == 1.0 else interpolate_bilinear(
+                    t, scale_factor=scale, align_corners=True)
+
+            ori = down(input_rgb)
+            # the first scale feeds its rgb as the previous prediction
+            pred_in = ori if not preds else interpolate_bilinear(
+                preds[-1].detach(), scale_factor=2.0, align_corners=True)
+            x = torch.cat([t.to(self.dtype) for t in (ori, pred_in,
+                                                      down(others))], dim=-1)
+            if hidden is not None:
+                hidden = interpolate_bilinear(hidden, scale_factor=2.0,
+                                              align_corners=True)
+            pred, hidden = self._core(x, hidden)
+            preds.append(pred)
+        return preds

@@ -1,10 +1,13 @@
 """Model registry (counterpart of models/registry.py) for the ported slices:
 ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net`` with
-``--coarse_model HRNet`` in interpolation mode, ``--refine_model SRNRefine``
-and ``--stage3_model MSResAttnRefine`` at ``--n_sc 1``; and the video VAEs
-``--model VAE``, ``VAE_S`` and ``VAE_SD`` (``--vid_len``), built for
-frames of ``(input_h, input_w)``.  Any other model raises
-``NotImplementedError`` naming its ROADMAP queue."""
+``--coarse_model HRNet`` in interpolation mode, every ``--refine_model``
+(``SRNRefine`` at any ``--n_sc``, ``refineUnet``) and ``--stage3_model``
+(``MSResAttnRefine`` at any ``--n_sc`` and ``--stage3_prop``, ``V2``,
+``V2Base``, ``V3``) the JAX registry takes; and the video VAEs ``--model
+VAE``, ``VAE_S`` and ``VAE_SD`` (``--vid_len``), built for frames of
+``(input_h, input_w)``.  Any other model raises ``NotImplementedError``
+naming its ROADMAP queue; an unknown stage-3 name raises ``KeyError``, as
+in the JAX registry."""
 
 from __future__ import annotations
 
@@ -39,27 +42,32 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
 
 
 def build_refine(cfg: Config) -> nn.Module:
+    """``SRNRefine`` at ``--n_sc``; any other name is ``RefineUnet``, as the
+    JAX registry maps it (registry.py:25-33: the CLI offers ``refineUnet``,
+    the Config's default)."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models.optical import (
+        RefineUnet,
+    )
     from deep_video_interpolation_extrapolation_tpu_torch.models.refine import (
         SRNRefine,
     )
-    if cfg.refine_model != "SRNRefine":
-        raise NotImplementedError(
-            f"refine model {cfg.refine_model!r} (models/optical.RefineUnet) "
-            f"is not ported yet ({_QUEUE}, item 8)")
-    return SRNRefine(n_scales=cfg.n_scales, dtype=compute_dtype(cfg))
+    if cfg.refine_model == "SRNRefine":
+        return SRNRefine(n_scales=cfg.n_scales, dtype=compute_dtype(cfg))
+    return RefineUnet(dtype=compute_dtype(cfg))
 
 
 def build_stage3(cfg: Config, use_kernels: bool = True) -> nn.Module:
-    from deep_video_interpolation_extrapolation_tpu_torch.models.attn_refine import (
-        MSResAttnRefine,
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        attn_refine as ar,
     )
-    if cfg.stage3_model != "MSResAttnRefine":
-        raise NotImplementedError(
-            f"stage-3 model {cfg.stage3_model!r} is not ported yet "
-            f"({_QUEUE}, item 7)")
-    return MSResAttnRefine(n_scales=cfg.n_scales,
-                           stage3_prop=cfg.stage3_prop,
-                           dtype=compute_dtype(cfg), use_kernels=use_kernels)
+    d = compute_dtype(cfg)
+    if cfg.stage3_model == "MSResAttnRefine":
+        return ar.MSResAttnRefine(n_scales=cfg.n_scales,
+                                  stage3_prop=cfg.stage3_prop, dtype=d,
+                                  use_kernels=use_kernels)
+    variant = {"MSResAttnRefineV2": "v2", "MSResAttnRefineV2Base": "v2base",
+               "MSResAttnRefineV3": "v3"}[cfg.stage3_model]
+    return ar.PyramidAttnRefine(variant, cfg.stage3_prop, dtype=d)
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

@@ -12,8 +12,6 @@ package's documented fix of the reference's ``(k // win_h, k % win_h)``
 (corr.py:22-26), which mis-decodes for win_h != win_w.
 
 Every function computes in its input's dtype, as the JAX one does.
-``window_aggregate_per_neighbor`` (the ``n_scales > 1`` route) is not ported
-yet: ROADMAP.md queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -68,6 +66,23 @@ def window_aggregate(neighbors: Sequence[torch.Tensor], prob: torch.Tensor,
             term = _shift2d(t, dy, dx) * prob[..., n * k + ki, None]
             out = term if out is None else out + term
     return out
+
+
+def window_aggregate_per_neighbor(neighbors: Sequence[torch.Tensor],
+                                  prob: torch.Tensor, win_h: int = 5,
+                                  win_w: int = 9, eps: float = 1e-12
+                                  ) -> List[torch.Tensor]:
+    """Per neighbour n: its ``window_aggregate`` term over its own window
+    probabilities, divided by their sum (at least ``eps``): the
+    renormalised reuse of a coarser scale's probability map
+    (corr.py:112-136)."""
+    k = win_h * win_w
+    outs = []
+    for n, t in enumerate(neighbors):
+        p = prob[..., n * k:(n + 1) * k]
+        num = window_aggregate([t], p, win_h, win_w)
+        outs.append(num / torch.clamp_min(p.sum(dim=-1, keepdim=True), eps))
+    return outs
 
 
 def argmax_flow(sim: torch.Tensor, num_neighbors: int, win_h: int = 5,

@@ -20,9 +20,11 @@ f32 inverse norms, an online softmax over window rows with P rounded to
 bf16 before P.V (``tests/test_torch_port_wattn_shiftadd.py`` emulates these
 rounding points against the plain version and the JAX oracle).
 
-Neither has a gradient: the JAX kernel has no ``custom_vjp`` and stage-3
-training is not ported (ROADMAP.md queue 1 item 7), so the wrapper raises
-for inputs that require grad.
+The kernel has no backward, as the JAX kernel has no ``custom_vjp``: the
+wrapper raises for inputs that require grad.  Stage-3 training takes the
+gradient of ``window_attention_plain`` instead, a route that
+``models/attn_refine.MSResAttnRefine`` chooses wherever autograd needs its
+gradient.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ def window_attention(q, k1, k2, v1, v2, win_h: int = 5, win_w: int = 9
     ins = (q, k1, k2, v1, v2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         raise NotImplementedError(
-            "window_attention has no backward: stage-3 training is not "
-            "ported yet (ROADMAP.md queue 1 item 7)")
+            "window_attention has no backward (ROADMAP.md section 2): "
+            "under autograd call window_attention_plain, as "
+            "MSResAttnRefine does")
     if not hw.use_kernel(q):
         return window_attention_plain(*ins, win_h, win_w)
     return _kernel(*ins, win_h, win_w)

@@ -2,8 +2,12 @@
 
 The inverses of the JAX package's ``tools/torch_port`` mappers, which map
 the reference's torch state_dicts onto the flax trees: ``port_hrnet``
-(``key_map``, ``from_jax_params``), ``port_srn_refine`` (``refine_key_map``)
-and ``port_ms_res_attn_refine`` (``stage3_key_map``).  Flax HWIO conv
+(``key_map``, ``from_jax_params``), ``port_srn_refine`` (``refine_key_map``,
+the same leaves at every ``n_scales``: one core serves every scale),
+``port_ms_res_attn_refine`` (``stage3_key_map``) and ``port_pyramid_attn``
+(``pyramid_key_map``, V2 / V2Base / V3).  ``RefineUnet`` has no torch_port
+mapper: ``refine_unet_key_map`` maps the flax names onto the port's, which
+are the same.  Flax HWIO conv
 kernels become torch OIHW weights (transpose (3, 2, 0, 1)); a flax
 ``ConvTranspose`` kernel (kh, kw, in, out), which ``convT_w`` flipped in
 both spatial axes (torch_port.py:32-35), is flipped back and becomes torch's
@@ -85,6 +89,12 @@ def key_map(params: Mapping) -> Iterator[Tuple[str, Tuple[str, ...]]]:
         yield f"{head}.2.bias", (head, "Conv_1", "bias")
 
 
+def _conv(path, tname):
+    """A conv's weight and bias at flax ``path``."""
+    yield f"{tname}.weight", path + ("kernel",)
+    yield f"{tname}.bias", path + ("bias",)
+
+
 def refine_key_map(params: Mapping
                    ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
     """(torch key, flax path) for every parameter of ``SRNRefine``, the
@@ -143,18 +153,81 @@ def stage3_key_map(params: Mapping
     creates ``attn_fuse_layer``: its two convs are not in the tree, and the
     port's keep their seeded init (``load_jax_params`` returns their
     keys)."""
-    def conv(path, tname):
-        yield f"{tname}.weight", path + ("kernel",)
-        yield f"{tname}.bias", path + ("bias",)
-
     for ours, theirs in ATTN_CONV_PAIRS:
         if ours in params:
-            yield from conv((ours, "Conv_0"), theirs)
-    yield from conv(("output_conv",), "output_layer.4")
+            yield from _conv((ours, "Conv_0"), theirs)
+    yield from _conv(("output_conv",), "output_layer.4")
     for dec in ("decoder_2", "decoder_1"):
-        yield from conv((f"{dec}_t", "ConvTranspose_0"), f"{dec}.0")
-        yield from conv((f"{dec}_r", "Conv_0"), f"{dec}.2.conv.0")
-        yield from conv((f"{dec}_r", "Conv_1"), f"{dec}.2.conv.2")
+        yield from _conv((f"{dec}_t", "ConvTranspose_0"), f"{dec}.0")
+        yield from _conv((f"{dec}_r", "Conv_0"), f"{dec}.2.conv.0")
+        yield from _conv((f"{dec}_r", "Conv_1"), f"{dec}.2.conv.2")
+
+
+def pyramid_key_map(params: Mapping, variant: str
+                    ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(torch key, flax path) for every parameter of ``PyramidAttnRefine``
+    (``variant`` "v2", "v2base" or "v3"), the inverse of port_pyramid_attn
+    (torch_port.py:268-335)."""
+    res = variant == "v3"
+
+    def group(name, conv_ids, res_ids=()):
+        for k, t in enumerate(conv_ids):
+            yield from _conv((f"{name}_{k}", "Conv_0"), f"{name}.{t}")
+        for k, t in enumerate(res_ids):
+            yield from _conv((f"{name}_res{k}", "Conv_0"), f"{name}.{t}.conv.0")
+            yield from _conv((f"{name}_res{k}", "Conv_1"), f"{name}.{t}.conv.2")
+
+    if res:
+        groups = [("input_layer", (0, 2)), ("encoder_layer_1", (0,)),
+                  ("encoder_layer_2", (0, 2)), ("encoder_layer_3", (0, 2)),
+                  ("layer_1_neighbor_tf", (0, 2)),
+                  ("layer_2_neighbor_tf", (0, 2)), ("layer_3_fuse", (0, 2))]
+        for name, ids in groups:
+            yield from group(name, ids, (len(ids) * 2, len(ids) * 2 + 1))
+    else:
+        for name, ids in (("input_layer", (0, 2)), ("encoder_layer_1", (0, 2)),
+                          ("encoder_layer_2", (0, 2, 4)),
+                          ("encoder_layer_3", (0, 2, 4)),
+                          ("layer_1_neighbor_tf", (0, 2)),
+                          ("layer_2_neighbor_tf", (0, 2)),
+                          ("layer_3_fuse", (0, 2)), ("layer_1_fuse", (0, 2)),
+                          ("layer_2_fuse", (0, 2))):
+            yield from group(name, ids)
+    if variant != "v2base":
+        for k in (1, 2, 3):
+            yield from group(f"attn_down_layer_{k}", (0, 2, 4))
+    for k in (3, 2):
+        name = f"decoder_layer_{k}"
+        yield from _conv((f"{name}_t", "ConvTranspose_0"), f"{name}.0")
+        yield from _conv((f"{name}_c", "Conv_0"), f"{name}.2")
+        if res:
+            for j, t in ((0, 4), (1, 5)):
+                yield from _conv((f"{name}_r{j}", "Conv_0"), f"{name}.{t}.conv.0")
+                yield from _conv((f"{name}_r{j}", "Conv_1"), f"{name}.{t}.conv.2")
+        else:
+            yield from _conv((f"{name}_c2", "Conv_0"), f"{name}.4")
+    for k in (3, 2, 1):
+        name = f"out_layer_{k}"
+        yield from _conv((f"{name}_0", "Conv_0"), f"{name}.0")
+        if res:
+            for j, t in ((0, 2), (1, 3)):
+                yield from _conv((f"{name}_r{j}", "Conv_0"), f"{name}.{t}.conv.0")
+                yield from _conv((f"{name}_r{j}", "Conv_1"), f"{name}.{t}.conv.2")
+        else:
+            yield from _conv((f"{name}_1", "Conv_0"), f"{name}.2")
+        yield from _conv((f"{name}_out",), f"{name}.4")
+
+
+def refine_unet_key_map(params: Mapping
+                        ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(torch key, flax path) for every parameter of ``RefineUnet``: its
+    ``unet`` children keep their flax names; a ConvLReLU's conv is its
+    ``Conv_0``, a ConvT's its ``ConvTranspose_0``."""
+    for name in sorted(params["unet"]):
+        inner = (() if name == "output_layer" else
+                 ("ConvTranspose_0",) if name.startswith("up_") else
+                 ("Conv_0",))
+        yield from _conv(("unet", name) + inner, f"unet.{name}")
 
 
 def _state_dict(params: Mapping, keys) -> Dict[str, torch.Tensor]:
@@ -190,18 +263,50 @@ def from_jax_stage3(params: Mapping) -> Dict[str, torch.Tensor]:
     return _state_dict(params, stage3_key_map(params))
 
 
+def from_jax_pyramid(params: Mapping, variant: str
+                     ) -> Dict[str, torch.Tensor]:
+    """``params["stage3_model"]`` of a JAX V2 / V2Base / V3 -> its
+    state_dict."""
+    return _state_dict(params, pyramid_key_map(params, variant))
+
+
+def from_jax_refine_unet(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params["refine_model"]`` of a JAX RefineUnet -> its state_dict."""
+    return _state_dict(params, refine_unet_key_map(params))
+
+
+def from_jax_submodel(sub: torch.nn.Module, params: Mapping
+                      ) -> Dict[str, torch.Tensor]:
+    """The JAX tree of one submodel -> the state_dict of the port's
+    ``sub``, by its class."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        attn_refine,
+        hrnet,
+        optical,
+        refine,
+    )
+    if isinstance(sub, hrnet.HRNet):
+        return from_jax_params(params)
+    if isinstance(sub, refine.SRNRefine):
+        return from_jax_refine(params)
+    if isinstance(sub, optical.RefineUnet):
+        return from_jax_refine_unet(params)
+    if isinstance(sub, attn_refine.MSResAttnRefine):
+        return from_jax_stage3(params)
+    if isinstance(sub, attn_refine.PyramidAttnRefine):
+        return from_jax_pyramid(params, sub.variant)
+    raise TypeError(f"no JAX weight map for {type(sub).__name__}")
+
+
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> List[str]:
     """Load a JAX composite's ``params`` (the per-submodel tree) into the
     port's composite of the same ``--model``.  Returns the keys the JAX tree
     has no counterpart for, which keep their seeded init: only
-    ``stage3_model.attn_fuse_layer.*``."""
-    mappers = {"coarse_model": from_jax_params,
-               "refine_model": from_jax_refine,
-               "stage3_model": from_jax_stage3}
+    ``stage3_model.attn_fuse_layer.*`` of V1 at one scale."""
     left = []
     for name, sub in model.named_children():
         missing, unexpected = sub.load_state_dict(
-            mappers[name](params[name]), strict=False)
+            from_jax_submodel(sub, params[name]), strict=False)
         if unexpected or any(not k.startswith("attn_fuse_layer.")
                              for k in missing):
             raise KeyError(f"{name}: missing {missing}, unexpected "

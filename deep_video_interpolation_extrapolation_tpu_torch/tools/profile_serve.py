@@ -1,18 +1,20 @@
 """Profile of one serving forward on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_serve \
-        [--model InterNet|InterStage3Net|VAE|highres_large] [--out DIR]
+        [--model InterNet|InterStage3Net|recipe3|VAE|highres_large] [--out DIR]
 
 ``InterStage3Net`` (the default): SRNRefine, then MSResAttnRefine at
 ``--n_sc 1``, over HRNet at full width on a seeded 2x512x1024 input, the
-shape of ``chip_smoke.py``'s rollouts; ``InterNet``: that HRNet alone, the
+shape of ``chip_smoke.py``'s rollouts; ``recipe3``: the model recipe 3
+trains (docs/RECIPES.md:28-40: SRNRefine ``--n_sc 3``, then
+MSResAttnRefineV2 ``--stage3_prop``), the same input; ``InterNet``: that HRNet alone, the
 same input; ``highres_large``: InterNet with the 4-branch HRNet
 (``--highres_large``, the 4-part head), the same input.  ``VAE``: the video VAE at
 ``--vid_len 2`` on a seeded 8x128x128 batch (``serve.predict_video``, the
 code drawn from a seeded generator), the shape of ``chip_smoke.py``'s vae
 phase.  Random seeded weights, bf16 compute with f32 masters.  For each
 model (``use_kernels`` True, then False): 3 warm-up forwards, the mean
-wall time of 5 (host clock, synchronized), for InterStage3Net the mean
+wall time of 5 (host clock, synchronized), for the InterStage3Nets the mean
 CUDA-event time of each stage over 5 calls (the coarse HRNet; coarse +
 refine, whose difference is the refine stage; the whole forward, whose
 difference from that is stage 3), then one forward under
@@ -50,6 +52,10 @@ CONFIGS = {
     "InterStage3Net": Config(model="InterStage3Net", coarse_model="HRNet",
                              syn_type="inter", refine_model="SRNRefine",
                              compute_dtype="bfloat16"),
+    "recipe3": Config(model="InterStage3Net", coarse_model="HRNet",
+                      syn_type="inter", refine_model="SRNRefine", n_scales=3,
+                      stage3_model="MSResAttnRefineV2", stage3_prop=True,
+                      compute_dtype="bfloat16"),
     "VAE": Config(model="VAE", vid_length=2, input_h=128, input_w=128,
                   compute_dtype="bfloat16"),
     "highres_large": Config(model="InterNet", coarse_model="HRNet",

@@ -1,11 +1,16 @@
 """Profile of one INTER train step on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_train \
-        [--out chiprun_out/profile_train]
+        [--recipe 1|2|3] [--out chiprun_out/profile_train]
 
-InterNet/HRNet at full width on one seeded 24x128x128 batch (the INTER
-recipe), bf16 compute with f32 masters, frozen VGG19 from a seed, Adamax;
-the same setup as ``chip_smoke.py``'s train phase.  For each model
+``--recipe 1`` (the default): InterNet/HRNet at full width on one seeded
+24x128x128 batch (the INTER recipe, docs/RECIPES.md:11-14); ``2``:
+InterRefineNet, the HRNet frozen, SRNRefine ``--n_sc 3`` trained, at
+27x128x128 (:17-26); ``3``: InterStage3Net, the HRNet and SRNRefine
+frozen, MSResAttnRefineV2 ``--stage3_prop`` trained, refine weights 20,
+at 27x128x128 (:28-40).  bf16 compute with f32 masters, frozen VGG19
+from a seed, Adamax; the same setups as ``chip_smoke.py``'s train and
+recipe phases.  For each model
 (``use_kernels`` True, then False): 3 warm-up steps, the mean wall time of
 3 steps (host clock, synchronized), the peak device memory of those steps,
 then one step under ``torch.profiler``: the time of every device event
@@ -21,6 +26,7 @@ steps): the profiler's own host work slows the profiled step.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
@@ -54,13 +60,25 @@ GROUPS = {"BasicBlock chain": ("bb_kernel", "GJobs"),
           "K4": ("ups_head_kernel",)}
 CFG = Config(model="InterNet", coarse_model="HRNet", syn_type="inter",
              compute_dtype="bfloat16", train_coarse=True)
+_R2 = dict(model="InterRefineNet", train_coarse=False, refine=True,
+           refine_model="SRNRefine", n_scales=3, train_refine=True)
+RECIPES = {1: (CFG, B),
+           2: (dataclasses.replace(CFG, **_R2), 27),
+           3: (dataclasses.replace(
+               CFG, **{**_R2, "model": "InterStage3Net",
+                       "train_refine": False, "stage3": True,
+                       "stage3_model": "MSResAttnRefineV2",
+                       "stage3_prop": True, "train_stage3": True,
+                       "refine_l1_weight": 20.0, "refine_gdl_weight": 20.0,
+                       "refine_vgg_weight": 20.0,
+                       "refine_ssim_weight": 20.0}), 27)}
 
 
-def _batch(dev):
+def _batch(dev, b=B):
     g = torch.Generator(device=dev).manual_seed(5)
-    batch = {f"frame{i}": torch.rand((B, H, W, 3), generator=g, device=dev)
+    batch = {f"frame{i}": torch.rand((b, H, W, 3), generator=g, device=dev)
              * 2 - 1 for i in (1, 2, 3)}
-    batch.update({f"seg{i}": torch.randint(0, 20, (B, H, W), generator=g,
+    batch.update({f"seg{i}": torch.randint(0, 20, (b, H, W), generator=g,
                                            device=dev, dtype=torch.uint8)
                   for i in (1, 2, 3)})
     return batch
@@ -80,13 +98,13 @@ def _on_device(evt) -> bool:
             and not getattr(evt, "is_user_annotation", False))
 
 
-def profile_model(dev, use_kernels: bool):
-    model = registry.build_model(CFG, device=dev, seed=0,
+def profile_model(dev, use_kernels: bool, cfg: Config = CFG, b: int = B):
+    model = registry.build_model(cfg, device=dev, seed=0,
                                  use_kernels=use_kernels)
     state = state_lib.create_train_state(
-        CFG, model, init_vgg_frozen(CFG, seed=1, device=dev))
-    step = inter.make_train_step(CFG, model)
-    batch = _batch(dev)
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
+    step = inter.make_train_step(cfg, model)
+    batch = _batch(dev, b)
     for _ in range(3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
@@ -122,17 +140,19 @@ def profile_model(dev, use_kernels: bool):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--recipe", type=int, choices=sorted(RECIPES), default=1)
     ap.add_argument("--out", default="chiprun_out/profile_train")
     args = ap.parse_args(argv)
+    cfg, b = RECIPES[args.recipe]
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     dev = torch.device("cuda:0")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for name, use_kernels in (("kernel", True), ("plain", False)):
-        r = profile_model(dev, use_kernels)
+        r = profile_model(dev, use_kernels, cfg, b)
         (out / f"{name}.txt").write_text(r["table"] + "\n")
-        print(f"{name} model {B}x{H}x{W}: wall {r['wall_ms']:.3f} ms/step "
+        print(f"{name} model, recipe {args.recipe}, {b}x{H}x{W}: wall {r['wall_ms']:.3f} ms/step "
               f"(mean of 3), peak {r['peak_gib']:.3f} GiB; profiled step "
               f"{r['prof_ms']:.3f} ms, self device {r['device_ms']:.3f} ms, "
               f"idle {r['idle']:.2%}; per step: " + ", ".join(

@@ -40,12 +40,17 @@ def vgg_loss_from_frozen(vgg: Optional[VGG19Features]) -> Optional[Callable]:
 
 
 def rgb_bundle(cfg: Config, pred: torch.Tensor, gt: torch.Tensor,
-               vgg_fn: Optional[Callable], prefix: str
+               vgg_fn: Optional[Callable], prefix: str, refine: bool = False
                ) -> "OrderedDict[str, torch.Tensor]":
-    """The RGB loss bundle with the global weights (losses.py:228-241)."""
-    return rgb_loss_bundle(pred, gt, cfg.l1_weight, cfg.gdl_weight,
-                           cfg.vgg_weight, cfg.ssim_weight, vgg_fn=vgg_fn,
-                           prefix=prefix)
+    """The RGB loss bundle with the global weights, or with the
+    ``refine_*`` weights for a refine or stage-3 output (losses.py:228-241,
+    common.py:50-65)."""
+    if refine:
+        w = (cfg.refine_l1_weight, cfg.refine_gdl_weight,
+             cfg.refine_vgg_weight, cfg.refine_ssim_weight)
+    else:
+        w = (cfg.l1_weight, cfg.gdl_weight, cfg.vgg_weight, cfg.ssim_weight)
+    return rgb_loss_bundle(pred, gt, *w, vgg_fn=vgg_fn, prefix=prefix)
 
 
 def sum_losses(loss_dict: "OrderedDict[str, torch.Tensor]") -> torch.Tensor:

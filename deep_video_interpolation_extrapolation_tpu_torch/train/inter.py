@@ -1,17 +1,23 @@
-"""The INTER train and eval steps (counterpart of train/inter.py:68-216)
-for ``--model InterNet``.
+"""The INTER train and eval steps (counterpart of train/inter.py:53-216)
+for ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net``.
 
 - train: the coarse model's weighted {l1, gdl, vgg, ssim} bundle on the
   raw [-1, 1] output plus cross-entropy on the seg logits
-  (InterTrainer.py:411-414), one backward of their sum, then the
-  per-submodel optimizer steps behind the train_* flags.  The step
-  updates the model's parameters and the optimizer state in place.
+  (InterTrainer.py:411-414); for the refine composites, per stage and per
+  scale the refine-weighted bundle against the ground truth downscaled
+  with align_corners=True (InterTrainer.py:415-425), keyed
+  ``refine_<scale>_*`` then ``stage3_<scale>_*`` by each stage's actual
+  output count; one backward of their sum, then the per-submodel
+  optimizer steps behind the train_* flags.  The step updates the
+  model's parameters and the optimizer state in place.
 - eval: L1 / PSNR / SSIM on [0, 1], IoU (pixel accuracy) of the argmax
-  ids and the VGG cosine (InterTrainer.py:612-633), without gradients.
+  ids and the VGG cosine (InterTrainer.py:612-633) of the coarse frame,
+  then the same of the last refined and stage-3 frames (``refine_*``,
+  ``stage3_*``), without gradients.
 
-The loss-dict keys are the reference's logging keys.  Batches are dicts of
-NHWC tensors: frame1..3 in [-1, 1], seg1..3 as uint8 id maps
-(``core/seg``).
+The loss-dict and metric keys are the reference's logging keys, in the
+JAX package's order.  Batches are dicts of NHWC tensors: frame1..3 in
+[-1, 1], seg1..3 as uint8 id maps (``core/seg``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
 from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
     make_vgg_cosine_score,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
+    interpolate_bilinear,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     state as state_lib,
 )
@@ -46,18 +55,42 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
 )
 
 _QUEUE = "ROADMAP.md queue 1"
+_REFINE = ("InterRefineNet", "InterStage3Net")
 
 
 def _check(cfg: Config) -> None:
-    if cfg.model != "InterNet":
+    if cfg.model != "InterNet" and cfg.model not in _REFINE:
         raise NotImplementedError(
             f"the {cfg.model} train and eval steps are not ported yet "
-            f"({_QUEUE}, items 5-7)")
+            f"({_QUEUE}, items 5-6)")
+
+
+def _check_vae_combo(cfg: Config) -> None:
+    """A VAEHRNet coarse under a refine composite would train with an
+    unregularised posterior; the JAX package refuses it (inter.py:53-65)."""
+    if cfg.coarse_model == "VAEHRNet" and cfg.model in _REFINE:
+        raise ValueError(
+            f"--coarse_model VAEHRNet is not supported under {cfg.model}; "
+            "use --model InterNet (plain VAE) or InterGANNet (--vae)")
+
+
+def _per_scale(cfg: Config, loss_dict, imgs, gt_x, vgg_fn, stem: str):
+    """The refine-weighted bundle of each scale's output against the
+    ground truth at that scale (inter.py:130-143); ``str(scale)`` is the
+    reference's key suffix ('0.25', '0.5', '1.0')."""
+    n_sc = len(imgs)
+    for i, img in enumerate(imgs):
+        scale = 1 / (2 ** (n_sc - i - 1))
+        gt_s = gt_x if scale == 1.0 else interpolate_bilinear(
+            gt_x, scale_factor=scale, align_corners=True)
+        loss_dict.update(rgb_bundle(cfg, img, gt_s, vgg_fn,
+                                    stem + str(scale), refine=True))
 
 
 def make_train_step(cfg: Config, model: nn.Module) -> Callable:
     """``train_step(state, batch) -> (state, loss_dict)``; the loss dict's
     values are detached scalars."""
+    _check_vae_combo(cfg)
     _check(cfg)
     if cfg.highres_large:
         raise NotImplementedError(
@@ -70,13 +103,16 @@ def make_train_step(cfg: Config, model: nn.Module) -> Callable:
         x, seg, gt_x, _ = get_inter_inputs(batch)
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        coarse_img, coarse_seg = model(x, seg)
-        loss_dict = rgb_bundle(cfg, coarse_img, gt_x,
-                               vgg_loss_from_frozen(state.frozen_vgg),
-                               "coarse")
+        out = model(x, seg)
+        vgg_fn = vgg_loss_from_frozen(state.frozen_vgg)
+        loss_dict = rgb_bundle(cfg, out[0], gt_x, vgg_fn, "coarse")
         if cfg.mode == "xs2xs":
             loss_dict["coarse_ce_loss"] = cfg.ce_weight * cross_entropy_loss(
-                coarse_seg, seg_id_targets(batch["seg2"]))
+                out[1], seg_id_targets(batch["seg2"]))
+        if cfg.model in _REFINE:
+            _per_scale(cfg, loss_dict, out[2], gt_x, vgg_fn, "refine_")
+        if cfg.model == "InterStage3Net":
+            _per_scale(cfg, loss_dict, out[3], gt_x, vgg_fn, "stage3_")
         total = sum_losses(loss_dict)
         loss_dict["loss_all"] = total
         total.backward()
@@ -94,20 +130,29 @@ def make_eval_step(cfg: Config, model: nn.Module) -> Callable:
 
     @torch.no_grad()
     def eval_step(state: state_lib.TrainState, batch):
-        x, seg, gt_x, _ = get_inter_inputs(batch)
-        coarse_img, coarse_seg = model(x, seg)
-        p = normalize01(torch.clamp(coarse_img, -1, 1))
+        x, seg, gt_x, gt_seg = get_inter_inputs(batch)
+        out = model(x, seg, gt_seg=gt_seg)
         g = normalize01(gt_x)
+        cos = (make_vgg_cosine_score(state.frozen_vgg)
+               if state.frozen_vgg is not None else None)
         metrics = OrderedDict()
-        metrics["coarse_l1"] = l1_loss(p, g)
-        metrics["coarse_psnr"] = psnr(p, g)
-        metrics["coarse_ssim"] = ssim(p, g)
-        if cfg.mode == "xs2xs":
-            metrics["coarse_iou"] = iou_accuracy(
-                coarse_seg.argmax(dim=-1), seg_id_targets(batch["seg2"]))
-        if state.frozen_vgg is not None:
-            metrics["coarse_vgg"] = make_vgg_cosine_score(state.frozen_vgg)(
-                p, g)
+
+        def frame(prefix, img):
+            p = normalize01(torch.clamp(img, -1, 1))
+            metrics[f"{prefix}_l1"] = l1_loss(p, g)
+            metrics[f"{prefix}_psnr"] = psnr(p, g)
+            metrics[f"{prefix}_ssim"] = ssim(p, g)
+            if prefix == "coarse" and cfg.mode == "xs2xs":
+                metrics["coarse_iou"] = iou_accuracy(
+                    out[1].argmax(dim=-1), seg_id_targets(batch["seg2"]))
+            if cos is not None:
+                metrics[f"{prefix}_vgg"] = cos(p, g)
+
+        frame("coarse", out[0])
+        if cfg.model in _REFINE:
+            frame("refine", out[2][-1])
+        if cfg.model == "InterStage3Net":
+            frame("stage3", out[3][-1])
         return metrics
 
     return eval_step

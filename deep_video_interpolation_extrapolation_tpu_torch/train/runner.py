@@ -13,8 +13,13 @@ runners/InterTrainer.py) for ``syn_type inter``:
   (InterTrainer.py:108-112) where either is installed, and the load/comp
   wall-time split in the log (InterTrainer.py:375-381).
 
-InterNet trains and validates (``train/inter.py``); InterRefineNet and
-InterStage3Net run cycgen and mycycgen on their serving forward.  Batches
+InterNet, InterRefineNet and InterStage3Net train and validate
+(``train/inter.py``; the refine stages log ``refine_<scale>_*`` and
+``stage3_<scale>_*`` losses and validate ``refine_*`` and ``stage3_*``
+metrics), and run cycgen and mycycgen on their serving forward.  A stage
+starts from the previous stage's experiment through ``--load_dir`` and
+``--load_coarse`` / ``--load_refine`` (``--load_model`` names that
+experiment's model).  Batches
 reach the card through pinned host memory and a side stream
 (``_device_prefetch``); losses stay on the card and are read back once per
 ``disp_interval``.  The paths the port does not have yet raise
@@ -141,11 +146,7 @@ class Runner:
             vgg = init_vgg_frozen(cfg, seed=cfg.seed + 1, device=self.device)
         self.model = registry.build_model(cfg, device=self.device,
                                           seed=cfg.seed)
-        if cfg.model == "InterNet":
-            self.state = state_lib.create_train_state(cfg, self.model, vgg)
-        else:      # served composites: no train state ported yet
-            self.state = state_lib.TrainState(model=self.model, optimizers={},
-                                              frozen_vgg=vgg)
+        self.state = state_lib.create_train_state(cfg, self.model, vgg)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("model %s: %d params, submodels=%s", cfg.model, n_params,
                     [n for n, _ in self.model.named_children()])
@@ -182,8 +183,7 @@ class Runner:
         logger.info("loaded checkpoint %s (submodels=%s)", path, sel or "all")
 
     def _build_steps(self, train: bool) -> None:
-        """The train or eval step, built on first use: train/inter.py has
-        InterNet's and raises for the models whose steps are not ported."""
+        """The train or eval step, built on first use."""
         if train and self.train_step is None:
             self.train_step = inter_lib.make_train_step(self.cfg, self.model)
         if not train and self.eval_step is None:

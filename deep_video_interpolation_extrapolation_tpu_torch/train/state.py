@@ -2,7 +2,12 @@
 
 One torch optimizer per top-level submodule of the composite (the
 reference builds one per submodel, runners/InterTrainer.py:79-83) and a
-step behind each one's ``train_*`` flag.  Adamax here is torch's, which
+step behind each one's ``train_*`` flag.  Where some submodel trains, the
+ones whose flag is off are frozen: their parameters stop requiring grad,
+so their forward runs without autograd (``models/composite``) and no
+gradient is made for them, the same update as the JAX step, which
+computes their gradients and discards them.  Where none trains, every
+gradient is computed and no submodel steps, as in the JAX step.  Adamax here is torch's, which
 puts eps inside the max exactly as optax's adamax does
 (u = max(b2 * u, |g| + eps)), with the same bias-corrected step.
 
@@ -27,13 +32,21 @@ _QUEUE = "ROADMAP.md queue 1"
 
 
 def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
-    """Submodule name -> (optimizer, lr, train flag).  InterNet has one,
-    the coarse model (InterTrainer.py:79)."""
-    if cfg.model != "InterNet":
+    """Submodule name -> (optimizer, lr, train flag) (state.py:79-99): the
+    coarse model Adamax(coarse_lr) (InterTrainer.py:79), the refiner
+    Adamax(refine_lr) (:81), stage 3 the refiner's pair (:83)."""
+    if cfg.model not in ("InterNet", "InterRefineNet", "InterStage3Net"):
         raise NotImplementedError(
             f"the {cfg.model} train state is not ported yet ({_QUEUE})")
-    return {"coarse_model": (cfg.coarse_optimizer, cfg.coarse_learning_rate,
-                             cfg.train_coarse)}
+    specs = {"coarse_model": (cfg.coarse_optimizer, cfg.coarse_learning_rate,
+                              cfg.train_coarse)}
+    if cfg.model in ("InterRefineNet", "InterStage3Net"):
+        specs["refine_model"] = (cfg.refine_optimizer,
+                                 cfg.refine_learning_rate, cfg.train_refine)
+    if cfg.model == "InterStage3Net":
+        specs["stage3_model"] = (cfg.refine_optimizer,
+                                 cfg.refine_learning_rate, cfg.train_stage3)
+    return specs
 
 
 def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
@@ -56,10 +69,14 @@ class TrainState:
 def create_train_state(cfg: Config, model: nn.Module,
                        frozen_vgg: Optional[VGG19Features] = None
                        ) -> TrainState:
-    optimizers = {
-        name: make_optimizer(opt, lr, getattr(model, name).parameters())
-        for name, (opt, lr, _) in submodel_specs(cfg).items()
-        if hasattr(model, name)}
+    specs = {name: spec for name, spec in submodel_specs(cfg).items()
+             if hasattr(model, name)}
+    optimizers = {name: make_optimizer(opt, lr,
+                                       getattr(model, name).parameters())
+                  for name, (opt, lr, _) in specs.items()}
+    if any(trains for _, _, trains in specs.values()):
+        for name, (_, _, trains) in specs.items():
+            getattr(model, name).requires_grad_(trains)
     return TrainState(model=model, optimizers=optimizers,
                       frozen_vgg=frozen_vgg)
 

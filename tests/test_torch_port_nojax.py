@@ -2,7 +2,10 @@
 directly or through another module: a fresh interpreter with those modules
 blocked imports every module of the port (the train modules included) and
 runs the CPU forward, a rollout and two INTER train steps at 32x64, a
-``--highres_large`` rollout step, an InterStage3Net rollout step, the
+``--highres_large`` rollout step, an InterStage3Net rollout step, a train
+and an eval step of the refine stages (RefineUnet under InterRefineNet;
+SRNRefine at ``--n_sc 3`` with V2 ``--stage3_prop``, and at ``--n_sc 2``
+with V1 ``--stage3_prop``, under InterStage3Net), the
 BasicBlock chain forward and backward, a VideoVAE eval forward (``--model
 VAE``, two warped steps at 32x32) and the shifted add; then the launcher
 (``cli.main.run(cfg, device="cpu")``) at 32x64: one epoch of 2 steps on a
@@ -28,6 +31,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax",
 for name in BLOCKED:
     sys.modules[name] = None          # any import of them now fails
 import torch
+torch.set_num_threads(2)     # a fair share beside the other test workers
 import {pkg}
 names = sorted(m.name for m in pkgutil.walk_packages({pkg}.__path__, "{pkg}."))
 for name in names:
@@ -67,6 +71,22 @@ stage3 = registry.build_model(
     device="cpu", seed=3)
 preds, pred_ids = serve.rollout(stage3, imgs, ids, 1)
 assert torch.isfinite(preds[0]).all() and int(pred_ids[0].max()) < 20
+for kw in (dict(model="InterRefineNet", refine_model="refineUnet",
+                train_refine=True),
+           dict(model="InterStage3Net", refine_model="SRNRefine", n_scales=3,
+                stage3_model="MSResAttnRefineV2", stage3_prop=True,
+                train_stage3=True),
+           dict(model="InterStage3Net", refine_model="SRNRefine", n_scales=2,
+                stage3_model="MSResAttnRefine", stage3_prop=True,
+                train_stage3=True)):
+    rcfg = dataclasses.replace(cfg, train_coarse=False, **kw)
+    rmodel = registry.build_model(rcfg, device="cpu", seed=3)
+    rstate = state_lib.create_train_state(rcfg, rmodel)
+    rstate, rl = inter.make_train_step(rcfg, rmodel)(rstate, batch)
+    assert rstate.step == 1 and torch.isfinite(rl["loss_all"]), kw
+    rm = inter.make_eval_step(rcfg, rmodel)(rstate, batch)
+    assert list(rm)[-3:] == [f"{{list(rm)[-1].split('_')[0]}}_{{k}}"
+                             for k in ("l1", "psnr", "ssim")]
 from {pkg}.ops import bbchain
 x = torch.rand(1, 8, 16, 64, generator=g, requires_grad=True)
 pairs = [tuple((torch.randn(64, 64, 3, 3, generator=g) / 24).requires_grad_()

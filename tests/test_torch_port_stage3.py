@@ -2,7 +2,8 @@
 and InterRefineNet, ported, against the JAX package on the same weights
 (the JAX init mapped with ``tools/jax_weights.load_jax_params``), the
 weight mappers against ``tools/torch_port``, the serving rollout against
-``Runner._mini_test``, and the refusals of what is not ported.
+``Runner._mini_test``, and the refusals of what is not ported (the refine
+family's other routes: test_torch_port_refine_models.py).
 
 Sizes: 32x64, B=1, CPU.  Tolerances are the InterNet test's
 (test_torch_port_model.py), on every output (coarse rgb and seg, the
@@ -207,11 +208,16 @@ def test_final_output_picks_the_last_stage():
     assert serve.final_output((a, b)) == (a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(n_scales=2), dict(stage3_prop=True),
-                                dict(stage3_model="MSResAttnRefineV2"),
-                                dict(refine_model="refineUnet")])
-def test_unported_stage3_routes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,exc", [
+    (dict(coarse_model="VAEHRNet"), NotImplementedError),
+    (dict(syn_type="extra"), NotImplementedError),
+    (dict(model="InterGANNet"), NotImplementedError),
+    (dict(stage3_model="MSResAttnRefineV9"), KeyError)])
+def test_unported_stage3_routes_raise(kw, exc):
+    """What stays unported raises naming its ROADMAP item; an unknown
+    stage-3 name raises KeyError, as the JAX registry does."""
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
+                       else None):
         registry.build_model(_cfg(**kw), device="cpu")
 
 

@@ -192,11 +192,17 @@ def test_eval_metrics_match_jax(jax_side):
         assert _rel(out[k], ref[k]) < 1e-4, k
 
 
-@pytest.mark.parametrize("kw", [dict(model="InterRefineNet"),
-                                dict(remat=True)])
-def test_unported_train_options_raise(kw):
+@pytest.mark.parametrize("kw,exc", [
+    (dict(highres_large=True), NotImplementedError),
+    (dict(remat=True), NotImplementedError),
+    (dict(model="InterRefineNet", coarse_model="VAEHRNet"), ValueError)])
+def test_unported_train_options_raise(kw, exc):
+    """--highres_large training and --remat raise naming their ROADMAP
+    item; a VAEHRNet coarse under a refine composite raises the JAX
+    package's ValueError (train/inter.py:53-65)."""
     model = registry.build_model(_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
+                       else "VAEHRNet"):
         inter.make_train_step(_cfg(**kw), model)
 
 
