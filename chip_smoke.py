@@ -88,12 +88,13 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    the kernel model against the plain model at 2x128x128 on the same
    weights and ``z_m`` (the warped ``output`` by max|d|/max|ref| <= 2e-2,
    ``y_pred`` as the slice phase's rgb, flows and masks within 1e-3 of
-   their max: no kernel runs before the warp); then 3 timed eval forwards
-   (``serve.predict_video``) at 8x128x128 after a warm-up, the code drawn
-   from a seeded generator:
-   launches per forward grid_sample 2 (one per step, unbounded), every
-   other kernel 0 (the bounded mode has a counter of its own,
-   grid_sample_bounded); outputs finite; frames/s;
+   their max: no kernel runs before the warp); then 50 timed eval
+   forwards (``serve.predict_video``) at 8x128x128 after a warm-up, in 5
+   windows of 10, the code drawn from a seeded generator: launches per
+   forward grid_sample 1 (the flow entry, all T steps in one launch,
+   unbounded), every other kernel 0 (the bounded mode has a counter of its
+   own, grid_sample_bounded); outputs finite; frames/s of each window,
+   their median and spread;
 9. runner: the port's runner layer through its launcher (``cli/main``,
    ``train/runner.Runner``): the INTER recipe on synthetic data at
    24x128x128 bf16, ``--epochs 2`` (8 steps each, ``--disp_interval 1``),
@@ -140,11 +141,19 @@ The kernel phase also holds the shift-add kernel (the heads' tail in
 every HRNet forward and train step: one launch each, counted in phases 3
 and 5-7), bit for bit against its plain version at B=1 and B=2 512x1024,
 at the train shape 24x128x128 and at a ragged 1x37x70, each timed on a row
-of its own, host issue included and on the card alone; the grid sample
-bounded (R = 8: flows up to 6 px, a band beyond the window that must give
-0, a known integer shift) and unbounded (flows up to 40 px) at
+of its own, host issue included and on the card alone; the grid sample's
+grid entry bounded (R = 8: flows up to 6 px, a band beyond the window that
+must give 0, a known integer shift) and unbounded (flows up to 40 px) at
 8x512x1024x3 bf16, and unbounded at the VideoVAE's 8x128x128x3 (row
-``grid_sample_vae``, also on the card alone); and the dual head
+``grid_sample_vae``), and its flow entry (``warp.warp_steps``: bf16 flows,
+no grid) at the same shapes, bounded and unbounded at 8x512x1024x3 (rows
+``warp_steps_bounded``, ``warp_steps``) and with T = 2 and the mask at the
+VAE's shape on random and smooth flows (``warp_steps_vae``,
+``warp_steps_vae_smooth``), each held against its plain version and timed
+host issue included and on the card alone beside ``F.grid_sample``; zero
+and integer flows reproduce the frame; ragged strided shapes (a frame
+sliced from a sequence, a strided mask, f32, C = 1, windows of R = 2 and
+100) are checked; and the dual head
 (``fused_dual_head``) on the InterNet serving forward's own 1x512x1024x448
 concat map and head weights, against its plain version and against the
 model's K4-route heads.
@@ -338,6 +347,14 @@ META = {
                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "grid_sample_bounded": ("cuda", f"{PKG}/csrc/grid_sample.cu",
                             "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "warp_steps": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "warp_steps_bounded": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "warp_steps_vae": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "warp_steps_vae_smooth": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                              "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "dual_head": ("cuda", f"{PKG}/csrc/upshead.cu",
                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_head.py:147"),
     "bb_chain_fwd_n1": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
@@ -359,7 +376,8 @@ META = {
 # 1-3; K1's stem conv2 and trans_0 rows and K2's block-0 and block-3 rows
 # share their kernel's counter, as does the stem forward that stores s1; so
 # do the window attention's, the shifted add's and the grid sample's rows
-# at other shapes (each row computes the one function of its kernel)
+# at other shapes (each row computes the one function of its kernel), the
+# grid sample's flow entry among them
 COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "stem_fwd_saved": "stem_fwd",
            "bottleneck_fwd_b0": "bottleneck_fwd",
@@ -374,10 +392,15 @@ COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "shifted_add_bias_b2": "shifted_add_bias",
            "shifted_add_bias_train": "shifted_add_bias",
            "shifted_add_bias_ragged": "shifted_add_bias",
-           "grid_sample_vae": "grid_sample"}
-# the video VAE serving forward: one grid sample per step
+           "grid_sample_vae": "grid_sample",
+           "warp_steps": "grid_sample",
+           "warp_steps_bounded": "grid_sample_bounded",
+           "warp_steps_vae": "grid_sample",
+           "warp_steps_vae_smooth": "grid_sample"}
+# the video VAE serving forward: one grid sample (the flow entry) for all
+# its steps
 VAE_T = 2
-PER_FORWARD_VAE = {"grid_sample": VAE_T}
+PER_FORWARD_VAE = {"grid_sample": 1}
 VAE_FLOW_TOL = 1e-3        # flows and masks, kernel vs plain model, of max
 WA_FLOW_AGREE = 0.90       # window-attention flow agreement, kernel vs plain
 # the window attention's rows, by (B, k is v): B=1 with k = v is the row
@@ -453,7 +476,8 @@ def operations(name, args):
     sample are elementwise in f32 (K3: the 4 taps of each bilinear part,
     the adds and the lrelu; the shifted add: 8 adds and the bias per
     output; the grid sample: 9 per channel of the 4-corner blend and ~10
-    per pixel for the coordinates and weights)."""
+    per pixel for the coordinates and weights, its flow entry ~4 more per
+    output pixel for the mask product and the base)."""
     if name == "fuse_out0":
         ups = sum(t is not None for t in args[1:])
         return args[0].numel() * (2 + 8 * ups), F32_PEAK
@@ -461,6 +485,8 @@ def operations(name, args):
         return 9 * _px(args[0]) * args[1].numel(), F32_PEAK
     if name.startswith("grid_sample"):
         return _px(args[0]) * (9 * args[0].shape[-1] + 10), F32_PEAK
+    if name == "warp_steps":       # (x, flow, mask, max_disp)
+        return _px(args[1]) * (9 * args[0].shape[-1] + 14), F32_PEAK
     if name == "bb_chain_wgrad":   # 9 taps of a C x C product per pixel
         return sum(2 * 9 * a.shape[-1] * d.shape[-1] * _px(a)
                    for a, d in args[0]), BF16_PEAK
@@ -726,15 +752,38 @@ def shifted_add_check(dev):
     return rows
 
 
+def _both_ways(fs):
+    """Each of ``fs`` ({key prefix: fn}) timed host issue included and on
+    the card alone: (the host-inclusive ms in order, the device dict)."""
+    return ([median_ms(f) for f in fs.values()],
+            {f"{k}device_ms": median_ms(f, spin=True) for k, f in fs.items()})
+
+
+def _f32_library(x, grid):
+    """``F.grid_sample`` (align_corners, zeros) of NHWC ``x`` in f32 at
+    the f32 ``grid``: the library call of the same function, timed beside
+    the kernel (a bf16 grid would move samples by up to ~2 px at 1024
+    wide, so both are f32)."""
+    x32 = nchw(x.float()).contiguous()
+    return lambda: torch.nn.functional.grid_sample(
+        x32, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
 def grid_sample_check(dev):
-    """The grid sample at 8x512x1024x3 bf16 (the shape warp.py:130 names).
-    Bounded (R = 8): flows up to 6 px, except a band of 64 rows per image
-    displaced 12 px in x, beyond the window, which must give exactly 0;
-    and a uniform (3, -2) px shift, which must reproduce the image on the
-    interior.  Unbounded: flows up to 40 px; its library time is
-    ``F.grid_sample(align_corners=True, padding_mode="zeros")``, which
-    takes its grid in the input's dtype: a bf16 grid would move samples by
-    up to ~2 px at 1024 wide, so it is timed in f32 (x and grid)."""
+    """The grid sample at 8x512x1024x3 bf16 (the shape warp.py:130 names)
+    and at the VideoVAE's 8x128x128x3, through both entries.  The grid
+    entry: bounded (R = 8): flows up to 6 px, except a band of 64 rows per
+    image displaced 12 px in x, beyond the window, which must give exactly
+    0; and a uniform (3, -2) px shift, which must reproduce the image on
+    the interior; unbounded: flows up to 40 px; at the VAE's shape flows up
+    to 10 px.  The flow entry (``warp_steps``) on the same flows in bf16
+    (T = 1), and at the VAE's shape with T = 2 and the mask on random and
+    on smooth flows, the frame sliced from a sequence and the mask a
+    strided view, as the model passes them; zero and integer flows
+    (``_identity_checks``); ragged strided shapes (``_ragged_checks``).
+    Every result within KERNEL_TOL of its plain version (bit-equality
+    printed); each row timed host issue included and on the card alone,
+    beside ``F.grid_sample`` in f32 where it computes the same function."""
     g = torch.Generator(device=dev).manual_seed(9)
     b, h, w, c, r = 8, 512, 1024, 3, 8
     x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
@@ -744,6 +793,10 @@ def grid_sample_check(dev):
     def grid_of(flow_px):
         return (base + flow_px * px).expand(b, h, w, 2).contiguous()
 
+    def flow_of(flow_px):        # the flow entry's (B, 1, H, W, 2) bf16
+        return (-(flow_px * px)).expand(b, h, w, 2)[:, None].to(
+            torch.bfloat16).contiguous()
+
     small = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * 6
     small[:, :64, :, 0] = 12.0                     # beyond the window
     grid_b = grid_of(small)
@@ -751,68 +804,202 @@ def grid_sample_check(dev):
         x, grid_b, r)
     torch.cuda.synchronize()
     d_b = _held("grid_sample", "bounded, R=8", out, ref)
-    band = out[:, :64].float().abs().max().item()
-    print(f"  grid_sample [bounded, band beyond R] max|out|={band:.6g}")
-    if band != 0.0:
-        raise AssertionError(f"grid_sample bounded: {band} beyond the window")
+    _band_is_zero("grid_sample", out)
     shifted = warp.grid_sample(
         x, grid_of(torch.tensor([3.0, -2.0], device=dev)), r)
     torch.cuda.synchronize()
     _held("grid_sample", "bounded, known (3, -2) px shift",
           shifted[:, 2:, :-3], x[:, :-2, 3:])
     args_b = (x, grid_b, r)
+    ms, device = _both_ways({"": lambda: warp.grid_sample(*args_b)})
     rows = {"grid_sample_bounded": timed(
-        "grid_sample_bounded", "R=8", args_b, out, d_b,
-        median_ms(lambda: warp.grid_sample(*args_b)),
-        median_ms(lambda: warp.grid_sample_plain(*args_b), iters=3, reps=3))}
+        "grid_sample_bounded", "R=8", args_b, out, d_b, ms[0],
+        median_ms(lambda: warp.grid_sample_plain(*args_b), iters=3, reps=3),
+        None, device)}
+    flow_b = flow_of(small)
+    args_fb = (x, flow_b, None, r)
+    out, ref = warp.warp_steps(*args_fb), warp.warp_steps_plain(*args_fb)
+    torch.cuda.synchronize()
+    d_fb = _held("warp_steps", "flow entry, bounded, R=8", out, ref)
+    _band_is_zero("warp_steps", out[:, 0])
+    lib_b = _f32_library(x, base - flow_b[:, 0].float())
+    ms, device = _both_ways({"": lambda: warp.warp_steps(*args_fb),
+                             "library_": lib_b})
+    print(f"  warp_steps [flow entry, bounded] F.grid_sample (unbounded, the "
+          f"same grid) {ms[1]:.4f} ms, card {device['library_device_ms']:.4f}"
+          " ms")
+    rows["warp_steps_bounded"] = timed(
+        "warp_steps", "flow entry, bounded, R=8", args_fb, out, d_fb, ms[0],
+        median_ms(lambda: warp.warp_steps_plain(*args_fb), iters=3, reps=3),
+        None, {"device_ms": device["device_ms"]})
 
     far = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * 40
     grid_u = grid_of(far)
     out, ref = warp.grid_sample(x, grid_u), warp.grid_sample_plain(x, grid_u)
     torch.cuda.synchronize()
     d_u = _held("grid_sample", "unbounded, 40 px", out, ref)
-    x32 = nchw(x.float()).contiguous()
-
-    def library():
-        return torch.nn.functional.grid_sample(
-            x32, grid_u, mode="bilinear", padding_mode="zeros",
-            align_corners=True)
+    library = _f32_library(x, grid_u)
     _held("grid_sample", "library F.grid_sample (f32) vs plain",
           nhwc(library()), ref.float())
     args_u = (x, grid_u)
+    ms, device = _both_ways({"": lambda: warp.grid_sample(*args_u),
+                             "library_": library})
     rows["grid_sample"] = timed(
-        "grid_sample", "unbounded", args_u, out, d_u,
-        median_ms(lambda: warp.grid_sample(*args_u)),
+        "grid_sample", "unbounded", args_u, out, d_u, ms[0],
         median_ms(lambda: warp.grid_sample_plain(*args_u), iters=3, reps=3),
-        median_ms(library))
+        ms[1], device)
+    flow_u = flow_of(far)
+    args_fu = (x, flow_u, None, None)
+    out, ref = warp.warp_steps(*args_fu), warp.warp_steps_plain(*args_fu)
+    torch.cuda.synchronize()
+    d_fu = _held("warp_steps", "flow entry, unbounded, 40 px", out, ref)
+    ms, device = _both_ways({"": lambda: warp.warp_steps(*args_fu),
+                             "library_": _f32_library(
+                                 x, base - flow_u[:, 0].float())})
+    rows["warp_steps"] = timed(
+        "warp_steps", "flow entry, unbounded", args_fu, out, d_fu, ms[0],
+        median_ms(lambda: warp.warp_steps_plain(*args_fu), iters=3, reps=3),
+        ms[1], device)
+    _identity_checks(dev, x)
+    del x, base, small, grid_b, far, grid_u, flow_b, flow_u, out, ref
+    torch.cuda.empty_cache()
 
     # the shape the VideoVAE forward runs (models/vae_video.py: one warp of
     # its 8x128x128x3 frame per step), flows up to 10 px, unbounded
     hv = wv = 128
     xv = torch.randn((b, hv, wv, c), generator=g, device=dev).to(
         torch.bfloat16)
+    pxv = torch.tensor([2.0 / (wv - 1), 2.0 / (hv - 1)], device=dev)
+    basev = warp.make_base_grid(hv, wv, device=dev)[None]
     flow_v = (torch.rand((b, hv, wv, 2), generator=g, device=dev) * 2 - 1) * 10
-    grid_v = (warp.make_base_grid(hv, wv, device=dev)[None] + flow_v
-              * torch.tensor([2.0 / (wv - 1), 2.0 / (hv - 1)], device=dev)
-              ).contiguous()
+    grid_v = (basev + flow_v * pxv).contiguous()
     out, ref = warp.grid_sample(xv, grid_v), warp.grid_sample_plain(xv, grid_v)
     torch.cuda.synchronize()
     d_v = _held("grid_sample", "unbounded, VAE 8x128x128", out, ref)
-    xv32 = nchw(xv.float()).contiguous()
-
-    def library_v():
-        return torch.nn.functional.grid_sample(
-            xv32, grid_v, mode="bilinear", padding_mode="zeros",
-            align_corners=True)
     args_v = (xv, grid_v)
     fs = {"": lambda: warp.grid_sample(*args_v),
           "plain_": lambda: warp.grid_sample_plain(*args_v),
-          "library_": library_v}
+          "library_": _f32_library(xv, grid_v)}
+    ms, device = _both_ways(fs)
     rows["grid_sample_vae"] = timed(
-        "grid_sample", "unbounded, VAE 8x128x128", args_v, out, d_v,
-        *(median_ms(f) for f in fs.values()),
-        {f"{k}device_ms": median_ms(f, spin=True) for k, f in fs.items()})
+        "grid_sample", "unbounded, VAE 8x128x128", args_v, out, d_v, *ms,
+        device)
+
+    # the flow entry as the VAE calls it: frame1 sliced from the sequence,
+    # T = 2 steps of bf16 flow, the mask a strided view of the mask pair
+    seq = torch.randn((b, VAE_T + 1, hv, wv, c), generator=g, device=dev).to(
+        torch.bfloat16)
+    frame1 = seq[:, 0]
+    masks = torch.rand((b, VAE_T, hv, wv, 2), generator=g, device=dev).to(
+        torch.bfloat16)
+    mask = masks[..., 0:1]
+    coarse = torch.rand((b * VAE_T, 2, 8, 8), generator=g, device=dev)
+    smooth = nhwc(torch.nn.functional.interpolate(
+        coarse, size=(hv, wv), mode="bilinear", align_corners=True))
+    for row, label, flow_px in (
+            ("warp_steps_vae", "random 10 px",
+             (torch.rand((b, VAE_T, hv, wv, 2), generator=g, device=dev)
+              * 2 - 1) * 10),
+            ("warp_steps_vae_smooth", "smooth 10 px",
+             (smooth.reshape(b, VAE_T, hv, wv, 2) * 2 - 1) * 10)):
+        flow = (flow_px * pxv).to(torch.bfloat16)
+        args = (frame1, flow, mask, None)
+        out, ref = warp.warp_steps(*args), warp.warp_steps_plain(*args)
+        torch.cuda.synchronize()
+        per_step = torch.stack([warp.grid_sample_plain(
+            frame1, basev - (flow[:, i] * mask[:, i]).float())
+            for i in range(VAE_T)], 1)
+        if not torch.equal(ref, per_step):
+            raise AssertionError(f"warp_steps_plain [{label}]: not the "
+                                 "model's per-step composition bit for bit")
+        d = _held("warp_steps", f"flow entry, VAE T={VAE_T}, mask, {label}",
+                  out, ref)
+        grid_bt = (basev - (flow * mask).float()).reshape(b * VAE_T, hv, wv, 2)
+        x_bt = frame1[:, None].expand(b, VAE_T, hv, wv, c).reshape(
+            b * VAE_T, hv, wv, c)
+        fs = {"": lambda: warp.warp_steps(*args),
+              "plain_": lambda: warp.warp_steps_plain(*args),
+              "library_": _f32_library(x_bt, grid_bt.contiguous())}
+        ms, device = _both_ways(fs)
+        rows[row] = timed("warp_steps", f"flow entry, VAE T={VAE_T}, mask, "
+                          f"{label}", args, out, d, *ms, device)
+    _ragged_checks(dev, g)
     return rows
+
+
+def _band_is_zero(name, out):
+    """The bounded mode's 64-row band displaced beyond the window is 0."""
+    band = out[:, :64].float().abs().max().item()
+    print(f"  {name} [bounded, band beyond R] max|out|={band:.6g}")
+    if band != 0.0:
+        raise AssertionError(f"{name} bounded: {band} beyond the window")
+
+
+def _held_plain(name, label, out, ref):
+    """``_held`` of a kernel against its plain version, printing whether
+    the two are bit-equal (the kernel forms coordinates, weights and sums
+    in the plain version's order)."""
+    d = _held(name, label, out, ref)
+    print(f"  {name} [{label}] bit-equal to plain: {torch.equal(out, ref)}")
+    return d
+
+
+def _identity_checks(dev, x):
+    """Zero and integer flows through the flow entry, bounded (R = 8) and
+    unbounded, at 8x512x1024 and the VAE's 8x128x128: each sample sits on
+    a pixel, where an ulp of the base grid would flip its floor, so each
+    must reproduce the frame (shifted by the integer flow, on the
+    interior) within KERNEL_TOL and agree with the plain version."""
+    for xs in (x, x[:, :128, :128].contiguous()):
+        b, h, w, _ = xs.shape
+        px = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev)
+        for (fx, fy), sl_o, sl_x in (
+                ((0.0, 0.0), (slice(None), slice(None)),
+                 (slice(None), slice(None))),
+                ((3.0, -2.0), (slice(2, None), slice(None, -3)),
+                 (slice(None, -2), slice(3, None)))):
+            # flow = -(shift) in normalized units: out(i, j) = x(i + fy, j + fx)
+            flow = (-torch.tensor([fx, fy], device=dev) * px).expand(
+                b, 1, h, w, 2).to(torch.bfloat16).contiguous()
+            for r in (None, 8):
+                label = (f"flow ({fx:g}, {fy:g}) px, {h}x{w}, "
+                         f"{'unbounded' if r is None else f'R={r}'}")
+                out = warp.warp_steps(xs, flow, None, r)
+                _held_plain("warp_steps", label, out,
+                            warp.warp_steps_plain(xs, flow, None, r))
+                _held("warp_steps", label + " vs the frame",
+                      out[:, 0][(slice(None),) + sl_o], xs[(slice(None),) + sl_x])
+
+
+def _ragged_checks(dev, g):
+    """Shapes whose rows are not 16-byte aligned and tiles cut at the
+    edges (1x37x70 and 2x37x70, a frame sliced from a sequence, the mask a
+    strided view): bf16 C = 3 (pair loads) through both entries, bounded
+    at R = 2 and R = 100 and unbounded; f32 C = 3 with an f32 flow and
+    bf16 C = 1 (channel by channel)."""
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for dtype, c in ((torch.bfloat16, 3), (torch.float32, 3),
+                     (torch.bfloat16, 1)):
+        for b in (1, 2):
+            h, w, t = 37, 70, 2
+            xs = rnd(b, t + 1, h, w, c, dtype=dtype)[:, 1]
+            px = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev)
+            flow = (rnd(b, t, h, w, 2, dtype=torch.float32) * 4 * px).to(dtype)
+            mask = torch.rand((b, t, h, w, 2), generator=g, device=dev).to(
+                dtype)[..., 1:2]
+            grid = (warp.make_base_grid(h, w, device=dev)[None]
+                    - flow[:, 0].float()).contiguous()
+            for r in (None, 2, 100):
+                tag = (f"ragged {b}x{h}x{w}x{c} {str(dtype)[6:]}, "
+                       f"{'unbounded' if r is None else f'R={r}'}")
+                _held_plain("warp_steps", tag + ", T=2, mask",
+                            warp.warp_steps(xs, flow, mask, r),
+                            warp.warp_steps_plain(xs, flow, mask, r))
+                _held_plain("grid_sample", tag,
+                            warp.grid_sample(xs, grid, r),
+                            warp.grid_sample_plain(xs, grid, r))
 
 
 def dual_head_check(dev):
@@ -1757,34 +1944,39 @@ def vae_phase(dev, card):
         else:
             _held("vae slice", name, k, p, tol)
 
-    b, steps = 8, 3
+    b, windows, per_window = 8, 5, 10
     inputs = _vae_inputs(dev, b, 13)
     gen = torch.Generator(device=dev).manual_seed(14)
     serve.predict_video(fast, *inputs, generator=gen)          # warm-up
     torch.cuda.synchronize()
     hw.reset_counters()
-    t0 = time.perf_counter()
-    outs = [serve.predict_video(fast, *inputs, generator=gen)
-            for _ in range(steps)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    fps = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        outs = [serve.predict_video(fast, *inputs, generator=gen)
+                for _ in range(per_window)]
+        torch.cuda.synchronize()
+        fps.append(b * VAE_T * per_window / (time.perf_counter() - t0))
+        h, w = CFG_VAE.input_h, CFG_VAE.input_w
+        for out in outs:
+            for o, shape in zip(out, [(b, VAE_T, h, w, 3)] * 2
+                                + [(b, VAE_T, h, w, 2)] * 2
+                                + [(b, VAE_T, h, w, 1)] * 2):
+                if o.shape != shape or not torch.isfinite(o.float()).all():
+                    raise AssertionError(f"vae: output {tuple(o.shape)} vs "
+                                         f"{shape} or non-finite")
     counts = dict(hw.launches)
+    steps = windows * per_window
     for name in hw.KERNELS:
         per = PER_FORWARD_VAE.get(name, 0)
         if counts[name] != per * steps:
             raise AssertionError(f"vae: {name} launched {counts[name]} times, "
                                  f"expected {per} x {steps}")
-    h, w = CFG_VAE.input_h, CFG_VAE.input_w
-    for out in outs:
-        for o, shape in zip(out, [(b, VAE_T, h, w, 3)] * 2
-                            + [(b, VAE_T, h, w, 2)] * 2
-                            + [(b, VAE_T, h, w, 1)] * 2):
-            if o.shape != shape or not torch.isfinite(o.float()).all():
-                raise AssertionError(f"vae: output {tuple(o.shape)} vs "
-                                     f"{shape} or non-finite")
-    fps = b * VAE_T * steps / dt
-    print(f"vae eval {steps} forwards at {b}x{h}x{w} bf16, T={VAE_T}: "
-          f"{dt:.4f} s, {fps:.4f} predicted frames/s on {card}")
+    print(f"vae eval {steps} forwards at {b}x{h}x{w} bf16, T={VAE_T}, in "
+          f"{windows} windows of {per_window}: predicted frames/s "
+          f"{', '.join(f'{f:.4f}' for f in fps)}; median "
+          f"{statistics.median(fps):.4f}, spread {min(fps):.4f}-"
+          f"{max(fps):.4f} on {card}")
     return counts
 
 

@@ -49,18 +49,27 @@ def entry_device(device) -> torch.device:
     return device
 
 
+# compute capability by CUDA device index, read once per device (the
+# wrappers route every call by it)
+_capability = {}
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True for a tensor the Hopper kernels take, False for a CPU tensor."""
-    if t.device.type == "cpu":
+    device = t.device
+    if device.type == "cpu":
         return False
-    if t.device.type == "cuda":
-        cap = torch.cuda.get_device_capability(t.device)
+    if device.type == "cuda":
+        cap = _capability.get(device.index)
+        if cap is None:
+            cap = _capability[device.index] = \
+                torch.cuda.get_device_capability(device)
         if cap == (9, 0):
             return True
         raise RuntimeError(
-            f"the kernels are built for sm_90a (H100/H200); {t.device} has "
+            f"the kernels are built for sm_90a (H100/H200); {device} has "
             f"compute capability {cap}")
-    raise RuntimeError(f"no route for a tensor on {t.device}")
+    raise RuntimeError(f"no route for a tensor on {device}")
 
 
 def check_bf16(name: str, t: torch.Tensor, shape=None) -> None:

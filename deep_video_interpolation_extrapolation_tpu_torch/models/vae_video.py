@@ -3,8 +3,10 @@
 
 frame1 + a latent motion code -> per-step forward/backward flows and
 occlusion masks -> frame1 backward-warped into ``vid_length`` future frames
-(``ops/warp.backward_warp``, the grid-sample kernel on the card) -> an
-encoder-decoder refinement.  The variants differ in how segmentation
+(on the card one launch of the grid-sample kernel's flow entry,
+``ops/warp.warp_steps``, for all steps; on the CPU ``backward_warp`` per
+step, the JAX model's own order of operations) -> an encoder-decoder
+refinement.  The variants differ in how segmentation
 conditions the posterior: ``vae`` embeds the first frame's seg only
 (latent 128 bg / 896 fg, refine on rgb); ``vae_s`` and ``vae_sd`` embed
 every frame's, take frame differences as the motion input (latent 512 /
@@ -41,8 +43,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.subnets import (
     LegacyRefineNet,
     SegEncoderBN,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops.warp import (
     backward_warp,
+    warp_steps,
 )
 
 VARIANTS = ("vae", "vae_s", "vae_sd")
@@ -144,10 +148,13 @@ class VideoVAE(nn.Module):
         mask_fw, mask_bw = masks[..., 0:1], masks[..., 1:2]
 
         # the masked backward warp of frame1 per step (utils/net_utils.py:116-122)
-        output = torch.stack([
-            backward_warp(frame1, flow[:, i] * mask_fw[:, i],
-                          use_kernels=self.use_kernels)
-            for i in range(t)], dim=1)                   # (B, T, H, W, 3)
+        if self.use_kernels and hw.use_kernel(frame1):
+            output = warp_steps(frame1, flow, mask_fw)   # (B, T, H, W, 3)
+        else:
+            output = torch.stack([
+                backward_warp(frame1, flow[:, i] * mask_fw[:, i],
+                              use_kernels=self.use_kernels)
+                for i in range(t)], dim=1)
 
         y_pred = output
         if self.refine:

@@ -31,7 +31,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                      "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # C signature of every exported function: (name, argtypes)
 SIGNATURES = {
@@ -70,6 +70,11 @@ SIGNATURES = {
     "dvie_shifted_add_bias": [P] * 3 + [I] * 3 + [P],
     # x, grid, out, B, H, W, C, max_disp (-1: unbounded), x is bf16, stream
     "dvie_grid_sample": [P] * 3 + [I] * 6 + [P],
+    # x, flow, mask (or NULL), bx, by, out, B, T, H, W, C, max_disp, x is
+    # bf16, flow is bf16, x's frame stride, flow's strides (b, t: L; h, w,
+    # c: I), mask's (b, t: L; h, w: I), stream
+    "dvie_warp_steps": [P] * 6 + [I] * 8 + [L] * 3 + [I] * 3 + [L] * 2
+    + [I] * 2 + [P],
     # feat, w1u, b1, w2u, yt, B, H, W, C, N1, N2, stream
     "dvie_dual_head_taps": [P] * 5 + [I] * 6 + [P],
 }

@@ -16,7 +16,16 @@ at 24x128x128 (the backward on what the tree's forward keeps); ``wattn``
 the window attention at B=1 and B=2 128x256x128 (the stage-3 serving
 shapes), with k = v as on the path and with distinct values; ``shiftadd``
 the shifted add at B=1 and B=2 512x1024 and at the train shape
-24x128x128; each kernel
+24x128x128; ``warp`` the grid sample at PERF.md row 18's shapes
+(8x512x1024x3 bf16, bounded R = 8 on flows up to 6 px and unbounded on
+flows up to 40 px; 8x128x128x3 unbounded on flows up to 10 px) through
+``grid_sample`` (an f32 grid) and ``backward_warp`` (a bf16 flow), the
+VideoVAE's warp of its two steps (frame1 sliced from the sequence, bf16
+flow times a strided mask: ``warp_steps`` where the tree has it, else the
+per-step ``backward_warp`` and ``torch.stack`` of the parent's model),
+``F.grid_sample`` in f32 beside them, and the VAE eval forward
+(8x128x128, T = 2: frames/s of 5 windows of 10 forwards, host clock); each
+kernel
 timed two ways (median CUDA-event ms of 10 back-to-back calls: host issue
 included, as ``chip_smoke.median_ms`` times them, and behind a ~10 ms spin
 of the card, device time alone); ``serve`` serving frames/s (InterNet,
@@ -88,7 +97,8 @@ def main():
     sys.path.insert(0, os.getcwd())
     tag = sys.argv[1]
     what = (sys.argv[2] if len(sys.argv) > 2
-            else "b0,k1k2,taps4,stem,wattn,shiftadd,serve,modes").split(",")
+            else "b0,k1k2,taps4,stem,wattn,shiftadd,warp,serve,modes"
+            ).split(",")
     card_log = CardSampler(tag)
     try:
         run(tag, what, card_log)
@@ -229,6 +239,8 @@ def run(tag, what, card_log):
                    lambda: sa.shifted_add_bias(yt, b2))
             del yt
         torch.cuda.empty_cache()
+    if "warp" in what:
+        warp_section(tag, c, dev, g, report, card_log)
     if "serve" in what:
         c.serve_phase(dev, card, label=f"{tag} InterNet")
         card_log.span("InterNet serving")
@@ -243,6 +255,82 @@ def run(tag, what, card_log):
                       c.PER_TRAIN_STEP_MODE[mode], steps=12)
         card_log.span(f"mode {mode}")
     print(f"#### tree {tag} done", flush=True)
+
+
+def warp_section(tag, c, dev, g, report, card_log):
+    """The grid sample at row 18's shapes and the VAE's warp and forward,
+    each through the tree's own entries."""
+    import time
+
+    import torch
+
+    from deep_video_interpolation_extrapolation_tpu_torch import serve
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        registry,
+    )
+    from deep_video_interpolation_extrapolation_tpu_torch.ops import warp
+
+    def f32_library(x, grid):
+        x32 = c.nchw(x.float()).contiguous()
+        return lambda: torch.nn.functional.grid_sample(
+            x32, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
+    with torch.inference_mode():
+        for b, h, w, disp, r in ((8, 512, 1024, 6, 8), (8, 512, 1024, 40, None),
+                                 (8, 128, 128, 10, None)):
+            x = torch.randn((b, h, w, 3), generator=g, device=dev).to(
+                torch.bfloat16)
+            px = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev)
+            flow = ((torch.rand((b, h, w, 2), generator=g, device=dev) * 2
+                     - 1) * disp * px).to(torch.bfloat16)
+            grid = (warp.make_base_grid(h, w, device=dev)[None]
+                    - flow.float()).contiguous()
+            mode = "unbounded" if r is None else f"R={r}"
+            shape = f"{b}x{h}x{w}x3 {mode}"
+            report(f"grid_sample {shape}", "kernel",
+                   lambda: warp.grid_sample(x, grid, r))
+            report(f"backward_warp {shape}", "kernel",
+                   lambda: warp.backward_warp(x, flow, r is not None,
+                                              r or 8))
+            if r is None:
+                report(f"grid_sample {shape}", "library",
+                       f32_library(x, grid))
+            del x, flow, grid
+        torch.cuda.empty_cache()
+        b, t, h, w = 8, c.VAE_T, 128, 128
+        px = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev)
+        frame1 = torch.randn((b, t + 1, h, w, 3), generator=g,
+                             device=dev).to(torch.bfloat16)[:, 0]
+        flow = ((torch.rand((b, t, h, w, 2), generator=g, device=dev) * 2 - 1)
+                * 10 * px).to(torch.bfloat16)
+        mask = torch.rand((b, t, h, w, 2), generator=g, device=dev).to(
+            torch.bfloat16)[..., 0:1]
+        if hasattr(warp, "warp_steps"):
+            def vae_warp():
+                return warp.warp_steps(frame1, flow, mask)
+        else:
+            def vae_warp():
+                return torch.stack([warp.backward_warp(
+                    frame1, flow[:, i] * mask[:, i]) for i in range(t)], 1)
+        report(f"VAE warp {b}x{h}x{w}x3 T={t} mask", "kernel", vae_warp)
+
+    model = registry.build_model(c.CFG_VAE, device=dev, seed=0)
+    inputs = c._vae_inputs(dev, b, 13)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    serve.predict_video(model, *inputs, generator=gen)
+    torch.cuda.synchronize()
+    fps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            serve.predict_video(model, *inputs, generator=gen)
+        torch.cuda.synchronize()
+        fps.append(b * t * 10 / (time.perf_counter() - t0))
+    print(f"{tag} VAE eval {b}x{h}x{w} T={t}: predicted frames/s "
+          f"{', '.join(f'{f:.4f}' for f in fps)}; median "
+          f"{statistics.median(fps):.4f}", flush=True)
+    card_log.span("VAE eval")
 
 
 if __name__ == "__main__":
