@@ -40,7 +40,11 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    64, 24x128x128, N = 4 and N =
    1, at C = 128, 24x64x64 (branch 1 of the recipe), and at C = 256,
    24x16x32 (branch 2 of a 24x64x128 input), all N = 4; and the chain's
-   weight-grad kernel on the C = 64 chain's 8 weights) and K4's h mode
+   weight-grad kernel on the C = 64 chain's 8 weights; the stem at 48
+   input channels, VAEHRNet's 46 zero-padded, at recipe 4's 18x128x128
+   and a ragged 2x36x120, forward, stored s1 and y, and backward on
+   fixed-mask and random inputs, rows ``stem48_fwd``,
+   ``stem48_fwd_saved`` and ``stem48_bwd``) and K4's h mode
    against their plain versions at the recipe shapes (bf16):
    outputs by max|d|/max|ref| <= 2e-2, weight and bias grads by rel-L2 <=
    1e-2; each backward on inputs whose lrelu masks are fixed per channel
@@ -135,7 +139,32 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     ``--load_coarse --load_refine``): launches, the loaded stages
     unchanged, the epochs' samples/s; recipe 3's writer's val metrics
     (``refine_*``, ``stage3_*``) against a ``--split val`` reload within
-    1e-3; ``--split cycgen`` of the recipe-3 model at 2x512x1024.
+    1e-3; ``--split cycgen`` of the recipe-3 model at 2x512x1024;
+15. recipe 4's generator served: VAEHRNet (``train/inter_gan.GanEvalAdapter``,
+    z from a seeded generator) kernels against the plain model at
+    2x128x256 with one fixed z, as phase 2; then the 3-step rollout at
+    2x512x1024 bf16 (the spatial latent): InterNet's launches per
+    forward, frames/s;
+16. recipe 4's step (``docs/RECIPES.md:42-62``: InterGANNet, VAEHRNet,
+    FrameSN, VideoSN, FrameSNDet and VideoLSSNDet discriminators with the
+    recipe's weights and learning rates, ``--kld_w 20``, ``--n_track
+    10``) at 18x128x128 bf16 with f32 masters: each submodel's one-step
+    gradient and the stem's four leaves against the f32 plain model (1.5
+    x the plain bf16 model's error + 1e-3), each loss term within 2e-2 of
+    the plain bf16 model's, 20 steps per model on one fixed batch with
+    every term finite and the reconstruction terms (l1, gdl, vgg, ssim,
+    ce) falling and ending within 10% of the plain model's, the launches
+    of one counted step (the INTER step's with the stem at 48 channels:
+    ``stem48_fwd`` / ``stem48_bwd`` 1 / 1, the 16-channel stem 0),
+    samples/s (median of 18 steps after 2 warm-ups);
+17-18. recipe 4 through the launcher on synthetic data: two epochs of 8
+    steps with a checkpoint each (every discriminator and its Adam state
+    in it), the writer's val metrics (4 val forwards: the stem at 48
+    channels 1 each) against recipe 5's ``--checkepoch_range`` sweep
+    within 1e-3, ``--r --checkepoch 1`` (epoch-2 losses within 2e-2),
+    ``--split cycgen`` of the VAEHRNet generator at 2x512x1024 from the
+    epoch-2 checkpoint (the serving launches, 72 PNGs decoded back); the
+    epochs' samples/s.
 
 The kernel phase also holds the shift-add kernel (the heads' tail in
 every HRNet forward and train step: one launch each, counted in phases 3
@@ -206,6 +235,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.cli.options import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.data.synthetic import (
+    synthetic_batch,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
     _concat_pyramid,
@@ -213,7 +245,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.native import png
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
+    checkpoint as ckpt_lib,
     inter,
+    inter_gan,
     state as state_lib,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
@@ -309,6 +343,12 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
     "stem_bwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
                  "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:565"),
+    "stem48_fwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
+    "stem48_fwd_saved": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
+    "stem48_bwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:565"),
     "bottleneck_fwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:400"),
     "bottleneck_bwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
@@ -380,6 +420,7 @@ META = {
 # grid sample's flow entry among them
 COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "stem_fwd_saved": "stem_fwd",
+           "stem48_fwd_saved": "stem48_fwd",
            "bottleneck_fwd_b0": "bottleneck_fwd",
            "bottleneck_bwd_b0": "bottleneck_bwd",
            "conv3x3_stem": "conv3x3_bias_res_lrelu",
@@ -420,7 +461,8 @@ SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
 # (``median_ms(spin=True)``); the window attention's and the shifted add's
 # rows are, in their own checks
 DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
-                "ups_head_taps4", "stem_fwd", "stem_bwd")
+                "ups_head_taps4", "stem_fwd", "stem_bwd", "stem48_fwd",
+                "stem48_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
 # peaks (at the 700 W limit)
 HBM_RATE, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -456,8 +498,9 @@ WEIGHT_ARGS = {
     "conv3x3_bias_res_lrelu": slice(1, 2), "bottleneck_tail": slice(2, None),
     "ups_head_taps": slice(3, None), "ups_head_taps4": slice(4, None),
     "ups_head_1x1": slice(3, None), "dual_head": slice(1, None),
-    "stem_fwd": slice(1, None),
-    "stem_bwd": slice(4, None), "bottleneck_fwd": slice(1, None),
+    "stem_fwd": slice(1, None), "stem48_fwd": slice(1, None),
+    "stem_bwd": slice(4, None), "stem48_bwd": slice(4, None),
+    "bottleneck_fwd": slice(1, None),
     "bottleneck_bwd": slice(2, None), "bb_chain_fwd": slice(1, None),
     "bb_chain_bwd": slice(2, 3), "bb_chain_fwd_c128": slice(1, None),
     "bb_chain_bwd_c128": slice(2, 3), "bb_chain_fwd_c256": slice(1, None),
@@ -465,7 +508,8 @@ WEIGHT_ARGS = {
 # a backward without saved activations recomputes its forward (3 passes);
 # the chain's and the stem's backwards read the kept ones (2: the input
 # grads, the weight grads)
-PASSES = {"stem_bwd": 2, "bottleneck_bwd": 3, "bb_chain_bwd": 2,
+PASSES = {"stem_bwd": 2, "stem48_bwd": 2, "bottleneck_bwd": 3,
+          "bb_chain_bwd": 2,
           "bb_chain_bwd_c128": 2, "bb_chain_bwd_c256": 2}
 
 
@@ -1141,7 +1185,7 @@ def rel_l2(out, ref):
     return ((out.double() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def _carrier_inputs(dev, g, B, H, W):
+def _carrier_inputs(dev, g, B, H, W, ci=14):
     """Backward-check inputs whose pre-activations all stay >= ~0.3 away
     from zero, so both sides take the same lrelu masks and dx can be held
     by its max.  Near zero a mask can differ between two correct
@@ -1152,7 +1196,8 @@ def _carrier_inputs(dev, g, B, H, W):
     carries a constant 1 that k1, k2 and k3 turn into a +-1 (+-2 for k3)
     offset per output channel.  Every mask is then the same at all pixels
     of a channel, so these inputs cannot see a mask taken from the wrong
-    pixel: the random-input cases of ``train_kernel_phase`` do."""
+    pixel: the random-input cases of ``train_kernel_phase`` do.  ``ci``:
+    the stem's input channels (HRNet's 14, VAEHRNet's 46)."""
     def u(*shape):
         return torch.rand(shape, generator=g, device=dev) * 2 - 1
 
@@ -1163,8 +1208,8 @@ def _carrier_inputs(dev, g, B, H, W):
         return torch.where(torch.rand(c, generator=g, device=dev) < 0.5,
                            -1.0, 1.0)
 
-    stem = (u(B, H, W, 14).to(torch.bfloat16),
-            n(64, 14, 3, 3, std=0.12 / 42 ** 0.5), sign(64),
+    stem = (u(B, H, W, ci).to(torch.bfloat16),
+            n(64, ci, 3, 3, std=0.12 / (3 * ci) ** 0.5), sign(64),
             n(64, 64, 3, 3, std=0.12 / 300 ** 0.5), sign(64))
 
     def block(ci, proj):
@@ -1364,6 +1409,59 @@ def k4_backward_check(dev):
     return ms
 
 
+def _stem_cases(dev, g, act, w, name, ci, b):
+    """The stem kernels' cases of ``train_kernel_phase`` at ``ci`` input
+    channels (14: HRNet's, the 16-channel kernels, rows ``stem_*``; 46:
+    VAEHRNet's, the 48-channel ones, rows ``stem48_*``) at b x 128 x 128
+    and a ragged 2x36x120 (tiles cut at both edges): the forward, and the
+    s1 and y it stores for the backward held as its output is; the
+    backward on what the kernel forward kept and the zero-padded x, as in
+    the train step, on fixed-mask inputs (against the recomputing
+    ``stem_bwd_plain``) and random ones (``stem_bwd_saved_plain``)."""
+    H, W = 128, 128
+    ws = (w(64, ci, 3, 3), w(64, 1, 1, 1).flatten(), w(64, 64, 3, 3),
+          w(64, 1, 1, 1).flatten())
+    x, dy = act(b, H, W, ci), act(b, H, W, 64, scale=1e-3)
+    xr, dyr = act(2, 36, 120, ci), act(2, 36, 120, 64, scale=1e-3)
+    c_stem = _carrier_inputs(dev, g, b, H, W, ci)[0]
+    c_stem_r = _carrier_inputs(dev, g, 2, 36, 120, ci)[0]
+    bwd = []
+    for label, xs, dys, wts, hold, row in (
+            (f"{name}, fixed masks", c_stem[0], dy, c_stem[1:], "max", None),
+            (f"{name}, random", x, dy, ws, "l2", f"{name}_bwd"),
+            ("ragged 2x36x120, fixed masks", c_stem_r[0], dyr, c_stem_r[1:],
+             "max", None),
+            ("ragged 2x36x120, random", xr, dyr, ws, "l2", None)):
+        y_k, s1_k = tc.stem_fwd_kernel(xs, *wts, save=True)
+        torch.cuda.synchronize()
+        for what, o, r in zip(("y", "s1"), (y_k, s1_k),
+                              _stem_fwd_saved_plain(xs, *wts)):
+            d, rel = rel_err(o, r)
+            print(f"  {name}_fwd [{label}, save] {what} max|d|={d:.6g} "
+                  f"max|d|/max|ref|={rel:.6g}")
+            if (o.shape != r.shape or not torch.isfinite(o).all()
+                    or rel > KERNEL_TOL):
+                raise AssertionError(
+                    f"{name}_fwd [{label}, save]: {what} shape "
+                    f"{tuple(o.shape)} vs {tuple(r.shape)}, max|d|/max|ref| "
+                    f"{rel:.4g} (bound {KERNEL_TOL})")
+        plain = (_stem_bwd_plain_own if hold == "max"
+                 else tc.stem_bwd_saved_plain)
+        bwd.append((label, tc.stem_bwd_kernel, plain,
+                    (tc._pad_to(xs, tc.stem_cin_pad(ci)), dys, s1_k, y_k,
+                     *wts), hold, row))
+    return {
+        f"{name}_fwd": [(name, tc.stem_fwd_kernel, tc.stem_plain,
+                         (x, *ws), "max", f"{name}_fwd"),
+                        ("ragged 2x36x120", tc.stem_fwd_kernel, tc.stem_plain,
+                         (xr, *ws), "max", None),
+                        # the train step's forward: s1 stored for the backward
+                        (f"{name}, s1 stored", _stem_fwd_saved,
+                         _stem_fwd_saved_plain, (x, *ws), "max",
+                         f"{name}_fwd_saved")],
+        f"{name}_bwd": bwd}
+
+
 def train_kernel_phase(dev):
     """The train-chain kernels and K4's h mode against their plain
     versions at the recipe shapes (24x128x128 bf16): outputs by
@@ -1388,8 +1486,6 @@ def train_kernel_phase(dev):
             shape[1] * shape[2] * shape[3]) ** 0.5
 
     B, H, W = 24, 128, 128
-    stem_w = (w(64, 14, 3, 3), w(64, 1, 1, 1).flatten(), w(64, 64, 3, 3),
-              w(64, 1, 1, 1).flatten())
     x64, x256 = act(B, H, W, 64), act(B, H, W, 256)
     blk0 = (w(64, 64, 1, 1), w(64, 64, 3, 3), w(256, 64, 1, 1),
             w(256, 64, 1, 1))
@@ -1397,7 +1493,7 @@ def train_kernel_phase(dev):
     p1, p2 = act(B, H // 2, W // 2, 128), act(B, H // 4, W // 4, 256)
     w1 = w(896, 448, 1, 1)[:, :, 0, 0].t()
     b1 = w(896, 1, 1, 1).flatten()
-    c_stem, c_blk0, c_blk1 = _carrier_inputs(dev, g, B, H, W)
+    _, c_blk0, c_blk1 = _carrier_inputs(dev, g, B, H, W)
     pairs4 = [(w(64, 64, 3, 3), w(64, 64, 3, 3)) for _ in range(4)]
     c_x, c_pairs = _carrier_chain(dev, g, B, H, W, 4)
     # what the kernel forward keeps for the backward: outputs and h
@@ -1426,49 +1522,10 @@ def train_kernel_phase(dev):
         tc.bottleneck_bwd_kernel, tc.bottleneck_bwd_plain)
     bb_fwd = (bb.bb_chain_fwd_kernel, bb.bb_chain_plain)
     bb_bwd = (_bb_bwd_kernel, _bb_bwd_plain)
-    x14 = act(B, H, W, 14)
     bn_ops = [act(B, H, W, 64) for _ in range(4)]   # h1, h2, dpre2, dpre1
-    # the stem's backward reads what the kernel forward kept (s1, y) and,
-    # as in the train step, the zero-padded x; a ragged shape (tiles cut at
-    # both edges) on random and fixed-mask inputs
-    xr14, dyr = act(2, 36, 120, 14), act(2, 36, 120, 64, scale=1e-3)
-    c_stem_r = _carrier_inputs(dev, g, 2, 36, 120)[0]
-    stem_bwd_cases = []
-    for label, xs, dys, ws, hold, row in (
-            ("stem, fixed masks", c_stem[0], dy64, c_stem[1:], "max", None),
-            ("stem, random", x14, dy64, stem_w, "l2", "stem_bwd"),
-            ("ragged 2x36x120, fixed masks", c_stem_r[0], dyr, c_stem_r[1:],
-             "max", None),
-            ("ragged 2x36x120, random", xr14, dyr, stem_w, "l2", None)):
-        y_k, s1_k = tc.stem_fwd_kernel(xs, *ws, save=True)
-        torch.cuda.synchronize()
-        # what the backward reads is held as the forward's output is
-        for what, o, r in zip(("y", "s1"), (y_k, s1_k),
-                              _stem_fwd_saved_plain(xs, *ws)):
-            d, rel = rel_err(o, r)
-            print(f"  stem_fwd [{label}, save] {what} max|d|={d:.6g} "
-                  f"max|d|/max|ref|={rel:.6g}")
-            if (o.shape != r.shape or not torch.isfinite(o).all()
-                    or rel > KERNEL_TOL):
-                raise AssertionError(
-                    f"stem_fwd [{label}, save]: {what} shape "
-                    f"{tuple(o.shape)} vs {tuple(r.shape)}, max|d|/max|ref| "
-                    f"{rel:.4g} (bound {KERNEL_TOL})")
-        plain = (_stem_bwd_plain_own if hold == "max"
-                 else tc.stem_bwd_saved_plain)
-        stem_bwd_cases.append((label, tc.stem_bwd_kernel, plain,
-                               (tc._pad16(xs), dys, s1_k, y_k, *ws), hold,
-                               row))
     cases = {
-        "stem_fwd": [("stem", tc.stem_fwd_kernel, tc.stem_plain,
-                      (x14, *stem_w), "max", "stem_fwd"),
-                     ("ragged 2x36x120", tc.stem_fwd_kernel, tc.stem_plain,
-                      (xr14, *stem_w), "max", None),
-                     # the train step's forward: s1 stored for the backward
-                     ("stem, s1 stored", _stem_fwd_saved,
-                      _stem_fwd_saved_plain, (x14, *stem_w), "max",
-                      "stem_fwd_saved")],
-        "stem_bwd": stem_bwd_cases,
+        **_stem_cases(dev, g, act, w, "stem", 14, B),
+        **_stem_cases(dev, g, act, w, "stem48", 46, B18[0]),
         "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max",
                             "bottleneck_fwd_b0"),
                            ("block 1", *fwd, (x256, *blk1), "max",
@@ -1627,9 +1684,11 @@ def slice_phase(dev, cfg=CFG, label="slice", inputs=None, models=None,
 
 
 def serve_phase(dev, card, cfg=CFG, per_forward=PER_FORWARD,
-                label="serve rollout"):
+                label="serve rollout", model=None):
+    """``model`` (else ``cfg``'s from seed 0) rolled out for 3 steps at
+    2x512x1024 after a warm-up: launches per forward, frames/s."""
     b, h, w, steps = 2, 512, 1024, 3
-    model = registry.build_model(cfg, device=dev, seed=0)
+    model = model or registry.build_model(cfg, device=dev, seed=0)
     imgs, ids = _inputs(dev, b, h, w, 2)
     serve.rollout(model, imgs, ids, 1)               # warm-up
     torch.cuda.synchronize()
@@ -2054,6 +2113,26 @@ def _write_city_tree(root, n_clips, src=150):
     return os.path.join(root, "imgs"), os.path.join(root, "segs")
 
 
+def _cycgen_tree(label, out_root, took):
+    """The 2x512x1024 cycgen tree of RUNNER_CYCGEN_FORWARDS forwards: 3
+    frames of rgb, seg ids and seg vis per clip, each decoded back by
+    ``native/png.py`` (not Pillow) at 512x1024, ids below 20."""
+    files = sorted(os.path.join(b, f) for b, _, fs in os.walk(out_root)
+                   for f in fs)
+    n_clips = 2 * RUNNER_CYCGEN_FORWARDS
+    if len(files) != n_clips * 3 * 3:
+        raise AssertionError(f"{label}: {len(files)} files")
+    for path in files:
+        kind = os.path.basename(os.path.dirname(path))
+        with open(path, "rb") as f:
+            arr = png.decode_png(f.read(), 1 if kind == "seg" else 3)
+        if arr.shape[:2] != (512, 1024) or (kind == "seg"
+                                            and int(arr.max()) >= 20):
+            raise AssertionError(f"{label}: {path} {arr.shape}")
+    print(f"{label} 2x512x1024: {n_clips} clips, {len(files)} PNGs written "
+          f"and decoded back, {took}")
+
+
 def runner_phase(dev, card):
     """Phase 9: the port's runner layer through its launcher
     (``cli/main.run``, ``train/runner.Runner``) on the card.  Returns the
@@ -2147,20 +2226,7 @@ def runner_phase(dev, card):
             lambda: _quiet(lambda: run(cyc, os.path.join(tmp, "cyc"))))
         dt = time.perf_counter() - t0
         runs.append(counts)
-        files = sorted(os.path.join(b, f) for b, _, fs in os.walk(out_root)
-                       for f in fs)
-        n_clips = 2 * RUNNER_CYCGEN_FORWARDS
-        if len(files) != n_clips * 3 * 3:
-            raise AssertionError(f"runner cycgen: {len(files)} files")
-        for path in files:    # by the zlib + numpy decoder, not Pillow
-            kind = os.path.basename(os.path.dirname(path))
-            with open(path, "rb") as f:
-                arr = png.decode_png(f.read(), 1 if kind == "seg" else 3)
-            if arr.shape[:2] != (512, 1024) or (kind == "seg"
-                                                and int(arr.max()) >= 20):
-                raise AssertionError(f"runner cycgen: {path} {arr.shape}")
-        print(f"runner cycgen 2x512x1024: {n_clips} clips, {len(files)} PNGs "
-              f"written and decoded back, {dt:.3f} s with the build")
+        _cycgen_tree("runner cycgen", out_root, f"{dt:.3f} s with the build")
 
         # 9e: one epoch on a Cityscapes-layout tree, loader workers on
         root = os.path.join(tmp, "city")
@@ -2537,6 +2603,276 @@ def recipe_runner_phase(dev, card, tmp, exp_a):
     return runs
 
 
+# ---- recipe 4, the VAE-GAN (phases 15-18) ---------------------------------
+
+B18 = (18, 128, 128)           # recipe 4's batch and crop (RECIPES.md:45-47)
+GAN_GLOBAL = ("--dataset synthetic --syn_type inter --mode xs2xs "
+              "--interval 9 --one_hot_seg --input_h 128 --input_w 128 "
+              "--bs 18 --kld_w 20 --n_track 10 --s 24 --disp_interval 1")
+GAN_LOAD = ("INTER --model InterGANNet --load_model InterGANNet "
+            "--coarse_model VAEHRNet --vae --gan")
+GAN_FAMILIES = (
+    "--frame_disc --frame_disc_model FrameSNDiscriminator --train_frame_disc "
+    "--frame_disc_g_w 0.4 --frame_disc_d_w 0.001 --frame_disc_lr 0.0001 "
+    "--video_disc --video_disc_model VideoSNDiscriminator --train_video_disc "
+    "--video_disc_g_w 0.4 --video_disc_d_w 0.001 --video_disc_lr 0.0001 "
+    "--frame_det_disc --frame_det_disc_model FrameSNDetDiscriminator "
+    "--train_frame_det_disc --frame_det_disc_g_w 0.4 "
+    "--frame_det_disc_d_w 0.001 --frame_det_disc_lr 0.0001 "
+    "--video_det_disc --video_det_disc_model VideoLSSNDetDiscriminator "
+    "--train_video_det_disc --video_det_disc_g_w 0.4 "
+    "--video_det_disc_d_w 0.01 --video_det_disc_lr 0.0001")
+GAN_TRAIN = f"{GAN_LOAD} --train_coarse {GAN_FAMILIES}"
+CFG_GAN = parse_args(f"{GAN_GLOBAL} --split train {GAN_TRAIN}".split())
+# one recipe-4 step: the HRNet step's launches with the stem at 48 input
+# channels (bb_fits holds for branch 0 at batch 18 with a batch tile of 1);
+# the VAE, the discriminators and the losses are plain PyTorch
+PER_GAN_STEP = {**PER_TRAIN_STEP, "stem_fwd": 0, "stem_bwd": 0,
+                "stem48_fwd": 1, "stem48_bwd": 1}
+PER_GAN_VAL = {**PER_VAL_FORWARD, "stem_fwd": 0, "stem48_fwd": 1}
+# the generator's reconstruction terms (the adversarial ones need not fall)
+GAN_RECON = ("coarse_l1_loss", "coarse_gdl_loss", "coarse_vgg_loss",
+             "coarse_ssim_loss", "coarse_ce_loss")
+GAN_SUBMODELS = ("coarse_model", "frame_disc_model", "frame_det_disc_model",
+                 "video_disc_model", "video_det_disc_model")
+
+
+def gan_batch(dev, seed):
+    """A seeded synthetic batch of recipe 4: 18x128x128, 10 tracks."""
+    b, h, w = B18
+    return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        b, h, w, n_track=10, seed=seed).items()}
+
+
+def gan_setup(dev, use_kernels, dtype="bfloat16"):
+    """Recipe 4's InterGANNet from seed 0, frozen VGG19 from seed 1,
+    Adamax and the four Adams, and its step with a generator of seed 11
+    (the VAE's eps, the sync_neg offsets)."""
+    cfg = dataclasses.replace(CFG_GAN, compute_dtype=dtype)
+    model = registry.build_model(cfg, device=dev, seed=0,
+                                 use_kernels=use_kernels)
+    state = state_lib.create_train_state(
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
+    gen = torch.Generator(dev).manual_seed(11)
+    return inter_gan.make_train_step(cfg, model, gen), state
+
+
+def _gan_step_grads(dev, use_kernels, dtype, batch):
+    step, state = gan_setup(dev, use_kernels, dtype)
+    _, losses = step(state, batch)
+    grads = {n: p.grad.float() for n, p in state.model.named_parameters()}
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def _gan_trajectory(dev, use_kernels, steps=20, warmup=2, count_at=2):
+    """``steps`` recipe-4 steps on one fixed batch: every loss dict, the
+    step times after the warm-ups and the launches of step ``count_at``."""
+    step, state = gan_setup(dev, use_kernels)
+    batch = gan_batch(dev, 5)
+    dicts, times, counts = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        if i == count_at:
+            hw.reset_counters()
+        t0 = time.perf_counter()
+        state, ld = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        if i == count_at:
+            counts = dict(hw.launches)
+        dicts.append({k: float(v) for k, v in ld.items()})
+    return dicts, times, counts
+
+
+def gan_serve_phase(dev, card):
+    """Phase 15: the VAEHRNet generator served (``_GanEvalAdapter``: eval
+    mode, z from a seeded generator): kernel against plain model at
+    2x128x256 with one fixed z (both generators seeded alike), as phase 2;
+    then the 3-step rollout at 2x512x1024 bf16 (the spatial latent): the
+    serving launches per forward, frames/s.  Returns the counted
+    launches."""
+    def adapter(use_kernels):
+        model = registry.build_model(CFG_GAN, device=dev, seed=0,
+                                     use_kernels=use_kernels)
+        return inter_gan.GanEvalAdapter(
+            model.coarse_model, torch.Generator(dev).manual_seed(5))
+    slice_phase(dev, CFG_GAN, "vaehrnet slice",
+                models=(adapter(True), adapter(False)))
+    return serve_phase(dev, card, CFG_GAN, label="vaehrnet serve rollout",
+                       model=adapter(True))
+
+
+def gan_step_phase(dev, card):
+    """Phase 16: recipe 4's step at 18x128x128 bf16 with f32 masters, the
+    recipe's flags and ``--n_track 10``: each submodel's one-step gradient
+    and the stem's four leaves (conv1, conv2: the 48-channel stem kernels)
+    on their own, kernel model and plain bf16 model against the plain f32
+    model (TF32 off), by GRAD_RATIO and GRAD_FLOOR; each loss term within
+    LOSS_TOL of the plain bf16 model's; 20 steps per model on one fixed
+    batch: every term finite, the generator's reconstruction terms falling
+    and ending within TRAJ_TOL of the plain model's; the launches of one
+    counted step; samples/s (median of 18 steps after 2 warm-ups).
+    Returns the counted launches."""
+    b, h, w = B18
+    batch = gan_batch(dev, 4)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, g_ref = _gan_step_grads(dev, False, "float32", batch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    l_k, g_k = _gan_step_grads(dev, True, "bfloat16", batch)
+    l_p, g_p = _gan_step_grads(dev, False, "bfloat16", batch)
+    print(f"recipe 4 step {b}x{h}x{w}:")
+    fails = []
+    for sub in GAN_SUBMODELS:
+        names = [n for n in g_ref if n.startswith(sub + ".")]
+        cat = [torch.cat([g[n].flatten() for n in names])
+               for g in (g_k, g_p, g_ref)]
+        fails.append(_check_grad(f"{sub} gradient ({cat[2].numel()} "
+                                 "values)", *cat))
+    for n in ("conv1.weight", "conv1.bias", "conv2.weight", "conv2.bias"):
+        n = f"coarse_model.{n}"
+        fails.append(_check_grad(n, g_k[n], g_p[n], g_ref[n]))
+    fails = [f for f in fails if f]
+    if fails:
+        raise AssertionError("recipe 4: " + "; ".join(fails))
+    for k in l_p:
+        rel = abs(l_k[k] - l_p[k]) / max(abs(l_p[k]), 1e-30)
+        print(f"  {k}: kernel {l_k[k]:.6g} plain {l_p[k]:.6g} rel {rel:.3g}")
+        if not math.isfinite(l_k[k]) or rel > LOSS_TOL:
+            raise AssertionError(f"recipe 4: {k} differs by {rel:.4g} > "
+                                 f"{LOSS_TOL}")
+    del g_ref, g_k, g_p
+    runs = {}
+    for name, use_kernels in (("kernel", True), ("plain", False)):
+        dicts, times, counts = _gan_trajectory(dev, use_kernels)
+        if not all(math.isfinite(v) for d in dicts for v in d.values()):
+            raise AssertionError(f"recipe 4 {name}: a non-finite loss term")
+        recon = [sum(d[k] for k in GAN_RECON) for d in dicts]
+        if not recon[-1] < recon[0]:
+            raise AssertionError(f"recipe 4 {name}: the reconstruction "
+                                 f"terms did not fall: {recon}")
+        rate = b / statistics.median(times)
+        print(f"recipe 4 {name} model: reconstruction terms {recon[0]:.6g} "
+              f"-> {recon[-1]:.6g}, loss_all {dicts[0]['loss_all']:.6g} -> "
+              f"{dicts[-1]['loss_all']:.6g} over {len(dicts)} steps; "
+              f"{rate:.4f} samples/s (median of {len(times)} steps) on {card}")
+        print(f"  reconstruction: {' '.join(f'{v:.5g}' for v in recon)}")
+        print("  last step: " + ", ".join(f"{k} {v:.5g}"
+                                          for k, v in dicts[-1].items()))
+        runs[name] = (recon[-1], counts)
+    gap = abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    print(f"recipe 4: final reconstruction terms kernel {runs['kernel'][0]:.6g}"
+          f" plain {runs['plain'][0]:.6g} (rel {gap:.4g}, bound {TRAJ_TOL})")
+    if gap > TRAJ_TOL:
+        raise AssertionError(f"recipe 4: final terms differ by {gap:.4g}")
+    counts = runs["kernel"][1]
+    print(f"recipe 4 step launches: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    _check_step_counts("recipe 4", counts, PER_GAN_STEP)
+    return counts
+
+
+def gan_runner_phase(dev, card):
+    """Phases 17-18: recipe 4 through the launcher on synthetic data: two
+    epochs of 8 steps with a checkpoint each (every discriminator and its
+    Adam state in it), the writer's val metrics against recipe 5's
+    ``--checkepoch_range`` sweep reloading both checkpoints (within
+    RELOAD_VAL_TOL), ``--r --checkepoch 1`` (epoch-2 losses within
+    RESUME_LOSS_TOL), and ``--split cycgen`` of the VAEHRNet generator at
+    2x512x1024 from the epoch-2 checkpoint.  Returns the counted launches
+    of each run."""
+    tmp = tempfile.mkdtemp(prefix="dvie_gan_runner_")
+    runs = []
+    try:
+        exp_a = os.path.join(tmp, "a")
+        os.makedirs(exp_a)
+        cfg = parse_args(f"{GAN_GLOBAL} --split train --epochs 2 "
+                         f"{GAN_TRAIN}".split())
+        get_logger(exp_a, "train")
+        writer = _quiet(lambda: Runner(cfg, exp_a))
+        _, counts = _counted("recipe 4 runner train", PER_GAN_STEP,
+                             2 * RUNNER_EPOCH_STEPS,
+                             lambda: _quiet(writer.train_epochs))
+        runs.append(counts)
+        log_a = _log_of(exp_a)
+        losses_a = {(int(e), int(i)): float(v)
+                    for e, i, v in LOSS_LINE.findall(log_a)}
+        if len(losses_a) != 2 * RUNNER_EPOCH_STEPS or not all(
+                map(math.isfinite, losses_a.values())):
+            raise AssertionError(f"recipe 4 runner: losses {losses_a}")
+        for e, n, wall, rate, load, comp in EPOCH_LINE.findall(log_a):
+            print(f"recipe 4 runner epoch {e}: {n} samples in {wall} s, "
+                  f"{rate} samples/s, load {load} s, comp {comp} s on {card}")
+        names = sorted(os.listdir(os.path.join(exp_a, "checkpoint")))
+        if names != ["InterGANNet_xs2xs_inter_24_1_0",
+                     "InterGANNet_xs2xs_inter_24_2_0"]:
+            raise AssertionError(f"recipe 4 runner: checkpoints {names}")
+        ckpt = ckpt_lib.load_checkpoint(
+            os.path.join(exp_a, "checkpoint", names[1]))
+        missing = [k for sub in GAN_SUBMODELS
+                   for k in (sub, ckpt_lib.optimizer_key(sub))
+                   if k not in ckpt]
+        if missing:
+            raise AssertionError(f"recipe 4 runner: checkpoint lacks "
+                                 f"{missing}")
+
+        m_writer, counts = _counted(
+            "recipe 4 runner val", PER_GAN_VAL, RUNNER_VAL_BATCHES,
+            lambda: _quiet(writer.validate))
+        runs.append(counts)
+        sweep = parse_args(
+            f"{GAN_GLOBAL} --split val --load_dir {exp_a} --checksession 24 "
+            "--checkepoch_range --checkepoch_low 1 --checkepoch_up 2 "
+            f"{GAN_LOAD} --load_coarse".split())
+        swept = _quiet(lambda: run(sweep, os.path.join(tmp, "sweep")))
+        for k, v in m_writer.items():
+            got = swept[2][k]
+            print(f"recipe 4 val {k}: writer {v:.6g}, reloaded {got:.6g}, "
+                  f"epoch 1 {swept[1][k]:.6g}")
+            if abs(got - v) > RELOAD_VAL_TOL * abs(v):
+                raise AssertionError(f"recipe 4 val: reloaded {k} {got} vs "
+                                     f"the writer's {v}")
+        if swept[1] == swept[2]:
+            raise AssertionError("recipe 4 val: epochs 1 and 2 alike")
+
+        exp_b = os.path.join(tmp, "b")
+        resume = parse_args(
+            f"{GAN_GLOBAL} --split train --epochs 2 --r --checkepoch 1 "
+            f"--checksession 24 --load_dir {exp_a} {GAN_TRAIN}".split())
+        _quiet(lambda: run(resume, exp_b))
+        losses_b = {(int(e), int(i)): float(v)
+                    for e, i, v in LOSS_LINE.findall(_log_of(exp_b))}
+        if sorted(losses_b) != [(2, i) for i in range(RUNNER_EPOCH_STEPS)]:
+            raise AssertionError(f"recipe 4 resume: logged {sorted(losses_b)}")
+        gap = max(abs(v - losses_a[k]) / abs(losses_a[k])
+                  for k, v in losses_b.items())
+        print(f"recipe 4 resume: epoch-2 loss_all within {gap:.4g} of the "
+              f"uninterrupted run's (bound {RESUME_LOSS_TOL})")
+        if gap > RESUME_LOSS_TOL:
+            raise AssertionError(f"recipe 4 resume: loss_all off by {gap:.4g}")
+
+        cyc = parse_args(
+            "--dataset synthetic --split cycgen --syn_type inter --input_h 512 "
+            f"--input_w 1024 --bs 2 --load_dir {exp_a} --checksession 24 "
+            f"--checkepoch 2 {GAN_LOAD} --load_coarse".split())
+        t0 = time.perf_counter()
+        out_root, counts = _counted(
+            "recipe 4 runner cycgen", PER_FORWARD, RUNNER_CYCGEN_FORWARDS,
+            lambda: _quiet(lambda: run(cyc, os.path.join(tmp, "cyc"))))
+        dt = time.perf_counter() - t0
+        runs.append(counts)
+        _cycgen_tree("recipe 4 cycgen", out_root, f"{dt:.3f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -2558,7 +2894,8 @@ def main():
             recipe_step_phase(dev, card, CFG_R3, "stage3_model", "recipe 3"),
             highres_phase(dev, card), stage3_phase(dev, card),
             recipe3_serve_phase(dev, card), vae_phase(dev, card),
-            *runner_phase(dev, card)]
+            gan_serve_phase(dev, card), gan_step_phase(dev, card),
+            *gan_runner_phase(dev, card), *runner_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

@@ -27,7 +27,8 @@ KERNELS = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
            "ups_head_taps4", "window_attention", "shifted_add_bias",
            "grid_sample", "grid_sample_bounded", "dual_head",
            "bb_chain_fwd_c128", "bb_chain_bwd_c128", "bb_chain_fwd_c256",
-           "bb_chain_bwd_c256", "bb_chain_wgrad", "bottleneck_wgrad")
+           "bb_chain_bwd_c256", "bb_chain_wgrad", "bottleneck_wgrad",
+           "stem48_fwd", "stem48_bwd")
 
 launches = {name: 0 for name in KERNELS}
 

@@ -1,6 +1,6 @@
 // The HRNet stem in training: forward and backward, NHWC bf16, f32
 // accumulation.
-//   pre1 = bf16(conv3x3(x, k1)) + b1    s1 = lrelu(pre1)      (14 -> 64 ch)
+//   pre1 = bf16(conv3x3(x, k1)) + b1    s1 = lrelu(pre1)      (Ci -> 64 ch)
 //   pre2 = bf16(conv3x3(s1, k2)) + b2   y  = lrelu(pre2)      (64 -> 64 ch)
 // with bias adds and lrelu in bf16, as ops/pallas_trainchain.py rounds.
 // Backward: dpre2 = lrelu'(y) * dy; ds1 = bf16(conv_t(dpre2, k2)); dpre1 =
@@ -58,6 +58,16 @@
 //   d by the CUDA cores.  f32 partials per pixel range, summed by the
 //   wrapper: deterministic, no atomics.
 //
+// Input width: a template parameter CI of every kernel, 16 (HRNet's 14
+// channels, rgb and the seg encodings of two frames) or 48 (VAEHRNet's 46:
+// its VAE decoder's 32 channels first), x zero-padded to CI by the wrapper.
+// At 48 conv1 takes three k16 steps a tap (54 KB of k1 beside k2's 72 KB;
+// the forward's shared memory 196 KB), dx is a wgmma m64n48 (the flipped
+// k1, 54 KB), and dk1 no longer stacks taps: a tap's 48 input channels
+// fill the rows of three warps (the fourth warp's rows repeat channels
+// 32-47 and are dropped), three taps a warpgroup at one tile a step, as
+// dk2.  At 16 every kernel is the one described above.
+//
 // Prediction (written before the first chip run of this design, NVIDIA
 // H100 at 700 W): at 24x128x128 the forward 0.666 -> 0.15-0.30 ms, the
 // backward with its weight grads 2.684 -> 0.6-1.1 ms; the b0 train step up
@@ -77,26 +87,48 @@ using hop::tiled::tile_at;
 
 constexpr int TH = 8, TW = 16;
 constexpr int NWG = 3, NT = NWG * 128;
-constexpr int CI = 16, C = 64;
+constexpr int C = 64;
 constexpr int PW2 = TW + 4, NPOS2 = (TH + 4) * PW2;  // the 2-ring region: 240
 constexpr int PW1 = TW + 2, NPOS1 = (TH + 2) * PW1;  // the 1-ring: 180
-constexpr int LDX = CI + 8, LDS = C + 8;             // region pitches, elements
-constexpr int UK1 = 2 * 64 * 8 * 2;   // a k1 tap: (2 k-groups, 64 n, 8 k) bf16
-constexpr int UK2 = 8 * 64 * 8 * 2;   // a k2 tap: (8, 64, 8)
-constexpr int UKX = 8 * 16 * 8 * 2;   // a flipped k1 tap for dx: (8, 16, 8)
+constexpr int LDS = C + 8;            // 64-channel region pitch, elements
+constexpr int UK2 = 8 * 64 * 8 * 2;   // a k2 tap: (8 k-groups, 64 n, 8 k) bf16
 constexpr int ST = 16 * LDS * 2;      // a warp's y staging rows
+constexpr int G_D = TH * TW * 64 * 2;  // weight grads: d at a tile, 16 KB
+constexpr int G_SLOT2 = align128(NPOS1 * LDS * 2 + G_D);
 
-// forward
-constexpr int F_W1 = 0, F_W2 = F_W1 + 9 * UK1, F_X = F_W2 + 9 * UK2;
-constexpr int F_H = F_X + NPOS2 * LDX * 2, F_ST = F_H + NPOS1 * LDS * 2;
-constexpr int F_BAR = F_ST + 8 * ST, F_SMEM = F_BAR + 8;
-// backward
-constexpr int B_W2 = 0, B_WX = B_W2 + 9 * UK2, B_D = B_WX + 9 * UKX;
-constexpr int B_H = B_D + NPOS2 * LDS * 2, B_BAR = B_H + NPOS1 * LDS * 2, B_SMEM = B_BAR + 8;
-static_assert(F_SMEM <= 232448 && B_SMEM <= 232448, "shared memory per block");
+// the layout of the kernels at CI (16 or 48) input channels
+template <int CI>
+struct Stem {
+  static_assert(CI == 16 || CI == 48, "the stem kernels take 16 or 48 input channels");
+  static constexpr int LDX = CI + 8;               // x region pitch, elements
+  static constexpr int KS1 = CI / 16;              // conv1's k16 steps a tap
+  static constexpr int UK1 = CI / 8 * 64 * 8 * 2;  // a k1 tap: (CI/8, 64, 8)
+  static constexpr int UKX = 8 * CI * 8 * 2;       // a flipped k1 tap for dx: (8, CI, 8)
+  static constexpr int LBOX = CI * 8 * 2;          // its k-group stride
+  // forward
+  static constexpr int F_W1 = 0, F_W2 = F_W1 + 9 * UK1, F_X = F_W2 + 9 * UK2;
+  static constexpr int F_H = F_X + NPOS2 * LDX * 2, F_ST = F_H + NPOS1 * LDS * 2;
+  static constexpr int F_BAR = F_ST + 8 * ST, F_SMEM = F_BAR + 8;
+  // backward
+  static constexpr int B_W2 = 0, B_WX = B_W2 + 9 * UK2, B_D = B_WX + 9 * UKX;
+  static constexpr int B_H = B_D + NPOS2 * LDS * 2, B_BAR = B_H + NPOS1 * LDS * 2;
+  static constexpr int B_SMEM = B_BAR + 8;
+  // weight grads: at 16, dk1 stacks four taps in a wgmma's rows and a
+  // step takes three tiles (one a warpgroup); at 48 one tile, as dk2
+  static constexpr bool STACK = CI == 16;
+  static constexpr int NSLOT1 = STACK ? 3 : 1;
+  static constexpr int G_SLOT1 = align128(NPOS1 * LDX * 2 + G_D);
+  static constexpr int G_STAGE = G_SLOT2 > NSLOT1 * G_SLOT1 ? G_SLOT2 : NSLOT1 * G_SLOT1;
+  static constexpr int G_SUM = 2 * G_STAGE, G_SMEM = G_SUM + 6 * 64 * 4;
+  static_assert(F_SMEM <= 232448 && B_SMEM <= 232448 && G_SMEM <= 232448,
+                "shared memory per block");
+};
 
 __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   wgmma64<0>(d, a, b);
+}
+__device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+  wgmma48(d, a, b);
 }
 __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
   wgmma16(d, a, b);
@@ -211,22 +243,24 @@ __device__ __forceinline__ Rows rows_of(uint32_t region, uint32_t ring1) {
 
 // ---- forward ------------------------------------------------------------------
 
-// x (B,H,W,16); w1u, w2u: the tap units of k1 and k2; b1, b2 (64,); y
+// x (B,H,W,CI); w1u, w2u: the tap units of k1 and k2; b1, b2 (64,); y
 // (B,H,W,64); s1o (B,H,W,64) or null
+template <int CI>
 __global__ void __launch_bounds__(NT, 1)
 stem_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1u,
                 const bf16 *__restrict__ b1, const bf16 *__restrict__ w2u,
                 const bf16 *__restrict__ b2, bf16 *__restrict__ y, bf16 *__restrict__ s1o, int B,
                 int H, int W) {
+  using S = Stem<CI>;
   extern __shared__ __align__(1024) unsigned char smem[];
-  uint64_t *wbar = reinterpret_cast<uint64_t *>(smem + F_BAR);
-  bf16 *Xs = reinterpret_cast<bf16 *>(smem + F_X);
-  bf16 *Hs = reinterpret_cast<bf16 *>(smem + F_H);
+  uint64_t *wbar = reinterpret_cast<uint64_t *>(smem + S::F_BAR);
+  bf16 *Xs = reinterpret_cast<bf16 *>(smem + S::F_X);
+  bf16 *Hs = reinterpret_cast<bf16 *>(smem + S::F_H);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wq = warp & 3;
   const int nt = n_tiles(B, H, W, TH);
-  load_weights(wbar, smem + F_W1, w1u, UK1, smem + F_W2, w2u, UK2);
-  const Rows rw = rows_of<LDX>(smem_u32(Xs), smem_u32(Hs));
-  bf16 *Ss = reinterpret_cast<bf16 *>(smem + F_ST + (warp & 7) * ST);
+  load_weights(wbar, smem + S::F_W1, w1u, S::UK1, smem + S::F_W2, w2u, UK2);
+  const Rows rw = rows_of<S::LDX>(smem_u32(Xs), smem_u32(Hs));
+  bf16 *Ss = reinterpret_cast<bf16 *>(smem + S::F_ST + (warp & 7) * ST);
   float bias1[16], bias2[16];  // this thread's columns 8j + ec, + 1
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -234,7 +268,7 @@ stem_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1u,
     bias1[2 * j] = u.x, bias1[2 * j + 1] = u.y, bias2[2 * j] = v.x, bias2[2 * j + 1] = v.y;
   }
 
-  if (blockIdx.x < nt) load_region<CI, LDX>(Xs, x, tile_at(blockIdx.x, TH, H, W), H, W);
+  if (blockIdx.x < nt) load_region<CI, S::LDX>(Xs, x, tile_at(blockIdx.x, TH, H, W), H, W);
   cp_async_commit();
   mbar_wait(wbar, 0);
   for (int ti = blockIdx.x; ti < nt; ti += gridDim.x) {
@@ -244,7 +278,7 @@ stem_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1u,
 
     // ---- conv1 on the 1-ring -> s1 = lrelu(bf16(acc) + b1), 0 outside
     float acc[32];
-    conv9<1, PW2, LDX, UK1, 1024>(acc, rw.a1, smem_u32(smem + F_W1));
+    conv9<S::KS1, PW2, S::LDX, S::UK1, 1024>(acc, rw.a1, smem_u32(smem + S::F_W1));
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int i = rw.er + 8 * hh;
@@ -259,11 +293,12 @@ stem_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1u,
     }
     __syncthreads();  // Hs is whole; nothing reads Xs any more
     if (s1o) store_tile(s1o, Hs, t, H, W);
-    if (ti + gridDim.x < nt) load_region<CI, LDX>(Xs, x, tile_at(ti + gridDim.x, TH, H, W), H, W);
+    if (ti + gridDim.x < nt)
+      load_region<CI, S::LDX>(Xs, x, tile_at(ti + gridDim.x, TH, H, W), H, W);
     cp_async_commit();
 
     // ---- conv2 on the tile -> y = lrelu(bf16(acc) + b2), one tile row a warp
-    conv9<4, PW1, LDS, UK2, 1024>(acc, rw.a2, smem_u32(smem + F_W2));
+    conv9<4, PW1, LDS, UK2, 1024>(acc, rw.a2, smem_u32(smem + S::F_W2));
     if (wg < 2) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
@@ -289,19 +324,21 @@ stem_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w1u,
 // ---- backward -----------------------------------------------------------------
 
 // dy, y, s1 (B,H,W,64); w2f: the flipped k2 tap units; wxf: the flipped k1
-// tap units (64 -> 16); out: dpre2, dpre1 (B,H,W,64), dx (B,H,W,cx)
+// tap units (64 -> CI); out: dpre2, dpre1 (B,H,W,64), dx (B,H,W,cx)
+template <int CI>
 __global__ void __launch_bounds__(NT, 1)
 stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
                 const bf16 *__restrict__ s1, const bf16 *__restrict__ w2f,
                 const bf16 *__restrict__ wxf, bf16 *__restrict__ dpre2, bf16 *__restrict__ dpre1,
                 bf16 *__restrict__ dx, int B, int H, int W, int cx) {
+  using S = Stem<CI>;
   extern __shared__ __align__(1024) unsigned char smem[];
-  uint64_t *wbar = reinterpret_cast<uint64_t *>(smem + B_BAR);
-  bf16 *Ds = reinterpret_cast<bf16 *>(smem + B_D);
-  bf16 *Hs = reinterpret_cast<bf16 *>(smem + B_H);
+  uint64_t *wbar = reinterpret_cast<uint64_t *>(smem + S::B_BAR);
+  bf16 *Ds = reinterpret_cast<bf16 *>(smem + S::B_D);
+  bf16 *Hs = reinterpret_cast<bf16 *>(smem + S::B_H);
   const int warp = threadIdx.x >> 5, wg = warp >> 2;
   const int nt = n_tiles(B, H, W, TH);
-  load_weights(wbar, smem + B_W2, w2f, UK2, smem + B_WX, wxf, UKX);
+  load_weights(wbar, smem + S::B_W2, w2f, UK2, smem + S::B_WX, wxf, S::UKX);
   const Rows rw = rows_of<LDS>(smem_u32(Ds), smem_u32(Hs));
 
   if (blockIdx.x < nt) load_region<C, LDS>(Ds, dy, tile_at(blockIdx.x, TH, H, W), H, W);
@@ -330,7 +367,7 @@ stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
 
     // ---- ds1 on the 1-ring; dpre1 = lrelu'(s1) * bf16(ds1), 0 outside
     float acc[32];
-    conv9<4, PW2, LDS, UK2, 1024>(acc, rw.a1, smem_u32(smem + B_W2));
+    conv9<4, PW2, LDS, UK2, 1024>(acc, rw.a1, smem_u32(smem + S::B_W2));
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int i = rw.er + 8 * hh;
@@ -352,9 +389,9 @@ stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
     if (ti + gridDim.x < nt) load_region<C, LDS>(Ds, dy, tile_at(ti + gridDim.x, TH, H, W), H, W);
     cp_async_commit();
 
-    // ---- dx = bf16(conv_t(dpre1, k1)) on the tile, 16 columns (cx kept)
-    float ax[8];
-    conv9<4, PW1, LDS, UKX, 256>(ax, rw.a2, smem_u32(smem + B_WX));
+    // ---- dx = bf16(conv_t(dpre1, k1)) on the tile, CI columns (cx kept)
+    float ax[CI / 2];
+    conv9<4, PW1, LDS, S::UKX, S::LBOX>(ax, rw.a2, smem_u32(smem + S::B_WX));
     if (wg < 2) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -363,7 +400,7 @@ stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
         if (!inside(yy, xx, H, W)) continue;
         bf16 *o = dx + pix(t.b, yy, xx, H, W) * cx;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < CI / 8; ++j) {
           const int c = 8 * j + rw.ec;
           const __nv_bfloat162 v = __floats2bfloat162_rn(ax[4 * j + 2 * hh], ax[4 * j + 2 * hh + 1]);
           if (c + 1 < cx && !(cx & 1)) {
@@ -383,31 +420,30 @@ stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
 //
 // Blocks [0, s0): dk2 and db2 over pixel range blockIdx.x of s0 (a = s1, d
 // = dpre2); blocks [s0, s0 + s1): dk1 and db1 over range blockIdx.x - s0 of
-// s1 (a = x, 16 channels; d = dpre1).  Per pipeline step a dk2 block takes
-// one 8x16 tile (three taps a warpgroup), a dk1 block three (one a
-// warpgroup, its four warps' rows four taps of each wgmma).  Both run the
-// same instructions on other addresses.
+// s1 (a = x, CI channels; d = dpre1).  Per pipeline step a dk2 block takes
+// one 8x16 tile (three taps a warpgroup); a dk1 block at CI = 16 three (one
+// a warpgroup, its four warps' rows four taps of each wgmma), at CI = 48
+// one (three taps a warpgroup, a tap's 48 channels in three warps' rows).
+// Both run the same instructions on other addresses.
 
-constexpr int G_D = TH * TW * 64 * 2;                 // d at a tile: 16 KB
-constexpr int G_SLOT2 = align128(NPOS1 * LDS * 2 + G_D), G_SLOT1 = align128(NPOS1 * LDX * 2 + G_D);
-constexpr int G_STAGE = G_SLOT2 > 3 * G_SLOT1 ? G_SLOT2 : 3 * G_SLOT1;
-constexpr int G_SUM = 2 * G_STAGE, G_SMEM = G_SUM + 6 * 64 * 4;
-static_assert(G_SMEM <= 232448, "shared memory per block");
-
-// dk2p (s0, 9, 64, 64), dk1p (3 s1, 9, 16, 64): f32 partials [tap, input
-// channel, output channel]; dbp (s0 + s1, 64): db2 then db1 partials
+// dk2p (s0, 9, 64, 64), dk1p (3 s1, 9, 16, 64) at CI = 16 or (s1, 9, 48,
+// 64) at 48: f32 partials [tap, input channel, output channel]; dbp (s0 +
+// s1, 64): db2 then db1 partials
+template <int CI>
 __global__ void __launch_bounds__(NT, 1)
 stem_wgrad_kernel(const bf16 *__restrict__ s1, const bf16 *__restrict__ dpre2,
                   const bf16 *__restrict__ x, const bf16 *__restrict__ dpre1,
                   float *__restrict__ dk2p, float *__restrict__ dk1p, float *__restrict__ dbp,
                   int B, int H, int W, int s0, int s1n) {
+  using S = Stem<CI>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const bool k1job = blockIdx.x >= s0;
+  const bool stack = k1job && S::STACK;  // four taps in a wgmma's rows
   const int split = k1job ? blockIdx.x - s0 : blockIdx.x, splits = k1job ? s1n : s0;
   const bf16 *__restrict__ a = k1job ? x : s1;
   const bf16 *__restrict__ dg = k1job ? dpre1 : dpre2;
-  const int ca = k1job ? CI : C, lda = k1job ? LDX : LDS;  // a's channels and pitch
-  const int nslot = k1job ? 3 : 1, slot_b = k1job ? G_SLOT1 : G_SLOT2;
+  const int ca = k1job ? CI : C, lda = k1job ? S::LDX : LDS;  // a's channels and pitch
+  const int nslot = k1job ? S::NSLOT1 : 1, slot_b = k1job ? S::G_SLOT1 : G_SLOT2;
   const int a_b = NPOS1 * lda * 2;  // a's region, then d, in a slot
   const int nt = n_tiles(B, H, W, TH);
   const int t0 = (int)((long)split * nt / splits), t1 = (int)((long)(split + 1) * nt / splits);
@@ -418,8 +454,8 @@ stem_wgrad_kernel(const bf16 *__restrict__ s1, const bf16 *__restrict__ dpre2,
       const int tg = ti + g;
       const bool have = tg < t1;
       const Tile t = tile_at(have ? tg : t0, TH, H, W);
-      bf16 *As = reinterpret_cast<bf16 *>(smem + buf * G_STAGE + g * slot_b);
-      bf16 *Ds = reinterpret_cast<bf16 *>(smem + buf * G_STAGE + g * slot_b + a_b);
+      bf16 *As = reinterpret_cast<bf16 *>(smem + buf * S::G_STAGE + g * slot_b);
+      bf16 *Ds = reinterpret_cast<bf16 *>(smem + buf * S::G_STAGE + g * slot_b + a_b);
       const int va = ca / 8;
       for (int i = threadIdx.x; i < NPOS1 * va; i += NT) {
         const int l = i / va, v = i % va;
@@ -439,17 +475,18 @@ stem_wgrad_kernel(const bf16 *__restrict__ s1, const bf16 *__restrict__ dpre2,
   };
 
   // this warpgroup's slot, and the tap of each accumulator k at this warp:
-  // dk2 3 wg + k (rows: input channels 16 wq ...); dk1 4 k + wq (rows:
-  // the 16 input channels; taps 9-11 are computed and dropped)
-  const int sg = k1job ? wg : 0;
+  // 3 wg + k (rows: input channels 16 wq ..., at CI = 48 the fourth warp's
+  // those of the third, dropped); stacked dk1 4 k + wq (rows: the 16 input
+  // channels; taps 9-11 are computed and dropped)
+  const int sg = stack ? wg : 0;
   // ldmatrix.trans: lane gives pixel (lane & 7) + 8 (lane >> 4) of the
   // k-step's tile row, channels lc ...
   const int lp = (lane & 7) + 8 * (lane >> 4);
-  const int lc = (k1job ? 0 : 16 * wq) + 8 * ((lane >> 3) & 1);
+  const int lc = (stack ? 0 : min(16 * wq, ca - 16)) + 8 * ((lane >> 3) & 1);
   uint32_t abase[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const int tap = k1job ? min(4 * k + wq, 8) : 3 * wg + k;
+    const int tap = stack ? min(4 * k + wq, 8) : 3 * wg + k;
     abase[k] = smem_u32(smem + sg * slot_b) + (((tap / 3) * PW1 + tap % 3 + lp) * lda + lc) * 2;
   }
   const uint32_t kstride = PW1 * lda * 2;  // one tile row further down
@@ -469,7 +506,7 @@ stem_wgrad_kernel(const bf16 *__restrict__ s1, const bf16 *__restrict__ dpre2,
     cp_async_wait<1>();
     fence_async_smem();  // d is read by wgmma
     __syncthreads();
-    const uint32_t stage = (it & 1) * G_STAGE;
+    const uint32_t stage = (it & 1) * S::G_STAGE;
     const uint32_t dsm = smem_u32(smem + stage + sg * slot_b + a_b);
     uint32_t a0[3][4], a1[3][4];
 #pragma unroll
@@ -514,17 +551,18 @@ stem_wgrad_kernel(const bf16 *__restrict__ s1, const bf16 *__restrict__ dpre2,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = (lane >> 2) + 8 * hh;
-      const int tap = k1job ? 4 * k + wq : 3 * wg + k;
-      if (tap > 8) continue;
-      float *row = k1job ? dk1p + (((long)(3 * split + wg) * 9 + tap) * CI + r) * C
-                         : dk2p + (((long)split * 9 + tap) * C + 16 * wq + r) * C;
+      const int tap = stack ? 4 * k + wq : 3 * wg + k;
+      if (tap > 8 || (!stack && 16 * wq >= ca)) continue;
+      float *row = stack    ? dk1p + (((long)(3 * split + wg) * 9 + tap) * CI + r) * C
+                   : k1job ? dk1p + (((long)split * 9 + tap) * CI + 16 * wq + r) * C
+                           : dk2p + (((long)split * 9 + tap) * C + 16 * wq + r) * C;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<float2 *>(row + 8 * j + 2 * (lane & 3)) =
             make_float2(acc[k][4 * j + 2 * hh], acc[k][4 * j + 2 * hh + 1]);
     }
   // bias-grad partial: the six pixel groups of each channel summed in order
-  float *sums = reinterpret_cast<float *>(smem + G_SUM);
+  float *sums = reinterpret_cast<float *>(smem + S::G_SUM);
   sums[threadIdx.x] = bsum;
   __syncthreads();
   if (threadIdx.x < 64) {
@@ -546,6 +584,33 @@ int launch(Kern kern, int smem_bytes, int blocks, cudaStream_t st, Args... args)
   return (int)cudaGetLastError();
 }
 
+template <int CI>
+int stem_fwd(const void *x, const void *w1u, const void *b1, const void *w2u, const void *b2,
+             void *y, void *s1, int B, int H, int W, cudaStream_t st) {
+  return launch(stem_fwd_kernel<CI>, Stem<CI>::F_SMEM, (int)hop::tiled::n_tiles(B, H, W, TH), st,
+                (const bf16 *)x, (const bf16 *)w1u, (const bf16 *)b1, (const bf16 *)w2u,
+                (const bf16 *)b2, (bf16 *)y, (bf16 *)s1, B, H, W);
+}
+
+template <int CI>
+int stem_bwd(const void *dy, const void *y, const void *s1, const void *x, const void *w2f,
+             const void *wxf, void *dpre2, void *dpre1, void *dx, void *dk2p, void *dk1p,
+             void *dbp, int B, int H, int W, int cx, int s0, int s1n, cudaStream_t st) {
+  if (cx < 1 || cx > CI || s0 < 1 || s1n < 1) return (int)cudaErrorInvalidValue;
+  int e = launch(stem_bwd_kernel<CI>, Stem<CI>::B_SMEM, (int)hop::tiled::n_tiles(B, H, W, TH), st,
+                 (const bf16 *)dy, (const bf16 *)y, (const bf16 *)s1, (const bf16 *)w2f,
+                 (const bf16 *)wxf, (bf16 *)dpre2, (bf16 *)dpre1, (bf16 *)dx, B, H, W, cx);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(stem_wgrad_kernel<CI>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        Stem<CI>::G_SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  stem_wgrad_kernel<CI><<<(unsigned)(s0 + s1n), NT, Stem<CI>::G_SMEM, st>>>(
+      (const bf16 *)s1, (const bf16 *)dpre2, (const bf16 *)x, (const bf16 *)dpre1, (float *)dk2p,
+      (float *)dk1p, (float *)dbp, B, H, W, s0, s1n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace dvie
 
@@ -556,11 +621,7 @@ int launch(Kern kern, int smem_bytes, int blocks, cudaStream_t st, Args... args)
 extern "C" int dvie_stem_fwd(const void *x16, const void *w1u, const void *b1, const void *w2u,
                              const void *b2, void *y, void *s1, int B, int H, int W,
                              void *stream) {
-  using dvie::bf16;
-  return dvie::launch(dvie::stem_fwd_kernel, dvie::F_SMEM,
-                      (int)dvie::hop::tiled::n_tiles(B, H, W, dvie::TH), (cudaStream_t)stream,
-                      (const bf16 *)x16, (const bf16 *)w1u, (const bf16 *)b1, (const bf16 *)w2u,
-                      (const bf16 *)b2, (bf16 *)y, (bf16 *)s1, B, H, W);
+  return dvie::stem_fwd<16>(x16, w1u, b1, w2u, b2, y, s1, B, H, W, (cudaStream_t)stream);
 }
 
 // The backward: one launch for dx, one for the weight grads.  dy, y, s1
@@ -574,19 +635,23 @@ extern "C" int dvie_stem_bwd(const void *dy, const void *y, const void *s1, cons
                              const void *w2f, const void *wxf, void *dpre2, void *dpre1, void *dx,
                              void *dk2p, void *dk1p, void *dbp, int B, int H, int W, int cx,
                              int s0, int s1n, void *stream) {
-  using dvie::bf16;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cx < 1 || cx > dvie::CI || s0 < 1 || s1n < 1) return (int)cudaErrorInvalidValue;
-  int e = dvie::launch(dvie::stem_bwd_kernel, dvie::B_SMEM,
-                       (int)dvie::hop::tiled::n_tiles(B, H, W, dvie::TH), st, (const bf16 *)dy,
-                       (const bf16 *)y, (const bf16 *)s1, (const bf16 *)w2f, (const bf16 *)wxf,
-                       (bf16 *)dpre2, (bf16 *)dpre1, (bf16 *)dx, B, H, W, cx);
-  if (e) return e;
-  cudaError_t ce = cudaFuncSetAttribute(dvie::stem_wgrad_kernel,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, dvie::G_SMEM);
-  if (ce != cudaSuccess) return (int)ce;
-  dvie::stem_wgrad_kernel<<<(unsigned)(s0 + s1n), dvie::NT, dvie::G_SMEM, st>>>(
-      (const bf16 *)s1, (const bf16 *)dpre2, (const bf16 *)x16, (const bf16 *)dpre1,
-      (float *)dk2p, (float *)dk1p, (float *)dbp, B, H, W, s0, s1n);
-  return (int)cudaGetLastError();
+  return dvie::stem_bwd<16>(dy, y, s1, x16, w2f, wxf, dpre2, dpre1, dx, dk2p, dk1p, dbp, B, H, W,
+                            cx, s0, s1n, (cudaStream_t)stream);
+}
+
+// The same at 48 input channels (VAEHRNet's 46, zero-padded): x48
+// (B,H,W,48); w1u (9, 6, 64, 8); wxf (9, 8, 48, 8); dx (B,H,W,cx), cx <=
+// 48; dk1p (s1, 9, 48, 64).
+extern "C" int dvie_stem48_fwd(const void *x48, const void *w1u, const void *b1, const void *w2u,
+                               const void *b2, void *y, void *s1, int B, int H, int W,
+                               void *stream) {
+  return dvie::stem_fwd<48>(x48, w1u, b1, w2u, b2, y, s1, B, H, W, (cudaStream_t)stream);
+}
+
+extern "C" int dvie_stem48_bwd(const void *dy, const void *y, const void *s1, const void *x48,
+                               const void *w2f, const void *wxf, void *dpre2, void *dpre1,
+                               void *dx, void *dk2p, void *dk1p, void *dbp, int B, int H, int W,
+                               int cx, int s0, int s1n, void *stream) {
+  return dvie::stem_bwd<48>(dy, y, s1, x48, w2f, wxf, dpre2, dpre1, dx, dk2p, dk1p, dbp, B, H, W,
+                            cx, s0, s1n, (cudaStream_t)stream);
 }

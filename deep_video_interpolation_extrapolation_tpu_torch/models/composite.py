@@ -1,6 +1,6 @@
 """Composite model heads (counterpart of models/composite.py): ``InterNet``,
-``InterRefineNet`` and ``InterStage3Net``, for training and eval.  The
-other composites wait in ROADMAP.md queue 1.
+``InterRefineNet``, ``InterStage3Net`` and ``InterGANNet``, for training
+and eval.  The other composites wait in ROADMAP.md queue 1.
 
 Where JAX stops the gradient, the port detaches.  A submodel whose
 parameters do not require grad (frozen by ``train/state``) runs without
@@ -115,3 +115,74 @@ class InterStage3Net(InterRefineNet):
                 refine_rgbs[-1].detach(), soft, rgb, seg)
         stage3_rgbs = [torch.clamp(r, -10, 10) for r in stage3_rgbs]
         return coarse_rgb, coarse_seg, refine_rgbs, stage3_rgbs, flow_maps
+
+
+# (train flag, submodule and model-name attribute, takes the input frames)
+# of the four discriminator families (InterGANNet.py:10-26)
+DISC_FAMILIES = (("frame_disc", "frame_disc_model", False),
+                 ("frame_det_disc", "frame_det_disc_model", False),
+                 ("video_disc", "video_disc_model", True),
+                 ("video_det_disc", "video_det_disc_model", True))
+
+
+class InterGANNet(nn.Module):
+    """VAE coarse + the four discriminator families (composite.py:153-224):
+    ``coarse_model`` (VAEHRNet) and ``<family>_model`` for each family whose
+    flag is set.  ``forward(rgb, seg, gt_rgb=None, gt_seg=None,
+    bboxes=None, train=False, generator=None)`` returns the reference's
+    19-tuple (coarse_rgb, coarse_seg, mu, logvar, D_fake_frame,
+    D_real_frame, D_fake_video, D_real_video, G_fake_frame, G_fake_video,
+    D_fake_fdet, D_real_fdet, D_fake_vdet, D_syncfake_vdet, D_real_vdet,
+    G_fake_fdet, G_fake_vdet, gen_bbox, loc_diff_loss); the discriminator
+    terms are None at eval.  The train step (``train/inter_gan``) applies
+    the submodules itself, isolating the gradients there.  TrackGen
+    (``--track_gen``) waits in ROADMAP.md queue 1, item 5."""
+
+    def __init__(self, cfg: Config, use_kernels: bool = True):
+        super().__init__()
+        if cfg.track_gen:
+            raise NotImplementedError(
+                "TrackGen (--track_gen) is not ported yet (ROADMAP.md queue "
+                "1, item 5)")
+        if cfg.coarse_model != "VAEHRNet":
+            raise ValueError("InterGANNet takes --coarse_model VAEHRNet "
+                             f"(its (rgb, seg, mu, logvar)), not "
+                             f"{cfg.coarse_model!r}")
+        self.coarse_model = registry.build_coarse(cfg, use_kernels)
+        self.families = []
+        for flag, attr, video in DISC_FAMILIES:
+            if getattr(cfg, flag):
+                setattr(self, attr, registry.build_disc(cfg, getattr(cfg,
+                                                                     attr)))
+                self.families.append((attr, video))
+
+    def forward(self, rgb, seg, gt_rgb=None, gt_seg=None, bboxes=None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        coarse_rgb, coarse_seg, mu, logvar = self.coarse_model(
+            rgb, seg, gt_rgb, gt_seg, train=train, generator=generator)
+        out = {}
+        if train:
+            soft = torch.softmax(coarse_seg, dim=-1)
+            for attr, video in self.families:
+                disc = getattr(self, attr)
+                extra = (rgb, seg) if video else ()
+                out[attr] = (
+                    disc(coarse_rgb.detach(), soft.detach(), *extra,
+                         bboxes=bboxes, train=True),
+                    disc(gt_rgb, gt_seg, *extra, bboxes=bboxes, train=True),
+                    disc(coarse_rgb, soft, *extra, bboxes=bboxes,
+                         train=True))
+            if "video_det_disc_model" in out:
+                out["sync"] = self.video_det_disc_model(
+                    gt_rgb, gt_seg, rgb, seg, bboxes=bboxes, sync_neg=True,
+                    train=True, generator=generator)
+        none3 = (None, None, None)
+        fr, fd = out.get("frame_disc_model", none3), out.get(
+            "frame_det_disc_model", none3)
+        vi, vd = out.get("video_disc_model", none3), out.get(
+            "video_det_disc_model", none3)
+        loc_diff = torch.zeros((), device=rgb.device)
+        return (coarse_rgb, coarse_seg, mu, logvar, fr[0], fr[1], vi[0],
+                vi[1], fr[2], vi[2], fd[0], fd[1], vd[0], out.get("sync"),
+                vd[1], fd[2], vd[2], None, loc_diff)

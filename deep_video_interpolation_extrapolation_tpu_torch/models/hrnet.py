@@ -46,12 +46,19 @@ differentiable.
 
 Submodule names follow the reference's torch HRNet, so ``state_dict`` keys
 are exactly those ``tools/torch_port.port_hrnet`` reads.
+
+``VAEHRNet`` (hrnet.py:1061-1188) is the same backbone and heads behind a
+conditional VAE: a BatchNorm conv encoder of (inputs, ground truth) to a
+latent of 16 channels at 1/16 scale, a transposed-conv decoder of the
+latent to 32 channels at full scale, concatenated before the 14 input
+channels, so the stem takes 46 (on the train chain, the stem kernels at
+their 48-channel width).
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -61,9 +68,14 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     BasicBlock,
     Bottleneck,
     Conv,
+    ConvT,
     SegEncoder,
     conv3x3_site,
     lrelu,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.models.subnets import (
+    BatchNorm,
+    Dense,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops.bbchain import (
     bb_chain,
@@ -318,14 +330,15 @@ class HRNet(nn.Module):
     and the 4-branch stage4 (STAGE4_CFG, the CLI's ``--highres_large``)."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 use_kernels: bool = True, highres_large: bool = False):
+                 use_kernels: bool = True, highres_large: bool = False,
+                 in_ch: int = (3 + 4) * N_FRAMES):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.highres_large = highres_large
         k = use_kernels
         self.seg_encoder = SegEncoder()
-        self.conv1 = Conv((3 + 4) * N_FRAMES, 64, 3)   # rgb + seg encoding
+        self.conv1 = Conv(in_ch, 64, 3)   # rgb + seg encoding (+ VAE feature)
         self.conv2 = Conv(64, 64, 3)
         self.layer1 = nn.Sequential(*(Bottleneck(64 if i == 0 else 256, 64)
                                       for i in range(4)))
@@ -435,3 +448,165 @@ class HRNet(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = _encode_inputs(rgb, seg, self.seg_encoder, self.dtype)
         return self._apply_heads(self._backbone(x))
+
+
+# ---- VAEHRNet ----------------------------------------------------------------
+
+VAE_IN = 2 * (RGB_DIM + SEG_DIM) + RGB_DIM + SEG_DIM   # inputs + ground truth
+VAE_FEAT, LATENT_C = 32, 16    # decoder feature, latent channels at 1/16
+DENSE_LATENT_MAX = 4096        # above it the latent is spatial (1x1 convs)
+
+
+class _VAEEncoder(nn.Module):
+    """Strided conv encoder with BatchNorm (hrnet.py:1155-1173): 128x128 ->
+    8x8x16.  ``convs.k`` / ``bns.k`` are the flax ``Conv_k`` /
+    ``BatchNorm_k``."""
+
+    # (cout, stride, BatchNorm) of each conv, in order
+    LAYERS = ([(32, 1, False), (32, 1, True)]
+              + [(c, s, True) for c in (32, 64, 128) for s in (2, 1)]
+              + [(128, 2, True), (64, 1, True), (32, 1, True),
+                 (LATENT_C, 1, False)])
+
+    def __init__(self, cin: int = VAE_IN):
+        super().__init__()
+        convs, bns = [], []
+        for cout, stride, bn in self.LAYERS:
+            convs.append(Conv(cin, cout, 3, stride=stride))
+            if bn:
+                bns.append(BatchNorm(cout))
+            cin = cout
+        self.convs, self.bns = nn.ModuleList(convs), nn.ModuleList(bns)
+
+    def forward(self, x: torch.Tensor, train: bool,
+                dtype: torch.dtype) -> torch.Tensor:
+        x = x.to(dtype)
+        k = 0
+        for i, (conv, (_, _, bn)) in enumerate(zip(self.convs, self.LAYERS)):
+            x = conv(x)
+            if bn:
+                x = self.bns[k](x, train, dtype)
+                k += 1
+            if i < len(self.LAYERS) - 1:
+                x = lrelu(x)
+        return x
+
+
+class _VAEDecoder(nn.Module):
+    """ConvTranspose decoder with BatchNorm (hrnet.py:1176-1188): four
+    (2x transposed conv, BN, lrelu, 3x3 conv (, BN, lrelu)) steps, 1/16 ->
+    full scale, 32 channels.  ``ups.i`` / ``convs.i`` / ``bns.k`` are the
+    flax ``ConvT_i`` / ``Conv_i`` / ``BatchNorm_k``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ups = nn.ModuleList(ConvT(LATENT_C if i == 0 else VAE_FEAT,
+                                       VAE_FEAT) for i in range(4))
+        self.convs = nn.ModuleList(Conv(VAE_FEAT, VAE_FEAT, 3)
+                                   for _ in range(4))
+        self.bns = nn.ModuleList(BatchNorm(VAE_FEAT) for _ in range(7))
+
+    def forward(self, z: torch.Tensor, train: bool,
+                dtype: torch.dtype) -> torch.Tensor:
+        x = z.to(dtype)
+        for i in range(4):
+            x = lrelu(self.bns[2 * i](self.ups[i](x), train, dtype))
+            x = self.convs[i](x)
+            if i != 3:   # the last conv has no BN or activation
+                x = lrelu(self.bns[2 * i + 1](x, train, dtype))
+        return x
+
+
+def dense_latent(h: int, w: int) -> bool:
+    """Whether a (h, w) input takes the Dense latent (``mu_fc``,
+    ``logvar_fc``: the reference's, up to a latent of 4096, i.e. 256x256)
+    or the spatial one (``mu_conv``, ``logvar_conv``)."""
+    return LATENT_C * (h // 16) * (w // 16) <= DENSE_LATENT_MAX
+
+
+class VAEHRNet(HRNet):
+    """HRNet behind a conditional VAE latent (hrnet.py:1061-1152).
+
+    ``forward(rgb, seg, gt_rgb=None, gt_seg=None, train=False,
+    generator=None, noise=None)`` returns (rgb_out, seg_out, mu, logvar).
+    Train: (inputs, ground truth) are encoded to (mu, logvar) and z = mu +
+    eps * exp(logvar / 2); eval: z ~ N(0, I) of shape (B, H/16 * W/16 * 16)
+    (Dense latent) or (B, H/16, W/16, 16) (spatial), and mu, logvar are
+    None.  eps and z are drawn from ``generator`` on the input's device in
+    f32, cast to the latent's dtype, where the JAX module draws from its
+    ``noise`` rng; ``noise`` hands in the draw instead.  The BatchNorms
+    follow ``train``.  The latent heads are built for ``size`` (the train
+    size); a loaded ``state_dict`` brings its own (a model trained at
+    128x128 serves at 512x1024, where eval needs none), as the JAX tree is
+    replaced whole on load."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 use_kernels: bool = True, highres_large: bool = False,
+                 size: Tuple[int, int] = (128, 128)):
+        super().__init__(dtype, use_kernels, highres_large,
+                         in_ch=VAE_FEAT + (3 + 4) * N_FRAMES)
+        self.vae_encoder = _VAEEncoder()
+        self.vae_decoder = _VAEDecoder()
+        h, w = size
+        self._latent_heads(LATENT_C * (h // 16) * (w // 16)
+                           if dense_latent(h, w) else None)
+        self.register_load_state_dict_pre_hook(self._heads_of_state)
+
+    def _latent_heads(self, n: Optional[int], device=None) -> None:
+        """Dense heads of a latent of ``n``, or the 1x1 conv heads for
+        None."""
+        for name in ("mu_fc", "logvar_fc", "mu_conv", "logvar_conv"):
+            if hasattr(self, name):
+                delattr(self, name)
+        if n is not None:
+            self.mu_fc, self.logvar_fc = Dense(n, n), Dense(n, n)
+        else:
+            self.mu_conv = Conv(LATENT_C, LATENT_C, 1, padding=0)
+            self.logvar_conv = Conv(LATENT_C, LATENT_C, 1, padding=0)
+        if device is not None:
+            self.to(device)
+
+    def _heads_of_state(self, module, state_dict, prefix, *args) -> None:
+        """Rebuild the latent heads as the loaded state holds them."""
+        key = f"{prefix}mu_fc.weight"
+        n = state_dict[key].shape[0] if key in state_dict else None
+        have = self.mu_fc.weight.shape[0] if hasattr(self, "mu_fc") else None
+        if n != have:
+            self._latent_heads(n, self.conv1.weight.device)
+
+    def forward(self, rgb: torch.Tensor, seg: torch.Tensor,
+                gt_rgb: Optional[torch.Tensor] = None,
+                gt_seg: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        b, h, w, _ = rgb.shape
+        zh, zw = h // 16, w // 16
+        dense = dense_latent(h, w)
+        dt = self.dtype
+        mu = logvar = None
+        if train:
+            if gt_rgb is None or gt_seg is None:
+                raise ValueError("VAEHRNet trains on the ground truth: pass "
+                                 "gt_rgb and gt_seg")
+            e = self.vae_encoder(torch.cat([rgb, seg, gt_rgb, gt_seg], -1),
+                                 True, dt)
+            if dense:
+                e = e.reshape(b, -1)      # NHWC order, as flax flattens
+                mu, logvar = self.mu_fc(e, dt), self.logvar_fc(e, dt)
+            else:
+                mu, logvar = self.mu_conv(e), self.logvar_conv(e)
+            eps = noise if noise is not None else torch.randn(
+                mu.shape, generator=generator, device=mu.device)
+            z = mu + eps.reshape(mu.shape).to(mu.dtype) * torch.exp(
+                0.5 * logvar)
+        else:
+            shape = (b, zh, zw, LATENT_C) if not dense else (
+                b, LATENT_C * zh * zw)
+            z = noise if noise is not None else torch.randn(
+                shape, generator=generator, device=rgb.device)
+            z = z.to(dt)
+        feat = self.vae_decoder(z.reshape(b, zh, zw, LATENT_C), train, dt)
+        x = _encode_inputs(rgb, seg, self.seg_encoder, dt)
+        x = torch.cat([feat.to(x.dtype), x], dim=-1)
+        rgb_out, seg_out = self._apply_heads(self._backbone(x))
+        return rgb_out, seg_out, mu, logvar

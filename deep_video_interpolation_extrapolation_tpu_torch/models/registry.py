@@ -1,6 +1,9 @@
 """Model registry (counterpart of models/registry.py) for the ported slices:
 ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net`` with
-``--coarse_model HRNet`` in interpolation mode, every ``--refine_model``
+``--coarse_model HRNet`` in interpolation mode; ``InterGANNet`` with
+``--coarse_model VAEHRNet`` and every discriminator of
+``models/discriminators`` and the six of ``models/detdisc``; every
+``--refine_model``
 (``SRNRefine`` at any ``--n_sc``, ``refineUnet``) and ``--stage3_model``
 (``MSResAttnRefine`` at any ``--n_sc`` and ``--stage3_prop``, ``V2``,
 ``V2Base``, ``V3``) the JAX registry takes; and the video VAEs ``--model
@@ -27,18 +30,42 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
+    """``HRNet``, or ``VAEHRNet`` with its latent heads for the
+    (input_h, input_w) it trains at."""
     from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
         HRNet,
+        VAEHRNet,
     )
-    if cfg.coarse_model != "HRNet":
+    if cfg.coarse_model not in ("HRNet", "VAEHRNet"):
         raise NotImplementedError(
             f"coarse model {cfg.coarse_model!r} is not ported yet "
-            f"({_QUEUE}, items 5-8)")
+            f"({_QUEUE}, item 8)")
     if cfg.syn_type != "inter":
         raise NotImplementedError(
             f"syn_type {cfg.syn_type!r} is not ported yet ({_QUEUE}, item 6)")
-    return HRNet(dtype=compute_dtype(cfg), use_kernels=use_kernels,
-                 highres_large=cfg.highres_large)
+    kw = dict(dtype=compute_dtype(cfg), use_kernels=use_kernels,
+              highres_large=cfg.highres_large)
+    if cfg.coarse_model == "VAEHRNet":
+        return VAEHRNet(size=(cfg.input_h, cfg.input_w), **kw)
+    return HRNet(**kw)
+
+
+def build_disc(cfg: Config, name: str) -> nn.Module:
+    """A discriminator by its reference name (registry.py:125-140 of the
+    JAX package), in the compute dtype, ``--seg_disc`` applied."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        detdisc,
+        discriminators,
+    )
+    d = compute_dtype(cfg)
+    if name in discriminators.FACTORIES:
+        return discriminators.FACTORIES[name](cfg.seg_disc, d)
+    if name in detdisc.CLASSES:
+        return detdisc.CLASSES[name](seg_disc=cfg.seg_disc, dtype=d)
+    if name in detdisc.NOT_PORTED:
+        raise NotImplementedError(
+            f"discriminator {name!r} is not ported yet ({_QUEUE}, item 5)")
+    raise KeyError(name)
 
 
 def build_refine(cfg: Config) -> nn.Module:
@@ -82,6 +109,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         BatchNorm,
         ConvTranspose,
     )
+    from deep_video_interpolation_extrapolation_tpu_torch.models.discriminators import (
+        SNConv,
+    )
     # a transposed conv's weight is (Cin, Cout, kh, kw); a BatchNorm scale
     # starts at one (flax's init)
     convt = {id(m.weight) for m in model.modules()
@@ -101,6 +131,12 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                     fan_in = p.shape[0] * p.shape[2] * p.shape[3]
                 p.copy_(torch.from_numpy(rng.normal(
                     0.0, 1.0 / np.sqrt(fan_in), p.shape).astype(np.float32)))
+        # the spectral norms' power-iteration vectors, N(0, 1) as flax's,
+        # after every parameter (the other models' draws are unchanged)
+        for name, m in sorted(model.named_modules(), key=lambda t: t[0]):
+            if isinstance(m, SNConv):
+                m.u.copy_(torch.from_numpy(rng.normal(
+                    0.0, 1.0, tuple(m.u.shape)).astype(np.float32)))
     return model
 
 
@@ -115,13 +151,17 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
     )
     heads = {"InterNet": composite.InterNet,
              "InterRefineNet": composite.InterRefineNet,
-             "InterStage3Net": composite.InterStage3Net}
+             "InterStage3Net": composite.InterStage3Net,
+             "InterGANNet": composite.InterGANNet}
     vaes = {"VAE": "vae", "VAE_S": "vae_s", "VAE_SD": "vae_sd"}
     if cfg.model not in heads and cfg.model not in vaes:
         raise NotImplementedError(
             f"model {cfg.model!r} is not ported yet ({_QUEUE}, item 8 for "
-            "the legacy models, items 5-6 for the GAN and extrapolation "
-            "ones)")
+            "the legacy models, item 6 for the extrapolation ones)")
+    if cfg.coarse_model == "VAEHRNet" and cfg.model != "InterGANNet":
+        raise NotImplementedError(
+            f"--coarse_model VAEHRNet under {cfg.model} (the plain VAE) is "
+            f"not ported yet ({_QUEUE}, item 5); InterGANNet takes it")
     device = hw.entry_device(device)
     if cfg.model in vaes:
         model = vae_video.VideoVAE(

@@ -50,10 +50,12 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
 )
 
 STEM_FWD, STEM_BWD = "stem_fwd", "stem_bwd"
+STEM48_FWD, STEM48_BWD = "stem48_fwd", "stem48_bwd"   # the kernels at Ci 48
 BN_FWD, BN_BWD = "bottleneck_fwd", "bottleneck_bwd"
 BN_WGRAD = "bottleneck_wgrad"
 P, CO = 64, 256      # layer1 widths: planes and planes * expansion
 STEM_CIN_PAD = 16    # the stem kernels take x zero-padded to 16 channels
+STEM_CIN_PADS = (16, 48)   # ... or, VAEHRNet's 46, to 48
 
 
 # ---- plain versions -------------------------------------------------------
@@ -219,8 +221,21 @@ def _taps_t(w: torch.Tensor, dev) -> torch.Tensor:
                                                         w.shape[1]), dev)
 
 
+def stem_cin_pad(ci: int) -> int:
+    """The input width of the stem kernels that take ``ci`` channels: 16
+    (HRNet's 14) or 48 (VAEHRNet's 46); raises above 48."""
+    for cp in STEM_CIN_PADS:
+        if ci <= cp:
+            return cp
+    raise ValueError(f"stem kernel takes Ci <= {STEM_CIN_PADS[-1]}, got {ci}")
+
+
+def _pad_to(t: torch.Tensor, cp: int) -> torch.Tensor:
+    return F.pad(t, (0, cp - t.shape[-1])).contiguous()
+
+
 def _pad16(t: torch.Tensor) -> torch.Tensor:
-    return F.pad(t, (0, STEM_CIN_PAD - t.shape[-1])).contiguous()
+    return _pad_to(t, STEM_CIN_PAD)
 
 
 def stem_units(k1, b1, k2, b2, dev) -> dict:
@@ -228,18 +243,21 @@ def stem_units(k1, b1, k2, b2, dev) -> dict:
     set (``hw.derived``: a train step's forward and backward share them),
     as tap units (tap ky*3+kx; (k-group, n, k) in the no-swizzle K-major
     core-matrix order of csrc/hopper.cuh), in the order the kernels keep
-    them: ``w1u`` k1 (9, 2, 64, 8), its input channels zero-padded to 16;
+    them, at the kernels' input width cp (``stem_cin_pad``, 16 or 48):
+    ``w1u`` k1 (9, cp/8, 64, 8), its input channels zero-padded to cp;
     ``w2u`` k2 (9, 8, 64, 8); ``w2f`` and ``wxf`` the flipped, transposed
-    k2 (9, 8, 64, 8) and k1 (9, 8, 16, 8) of the backward (the transposed
+    k2 (9, 8, 64, 8) and k1 (9, 8, cp, 8) of the backward (the transposed
     convs as SAME convs); ``b1``, ``b2``."""
+    cp = stem_cin_pad(k1.shape[1])
+
     def build():
-        k1p = F.pad(k1, (0, 0, 0, 0, 0, STEM_CIN_PAD - k1.shape[1]))
+        k1p = F.pad(k1, (0, 0, 0, 0, 0, cp - k1.shape[1]))
         return dict(
-            w1u=_taps(k1p, dev).reshape(9, 2, 8, P).permute(0, 1, 3, 2)
+            w1u=_taps(k1p, dev).reshape(9, cp // 8, 8, P).permute(0, 1, 3, 2)
             .contiguous(),
             w2u=_tap_units(_taps(k2, dev)).contiguous(),
             w2f=_tap_units(_taps_t(k2, dev)).contiguous(),
-            wxf=_taps_t(k1p, dev).reshape(9, 8, 8, STEM_CIN_PAD)
+            wxf=_taps_t(k1p, dev).reshape(9, 8, 8, cp)
             .permute(0, 1, 3, 2).contiguous(),
             b1=_bf(b1, dev), b2=_bf(b2, dev))
     return hw.derived(f"stem:{dev}", (k1, b1, k2, b2), build)
@@ -256,22 +274,30 @@ def stem_tiles(b: int, h: int, w: int) -> int:
     return b * -(-h // 8) * -(-w // 16)
 
 
-def stem_wgrad_splits(b: int, h: int, w: int) -> Tuple[int, int]:
+def stem_wgrad_splits(b: int, h: int, w: int, cp: int = STEM_CIN_PAD
+                      ) -> Tuple[int, int]:
     """Pixel ranges of the stem's weight-grad launch: s0 for dk2 and db2,
-    s1 for dk1 and db1 (a third of the work a tile: 16 input channels
-    against 64), together one block per SM of an H100 (132), at least one
-    tile (dk1: three) per range."""
+    s1 for dk1 and db1, together one block per SM of an H100 (132), at
+    least one tile (dk1 at cp 16: three) per range.  At cp 16 dk1 is a
+    third of dk2's work a tile (16 input channels against 64, three tiles
+    a step): 99 and 33.  At cp 48 a dk1 step is dk2's (one tile, the 48
+    channels in 64 rows): 66 and 66."""
     tiles = stem_tiles(b, h, w)
+    if cp == 48:
+        return max(1, min(66, tiles)), max(1, min(66, tiles))
     return max(1, min(99, tiles)), max(1, min(33, -(-tiles // 3)))
 
 
 def _check_stem(x, k1, k2):
     b, h, w, ci = x.shape
     cin = k1.shape[1]
-    if cin > STEM_CIN_PAD or ci not in (cin, STEM_CIN_PAD) \
+    if cin > STEM_CIN_PADS[-1] or ci not in (cin, stem_cin_pad(cin)) \
             or tuple(k1.shape) != (P, cin, 3, 3) \
             or tuple(k2.shape) != (P, P, 3, 3):
-        raise ValueError(f"stem kernel takes Ci <= {STEM_CIN_PAD}, P = {P}: "
+        raise ValueError(f"stem kernel takes Ci <= {STEM_CIN_PAD} (x "
+                         f"padded to {STEM_CIN_PAD}) or Ci <= "
+                         f"{STEM_CIN_PADS[-1]} (x padded to "
+                         f"{STEM_CIN_PADS[-1]}), P = {P}: "
                          f"x {tuple(x.shape)}, k1 {tuple(k1.shape)}, "
                          f"k2 {tuple(k2.shape)}")
     stem_tiles(b, h, w)
@@ -296,14 +322,16 @@ def _call(name: str, *args) -> None:
     _launch(name, name, next(a for a in args if torch.is_tensor(a)), *args)
 
 
-def _stem_fwd(x16, k1, b1, k2, b2, save):
-    b, h, w, _ = x16.shape
-    wt = stem_units(k1, b1, k2, b2, x16.device)
-    act = dict(device=x16.device, dtype=torch.bfloat16)
+def _stem_fwd(xp, k1, b1, k2, b2, save):
+    """The forward launch on x zero-padded to the kernels' width (16: the
+    ``stem_fwd`` kernel, 48: ``stem48_fwd``)."""
+    b, h, w, cp = xp.shape
+    wt = stem_units(k1, b1, k2, b2, xp.device)
+    act = dict(device=xp.device, dtype=torch.bfloat16)
     y = torch.empty((b, h, w, P), **act)
     s1 = torch.empty((b, h, w, P), **act) if save else None
-    _call(STEM_FWD, x16, wt["w1u"], wt["b1"], wt["w2u"], wt["b2"], y, s1,
-          b, h, w)
+    _call(STEM_FWD if cp == STEM_CIN_PAD else STEM48_FWD, xp, wt["w1u"],
+          wt["b1"], wt["w2u"], wt["b2"], y, s1, b, h, w)
     return y, s1
 
 
@@ -311,18 +339,19 @@ def stem_fwd_kernel(x, k1, b1, k2, b2, save=False):
     """The stem forward on the card (``csrc/trainchain_stem.cu``), one
     launch: y, or (y, s1) with ``save`` (s1 stored for the backward)."""
     _check_stem(x, k1, k2)
-    y, s1 = _stem_fwd(_pad16(x), k1, b1, k2, b2, save)
+    y, s1 = _stem_fwd(_pad_to(x, stem_cin_pad(k1.shape[1])), k1, b1, k2,
+                      b2, save)
     return (y, s1) if save else y
 
 
 def stem_wgrads(dk2p, dk1p, dbp, s0, ci):
     """The weight-grad launch's f32 partials -> (dk1, db1, dk2, db2), dk1
-    and dk2 OIHW: dk2p (s0, 9, 64, 64) and dk1p (n, 9, 16, 64) [tap, input
+    and dk2 OIHW: dk2p (s0, 9, 64, 64) and dk1p (n, 9, cp, 64) [tap, input
     channel, output channel] summed over pixel ranges, dk1 cut to ``ci``
     input channels; the first s0 rows of dbp (s0 + s1, 64) db2's, the rest
     db1's."""
     dk2 = dk2p.sum(0).reshape(3, 3, P, P).permute(3, 2, 0, 1).contiguous()
-    dk1 = dk1p.sum(0).reshape(3, 3, STEM_CIN_PAD, P).permute(3, 2, 0, 1)
+    dk1 = dk1p.sum(0).reshape(3, 3, dk1p.shape[2], P).permute(3, 2, 0, 1)
     return (dk1[:, :ci].contiguous(), dbp[s0:].sum(0), dk2,
             dbp[:s0].sum(0))
 
@@ -331,25 +360,29 @@ def stem_bwd_kernel(x, dy, s1, y, k1, b1, k2, b2):
     """The stem backward on the card from what the forward kept (s1, y):
     one launch for dx (storing dpre2 and dpre1), one for the f32 weight and
     bias grads, whose partials are summed here.  x: the stem input, or its
-    copy zero-padded to 16 channels; dx has k1's input channels."""
+    copy zero-padded to the kernels' width (16, or 48 for more than 16
+    input channels); dx has k1's input channels."""
     _check_stem(x, k1, k2)
     b, h, w, _ = x.shape
     ci = k1.shape[1]
     for name, t in (("dy", dy), ("s1", s1), ("y", y)):
         hw.check_bf16(name, t, (b, h, w, P))
     dev = x.device
-    x16 = x if x.shape[-1] == STEM_CIN_PAD else _pad16(x)
+    cp = stem_cin_pad(ci)
+    xp = x if x.shape[-1] == cp else _pad_to(x, cp)
     wt = stem_units(k1, b1, k2, b2, dev)
     act = dict(device=dev, dtype=torch.bfloat16)
     dpre2, dpre1 = (torch.empty((b, h, w, P), **act) for _ in range(2))
     dx = torch.empty((b, h, w, ci), **act)
-    s0, s1n = stem_wgrad_splits(b, h, w)
+    s0, s1n = stem_wgrad_splits(b, h, w, cp)
     f32 = dict(device=dev, dtype=torch.float32)
     dk2p = torch.empty((s0, 9, P, P), **f32)
-    dk1p = torch.empty((3 * s1n, 9, STEM_CIN_PAD, P), **f32)
+    dk1p = torch.empty(((3 if cp == STEM_CIN_PAD else 1) * s1n, 9, cp, P),
+                       **f32)
     dbp = torch.empty((s0 + s1n, P), **f32)
-    _call(STEM_BWD, dy, y, s1, x16, wt["w2f"], wt["wxf"], dpre2, dpre1, dx,
-          dk2p, dk1p, dbp, b, h, w, ci, s0, s1n)
+    _call(STEM_BWD if cp == STEM_CIN_PAD else STEM48_BWD, dy, y, s1, xp,
+          wt["w2f"], wt["wxf"], dpre2, dpre1, dx, dk2p, dk1p, dbp, b, h, w,
+          ci, s0, s1n)
     return (dx, *stem_wgrads(dk2p, dk1p, dbp, s0, ci))
 
 
@@ -512,17 +545,17 @@ class _Stem(torch.autograd.Function):
             ctx.save_for_backward(x, k1, b1, k2, b2)
             return stem_plain(x, k1, b1, k2, b2)
         _check_stem(x, k1, k2)
-        x16 = _pad16(x)
-        y, s1 = _stem_fwd(x16, k1, b1, k2, b2, save)
+        xp = _pad_to(x, stem_cin_pad(k1.shape[1]))
+        y, s1 = _stem_fwd(xp, k1, b1, k2, b2, save)
         if save:
-            ctx.save_for_backward(x16, y, s1, k1, b1, k2, b2)
+            ctx.save_for_backward(xp, y, s1, k1, b1, k2, b2)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         if ctx.kernel:
-            x16, y, s1, k1, b1, k2, b2 = ctx.saved_tensors
-            grads = stem_bwd_kernel(x16, dy.contiguous(), s1, y, k1, b1, k2,
+            xp, y, s1, k1, b1, k2, b2 = ctx.saved_tensors
+            grads = stem_bwd_kernel(xp, dy.contiguous(), s1, y, k1, b1, k2,
                                     b2)
         else:
             x, k1, b1, k2, b2 = ctx.saved_tensors

@@ -16,7 +16,12 @@ arrays; imports no jax (callers convert with ``np.asarray``).
 
 The video VAEs have no torch_port mapper: ``vae_key_map`` maps the flax
 tree's auto-names (``Conv_k``, ``BatchNorm_k``, ``ConvTranspose_k``, the
-named ``Dense`` layers) straight onto the port's module names.
+named ``Dense`` layers) straight onto the port's module names.  VAEHRNet
+is HRNet's map plus its latent modules by the same table
+(``from_jax_vaehrnet``); a discriminator's map walks the port module, whose
+containers keep their children's flax names (``disc_key_map``: kernels,
+biases, BatchNorm scale, bias and statistics, and each spectral norm's
+``u`` and ``sigma``).
 """
 
 from __future__ import annotations
@@ -275,16 +280,24 @@ def from_jax_refine_unet(params: Mapping) -> Dict[str, torch.Tensor]:
     return _state_dict(params, refine_unet_key_map(params))
 
 
-def from_jax_submodel(sub: torch.nn.Module, params: Mapping
+def from_jax_submodel(sub: torch.nn.Module, params: Mapping,
+                      batch_stats: Mapping = None
                       ) -> Dict[str, torch.Tensor]:
-    """The JAX tree of one submodel -> the state_dict of the port's
-    ``sub``, by its class."""
+    """The JAX tree of one submodel (its ``params``, and ``batch_stats``
+    where it has BatchNorms or spectral norms) -> the state_dict of the
+    port's ``sub``, by its class."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
         attn_refine,
+        detdisc,
+        discriminators,
         hrnet,
         optical,
         refine,
     )
+    if isinstance(sub, (discriminators.Seq, detdisc._DetDisc)):
+        return from_jax_disc(sub, params, batch_stats or {})
+    if isinstance(sub, hrnet.VAEHRNet):
+        return from_jax_vaehrnet(params, batch_stats or {})
     if isinstance(sub, hrnet.HRNet):
         return from_jax_params(params)
     if isinstance(sub, refine.SRNRefine):
@@ -298,15 +311,19 @@ def from_jax_submodel(sub: torch.nn.Module, params: Mapping
     raise TypeError(f"no JAX weight map for {type(sub).__name__}")
 
 
-def load_jax_params(model: torch.nn.Module, params: Mapping) -> List[str]:
-    """Load a JAX composite's ``params`` (the per-submodel tree) into the
-    port's composite of the same ``--model``.  Returns the keys the JAX tree
-    has no counterpart for, which keep their seeded init: only
-    ``stage3_model.attn_fuse_layer.*`` of V1 at one scale."""
+def load_jax_params(model: torch.nn.Module, params: Mapping,
+                    batch_stats: Mapping = None) -> List[str]:
+    """Load a JAX composite's ``params`` (the per-submodel tree) and
+    ``batch_stats`` into the port's composite of the same ``--model``.
+    Returns the keys the JAX tree has no counterpart for, which keep their
+    seeded init: only ``stage3_model.attn_fuse_layer.*`` of V1 at one
+    scale."""
     left = []
+    batch_stats = batch_stats or {}
     for name, sub in model.named_children():
         missing, unexpected = sub.load_state_dict(
-            from_jax_submodel(sub, params[name]), strict=False)
+            from_jax_submodel(sub, params[name], batch_stats.get(name)),
+            strict=False)
         if unexpected or any(not k.startswith("attn_fuse_layer.")
                              for k in missing):
             raise KeyError(f"{name}: missing {missing}, unexpected "
@@ -392,6 +409,25 @@ VAE_TREE = {
     "Flow2FrameWarped": [("image_encoder", "image_encoder", "LegacyEncoder"),
                          ("flow_encoder", "flow_encoder", "LegacyEncoder"),
                          ("image_decoder", "image_decoder", "LegacyDecoder")],
+    # VAEHRNet's latent path (hrnet.py:1061-1188); HRNet's map covers the
+    # rest.  A transposed conv of blocks.ConvT is its ConvTranspose_0.
+    "VAEHRNet": [("vae_encoder", "vae_encoder", "VAEEncoder"),
+                 ("vae_decoder", "vae_decoder", "VAEDecoder"),
+                 ("mu_fc", "mu_fc", "dense"),
+                 ("logvar_fc", "logvar_fc", "dense"),
+                 ("mu_conv", "mu_conv", "conv"),
+                 ("logvar_conv", "logvar_conv", "conv")],
+    "VAEEncoder": (_numbered("Conv", [f"convs.{i}" for i in range(12)],
+                             "conv")
+                   + _numbered("BatchNorm", [f"bns.{i}" for i in range(10)],
+                               "bn")),
+    "VAEDecoder": (_numbered("ConvT", [f"ups.{i}" for i in range(4)],
+                             "ConvT")
+                   + _numbered("Conv", [f"convs.{i}" for i in range(4)],
+                               "conv")
+                   + _numbered("BatchNorm", [f"bns.{i}" for i in range(7)],
+                               "bn")),
+    "ConvT": [("ConvTranspose_0", "", "convT")],
 }
 # (flax leaf, collection, port leaf) of each leaf kind; a conv without a
 # bias has no bias leaf on either side
@@ -429,7 +465,8 @@ def vae_key_map(params: Mapping, batch_stats: Mapping, root: str = "VideoVAE"
             for flax_name, port_name, child in VAE_TREE[kind]:
                 if flax_name in node:
                     yield from walk(child, path + (flax_name,),
-                                    f"{prefix}{port_name}.")
+                                    f"{prefix}{port_name}." if port_name
+                                    else prefix)
             return
         for leaf, coll, port_leaf in _LEAVES.get(kind, _KERNEL):
             tree = trees[coll]
@@ -456,4 +493,84 @@ def from_jax_vae(params: Mapping, batch_stats: Mapping,
         if path[-1] == "kernel":
             a = KERNEL_TRANSFORM[kind](a)
         sd[key] = torch.from_numpy(np.array(a, order="C"))   # a writable copy
+    return sd
+
+
+def from_jax_vaehrnet(params: Mapping, batch_stats: Mapping
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX ``VAEHRNet``'s ``params`` and ``batch_stats`` -> the port's
+    ``models/hrnet.VAEHRNet`` state_dict: HRNet's map, then the VAE encoder
+    and decoder (kernels, BatchNorm scale, bias, mean and var) and the
+    latent heads (a Dense kernel (in, out) -> the weight (out, in), or the
+    1x1 conv heads)."""
+    sd = from_jax_params(params)
+    sd.update(from_jax_vae(params, batch_stats, root="VAEHRNet"))
+    return sd
+
+
+# ---- the discriminators -----------------------------------------------------
+
+def disc_key_map(disc: torch.nn.Module
+                 ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch key, (collection, *flax path), leaf kind) of every leaf of a
+    port discriminator (``models/discriminators``, ``models/detdisc``),
+    walking its containers' flax names.  A spectral norm's ``u`` and
+    ``sigma`` sit in ``batch_stats`` under ``SpectralNorm_0`` as
+    ``Conv_0/kernel/u`` and ``Conv_0/kernel/sigma``."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        detdisc,
+        discriminators as dd,
+    )
+
+    def conv(path, prefix, kind="conv"):
+        yield f"{prefix}weight", ("params",) + path + ("kernel",), kind
+        yield f"{prefix}bias", ("params",) + path + ("bias",), "bias"
+
+    def sn(path, prefix):
+        yield from conv(path + ("Conv_0",), prefix)
+        for leaf in ("u", "sigma"):
+            yield (f"{prefix}{leaf}", ("batch_stats",) + path + (
+                "SpectralNorm_0", f"Conv_0/kernel/{leaf}"), leaf)
+
+    def out_conv(sn_conv, path, prefix):
+        if sn_conv:
+            yield from sn(path + ("_SNConv_0",), prefix)
+        else:
+            yield from conv(path + ("Conv_0",), prefix)
+
+    def block(b, path, prefix):
+        yield from out_conv(b.sn, path, f"{prefix}conv.")
+        if b.bn is not None:
+            for leaf, coll, port in _LEAVES["bn"]:
+                yield (f"{prefix}bn.{port}",
+                       (coll,) + path + ("BatchNorm_0", leaf), "bn")
+
+    def seq(m, path, prefix):
+        for i, (name, layer) in enumerate(zip(m.names, m.layers)):
+            walk = block if isinstance(layer, dd.Block) else seq
+            yield from walk(layer, path + (name,), f"{prefix}layers.{i}.")
+        if isinstance(m, (dd.FrameLocalDiscriminator,
+                          dd.VideoLocalDiscriminator)):
+            yield from out_conv(m.sn, path, f"{prefix}out.")
+
+    if isinstance(disc, detdisc._DetDisc):
+        yield from seq(disc.tower, (disc.tower_name,), "tower.")
+    else:
+        yield from seq(disc, (), "")
+
+
+def from_jax_disc(disc: torch.nn.Module, params: Mapping,
+                  batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX discriminator's ``params`` and ``batch_stats`` -> the
+    state_dict of the port's ``disc`` (kernels HWIO -> OIHW)."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    sd = OrderedDict()
+    for key, (coll, *path), kind in disc_key_map(disc):
+        a = trees[coll]
+        for p in path:
+            a = a[p]
+        a = np.asarray(a, dtype=np.float32)
+        if kind == "conv":
+            a = KERNEL_TRANSFORM["conv"](a)
+        sd[key] = torch.from_numpy(np.array(a, order="C"))
     return sd

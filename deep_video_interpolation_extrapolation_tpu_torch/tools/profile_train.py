@@ -8,7 +8,10 @@
 InterRefineNet, the HRNet frozen, SRNRefine ``--n_sc 3`` trained, at
 27x128x128 (:17-26); ``3``: InterStage3Net, the HRNet and SRNRefine
 frozen, MSResAttnRefineV2 ``--stage3_prop`` trained, refine weights 20,
-at 27x128x128 (:28-40).  bf16 compute with f32 masters, frozen VGG19
+at 27x128x128 (:28-40); ``4``: InterGANNet (VAEHRNet and the four
+discriminator families of the VAE-GAN recipe, its weights and learning
+rates, ``--n_track 10``) at 18x128x128 (:42-62), a synthetic batch with
+its boxes, the step's generator seeded.  bf16 compute with f32 masters, frozen VGG19
 from a seed, Adamax; the same setups as ``chip_smoke.py``'s train and
 recipe phases.  For each model
 (``use_kernels`` True, then False): 3 warm-up steps, the mean wall time of
@@ -34,10 +37,17 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from deep_video_interpolation_extrapolation_tpu_torch.cli.options import (
+    parse_args,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.data.synthetic import (
+    synthetic_batch,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     inter,
+    inter_gan,
     state as state_lib,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
@@ -71,10 +81,32 @@ RECIPES = {1: (CFG, B),
                        "stage3_prop": True, "train_stage3": True,
                        "refine_l1_weight": 20.0, "refine_gdl_weight": 20.0,
                        "refine_vgg_weight": 20.0,
-                       "refine_ssim_weight": 20.0}), 27)}
+                       "refine_ssim_weight": 20.0}), 27),
+           4: (parse_args((
+               "--syn_type inter --mode xs2xs --input_h 128 --input_w 128 "
+               "--bs 18 --kld_w 20 --n_track 10 INTER --model InterGANNet "
+               "--coarse_model VAEHRNet --train_coarse --vae --gan "
+               "--frame_disc --frame_disc_model FrameSNDiscriminator "
+               "--train_frame_disc --frame_disc_g_w 0.4 --frame_disc_d_w "
+               "0.001 --frame_disc_lr 0.0001 --video_disc --video_disc_model "
+               "VideoSNDiscriminator --train_video_disc --video_disc_g_w 0.4 "
+               "--video_disc_d_w 0.001 --video_disc_lr 0.0001 "
+               "--frame_det_disc --frame_det_disc_model "
+               "FrameSNDetDiscriminator --train_frame_det_disc "
+               "--frame_det_disc_g_w 0.4 --frame_det_disc_d_w 0.001 "
+               "--frame_det_disc_lr 0.0001 --video_det_disc "
+               "--video_det_disc_model VideoLSSNDetDiscriminator "
+               "--train_video_det_disc --video_det_disc_g_w 0.4 "
+               "--video_det_disc_d_w 0.01 --video_det_disc_lr 0.0001")
+               .split()), 18)}
 
 
-def _batch(dev, b=B):
+def _batch(dev, b=B, n_track=0):
+    """A seeded batch; with ``n_track``, the synthetic one with its boxes
+    (the GAN's detection discriminators read them)."""
+    if n_track:
+        return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+            b, H, W, n_track=n_track, seed=5).items()}
     g = torch.Generator(device=dev).manual_seed(5)
     batch = {f"frame{i}": torch.rand((b, H, W, 3), generator=g, device=dev)
              * 2 - 1 for i in (1, 2, 3)}
@@ -103,8 +135,11 @@ def profile_model(dev, use_kernels: bool, cfg: Config = CFG, b: int = B):
                                  use_kernels=use_kernels)
     state = state_lib.create_train_state(
         cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
-    step = inter.make_train_step(cfg, model)
-    batch = _batch(dev, b)
+    gan = cfg.model == "InterGANNet"
+    step = (inter_gan.make_train_step(
+        cfg, model, torch.Generator(dev).manual_seed(11)) if gan
+        else inter.make_train_step(cfg, model))
+    batch = _batch(dev, b, cfg.num_track_per_img if gan else 0)
     for _ in range(3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()

@@ -10,7 +10,10 @@ state and optimizer dicts} named ``<model>_<mode>_<syn_type>_<session>_
 The file is one ``torch.save`` dict: ``session``, ``epoch`` (the finished
 epoch + 1), ``step``, each submodel's ``state_dict`` under its name
 (``coarse_model``, ...) and each optimizer's under ``<part>_optimizer``
-(``coarse_optimizer``, ...).  The submodels carry the reference's
+(``coarse_optimizer``, ...): for InterGANNet each discriminator
+(``frame_disc_model``, ...: its spectral-norm ``u`` and ``sigma`` among
+its buffers) and its Adam state (``frame_disc_optimizer``, ...) too.  The
+submodels carry the reference's
 ``state_dict`` names, so a reference checkpoint loads as it is.  Weights
 load through ``load_state_dict``, which copies into each parameter in
 place: the kernels' weight layouts (``core/hw.derived``) see the version

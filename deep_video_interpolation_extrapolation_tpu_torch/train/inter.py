@@ -61,8 +61,9 @@ _REFINE = ("InterRefineNet", "InterStage3Net")
 def _check(cfg: Config) -> None:
     if cfg.model != "InterNet" and cfg.model not in _REFINE:
         raise NotImplementedError(
-            f"the {cfg.model} train and eval steps are not ported yet "
-            f"({_QUEUE}, items 5-6)")
+            f"the {cfg.model} train and eval steps are not here "
+            "(InterGANNet: train/inter_gan.py) or not ported yet "
+            f"({_QUEUE}, items 6 and 8)")
 
 
 def _check_vae_combo(cfg: Config) -> None:

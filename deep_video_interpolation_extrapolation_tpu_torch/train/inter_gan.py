@@ -1,0 +1,167 @@
+"""The InterGAN train step (counterpart of train/inter_gan.py; the
+reference's runners/InterGANTrainer.py): the generator and every
+discriminator trained from ONE backward, as the reference and the JAX step.
+
+- D losses see the detached fake, so they reach only the discriminators;
+- the G hinge losses apply each discriminator with its parameters detached
+  (``torch.func.functional_call``), so they reach only the generator;
+- one ``backward()`` over the sum of every term, then the per-submodel
+  optimizer steps (Adamax for the coarse model, Adam for each
+  discriminator) behind the ``--train_*`` flags.
+
+Per family the passes run in the JAX order, fake (detached) -> sync_neg
+(``video_det`` only, averaged into the fake logits) -> real -> G, each a
+train-mode pass that moves the BatchNorm statistics and the spectral
+norms' ``u`` (inter_gan.py:209-238).  The coarse RGB bundle is computed on
+[0, 1]-normalised images (InterGANTrainer.py:395), unlike the INTER step.
+The loss keys and their order are InterGANTrainer.py:395-436's.
+
+The VAE's eps and the sync_neg offsets come from the step's ``generator``
+(the JAX step's ``noise`` and ``sync_neg`` keys).  ``--track_gen`` and
+``--track_obj_loss`` (ROADMAP.md queue 1, item 5) and ``--remat`` (item 4)
+raise.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.losses.gan import (
+    gan_scalar_loss,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
+    cross_entropy_loss,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.losses.vae import (
+    kld_loss,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
+    needs_grad,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.train import (
+    state as state_lib,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
+    get_inter_inputs,
+    normalize01,
+    rgb_bundle,
+    seg_id_targets,
+    sum_losses,
+    vgg_loss_from_frozen,
+)
+
+_QUEUE = "ROADMAP.md queue 1"
+
+
+def _check(cfg: Config) -> None:
+    if cfg.track_gen or cfg.track_obj_loss:
+        raise NotImplementedError(
+            "--track_gen and --track_obj_loss are not ported yet "
+            f"({_QUEUE}, item 5)")
+    if cfg.remat:
+        raise NotImplementedError(
+            f"--remat is not ported yet ({_QUEUE}, item 4)")
+    if cfg.highres_large:
+        raise NotImplementedError(
+            f"--highres_large training is not ported yet ({_QUEUE}, item 2)")
+
+
+def frozen_call(module: nn.Module, *args, **kwargs):
+    """``module`` applied with its parameters detached (its buffers, the
+    BatchNorm statistics and spectral-norm vectors, still move): the
+    gradient reaches the inputs only."""
+    params = {k: p.detach() for k, p in module.named_parameters()}
+    return functional_call(module, params, args, kwargs)
+
+
+def make_train_step(cfg: Config, model: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> Callable:
+    """``train_step(state, batch) -> (state, loss_dict)`` for an
+    InterGANNet ``model``; the loss dict's values are detached scalars.
+    ``generator`` draws the VAE's eps and the sync_neg offsets."""
+    _check(cfg)
+    discs = []
+    # the model's families in the JAX step's order (inter_gan.py:55-65):
+    # attr ``<family>_model``, loss-key stem ``<family>`` less ``_disc``
+    for attr, video in model.families:
+        fam = attr[:-len("_model")]
+        stem = fam[:-len("_disc")]
+        disc = getattr(model, attr)
+        if stem == "video_det" and not getattr(disc, "supports_sync_neg",
+                                               False):
+            # the sync_neg track-mismatch negative defines this family
+            # (inter_gan.py:121-132)
+            raise ValueError(
+                f"--video_det_disc_model {type(disc).__name__!r} has no "
+                "sync_neg support; pick a Video*DetDiscriminator")
+        discs.append((disc, stem, video, getattr(cfg, f"{fam}_disc_weight"),
+                      getattr(cfg, f"{fam}_gen_weight")))
+
+    def train_step(state: state_lib.TrainState, batch):
+        x, seg, gt_x, gt_seg = get_inter_inputs(batch)
+        bboxes = batch.get("bboxes")
+        for opt in state.optimizers.values():
+            opt.zero_grad(set_to_none=True)
+        coarse = model.coarse_model
+        with torch.set_grad_enabled(needs_grad(coarse)):
+            coarse_rgb, coarse_seg, mu, logvar = coarse(
+                x, seg, gt_x, gt_seg, train=True, generator=generator)
+        soft = torch.softmax(coarse_seg, dim=-1)
+        vgg_fn = vgg_loss_from_frozen(state.frozen_vgg)
+        ld = rgb_bundle(cfg, normalize01(coarse_rgb), normalize01(gt_x),
+                        vgg_fn, "coarse")
+        if cfg.mode == "xs2xs":
+            ld["coarse_ce_loss"] = cfg.ce_weight * cross_entropy_loss(
+                coarse_seg, seg_id_targets(batch["seg2"]))
+        if cfg.vae:
+            ld["coarse_kld_loss"] = kld_loss(mu, logvar, cfg.kld_weight)
+        fake, fake_soft = coarse_rgb.detach(), soft.detach()
+        for disc, stem, video, d_w, g_w in discs:
+            extra = (x, seg) if video else ()
+            with torch.set_grad_enabled(needs_grad(disc)):
+                d_fake = disc(fake, fake_soft, *extra, bboxes=bboxes,
+                              train=True)
+                if stem == "video_det":
+                    d_sync = disc(gt_x, gt_seg, *extra, bboxes=bboxes,
+                                  sync_neg=True, train=True,
+                                  generator=generator)
+                    d_fake = (d_fake + d_sync) / 2
+                d_real = disc(gt_x, gt_seg, *extra, bboxes=bboxes,
+                              train=True)
+            g_fake = frozen_call(disc, coarse_rgb, soft, *extra,
+                                 bboxes=bboxes, train=True)
+            ld[f"coarse_{stem}_loss"] = gan_scalar_loss(g_fake, True, g_w)
+            ld[f"disc_{stem}_real_loss"] = gan_scalar_loss(d_real, True, d_w)
+            ld[f"disc_{stem}_fake_loss"] = gan_scalar_loss(d_fake, False,
+                                                           d_w)
+        total = sum_losses(ld)
+        ld["loss_all"] = total
+        total.backward()
+        state_lib.apply_updates(cfg, state)
+        return state, OrderedDict((k, v.detach()) for k, v in ld.items())
+
+    return train_step
+
+
+class GanEvalAdapter(nn.Module):
+    """The GAN's coarse model (VAEHRNet) on the (rgb, seg) interface of the
+    INTER eval step, cycgen and serving (runner.py:949-967 of the JAX
+    package): eval mode, z drawn from ``generator``.  Returns (rgb,
+    seg_logits)."""
+
+    def __init__(self, coarse: nn.Module,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.coarse_model = coarse
+        self.generator = generator
+
+    def forward(self, rgb, seg, gt_seg=None):
+        out = self.coarse_model(rgb, seg, train=False,
+                                generator=self.generator)
+        return out[0], out[1]

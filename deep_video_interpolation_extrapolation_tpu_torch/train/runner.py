@@ -16,15 +16,21 @@ runners/InterTrainer.py) for ``syn_type inter``:
 InterNet, InterRefineNet and InterStage3Net train and validate
 (``train/inter.py``; the refine stages log ``refine_<scale>_*`` and
 ``stage3_<scale>_*`` losses and validate ``refine_*`` and ``stage3_*``
-metrics), and run cycgen and mycycgen on their serving forward.  A stage
+metrics), and run cycgen and mycycgen on their serving forward.
+InterGANNet (recipe 4) trains through ``train/inter_gan.py`` and
+validates, runs cycgen and logs its image panel through its coarse model
+in eval mode (``inter_gan.GanEvalAdapter``), the VAE's z drawn from the runner's
+generator (seeded by ``--seed``); its checkpoints hold every
+discriminator and its Adam state under the reference's names.  A stage
 starts from the previous stage's experiment through ``--load_dir`` and
 ``--load_coarse`` / ``--load_refine`` (``--load_model`` names that
 experiment's model).  Batches
 reach the card through pinned host memory and a side stream
 (``_device_prefetch``); losses stay on the card and are read back once per
 ``disp_interval``.  The paths the port does not have yet raise
-``NotImplementedError`` with their ROADMAP item: the GAN runner (item 5),
-EXTRA (item 6), ``--remat`` (item 4) and sharding (item 9).
+``NotImplementedError`` with their ROADMAP item: TrackGen and the
+track-object loss (item 5), EXTRA (item 6), ``--remat`` (item 4) and
+sharding (item 9).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.native import png
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
     inter as inter_lib,
+    inter_gan as gan_lib,
     state as state_lib,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
@@ -86,10 +93,6 @@ def _writer(cfg, exp_dir: str):
 
 
 def _check_supported(cfg) -> None:
-    if cfg.model == "InterGANNet" or cfg.gan:
-        raise NotImplementedError(
-            "the GAN runner (InterGANNet, local-disc maps, GAN image panels) "
-            f"is not ported yet ({_QUEUE}, item 5)")
     if cfg.runner == "EXTRA" or cfg.syn_type == "extra":
         raise NotImplementedError(
             f"EXTRA / syn_type extra is not ported yet ({_QUEUE}, item 6)")
@@ -123,6 +126,11 @@ class Runner:
         self.cfg = cfg
         self.exp_dir = exp_dir
         self.device = hw.entry_device(device)
+        self.is_gan = cfg.model == "InterGANNet"
+        # the VAE's eps and z and the sync_neg offsets; reseeded at each
+        # epoch and each validation (``_reseed``)
+        self.generator = torch.Generator(self.device)
+        self._reseed(0)
         self.epoch = cfg.start_epoch
         self.vid_len = 3
         self.train_step = self.eval_step = None
@@ -182,12 +190,37 @@ class Runner:
             self.epoch = ckpt["epoch"]
         logger.info("loaded checkpoint %s (submodels=%s)", path, sel or "all")
 
+    def _reseed(self, tag: int) -> None:
+        """The generator's draws of an epoch (tag = epoch) or of a
+        validation (tag = 0) follow from ``--seed`` and the tag alone, so a
+        resumed run draws what the uninterrupted one drew, and a
+        checkpoint validates the same in a sweep and on its own."""
+        self.generator.manual_seed(self.cfg.seed * 100003 + tag)
+
+    def _eval_model(self):
+        """The model of eval, cycgen and the image panels: the GAN's coarse
+        model behind ``GanEvalAdapter`` (the JAX runner's
+        ``_GanEvalAdapter``, runner.py:949), else the model."""
+        if self.is_gan:
+            return gan_lib.GanEvalAdapter(self.model.coarse_model,
+                                          self.generator)
+        return self.model
+
     def _build_steps(self, train: bool) -> None:
-        """The train or eval step, built on first use."""
+        """The train or eval step, built on first use; the GAN evaluates
+        its coarse model on the INTER eval step."""
+        cfg = self.cfg
         if train and self.train_step is None:
-            self.train_step = inter_lib.make_train_step(self.cfg, self.model)
+            self.train_step = (
+                gan_lib.make_train_step(cfg, self.model, self.generator)
+                if self.is_gan else inter_lib.make_train_step(cfg,
+                                                              self.model))
         if not train and self.eval_step is None:
-            self.eval_step = inter_lib.make_eval_step(self.cfg, self.model)
+            self.eval_step = (
+                inter_lib.make_eval_step(cfg.replace(model="InterNet"),
+                                         self._eval_model())
+                if self.is_gan else inter_lib.make_eval_step(cfg,
+                                                             self.model))
 
     # ------------------------------------------------------------- data
     def _host_batches(self, loader, depth: int):
@@ -300,7 +333,8 @@ class Runner:
         )
         with torch.no_grad():
             x, seg, _, _ = get_inter_inputs(batch)
-            pred_rgb, pred_seg = serve.final_output(self.model(x, seg))
+            pred_rgb, pred_seg = serve.final_output(self._eval_model()(x,
+                                                                       seg))
 
         def first(t):
             return t[0].float().cpu().numpy()
@@ -313,6 +347,80 @@ class Runner:
         ])
         self.writer.add_image("train/in_pred_gt", row, step)
 
+    def _local_disc_maps(self, batch, pred_rgb, pred_seg) -> List:
+        """The local discriminators' probability maps on the panel's sample
+        (real, then fake; frame then video family) for the ``--local_disc``
+        heatmap row (InterGANTrainer.py:228-239,535-544; runner.py:236-279
+        of the JAX package): eval passes, nothing stored.  Empty when no
+        family gives a spatial map."""
+        from deep_video_interpolation_extrapolation_tpu_torch.utils.vis import (
+            prob_heatmap,
+        )
+        cfg = self.cfg
+        x, seg, gt_x, gt_seg = get_inter_inputs(batch)
+        fake_rgb = torch.clamp(pred_rgb, -1, 1)
+        fake_seg = torch.softmax(pred_seg, dim=-1)
+        maps = []
+        with torch.no_grad():
+            for flag, attr, video in (("frame_disc", "frame_disc_model",
+                                       False),
+                                      ("video_disc", "video_disc_model",
+                                       True)):
+                if not getattr(cfg, flag):
+                    continue
+                disc = getattr(self.model, attr)
+                extra = (x, seg) if video else ()
+                for img, s in ((gt_x, gt_seg), (fake_rgb, fake_seg)):
+                    o = disc(img, s, *extra, bboxes=batch.get("bboxes"),
+                             train=False)
+                    if o.dim() == 4:
+                        # clamped, then (x + 1) / 2 (InterGANTrainer.py:536)
+                        p = (torch.clamp(o[0].float(), -1, 1) + 1) / 2
+                        maps.append(prob_heatmap(p.cpu().numpy()))
+        return maps
+
+    def _log_gan_images(self, batch, step: int) -> None:
+        """The GAN trainer's panel (InterGANTrainer.py:209-259;
+        runner.py:281-323 of the JAX package): a 4-wide grid of the ground
+        truth frames with the coarse frame inserted, their seg maps, the
+        box overlays where a box consumer is on, and the local
+        discriminators' heatmaps under ``--local_disc``."""
+        from deep_video_interpolation_extrapolation_tpu_torch.utils.vis import (
+            draw_bbox,
+            make_grid,
+            seg_to_rgb,
+            to01,
+        )
+        cfg = self.cfg
+        with torch.no_grad():
+            x, seg, _, _ = get_inter_inputs(batch)
+            pred_rgb, pred_seg = self._eval_model()(x, seg)
+
+        def first(t):
+            return t[0].float().cpu().numpy()
+        f = [to01(first(batch[f"frame{i}"])) for i in (1, 2, 3)]
+        s = [vis_seg_ids(batch[f"seg{i}"][0].long().cpu().numpy()).astype(
+            np.float32) for i in (1, 2, 3)]
+        rgbs = [f[0], f[1], to01(first(pred_rgb)), f[2]]
+        imgs = rgbs + [s[0], s[1], seg_to_rgb(first(pred_seg)), s[2]]
+        need_bbox = (cfg.frame_det_disc or cfg.video_det_disc
+                     or cfg.track_obj_loss or cfg.track_gen
+                     or "Det" in cfg.frame_disc_model
+                     or "Det" in cfg.video_disc_model)
+        if need_bbox and "bboxes" in batch:
+            bb = batch["bboxes"][0].float().cpu().numpy()
+            # rows 0/1/2 of the track tensor; the coarse tile takes the
+            # mid frame's boxes (InterGANTrainer.py:243-251)
+            brow = [draw_bbox(rgbs[0], bb[0, :, -4:]),
+                    draw_bbox(rgbs[1], bb[1, :, -4:]),
+                    draw_bbox(rgbs[2], bb[1, :, -4:]),
+                    draw_bbox(rgbs[3], bb[2, :, -4:])]
+            imgs = imgs[:4] + brow + imgs[4:]
+        if cfg.local_disc and cfg.split == "train":
+            imgs += self._local_disc_maps(batch, pred_rgb, pred_seg)
+        self.writer.add_image("train/gan_panel", make_grid(imgs, nrow=4),
+                              step)
+
     def train(self) -> Dict[str, float]:
         cfg = self.cfg
         self._build_steps(train=True)
@@ -322,6 +430,7 @@ class Runner:
             self._train_loader = data_lib.make_loader(cfg, dataset)
         loader = self._train_loader
         loader.set_epoch(self.epoch)
+        self._reseed(self.epoch)
         bank = MetricBank([])
         load_t = comp_t = epoch_load = epoch_comp = 0.0
         t_start = t0 = time.time()
@@ -354,7 +463,9 @@ class Runner:
                     bank = MetricBank([])
             if (self.writer and i % 30 == 0
                     and cfg.dataset != "synthetic"):
-                self._log_images(batch, self.epoch * len(loader) + i)
+                log = self._log_gan_images if self.is_gan else \
+                    self._log_images
+                log(batch, self.epoch * len(loader) + i)
             t0 = time.time()
         for d in self._read_back(pending):
             last = d
@@ -391,6 +502,7 @@ class Runner:
             self._val_loader = data_lib.make_loader(vcfg, dataset,
                                                     shuffle=False)
         bank = MetricBank([])
+        self._reseed(0)
         for batch in self._device_prefetch(self._val_loader):
             n = int(batch["frame1"].shape[0])
             metrics = self.eval_step(self.state, batch)
@@ -427,7 +539,7 @@ class Runner:
     def _forward(self, x: torch.Tensor, seg: torch.Tensor):
         """The serving forward's final (rgb, seg logits)
         (``Runner._final_output``)."""
-        return serve.forward(self.model, x, seg)
+        return serve.forward(self._eval_model(), x, seg)
 
     def cycgen(self) -> str:
         """Recursive generation + PNG tree writer (InterTrainer.py:691-856).
@@ -577,7 +689,7 @@ class Runner:
         """
         cfg = self.cfg
         if cfg.num_pred_once == 1:
-            return serve.rollout(self.model, img_list, seg_list,
+            return serve.rollout(self._eval_model(), img_list, seg_list,
                                  cfg.num_pred_step)
         img1, img2 = [im * 2.0 - 1.0 for im in img_list]
         seg1, seg2 = [seg_oh(s) for s in seg_list]

@@ -9,7 +9,9 @@ gradient is made for them, the same update as the JAX step, which
 computes their gradients and discards them.  Where none trains, every
 gradient is computed and no submodel steps, as in the JAX step.  Adamax here is torch's, which
 puts eps inside the max exactly as optax's adamax does
-(u = max(b2 * u, |g| + eps)), with the same bias-corrected step.
+(u = max(b2 * u, |g| + eps)), with the same bias-corrected step; Adam is
+torch's, the update of ``optax.adam`` (eps outside the square root of the
+bias-corrected second moment).
 
 Unlike the JAX state, this one is mutable: ``apply_updates`` steps the
 optimizers, which update the model's parameters in place.
@@ -32,10 +34,13 @@ _QUEUE = "ROADMAP.md queue 1"
 
 
 def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
-    """Submodule name -> (optimizer, lr, train flag) (state.py:79-99): the
+    """Submodule name -> (optimizer, lr, train flag) (state.py:79-110): the
     coarse model Adamax(coarse_lr) (InterTrainer.py:79), the refiner
-    Adamax(refine_lr) (:81), stage 3 the refiner's pair (:83)."""
-    if cfg.model not in ("InterNet", "InterRefineNet", "InterStage3Net"):
+    Adamax(refine_lr) (:81), stage 3 the refiner's pair (:83); each
+    discriminator of InterGANNet Adam at its own learning rate behind its
+    own flag (InterGANTrainer.py:110-116)."""
+    if cfg.model not in ("InterNet", "InterRefineNet", "InterStage3Net",
+                         "InterGANNet"):
         raise NotImplementedError(
             f"the {cfg.model} train state is not ported yet ({_QUEUE})")
     specs = {"coarse_model": (cfg.coarse_optimizer, cfg.coarse_learning_rate,
@@ -46,16 +51,26 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
     if cfg.model == "InterStage3Net":
         specs["stage3_model"] = (cfg.refine_optimizer,
                                  cfg.refine_learning_rate, cfg.train_stage3)
+    if cfg.model == "InterGANNet":
+        for fam in ("frame_disc", "frame_det_disc", "video_disc",
+                    "video_det_disc"):
+            if getattr(cfg, fam):
+                specs[f"{fam}_model"] = (
+                    "adam", getattr(cfg, f"{fam}_learning_rate"),
+                    getattr(cfg, f"train_{fam}"))
     return specs
 
 
 def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
-    """torch's Adamax (betas (0.9, 0.999), eps 1e-8) at a constant learning
-    rate, as the reference; the recipe's only optimizer."""
-    if name != "adamax":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet ({_QUEUE})")
-    return torch.optim.Adamax(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """torch's Adamax or Adam (betas (0.9, 0.999), eps 1e-8) at a constant
+    learning rate, as the reference (state.py:60-76)."""
+    if name == "adamax":
+        return torch.optim.Adamax(params, lr=lr, betas=(0.9, 0.999),
+                                  eps=1e-8)
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    raise NotImplementedError(
+        f"optimizer {name!r} is not ported yet ({_QUEUE})")
 
 
 @dataclasses.dataclass

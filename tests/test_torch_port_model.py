@@ -142,7 +142,7 @@ def test_port_config_mirrors_the_jax_config():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(model="InterGANNet"),
+@pytest.mark.parametrize("kw", [dict(model="InterGANNet", track_gen=True),
                                 dict(coarse_model="VAEHRNet"),
                                 dict(model="ExtraInpaintNet"),
                                 dict(syn_type="extra")])

@@ -10,7 +10,10 @@ BasicBlock chain forward and backward, a VideoVAE eval forward (``--model
 VAE``, two warped steps at 32x32) and the shifted add; then the launcher
 (``cli.main.run(cfg, device="cpu")``) at 32x64: one epoch of 2 steps on a
 Cityscapes-layout PNG tree it writes (``--nw 2``), ``--split val`` on that
-epoch's checkpoint, and ``--split cycgen`` on synthetic data.  Pillow and
+epoch's checkpoint, and ``--split cycgen`` on synthetic data; and recipe
+4 through the launcher on synthetic data (InterGANNet, VAEHRNet and the
+recipe's four discriminator families at ``--n_track 2``): one epoch of 8
+steps, ``--split val`` on its checkpoint and ``--split cycgen``.  Pillow and
 TensorBoard are blocked too, as the card's machine has neither: the PNGs go
 through ``native/png.py`` and the runner logs without a writer."""
 
@@ -155,6 +158,30 @@ out = run(parse_args(f"{{g}} --dataset synthetic --split cycgen INTER "
                      "--model InterNet".split()),
           exp_dir=os.path.join(tmp, "cyc"), device="cpu")
 assert len(os.listdir(out)) == 8
+assert png.read_png(os.path.join(out, "clip_00000", "rgb", "001.png"),
+                    3).shape == (32, 64, 3)
+gan = ("INTER --model InterGANNet --load_model InterGANNet --coarse_model "
+       "VAEHRNet --train_coarse --vae --gan --frame_disc --frame_disc_model "
+       "FrameSNDiscriminator --train_frame_disc --video_disc "
+       "--video_disc_model VideoSNDiscriminator --train_video_disc "
+       "--frame_det_disc --frame_det_disc_model FrameSNDetDiscriminator "
+       "--train_frame_det_disc --video_det_disc --video_det_disc_model "
+       "VideoLSSNDetDiscriminator --train_video_det_disc")
+syn = f"{{g}} --dataset synthetic --n_track 2 --vgg_w 0 --s 4"
+gexp = os.path.join(tmp, "gan")
+run(parse_args(f"{{syn}} --split train {{gan}}".split()), exp_dir=gexp,
+    device="cpu")
+assert os.listdir(os.path.join(gexp, "checkpoint")) == [
+    "InterGANNet_xs2xs_inter_4_1_0"]
+log = open(os.path.join(gexp, "experiment_train.log")).read()
+assert "[iter    7]" in log and "nan" not in log.split("[iter    7]")[1][:40]
+metrics = run(parse_args(f"{{syn}} --split val --load_dir {{gexp}} "
+                         f"--checksession 4 --checkepoch 1 {{gan}} "
+                         "--load_coarse".split()),
+              exp_dir=os.path.join(tmp, "gval"), device="cpu")
+assert np.isfinite(metrics["coarse_psnr"])
+out = run(parse_args(f"{{syn}} --split cycgen {{gan}}".split()),
+          exp_dir=os.path.join(tmp, "gcyc"), device="cpu")
 assert png.read_png(os.path.join(out, "clip_00000", "rgb", "001.png"),
                     3).shape == (32, 64, 3)
 assert not any(sys.modules.get(n) for n in BLOCKED)

@@ -211,7 +211,8 @@ def test_final_output_picks_the_last_stage():
 @pytest.mark.parametrize("kw,exc", [
     (dict(coarse_model="VAEHRNet"), NotImplementedError),
     (dict(syn_type="extra"), NotImplementedError),
-    (dict(model="InterGANNet"), NotImplementedError),
+    (dict(model="InterGANNet", coarse_model="VAEHRNet", track_gen=True),
+     NotImplementedError),
     (dict(stage3_model="MSResAttnRefineV9"), KeyError)])
 def test_unported_stage3_routes_raise(kw, exc):
     """What stays unported raises naming its ROADMAP item; an unknown

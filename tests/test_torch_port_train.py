@@ -206,7 +206,7 @@ def test_unported_train_options_raise(kw, exc):
         inter.make_train_step(_cfg(**kw), model)
 
 
-@pytest.mark.parametrize("name", ["adam", "sgd"])
+@pytest.mark.parametrize("name", ["sgd"])
 def test_unported_optimizers_raise(name):
     model = registry.build_model(_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
