@@ -164,13 +164,46 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     within 1e-3, ``--r --checkepoch 1`` (epoch-2 losses within 2e-2),
     ``--split cycgen`` of the VAEHRNet generator at 2x512x1024 from the
     epoch-2 checkpoint (the serving launches, 72 PNGs decoded back); the
-    epochs' samples/s.
+    epochs' samples/s;
+19-20. extrapolation served: ExtraNet (HRNet in extrapolation mode) and
+    ExtraInpaintNet with ``--inpaint --inpaint_mask`` (heads 24 wide: K4's
+    216 instance and the shift add's co-24 one, InpaintUnet on cuDNN),
+    kernels against the plain model at 2x128x256 as in phase 2 (the
+    inpainted frame for ExtraInpaintNet), then the 3-step rollout at
+    2x512x1024 bf16: ExtraNet InterNet's launches per forward,
+    ExtraInpaintNet the same with ``upshead_taps_n216`` and
+    ``shiftadd_co24`` 1 in place of K4's and the shift add's 208 / 23
+    instances; frames/s, peak memory;
+21-22. recipe 6's step (``docs/RECIPES.md:76-83``: ExtraNet, HRNet,
+    ``--num_pred_step 3``, back-propagation through the three forwards) at
+    24x128x128 bf16 with f32 masters: the gradient of an extrapolation
+    forward with respect to its input rgb (through the stem kernel's dx),
+    one step's gradient (whole and the 33 train-chain leaves) and a
+    one-forward step's, kernel and plain bf16 models against the f32
+    plain model (1.5 x the plain bf16 model's error + 1e-3), each loss
+    term within 2e-2, 20 steps per model whose loss_all falls and ends
+    within 10% of the plain model's, the launches of one counted step
+    (three times the b0 step's), samples/s and peak memory; then the
+    ``--num_pred_once 2`` step (one forward, the heads on K4's h mode with
+    its gradient: no taps, no shifted add) and the ``--fix_init_frames``
+    step (the stem at 48 channels, 3 / 3): gradient, launches, samples/s;
+23-24. recipe 6 through the launcher on synthetic data: two epochs of 8
+    steps, the writer's val metrics (each val batch a 3-step rollout)
+    against a ``--checkepoch_range`` sweep within 1e-3, ``--r
+    --checkepoch 1`` (epoch-2 losses within 2e-2), ``--split cycgen`` at
+    2x512x1024 from the epoch-2 checkpoint (2 input and 3 extrapolated
+    frames a clip, 120 PNGs decoded back).
 
-The kernel phase also holds the shift-add kernel (the heads' tail in
+The kernel phase also holds K4's 216-wide taps instance (rows
+``upshead_taps_n216`` at B=1 512x1024 and ``upshead_taps_n216_train`` at
+24x128x128, timed on the card alone too, a ragged 2x37x70 checked) and
+K4's h mode with its gradient (``ups_head_1x1``'s backward at 24x128x128,
+by the gradient rule above); the shift-add kernel (the heads' tail in
 every HRNet forward and train step: one launch each, counted in phases 3
 and 5-7), bit for bit against its plain version at B=1 and B=2 512x1024,
 at the train shape 24x128x128 and at a ragged 1x37x70, each timed on a row
-of its own, host issue included and on the card alone; the grid sample's
+of its own, host issue included and on the card alone, and its co-24
+instance likewise (rows ``shiftadd_co24``, ``shiftadd_co24_train``); the grid sample's
 grid entry bounded (R = 8: flows up to 6 px, a band beyond the window that
 must give 0, a known integer shift) and unbounded (flows up to 40 px) at
 8x512x1024x3 bf16, and unbounded at the VideoVAE's 8x128x128x3 (row
@@ -246,6 +279,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
 from deep_video_interpolation_extrapolation_tpu_torch.native import png
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
+    extra,
     inter,
     inter_gan,
     state as state_lib,
@@ -337,6 +371,10 @@ META = {
                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:342"),
     "ups_head_1x1": ("cuda", f"{PKG}/csrc/upshead.cu",
                      "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:362"),
+    "upshead_taps_n216": ("cuda", f"{PKG}/csrc/upshead.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:342"),
+    "upshead_taps_n216_train": ("cuda", f"{PKG}/csrc/upshead.cu",
+                                "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:342"),
     "stem_fwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
                  "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
     "stem_fwd_saved": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
@@ -381,6 +419,10 @@ META = {
                               "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
     "shifted_add_bias_ragged": ("cuda", f"{PKG}/csrc/shiftadd.cu",
                                "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
+    "shiftadd_co24": ("cuda", f"{PKG}/csrc/shiftadd.cu",
+                      "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
+    "shiftadd_co24_train": ("cuda", f"{PKG}/csrc/shiftadd.cu",
+                            "deep_video_interpolation_extrapolation_tpu/ops/pallas_shiftadd.py:111"),
     "grid_sample": ("cuda", f"{PKG}/csrc/grid_sample.cu",
                     "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "grid_sample_vae": ("cuda", f"{PKG}/csrc/grid_sample.cu",
@@ -437,7 +479,9 @@ COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "warp_steps": "grid_sample",
            "warp_steps_bounded": "grid_sample_bounded",
            "warp_steps_vae": "grid_sample",
-           "warp_steps_vae_smooth": "grid_sample"}
+           "warp_steps_vae_smooth": "grid_sample",
+           "upshead_taps_n216_train": "upshead_taps_n216",
+           "shiftadd_co24_train": "shiftadd_co24"}
 # the video VAE serving forward: one grid sample (the flow entry) for all
 # its steps
 VAE_T = 2
@@ -454,6 +498,12 @@ SHIFTADD_CASES = (("shifted_add_bias", "B=1 512x1024", (1, 512, 1024)),
                   ("shifted_add_bias_b2", "B=2 512x1024", (2, 512, 1024)),
                   ("shifted_add_bias_train", "24x128x128", (24, 128, 128)),
                   ("shifted_add_bias_ragged", "ragged 1x37x70", (1, 37, 70)))
+# the co-24 instance (ExtraInpaintNet's --inpaint_mask head: rgb 3 + mask 1
+# + seg 20): the serving and train shapes timed, a ragged shape checked
+SHIFTADD24_CASES = (("shiftadd_co24", "co 24, B=1 512x1024", (1, 512, 1024)),
+                    ("shiftadd_co24_train", "co 24, 24x128x128",
+                     (24, 128, 128)),
+                    (None, "co 24, ragged 1x37x70", (1, 37, 70)))
 # InterStage3Net: the coarse HRNet as InterNet, one window attention
 PER_FORWARD_S3 = {**PER_FORWARD, "window_attention": 1}
 SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
@@ -461,8 +511,8 @@ SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
 # (``median_ms(spin=True)``); the window attention's and the shifted add's
 # rows are, in their own checks
 DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
-                "ups_head_taps4", "stem_fwd", "stem_bwd", "stem48_fwd",
-                "stem48_bwd")
+                "ups_head_taps", "upshead_taps_n216", "ups_head_taps4",
+                "stem_fwd", "stem_bwd", "stem48_fwd", "stem48_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
 # peaks (at the 700 W limit)
 HBM_RATE, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -497,6 +547,7 @@ def _nz(*ws) -> int:
 WEIGHT_ARGS = {
     "conv3x3_bias_res_lrelu": slice(1, 2), "bottleneck_tail": slice(2, None),
     "ups_head_taps": slice(3, None), "ups_head_taps4": slice(4, None),
+    "upshead_taps_n216": slice(3, None),
     "ups_head_1x1": slice(3, None), "dual_head": slice(1, None),
     "stem_fwd": slice(1, None), "stem48_fwd": slice(1, None),
     "stem_bwd": slice(4, None), "stem48_bwd": slice(4, None),
@@ -664,6 +715,21 @@ def kernel_phase(dev):
                                    torch.bfloat16)
     cases["ups_head_taps"] = [("ups_head_taps", "heads",
                                 (x64, p1, p2, w1, b1, w2t))]
+    # its 216-wide instance: ExtraInpaintNet's --inpaint_mask heads (rgb 3
+    # + mask 1, seg 20), served (B=1 512x1024) and trained (24x128x128);
+    # and a ragged shape (tiles and the x2/x4 parts cut at the edge)
+    w2t216 = k4.build_dual_tap_kernel(w(4, 448, 3, 3), w(20, 448, 3, 3),
+                                      torch.bfloat16)
+    t0, t1_, t2_ = (rnd(24, 128 // s, 128 // s, c)
+                    for s, c in ((1, 64), (2, 128), (4, 256)))
+    cases["upshead_taps_n216"] = [
+        ("upshead_taps_n216", "heads 216, B=1 512x1024",
+         (x64, p1, p2, w1, b1, w2t216)),
+        ("upshead_taps_n216_train", "heads 216, 24x128x128",
+         (t0, t1_, t2_, w1, b1, w2t216)),
+        (None, "heads 216, ragged 2x37x70",
+         (rnd(2, 37, 70, 64), rnd(2, 19, 35, 128), rnd(2, 10, 18, 256), w1,
+          b1, w2t216))]
     # the 4-part head of --highres_large
     p3 = rnd(B, H // 8, W // 8, 512)
     w1_4 = w(1920, 960, 1, 1)[:, :, 0, 0].t()
@@ -682,6 +748,7 @@ def kernel_phase(dev):
            "bottleneck_tail": (k2.bottleneck_tail, k2.bottleneck_tail_plain),
            "fuse_out0": (k3.fuse_out0, k3.fuse_out0_plain),
            "ups_head_taps": (k4.ups_head_taps, k4.ups_head_taps_plain),
+           "upshead_taps_n216": (k4.ups_head_taps, k4.ups_head_taps_plain),
            "ups_head_taps4": (k4.ups_head_taps4, k4.ups_head_taps4_plain)}
     results = {}
     for name, variants in cases.items():
@@ -724,6 +791,7 @@ def kernel_phase(dev):
                                  device)
     results.update(window_attention_check(dev))
     results.update(shifted_add_check(dev))
+    results.update(shifted_add_check(dev, 24, SHIFTADD24_CASES))
     results.update(grid_sample_check(dev))
     results["dual_head"] = dual_head_check(dev)
     return results
@@ -752,23 +820,23 @@ def _held(name, label, out, ref, tol=KERNEL_TOL):
     return d
 
 
-def shifted_add_check(dev):
-    """The heads' shifted add + bias (co = 23) against its plain version,
-    bit for bit and within KERNEL_TOL: at the serving shapes (B=1 and B=2
-    512x1024: yt (B,512,1024,207) bf16), the train shape 24x128x128 and a
-    ragged 1x37x70 (strips and row blocks cut at the edges).  Each is timed
-    on a row of its own, host issue included and on the card alone; its
-    library time is one ``F.conv2d`` of yt with the fixed one-hot (23, 207,
-    3, 3) kernel and b2, the same function."""
+def shifted_add_check(dev, co=23, cases=SHIFTADD_CASES):
+    """The heads' shifted add + bias (co = 23; with ``cases``
+    SHIFTADD24_CASES the co-24 instance) against its plain version, bit for
+    bit and within KERNEL_TOL: at the serving shapes (B=1 and B=2
+    512x1024: yt (B,512,1024,9*co) bf16), the train shape 24x128x128 and a
+    ragged 1x37x70 (strips and row blocks cut at the edges).  Each case
+    with a row is timed on it, host issue included and on the card alone;
+    its library time is one ``F.conv2d`` of yt with the fixed one-hot (co,
+    9*co, 3, 3) kernel and b2, the same function."""
     g = torch.Generator(device=dev).manual_seed(8)
-    co = 23
     b2 = torch.randn((co,), generator=g, device=dev)
     onehot = torch.zeros((co, 9 * co, 3, 3), device=dev, dtype=torch.bfloat16)
     for t in range(9):
         onehot[torch.arange(co), t * co + torch.arange(co), t // 3, t % 3] = 1
     bias = b2.to(torch.bfloat16)
     rows = {}
-    for row, label, shape in SHIFTADD_CASES:
+    for row, label, shape in cases:
         yt = torch.randn(shape + (9 * co,), generator=g, device=dev).to(
             torch.bfloat16)
         out, ref = sa.shifted_add_bias(yt, b2), sa.shifted_add_bias_plain(
@@ -784,6 +852,8 @@ def shifted_add_check(dev):
                                                    padding=1))
         _held("shifted_add_bias", f"{label}, library conv2d vs plain",
               library(), ref)
+        if row is None:
+            continue
         args = (yt, b2)
         fs = {"": lambda: sa.shifted_add_bias(*args),
               "plain_": lambda: sa.shifted_add_bias_plain(*args),
@@ -2113,14 +2183,15 @@ def _write_city_tree(root, n_clips, src=150):
     return os.path.join(root, "imgs"), os.path.join(root, "segs")
 
 
-def _cycgen_tree(label, out_root, took):
-    """The 2x512x1024 cycgen tree of RUNNER_CYCGEN_FORWARDS forwards: 3
-    frames of rgb, seg ids and seg vis per clip, each decoded back by
-    ``native/png.py`` (not Pillow) at 512x1024, ids below 20."""
+def _cycgen_tree(label, out_root, took, frames=3, n_clips=None):
+    """The 2x512x1024 cycgen tree of RUNNER_CYCGEN_FORWARDS batches (or
+    ``n_clips``): ``frames`` frames of rgb, seg ids and seg vis per clip,
+    each decoded back by ``native/png.py`` (not Pillow) at 512x1024, ids
+    below 20."""
     files = sorted(os.path.join(b, f) for b, _, fs in os.walk(out_root)
                    for f in fs)
-    n_clips = 2 * RUNNER_CYCGEN_FORWARDS
-    if len(files) != n_clips * 3 * 3:
+    n_clips = n_clips or 2 * RUNNER_CYCGEN_FORWARDS
+    if len(files) != n_clips * frames * 3:
         raise AssertionError(f"{label}: {len(files)} files")
     for path in files:
         kind = os.path.basename(os.path.dirname(path))
@@ -2873,6 +2944,384 @@ def gan_runner_phase(dev, card):
     return runs
 
 
+# ---- recipe 6, extrapolation (phases 19-24) --------------------------------
+
+B24 = (24, 128, 128)           # recipe 6's batch and crop (RECIPES.md:76-83)
+R6_GLOBAL = ("--dataset synthetic --syn_type extra --interval 9 "
+             "--one_hot_seg --input_h 128 --input_w 128 --bs 24 "
+             "--vid_len 3 --disp_interval 1")
+R6_MODEL = "EXTRA --model ExtraNet --coarse_model HRNet --load_model ExtraNet"
+R6_TRAIN = f"{R6_MODEL} --train_coarse --num_pred_step 3"
+CFG_R6 = parse_args(f"{R6_GLOBAL} --split train {R6_TRAIN}".split())
+CFG_X = Config(model="ExtraNet", coarse_model="HRNet", syn_type="extra",
+               runner="EXTRA", compute_dtype="bfloat16")
+CFG_XI = dataclasses.replace(CFG_X, model="ExtraInpaintNet", inpaint=True,
+                             inpaint_mask=True)
+# a served ExtraNet forward launches what an InterNet forward does;
+# ExtraInpaintNet's --inpaint_mask heads (24 wide) take the 216 and 24
+# instances in place of the 208 and 23 ones
+PER_FORWARD_XI = {**PER_FORWARD, "ups_head_taps": 0, "upshead_taps_n216": 1,
+                  "shifted_add_bias": 0, "shiftadd_co24": 1}
+# one recipe-6 step: three forwards and their backward, each the b0
+# step's launches
+PER_R6_STEP = {k: 3 * v for k, v in PER_TRAIN_STEP.items()}
+# --num_pred_once 2 (one forward): the heads through K4's h mode (its
+# backward autograd of the plain version), no taps, no shifted add
+PER_PRED2_STEP = {**PER_TRAIN_STEP, "ups_head_taps": 0, "ups_head_1x1": 1,
+                  "shifted_add_bias": 0}
+# --fix_init_frames: the stem takes 21 channels, padded to 48
+PER_FIX_STEP = {**PER_R6_STEP, "stem_fwd": 0, "stem_bwd": 0,
+                "stem48_fwd": 3, "stem48_bwd": 3}
+# the writer's val: the full 3-step rollout at 24x128x128 (the forward
+# kernels of the train chain, W < 256) per batch
+PER_R6_VAL = {k: 3 * v for k, v in PER_VAL_FORWARD.items()}
+R6_VARIANTS = (("--num_pred_once 2", "--num_pred_once 2 --num_pred_step 1",
+                PER_PRED2_STEP),
+               ("--fix_init_frames", "--fix_init_frames --num_pred_step 3",
+                PER_FIX_STEP))
+
+
+def r6_batch(dev, seed, n_frames=5, b=B24[0]):
+    """A seeded synthetic batch of ``n_frames`` frames at 128x128."""
+    return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        b, B24[1], B24[2], vid_len=n_frames, seed=seed).items()}
+
+
+def r6_setup(dev, cfg, use_kernels, dtype="bfloat16", train=True):
+    """``cfg``'s extrapolation model from seed 0, frozen VGG19 from seed 1,
+    Adamax, and its step (``train/extra.make_train_step``)."""
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, train_coarse=train)
+    model = registry.build_model(cfg, device=dev, seed=0,
+                                 use_kernels=use_kernels)
+    state = state_lib.create_train_state(
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
+    return extra.make_train_step(cfg, model), state
+
+
+def _r6_grads(dev, cfg, use_kernels, dtype, batch):
+    step, state = r6_setup(dev, cfg, use_kernels, dtype, train=False)
+    _, losses = step(state, batch)
+    grads = {n: p.grad.float() for n, p in state.model.named_parameters()}
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def _f32(fn):
+    """``fn()`` with TF32 off."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def r6_grad_check(dev, cfg, label, batch, leaves=True):
+    """One step's gradient, kernel model and plain bf16 model against the
+    plain f32 model (TF32 off), by GRAD_RATIO and GRAD_FLOOR: the whole
+    gradient and (``leaves``) each of the 33 train-chain leaves; each loss
+    term within LOSS_TOL of the plain bf16 model's."""
+    _, g_ref = _f32(lambda: _r6_grads(dev, cfg, False, "float32", batch))
+    l_k, g_k = _r6_grads(dev, cfg, True, "bfloat16", batch)
+    l_p, g_p = _r6_grads(dev, cfg, False, "bfloat16", batch)
+    print(f"{label} step {tuple(batch['frame1'].shape[:3])}:")
+    names = [n for n in g_ref if _train_chain_leaf(n)]
+    if leaves and len(names) != N_LEAVES[(0,)]:
+        raise AssertionError(f"{label}: {len(names)} train-kernel leaves")
+    fails = [_check_grad("whole gradient", _flat(g_k), _flat(g_p),
+                         _flat(g_ref))]
+    if leaves:
+        fails += [_check_grad(n, g_k[n], g_p[n], g_ref[n]) for n in names]
+    fails = [f for f in fails if f]
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
+    for k in l_p:
+        rel = abs(l_k[k] - l_p[k]) / max(abs(l_p[k]), 1e-30)
+        print(f"  {k}: kernel {l_k[k]:.6g} plain {l_p[k]:.6g} rel {rel:.3g}")
+        if not math.isfinite(l_k[k]) or rel > LOSS_TOL:
+            raise AssertionError(f"{label}: {k} differs by {rel:.4g} > "
+                                 f"{LOSS_TOL}")
+
+
+def r6_rgb_dx_check(dev):
+    """The gradient of an extrapolation forward with respect to its input
+    rgb (the BPTT path: a step's predicted rgb is the next step's input, so
+    its gradient goes through the stem kernel's dx, whose 6 rgb channels
+    this reads), kernel model and plain bf16 model against the plain f32
+    model, by GRAD_RATIO and GRAD_FLOOR, at 24x128x128: loss = sum(rgb_out
+    * c1) + sum(seg_out * c2) for fixed random c1, c2."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, h, w = B24
+    rgb = torch.rand((b, h, w, 6), generator=g, device=dev) * 2 - 1
+    seg = serve.seg_oh(torch.randint(0, 20, (b, h, w, 2), generator=g,
+                                     device=dev)).reshape(b, h, w, 40)
+    c1 = torch.randn((b, h, w, 3), generator=g, device=dev)
+    c2 = torch.randn((b, h, w, 20), generator=g, device=dev)
+
+    def dx(use_kernels, dtype):
+        cfg = dataclasses.replace(CFG_X, compute_dtype=dtype)
+        model = registry.build_model(cfg, device=dev, seed=0,
+                                     use_kernels=use_kernels).coarse_model
+        x = rgb.clone().requires_grad_()
+        r, s = model(x, seg)
+        ((r.float() * c1).sum() + (s.float() * c2).sum()).backward()
+        return x.grad.float()
+
+    ref = _f32(lambda: dx(False, "float32"))
+    fail = _check_grad("extrapolation forward: d/d input rgb (the stem "
+                       "kernel's dx on 6 rgb channels)",
+                       dx(True, "bfloat16"), dx(False, "bfloat16"), ref)
+    if fail:
+        raise AssertionError(fail)
+
+
+def r6_trajectory(dev, cfg, use_kernels, batch, steps=20, warmup=2,
+                  count_at=2):
+    """``steps`` Adamax steps of ``cfg``'s model on one fixed batch: the
+    loss_all trajectory, the step times after the warm-ups, the launches
+    of step ``count_at`` and the peak memory (GiB) of the run."""
+    step, state = r6_setup(dev, cfg, use_kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        if i == count_at:
+            hw.reset_counters()
+        t0 = time.perf_counter()
+        state, ld = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        if i == count_at:
+            counts = dict(hw.launches)
+        losses.append(float(ld["loss_all"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del step, state
+    return losses, times, counts, peak
+
+
+def extra_serve_phase(dev, card):
+    """Phases 19-20: ExtraNet and ExtraInpaintNet (``--inpaint
+    --inpaint_mask``: the 216 and 24 instances) served: kernel against
+    plain model at 2x128x256 (final frame: the coarse one, the inpainted
+    one), then the 3-step rollout at 2x512x1024 bf16 with the launches per
+    forward, frames/s and peak memory.  Returns the counted launches."""
+    slice_phase(dev, CFG_X, "extranet slice")
+    counts = [serve_phase(dev, card, CFG_X, PER_FORWARD,
+                          "extranet serve rollout")]
+    slice_phase(dev, CFG_XI, "extrainpaintnet --inpaint_mask slice")
+    counts.append(serve_phase(dev, card, CFG_XI, PER_FORWARD_XI,
+                              "extrainpaintnet --inpaint_mask serve rollout"))
+    return counts
+
+
+def h_mode_backward_check(dev):
+    """K4's h mode as a head route with a gradient (``ups_head_1x1``, the
+    heads at ``--num_pred_once 2``) at 24x128x128: h and the grads of its
+    five inputs against plain autograd, on pre-activations kept from 0
+    (b1 of +-6: masks fixed) and on random ones: h by max|d|/max|ref| <=
+    KERNEL_TOL, dp0 too on fixed masks; every grad, kernel route and plain
+    bf16 autograd, against plain autograd on f32 copies of the
+    activations (TF32 off), by GRAD_RATIO and GRAD_FLOOR.  (dp1 and dp2 go
+    through the bilinear upsampling's backward, which adds in bf16 by
+    atomics in no fixed order: two runs of the same plain bf16 backward
+    differ there by up to 2.4% of max and 1.1e-2 rel-L2 on an H100.)
+    Forward plus backward timed against the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, h, w = B24
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    parts = (act(b, h, w, 64), act(b, h // 2, w // 2, 128),
+             act(b, h // 4, w // 4, 256))
+    w1 = torch.randn((448, 896), generator=g, device=dev) / 448 ** 0.5
+    dh = act(b, h, w, 896) * 1e-2
+    fixed = torch.sign(torch.randn((896,), generator=g, device=dev)) * 6
+    rand = torch.randn((896,), generator=g, device=dev) * 0.1
+
+    def run_(fn, b1, dtype=torch.bfloat16):
+        leaves = [t.to(dtype).clone().requires_grad_() for t in parts]
+        leaves += [t.clone().requires_grad_() for t in (w1, b1)]
+        out = fn(*leaves)
+        out.backward(dh.to(dtype))
+        return [out] + [t.grad.float() for t in leaves]
+
+    for label, b1 in (("fixed masks", fixed), ("random", rand)):
+        got = run_(k4.ups_head_1x1, b1)
+        ref = run_(k4.ups_head_1x1_plain, b1)
+        ref32 = _f32(lambda: run_(k4.ups_head_1x1_plain, b1, torch.float32))
+        torch.cuda.synchronize()
+        _held("ups_head_1x1", f"{label}, h", got[0], ref[0])
+        if label == "fixed masks":
+            _held("ups_head_1x1 backward", f"{label}, dp0", got[1], ref[1])
+        fails = [_check_grad(f"ups_head_1x1 backward [{label}, {name}]", o,
+                             r, r32)
+                 for name, o, r, r32 in zip(("dp0", "dp1", "dp2", "dw1",
+                                             "db1"), got[1:], ref[1:],
+                                            ref32[1:])]
+        fails = [f for f in fails if f]
+        if fails:
+            raise AssertionError("; ".join(fails))
+    ms = median_ms(lambda: run_(k4.ups_head_1x1, rand), iters=3, reps=3)
+    plain = median_ms(lambda: run_(k4.ups_head_1x1_plain, rand), iters=3,
+                      reps=3)
+    print(f"  ups_head_1x1 forward + backward [24x128x128] kernel route "
+          f"{ms:.4f} ms, plain {plain:.4f} ms")
+
+
+def r6_step_phase(dev, card):
+    """Phases 21-22: recipe 6's step (``train/extra.make_train_step``,
+    ``docs/RECIPES.md:76-83``: ExtraNet, HRNet, three forwards with BPTT)
+    at 24x128x128 bf16 with f32 masters: the gradient with respect to an
+    extrapolation forward's input rgb; one step's gradient (whole and the
+    33 train-chain leaves) and loss terms, and a one-forward step's
+    (``--num_pred_step 1``) gradient, against the f32 plain model; 20
+    steps per model whose loss_all falls and ends within TRAJ_TOL of the
+    plain model's; the launches of one counted step (three times the b0
+    step's); samples/s (median of 18 steps after 2 warm-ups); peak memory.
+    Then the ``--num_pred_once 2`` (one forward, K4's h mode with its
+    gradient) and ``--fix_init_frames`` (three input frames: the stem at 48
+    channels) steps: gradient, launches, samples/s of 8 steps.  Returns
+    the counted launches."""
+    b, h, w = B24
+    r6_rgb_dx_check(dev)
+    r6_grad_check(dev, CFG_R6, "recipe 6", r6_batch(dev, 4))
+    r6_grad_check(dev, dataclasses.replace(CFG_R6, num_pred_step=1),
+                  "recipe 6 --num_pred_step 1", r6_batch(dev, 4, 3),
+                  leaves=False)
+    batch = r6_batch(dev, 5)
+    runs = {}
+    for name, use_kernels in (("kernel", True), ("plain", False)):
+        losses, times, counts, peak = r6_trajectory(dev, CFG_R6, use_kernels,
+                                                    batch)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"recipe 6 {name}: loss_all did not fall: "
+                                 f"{losses}")
+        rate = b / statistics.median(times)
+        print(f"recipe 6 {name} model: loss_all {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g} over {len(losses)} steps; {rate:.4f} "
+              f"samples/s (median of {len(times)} steps), peak memory "
+              f"{peak:.3f} GiB on {card}")
+        print(f"  loss_all: {' '.join(f'{v:.5g}' for v in losses)}")
+        runs[name] = (losses[-1], counts)
+    gap = abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    print(f"recipe 6: final loss_all kernel {runs['kernel'][0]:.6g} plain "
+          f"{runs['plain'][0]:.6g} (rel {gap:.4g}, bound {TRAJ_TOL})")
+    if gap > TRAJ_TOL:
+        raise AssertionError(f"recipe 6: final loss differs by {gap:.4g}")
+    out = [runs["kernel"][1]]
+    print(f"recipe 6 step launches: "
+          f"{json.dumps({k: v for k, v in out[0].items() if v})}")
+    _check_step_counts("recipe 6", out[0], PER_R6_STEP)
+    for label, flags, per in R6_VARIANTS:
+        cfg = parse_args(f"{R6_GLOBAL} --split train {R6_TRAIN} "
+                         f"{flags}".split())
+        n_frames = 2 + cfg.num_pred_once * cfg.num_pred_step
+        r6_grad_check(dev, cfg, f"recipe 6 {label}",
+                      r6_batch(dev, 4, n_frames), leaves=False)
+        losses, times, counts, peak = r6_trajectory(
+            dev, cfg, True, r6_batch(dev, 5, n_frames), steps=8)
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"recipe 6 {label}: losses {losses}")
+        print(f"recipe 6 {label} kernel model: {b / statistics.median(times):.4f}"
+              f" samples/s (median of {len(times)} steps), peak memory "
+              f"{peak:.3f} GiB on {card}; launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        _check_step_counts(f"recipe 6 {label}", counts, per)
+        out.append(counts)
+    return out
+
+
+def r6_runner_phase(dev, card):
+    """Phases 23-24: recipe 6 through the launcher on synthetic data: two
+    epochs of 8 steps with a checkpoint each, the writer's val metrics
+    (4 val batches, each a 3-step rollout) against a ``--checkepoch_range``
+    sweep reloading both checkpoints (within RELOAD_VAL_TOL), ``--r
+    --checkepoch 1`` (epoch-2 losses within RESUME_LOSS_TOL), ``--split
+    cycgen`` at 2x512x1024 from the epoch-2 checkpoint (2 input frames and
+    3 extrapolated ones a clip; the serving launches, 3 forwards a
+    batch).  Returns the counted launches of each run."""
+    tmp = tempfile.mkdtemp(prefix="dvie_r6_runner_")
+    runs = []
+    try:
+        exp_a = os.path.join(tmp, "a")
+        os.makedirs(exp_a)
+        cfg = parse_args(f"{R6_GLOBAL} --split train --epochs 2 "
+                         f"{R6_TRAIN}".split())
+        _quiet(lambda: get_logger(exp_a, "train"))
+        writer = _quiet(lambda: Runner(cfg, exp_a))
+        _, counts = _counted("recipe 6 runner train", PER_R6_STEP,
+                             2 * RUNNER_EPOCH_STEPS,
+                             lambda: _quiet(writer.train_epochs))
+        runs.append(counts)
+        log_a = _log_of(exp_a)
+        losses_a = {(int(e), int(i)): float(v)
+                    for e, i, v in LOSS_LINE.findall(log_a)}
+        if len(losses_a) != 2 * RUNNER_EPOCH_STEPS or not all(
+                map(math.isfinite, losses_a.values())):
+            raise AssertionError(f"recipe 6 runner: losses {losses_a}")
+        for e, n, wall, rate, load, comp in EPOCH_LINE.findall(log_a):
+            print(f"recipe 6 runner epoch {e}: {n} samples in {wall} s, "
+                  f"{rate} samples/s, load {load} s, comp {comp} s on {card}")
+        names = sorted(os.listdir(os.path.join(exp_a, "checkpoint")))
+        if names != ["ExtraNet_xs2xs_extra_0_1_0",
+                     "ExtraNet_xs2xs_extra_0_2_0"]:
+            raise AssertionError(f"recipe 6 runner: checkpoints {names}")
+
+        m_writer, counts = _counted(
+            "recipe 6 runner val", PER_R6_VAL, RUNNER_VAL_BATCHES,
+            lambda: _quiet(writer.validate))
+        runs.append(counts)
+        sweep = parse_args(
+            f"{R6_GLOBAL} --split val --load_dir {exp_a} --checksession 0 "
+            "--checkepoch_range --checkepoch_low 1 --checkepoch_up 2 "
+            f"{R6_TRAIN} --load_coarse".split())
+        swept = _quiet(lambda: run(sweep, os.path.join(tmp, "sweep")))
+        for k, v in m_writer.items():
+            got = swept[2][k]
+            print(f"recipe 6 val {k}: writer {v:.6g}, reloaded {got:.6g}, "
+                  f"epoch 1 {swept[1][k]:.6g}")
+            if abs(got - v) > RELOAD_VAL_TOL * abs(v):
+                raise AssertionError(f"recipe 6 val: reloaded {k} {got} vs "
+                                     f"the writer's {v}")
+        if swept[1] == swept[2]:
+            raise AssertionError("recipe 6 val: epochs 1 and 2 alike")
+
+        exp_b = os.path.join(tmp, "b")
+        resume = parse_args(
+            f"{R6_GLOBAL} --split train --epochs 2 --r --checkepoch 1 "
+            f"--checksession 0 --load_dir {exp_a} {R6_TRAIN}".split())
+        _quiet(lambda: run(resume, exp_b))
+        losses_b = {(int(e), int(i)): float(v)
+                    for e, i, v in LOSS_LINE.findall(_log_of(exp_b))}
+        if sorted(losses_b) != [(2, i) for i in range(RUNNER_EPOCH_STEPS)]:
+            raise AssertionError(f"recipe 6 resume: logged {sorted(losses_b)}")
+        gap = max(abs(v - losses_a[k]) / abs(losses_a[k])
+                  for k, v in losses_b.items())
+        print(f"recipe 6 resume: epoch-2 loss_all within {gap:.4g} of the "
+              f"uninterrupted run's (bound {RESUME_LOSS_TOL})")
+        if gap > RESUME_LOSS_TOL:
+            raise AssertionError(f"recipe 6 resume: loss_all off by {gap:.4g}")
+
+        cyc = parse_args(
+            "--dataset synthetic --split cycgen --syn_type extra --input_h 512 "
+            f"--input_w 1024 --bs 2 --load_dir {exp_a} --checksession 0 "
+            f"--checkepoch 2 {R6_TRAIN} --load_coarse".split())
+        t0 = time.perf_counter()
+        out_root, counts = _counted(
+            "recipe 6 runner cycgen", PER_FORWARD, 3 * RUNNER_CYCGEN_FORWARDS,
+            lambda: _quiet(lambda: run(cyc, os.path.join(tmp, "cyc"))))
+        dt = time.perf_counter() - t0
+        runs.append(counts)
+        _cycgen_tree("recipe 6 cycgen", out_root, f"{dt:.3f} s", frames=5)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -2888,6 +3337,7 @@ def main():
     batch27_kernel_phase(dev)
     k1_backward_check(dev)
     k4_backward_check(dev)
+    h_mode_backward_check(dev)
     train_counts, g_ref = train_phase(dev, card)
     runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
             recipe_step_phase(dev, card, CFG_R2, "refine_model", "recipe 2"),
@@ -2895,7 +3345,9 @@ def main():
             highres_phase(dev, card), stage3_phase(dev, card),
             recipe3_serve_phase(dev, card), vae_phase(dev, card),
             gan_serve_phase(dev, card), gan_step_phase(dev, card),
-            *gan_runner_phase(dev, card), *runner_phase(dev, card)]
+            *gan_runner_phase(dev, card), *extra_serve_phase(dev, card),
+            *r6_step_phase(dev, card), *r6_runner_phase(dev, card),
+            *runner_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

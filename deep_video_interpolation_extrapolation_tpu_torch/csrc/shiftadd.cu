@@ -25,31 +25,43 @@
 // each thread keeps the same SA_EPT elements of the strip on every row, so
 // their tap offsets are computed once.  The row is staged in shared memory
 // and leaves as 16-byte stores (element stores only for the two partial
-// chunks at the segment's ends).  co = 23, the only width of any head
-// (the Python wrapper refuses others on the card).
+// chunks at the segment's ends).  co is a template parameter: 23, the
+// width of every head but one (rgb 3 + seg 20), and 24, ExtraInpaintNet's
+// with --inpaint_mask (rgb 3 + mask 1 + seg 20; dvie_shifted_add_bias_co24);
+// the Python wrapper refuses others on the card.  The 23 instance is the
+// code it was.
 #include "common.cuh"
 
 namespace dvie {
 namespace {
 
-constexpr int SA_CO = 23;           // output channels
-constexpr int SA_N = 9 * SA_CO;     // taps channels
 constexpr int SA_THREADS = 256;
 constexpr int SA_TW = 32;           // output columns of a strip
 constexpr int SA_RB = 16;           // output rows a block walks down
 constexpr int SA_RING = 5;          // yt rows in shared memory: 3 in use, 2 landing
-constexpr int SA_EPT = (SA_TW * SA_CO + SA_THREADS - 1) / SA_THREADS;  // elements a thread
 
 __host__ __device__ constexpr int round8(int v) { return (v + 7) / 8 * 8; }
 
-// bf16 elements of a ring row: the segment and up to 7 of alignment
-constexpr int SA_SLOT = round8((SA_TW + 2) * SA_N + 7);
-constexpr int SA_OUT = round8(SA_TW * SA_CO + 7);
-constexpr int SA_SMEM = (SA_RING * SA_SLOT + SA_OUT) * 2;
+// The sizes of the instance of SA_CO output channels: taps channels,
+// elements a thread, bf16 elements of a ring row (the segment and up to 7
+// of alignment) and of the output row, the dynamic shared memory (co 23:
+// 70.3 KB, co 24: 73.3 KB)
+template <int SA_CO>
+struct SaLay {
+  static constexpr int N = 9 * SA_CO;
+  static constexpr int EPT = (SA_TW * SA_CO + SA_THREADS - 1) / SA_THREADS;
+  static constexpr int SLOT = round8((SA_TW + 2) * N + 7);
+  static constexpr int OUT = round8(SA_TW * SA_CO + 7);
+  static constexpr int SMEM = (SA_RING * SLOT + OUT) * 2;
+  static_assert(SA_CO == 23 || SA_CO == 24, "the heads' widths");
+};
 
+template <int SA_CO>
 __global__ void __launch_bounds__(SA_THREADS)
     shifted_add_bias_kernel(const bf16 *__restrict__ yt, const float *__restrict__ b2,
                             bf16 *__restrict__ out, int H, int W) {
+  constexpr int SA_N = SaLay<SA_CO>::N, SA_EPT = SaLay<SA_CO>::EPT;
+  constexpr int SA_SLOT = SaLay<SA_CO>::SLOT;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16 *ring = reinterpret_cast<bf16 *>(smem);
   bf16 *ob = ring + SA_RING * SA_SLOT;  // the output row segment, 16-byte aligned start
@@ -135,6 +147,19 @@ __global__ void __launch_bounds__(SA_THREADS)
   cp_async_wait<0>();
 }
 
+template <int CO>
+int launch(const void *yt, const void *b2, void *out, int B, int H, int W, void *stream) {
+  constexpr int SMEM = SaLay<CO>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(shifted_add_bias_kernel<CO>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((W + SA_TW - 1) / SA_TW), (unsigned)((H + SA_RB - 1) / SA_RB),
+            (unsigned)B);
+  shifted_add_bias_kernel<CO><<<grid, SA_THREADS, SMEM, (cudaStream_t)stream>>>(
+      (const bf16 *)yt, (const float *)b2, (bf16 *)out, H, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace dvie
 
@@ -142,13 +167,11 @@ __global__ void __launch_bounds__(SA_THREADS)
 // 16-byte aligned (checked by the Python wrapper).
 extern "C" int dvie_shifted_add_bias(const void *yt, const void *b2, void *out, int B, int H,
                                      int W, void *stream) {
-  using dvie::bf16;
-  cudaError_t e = cudaFuncSetAttribute(dvie::shifted_add_bias_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, dvie::SA_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((W + dvie::SA_TW - 1) / dvie::SA_TW),
-            (unsigned)((H + dvie::SA_RB - 1) / dvie::SA_RB), (unsigned)B);
-  dvie::shifted_add_bias_kernel<<<grid, dvie::SA_THREADS, dvie::SA_SMEM, (cudaStream_t)stream>>>(
-      (const bf16 *)yt, (const float *)b2, (bf16 *)out, H, W);
-  return (int)cudaGetLastError();
+  return dvie::launch<23>(yt, b2, out, B, H, W, stream);
+}
+
+// The same at co = 24: yt (B,H,W,216), b2 (24,), out (B,H,W,24).
+extern "C" int dvie_shifted_add_bias_co24(const void *yt, const void *b2, void *out, int B, int H,
+                                          int W, void *stream) {
+  return dvie::launch<24>(yt, b2, out, B, H, W, stream);
 }

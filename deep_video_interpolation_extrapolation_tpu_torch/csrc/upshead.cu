@@ -50,6 +50,12 @@
 //   to 16-byte stores.
 // - The taps and h modes are two instantiations: no wgmma sits under a
 //   branch.
+// - The taps width is a template parameter, N2P in {208, 216}: 208 takes a
+//   head of 23 channels (rgb 3 + seg 20), 216 one of 24 (ExtraInpaintNet's
+//   rgb 3 + mask 1 + seg 20; dvie_ups_head_taps_n216) by wgmma
+//   m64n216k16, 108 accumulator registers a thread and a 27 KB W2t chunk
+//   (198.1 KB of shared memory against 196.1).  The 208 instance is the
+//   code it was; the h mode and the dual head are 208 instances.
 //
 // Prediction (written before the first chip run of this design, NVIDIA
 // H100 at 700 W): taps at B=1 512x1024 from 6.71 to 1.2-2.6 ms (20-45% of
@@ -63,16 +69,27 @@ namespace {
 using namespace hop;
 
 constexpr int TM = 128, NWG = 2, CT = NWG * 128, NT = CT + 32;
-constexpr int CT_MAX = 448, N2P = 208;
+constexpr int CT_MAX = 448;
 constexpr int UB1 = 64 * 64 * 2, NS1 = 4;     // a W1 unit; its ring slots
-constexpr int UB2 = 64 * N2P * 2, NS2 = 2;    // a W2t chunk; its ring slots
+constexpr int NS2 = 2;                        // the W2t ring's slots
 constexpr int LDH = 64 + 8;                   // h mode staging pitch
 constexpr int O_R1 = TM * CT_MAX * 2;         // after the concat
 constexpr int O_R2 = O_R1 + NS1 * UB1;
-constexpr int O_BAR = O_R2 + NS2 * UB2;
-constexpr int SMEM = O_BAR + 2 * (NS1 + NS2) * 8;
-static_assert(SMEM <= 232448, "shared memory per block");
-static_assert(NWG * 64 * LDH * 2 <= NS2 * UB2, "h staging fits the W2t ring");
+
+// The layout of an instance whose taps matrix is padded to N2P columns
+// (208: a head of 23 channels, 9 x 23 = 207; 216: of 24, 9 x 24):
+// a W2t chunk of 64 hidden rows (26 or 27 KB), the barriers after the
+// ring, the dynamic shared memory (196.1 or 198.1 KB).
+template <int N2P>
+struct Lay {
+  static constexpr int UB2 = 64 * N2P * 2;
+  static constexpr int O_BAR = O_R2 + NS2 * UB2;
+  static constexpr int SMEM = O_BAR + 2 * (NS1 + NS2) * 8;
+  static_assert(N2P == 208 || N2P == 216, "wgmma208 or wgmma216");
+  static_assert(SMEM <= 232448, "shared memory per block");
+  static_assert(TM * N2P * 2 <= O_R1, "yt rows staged in the concat's room");
+  static_assert(NWG * 64 * LDH * 2 <= NS2 * UB2, "h staging fits the W2t ring");
+};
 
 // the four neighbours (element offsets of their channel 0) and weights of
 // the bilinear sample of (B,Hi,Wi,C) at output pixel (yy, xx) of image b:
@@ -114,15 +131,16 @@ __device__ __forceinline__ uint4 bil8(const bf16 *__restrict__ src, const Bil &q
   return pack8(o);
 }
 
-template <bool TAPS>
+template <bool TAPS, int N2P>
 __global__ void __launch_bounds__(NT, 1)
 ups_head_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
                 const bf16 *__restrict__ p2, const bf16 *__restrict__ w1u,
                 const float *__restrict__ b1, const bf16 *__restrict__ w2u,
                 bf16 *__restrict__ out, int B, int H, int W, int H1, int W1, int H2, int W2,
                 int C0, int C1, int C2, int N1, int N2) {
+  constexpr int UB2 = Lay<N2P>::UB2, NACC = N2P / 2;  // yacc: f32 a thread
   extern __shared__ __align__(1024) unsigned char smem[];
-  uint64_t *full1 = reinterpret_cast<uint64_t *>(smem + O_BAR), *empty1 = full1 + NS1;
+  uint64_t *full1 = reinterpret_cast<uint64_t *>(smem + Lay<N2P>::O_BAR), *empty1 = full1 + NS1;
   uint64_t *full2 = empty1 + NS1, *empty2 = full2 + NS2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long M = (long)B * H * W;
@@ -172,7 +190,7 @@ ups_head_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
   const int lrow = wq * 16 + (lane >> 2), ec = 2 * (lane & 3);  // accumulator row, column
   bf16 *Hst = reinterpret_cast<bf16 *>(smem + O_R2) + wg * 64 * LDH;  // h mode staging
   int q1 = 0, q2 = 0;
-  float yacc[TAPS ? 104 : 1];
+  float yacc[TAPS ? NACC : 1];
 
   for (int ti = blockIdx.x; ti < nt; ti += gridDim.x) {
     const long m0 = (long)ti * TM;
@@ -214,7 +232,7 @@ ups_head_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
 
     if constexpr (TAPS) {
 #pragma unroll
-      for (int i = 0; i < 104; ++i) yacc[i] = 0.f;
+      for (int i = 0; i < NACC; ++i) yacc[i] = 0.f;
     }
     const uint32_t abase = cat + wg * 64 * 16;
 #pragma unroll 1
@@ -257,8 +275,13 @@ ups_head_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
         mbar_wait(&full2[s], (q2 / NS2) & 1);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma208(yacc, ha[kk], desc(r2 + s * UB2 + kk * 2 * N2P * 16, N2P * 16, 128));
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bd = desc(r2 + s * UB2 + kk * 2 * N2P * 16, N2P * 16, 128);
+          if constexpr (N2P == 208)
+            wgmma208(yacc, ha[kk], bd);
+          else
+            wgmma216(yacc, ha[kk], bd);
+        }
         wg_commit();
         ++q2;
       } else {  // h mode: this warpgroup's 64 rows of the chunk
@@ -285,7 +308,7 @@ ups_head_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
       bar_sync(1, CT);  // both warpgroups are done reading the concat
       bf16 *Ys = reinterpret_cast<bf16 *>(smem);  // yt rows, as in device memory
 #pragma unroll
-      for (int j = 0; j < 26; ++j)
+      for (int j = 0; j < N2P / 8; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int r = wg * 64 + lrow + 8 * hh, c = 8 * j + ec;
@@ -302,10 +325,12 @@ ups_head_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
   }
 }
 
+template <int N2P>
 int launch(const void *p0, const void *p1, const void *p2, const void *w1u, const void *b1,
            const void *w2u, void *out, int B, int H, int W, int H1, int W1, int H2, int W2,
            int C0, int C1, int C2, int N1, int N2, void *stream) {
-  auto kern = w2u ? ups_head_kernel<true> : ups_head_kernel<false>;
+  auto kern = w2u ? ups_head_kernel<true, N2P> : ups_head_kernel<false, N2P>;
+  constexpr int SMEM = Lay<N2P>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   int dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
@@ -332,16 +357,27 @@ extern "C" int dvie_ups_head_taps(const void *p0, const void *p1, const void *p2
                                   const void *b1, const void *w2u, void *yt, int B, int H, int W,
                                   int H1, int W1, int H2, int W2, int C0, int C1, int C2, int N1,
                                   int N2, void *stream) {
-  return dvie::launch(p0, p1, p2, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, N2,
-                      stream);
+  return dvie::launch<208>(p0, p1, p2, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1,
+                           N2, stream);
+}
+
+// The taps mode at N2P = 216, a head of 24 channels (ExtraInpaintNet's rgb
+// 3 + mask 1 with seg 20): the same arguments, w2u padded to 216 columns as
+// (N1/64, 8, 216, 8) chunks, 208 < N2 <= 216.
+extern "C" int dvie_ups_head_taps_n216(const void *p0, const void *p1, const void *p2,
+                                       const void *w1u, const void *b1, const void *w2u, void *yt,
+                                       int B, int H, int W, int H1, int W1, int H2, int W2, int C0,
+                                       int C1, int C2, int N1, int N2, void *stream) {
+  return dvie::launch<216>(p0, p1, p2, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1,
+                           N2, stream);
 }
 
 // h mode: the same pyramid, w1u and b1; h (B,H,W,N1) bf16.
 extern "C" int dvie_ups_head_1x1(const void *p0, const void *p1, const void *p2, const void *w1u,
                                  const void *b1, void *h, int B, int H, int W, int H1, int W1,
                                  int H2, int W2, int C0, int C1, int C2, int N1, void *stream) {
-  return dvie::launch(p0, p1, p2, w1u, b1, nullptr, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, 0,
-                      stream);
+  return dvie::launch<208>(p0, p1, p2, w1u, b1, nullptr, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1,
+                           0, stream);
 }
 
 // The dual head of ops/pallas_head.fused_dual_head: the taps mode on one
@@ -351,6 +387,6 @@ extern "C" int dvie_ups_head_1x1(const void *p0, const void *p1, const void *p2,
 extern "C" int dvie_dual_head_taps(const void *feat, const void *w1u, const void *b1,
                                    const void *w2u, void *yt, int B, int H, int W, int C, int N1,
                                    int N2, void *stream) {
-  return dvie::launch(feat, feat, feat, w1u, b1, w2u, yt, B, H, W, H, W, H, W, C, 0, 0, N1, N2,
-                      stream);
+  return dvie::launch<208>(feat, feat, feat, w1u, b1, w2u, yt, B, H, W, H, W, H, W, C, 0, 0, N1,
+                           N2, stream);
 }

@@ -1,13 +1,16 @@
 """Composite model heads (counterpart of models/composite.py): ``InterNet``,
-``InterRefineNet``, ``InterStage3Net`` and ``InterGANNet``, for training
-and eval.  The other composites wait in ROADMAP.md queue 1.
+``InterRefineNet``, ``InterStage3Net``, ``InterGANNet``, ``ExtraNet`` and
+``ExtraInpaintNet``, for training and eval.
 
 Where JAX stops the gradient, the port detaches.  A submodel whose
 parameters do not require grad (frozen by ``train/state``) runs without
-autograd: a frozen HRNet then launches only its forward kernels.  It runs
-under ``no_grad``, not ``inference_mode``, so the weight layouts its
-kernels keep (``core/hw.derived``) stay usable by a later training
-forward.
+autograd where no gradient has to pass through it: a frozen HRNet then
+launches only its forward kernels.  It runs under ``no_grad``, not
+``inference_mode``, so the weight layouts its kernels keep
+(``core/hw.derived``) stay usable by a later training forward.  In an
+extrapolation rollout a later step's input carries the gradient of an
+earlier step's output, so there a frozen submodel runs under autograd
+(``_grad_through``) and passes it on.
 """
 
 from __future__ import annotations
@@ -22,6 +25,13 @@ from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     needs_grad,
 )
+
+
+def _grad_through(module: nn.Module, *inputs: torch.Tensor) -> bool:
+    """Whether ``module`` runs under autograd: its parameters need a
+    gradient, or one of ``inputs`` carries one that must pass through."""
+    return needs_grad(module) or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in inputs))
 
 
 class InterNet(nn.Module):
@@ -186,3 +196,49 @@ class InterGANNet(nn.Module):
         return (coarse_rgb, coarse_seg, mu, logvar, fr[0], fr[1], vi[0],
                 vi[1], fr[2], vi[2], fd[0], fd[1], vd[0], out.get("sync"),
                 vd[1], fd[2], vd[2], None, loc_diff)
+
+
+class ExtraNet(nn.Module):
+    """Coarse-only extrapolation (composite.py:114-128): ``(rgb, seg) ->
+    (rgb_out, seg_out)`` of ``num_pred_once`` frames, differentiable.
+    VAEHRNet under it (the plain VAE) is refused by the registry."""
+
+    def __init__(self, cfg: Config, use_kernels: bool = True):
+        super().__init__()
+        self.coarse_model = registry.build_coarse(cfg, use_kernels)
+
+    def forward(self, rgb: torch.Tensor, seg: torch.Tensor,
+                gt_seg: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.set_grad_enabled(_grad_through(self.coarse_model, rgb)):
+            out = self.coarse_model(rgb, seg)
+        return out[0], out[1]
+
+
+class ExtraInpaintNet(nn.Module):
+    """Coarse + occlusion-mask inpainting (composite.py:131-151): ``(rgb,
+    seg) -> (coarse_rgb, coarse_seg, mask, inpainted)``; the inpainter
+    takes the coarse outputs with their gradient, as the JAX module does.
+    A coarse model that returns no mask (HRNet without ``--inpaint``)
+    raises the JAX ``ValueError``."""
+
+    def __init__(self, cfg: Config, use_kernels: bool = True):
+        super().__init__()
+        self.coarse_name = cfg.coarse_model
+        self.coarse_model = registry.build_coarse(cfg, use_kernels)
+        self.inpaint_model = registry.build_inpaint(cfg)
+
+    def forward(self, rgb: torch.Tensor, seg: torch.Tensor,
+                gt_seg: Optional[torch.Tensor] = None):
+        with torch.set_grad_enabled(_grad_through(self.coarse_model, rgb)):
+            out = self.coarse_model(rgb, seg)
+        if len(out) != 3:
+            raise ValueError(
+                "ExtraInpaintNet needs a mask-producing coarse model (HRNet "
+                f"with inpaint, nets/HRNet.py:585-601); {self.coarse_name!r} "
+                f"returned {len(out)} outputs")
+        coarse_rgb, out_seg, mask = out
+        with torch.set_grad_enabled(_grad_through(
+                self.inpaint_model, coarse_rgb, mask, out_seg)):
+            inpainted = self.inpaint_model(coarse_rgb, mask, out_seg)
+        return coarse_rgb, out_seg, mask, inpainted

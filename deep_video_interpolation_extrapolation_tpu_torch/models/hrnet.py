@@ -35,7 +35,13 @@ routes its Pallas kernels, by the JAX package's own shape predicates:
   ``highres_large`` the 4-part head ``ups_head_taps4`` (hrnet.py:796-823).
   The JAX package takes its 4-part kernel only where ``fits4`` holds; the
   Hopper kernel tiles over pixels and takes any pyramid size, so the port
-  always runs it, and a pyramid it cannot take raises.
+  always runs it, and a pyramid it cannot take raises.  Where the heads'
+  taps do not fit the taps product (the JAX predicate ``rgb * 9 <= 128
+  and seg * 9 <= 256``, hrnet.py:829-830: extrapolation at
+  ``--num_pred_once`` >= 2, whose seg head is 40 wide) K4's h mode
+  ``ups_head_1x1`` makes h, differentiable, and the two 3x3s run on its
+  halves as ``F.conv2d`` (hrnet.py:897-900, where JAX runs them outside
+  any Pallas kernel).
 
 Every other conv (the stem conv1 at W >= 256, the 1x1 and stride-2 fuse
 convs, the transitions' stride-2 convs, branches 1-3 off the chain route)
@@ -46,6 +52,15 @@ differentiable.
 
 Submodule names follow the reference's torch HRNet, so ``state_dict`` keys
 are exactly those ``tools/torch_port.port_hrnet`` reads.
+
+Extrapolation (``syn_type="extra"``, hrnet.py:956-1010) predicts
+``num_pred_once`` frames: heads of ``(4 if inpaint_mask else 3) * p`` and
+``20 * p`` channels; with ``inpaint_mask`` the fourth channel of each frame
+is a sigmoid mask, else with ``inpaint`` the mask comes from the seg
+(``extra_mask_from_seg``).  The rgb head of 4 makes the taps 216 wide and
+the shifted add 24 wide: the 216 and 24 instances of K4 and of the
+shifted-add kernel.  ``InpaintUnet`` (hrnet.py:1013-1058) is plain PyTorch
+on cuDNN convolutions, as the JAX module runs no Pallas kernel.
 
 ``VAEHRNet`` (hrnet.py:1061-1188) is the same backbone and heads behind a
 conditional VAE: a BatchNorm conv encoder of (inputs, ground truth) to a
@@ -69,6 +84,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     Bottleneck,
     Conv,
     ConvT,
+    ResnetBlock,
     SegEncoder,
     conv3x3_site,
     lrelu,
@@ -100,7 +116,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.trainchain import (
     stem_layer1,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
+    N2_MAX,
     build_dual_tap_kernel,
+    ups_head_1x1,
+    ups_head_1x1_plain,
     ups_head_taps,
     ups_head_taps4,
     ups_head_taps4_plain,
@@ -114,6 +133,42 @@ STAGE3_CFG = dict(num_branches=3, num_blocks=(4, 4, 4),
 STAGE4_CFG = dict(num_branches=4, num_blocks=(4, 4, 4, 4),
                   num_channels=(64, 128, 256, 512))
 N_FRAMES, RGB_DIM, SEG_DIM = 2, 3, 20   # interpolation: 2 frames in, 1 out
+FG_CLASS = 11    # classes from here on are foreground (hrnet.py:932)
+_QUEUE = "ROADMAP.md queue 1"
+
+
+def head_widths(syn_type: str = "inter", num_pred_once: int = 1,
+                inpaint_mask: bool = False) -> Tuple[int, int]:
+    """(rgb, seg) head widths (hrnet.py:983-989): 3 and 20, or in
+    extrapolation ``(4 if inpaint_mask else 3) * p`` and ``20 * p``."""
+    if syn_type != "extra":
+        return RGB_DIM, SEG_DIM
+    p = num_pred_once
+    return (4 if inpaint_mask else 3) * p, SEG_DIM * p
+
+
+def taps_fit(rgb_dim: int, seg_dim: int) -> bool:
+    """The JAX predicate of the heads' taps route (hrnet.py:829-830):
+    ``rgb * 9 <= 128 and seg * 9 <= 256``."""
+    return rgb_dim * 9 <= 128 and seg_dim * 9 <= 256
+
+
+def extra_mask_from_seg(rgb_out: torch.Tensor, seg_out: torch.Tensor,
+                        last_input_seg: torch.Tensor,
+                        num_pred_once: int) -> torch.Tensor:
+    """The occlusion mask of extrapolation with ``--inpaint`` and without
+    ``--inpaint_mask`` (``_extra_mask_from_seg``, hrnet.py:930-953): 0
+    (inpaint) where the last input frame's class is foreground (>= 11) and
+    the predicted one (argmax of the detached seg) is background, else 1;
+    (B,H,W,p) in rgb_out's dtype."""
+    fg = (torch.arange(SEG_DIM, device=rgb_out.device) >= FG_CLASS).to(
+        rgb_out.dtype)
+    fg_input = fg[last_input_seg.argmax(dim=-1)]
+    masks = []
+    for i in range(num_pred_once):
+        ids = seg_out[..., SEG_DIM * i:SEG_DIM * (i + 1)].detach().argmax(-1)
+        masks.append(1.0 - fg_input * (1.0 - fg)[ids])
+    return torch.stack(masks, dim=-1)
 
 
 def packed_route(w: int) -> bool:
@@ -322,20 +377,43 @@ def _encode_inputs(rgb: torch.Tensor, seg: torch.Tensor,
 
 
 class HRNet(nn.Module):
-    """Coarse generator, interpolation mode (hrnet.py:956-1010).
+    """Coarse generator (hrnet.py:956-1010).
 
     ``forward(rgb, seg)``: rgb (B,H,W,3*n_frames), seg one-hot
     (B,H,W,20*n_frames), NHWC; returns (rgb_out (B,H,W,3),
     seg_out (B,H,W,20)) in ``dtype``.  ``highres_large`` adds transition3
-    and the 4-branch stage4 (STAGE4_CFG, the CLI's ``--highres_large``)."""
+    and the 4-branch stage4 (STAGE4_CFG, the CLI's ``--highres_large``).
+    ``in_ch`` is conv1's width: 7 per input frame (rgb and the 4-channel
+    seg encoding).
+
+    ``syn_type="extra"`` is extrapolation: rgb_out (B,H,W,3p) and seg_out
+    (B,H,W,20p) for ``num_pred_once`` = p frames, and with ``inpaint`` the
+    mask (B,H,W,p) too: the sigmoid of the rgb head's mask channels under
+    ``inpaint_mask``, else ``extra_mask_from_seg``."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  use_kernels: bool = True, highres_large: bool = False,
-                 in_ch: int = (3 + 4) * N_FRAMES):
+                 in_ch: int = (3 + 4) * N_FRAMES, syn_type: str = "inter",
+                 num_pred_once: int = 1, inpaint: bool = False,
+                 inpaint_mask: bool = False):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.highres_large = highres_large
+        self.syn_type = syn_type
+        self.num_pred_once = num_pred_once
+        self.inpaint, self.inpaint_mask = inpaint, inpaint_mask
+        self.rgb_dim, self.seg_dim = head_widths(syn_type, num_pred_once,
+                                                 inpaint_mask)
+        co = self.rgb_dim + self.seg_dim
+        if highres_large and taps_fit(self.rgb_dim, self.seg_dim) \
+                and 9 * co > N2_MAX:
+            # the JAX package takes its 4-part kernel here (hrnet.py:
+            # 796-799) at N2 = 216, which csrc/upshead4.cu does not take
+            raise NotImplementedError(
+                "--highres_large with a 24-wide head (--inpaint_mask) needs "
+                f"the 4-part head kernel at N2 = {9 * co}, which is not "
+                f"ported yet ({_QUEUE}, item 2)")
         k = use_kernels
         self.seg_encoder = SegEncoder()
         self.conv1 = Conv(in_ch, 64, 3)   # rgb + seg encoding (+ VAE feature)
@@ -357,8 +435,8 @@ class HRNet(nn.Module):
                 **STAGE4_CFG, use_kernels=k)])
             last = STAGE4_CFG
         head_cin = sum(last["num_channels"])
-        self.rgb_layer = _Head(head_cin, RGB_DIM)
-        self.seg_layer = _Head(head_cin, SEG_DIM)
+        self.rgb_layer = _Head(head_cin, self.rgb_dim)
+        self.seg_layer = _Head(head_cin, self.seg_dim)
 
     def _stem_layer1(self, x: torch.Tensor) -> torch.Tensor:
         """Stem conv1/conv2 + the four layer1 Bottlenecks (hrnet.py:486-580),
@@ -402,12 +480,12 @@ class HRNet(nn.Module):
             xs = self.stage4[0](self.transition3(xs))
         return xs
 
-    def _head_weights(self, dt: torch.dtype):
+    def _head_weights(self, dt: torch.dtype, taps: bool = True):
         """(w1, b1, w2t) of both heads: the two 1x1s side by side, their
-        biases in f32 and the taps matrix of the two 3x3s.  Without grad
-        (serving) the three are kept per weight (``hw.derived``): they are
-        built once, not once a forward, and so are the 4-part kernel's
-        units of them (ops/upshead.taps4_weights)."""
+        biases in f32 and the taps matrix of the two 3x3s (None unless
+        ``taps``).  Without grad (serving) the three are kept per weight
+        (``hw.derived``): they are built once, not once a forward, and so
+        are the 4-part kernel's units of them (ops/upshead.taps4_weights)."""
         rgb_fc, seg_fc = self.rgb_layer[0], self.seg_layer[0]
         rgb_k, seg_k = self.rgb_layer[2].weight, self.seg_layer[2].weight
 
@@ -415,7 +493,8 @@ class HRNet(nn.Module):
             w1 = torch.cat([rgb_fc.weight[:, :, 0, 0].t(),
                             seg_fc.weight[:, :, 0, 0].t()], dim=1)
             b1 = torch.cat([rgb_fc.bias, seg_fc.bias]).float()
-            return w1, b1, build_dual_tap_kernel(rgb_k, seg_k, dt)
+            return w1, b1, (build_dual_tap_kernel(rgb_k, seg_k, dt)
+                            if taps else None)
 
         if torch.is_grad_enabled():
             return build()
@@ -423,16 +502,31 @@ class HRNet(nn.Module):
         def kept():   # plain tensors, though built under inference mode
             with torch.inference_mode(False), torch.no_grad():
                 return build()
-        return hw.derived(f"heads:{dt}", (rgb_fc.weight, rgb_fc.bias,
-                                          seg_fc.weight, seg_fc.bias,
-                                          rgb_k, seg_k), kept)
+        return hw.derived(f"heads:{dt}:{taps}", (rgb_fc.weight, rgb_fc.bias,
+                                                 seg_fc.weight, seg_fc.bias,
+                                                 rgb_k, seg_k), kept)
 
     def _apply_heads(self, parts: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Both heads through K4 (3 parts) or ``ups_head_taps4`` (4 parts),
-        then the shifted-add tail (hrnet.py:788-865) on its kernel: the JAX
-        package leaves that tail to XLA unless ``DVIE_SHIFTADD=1``, a
-        default resting on a TPU measurement."""
+        """Both heads, by the JAX package's routes (hrnet.py:762-905).
+        Where the taps fit (``taps_fit``): through K4 (3 parts, its 208 or
+        216 instance) or ``ups_head_taps4`` (4 parts), then the
+        shifted-add tail on its kernel (co 23 or 24): the JAX package
+        leaves that tail to XLA unless ``DVIE_SHIFTADD=1``, a default
+        resting on a TPU measurement.  Else, 3 parts: h through K4's h
+        mode, then each head's 3x3 on its half of h (hrnet.py:897-900);
+        4 parts: the unfused heads on the concat (hrnet.py:904-905)."""
+        rgb_dim = self.rgb_dim
+        if not taps_fit(rgb_dim, self.seg_dim):
+            if len(parts) == 4:
+                feat = _concat_pyramid(parts)
+                return self.rgb_layer(feat), self.seg_layer(feat)
+            w1, b1, _ = self._head_weights(parts[0].dtype, taps=False)
+            h = (ups_head_1x1 if self.use_kernels else ups_head_1x1_plain)(
+                *parts, w1, b1)
+            cin = h.shape[-1] // 2
+            return self.rgb_layer[2](h[..., :cin]), self.seg_layer[2](
+                h[..., cin:])
         w1, b1, w2t = self._head_weights(parts[0].dtype)
         if len(parts) == 4:
             fused = ups_head_taps4 if self.use_kernels else ups_head_taps4_plain
@@ -442,12 +536,87 @@ class HRNet(nn.Module):
         tail = shifted_add_bias if self.use_kernels else shifted_add_bias_plain
         out = tail(yt, torch.cat([self.rgb_layer[2].bias,
                                   self.seg_layer[2].bias]))
-        return out[..., :RGB_DIM], out[..., RGB_DIM:]
+        return out[..., :rgb_dim], out[..., rgb_dim:]
 
-    def forward(self, rgb: torch.Tensor, seg: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _extra_outputs(self, rgb_out: torch.Tensor, seg_out: torch.Tensor,
+                       seg: torch.Tensor):
+        """The extrapolation outputs of the heads (hrnet.py:1000-1010)."""
+        p = self.num_pred_once
+        mask = None
+        if self.inpaint and self.inpaint_mask:
+            mask = torch.sigmoid(rgb_out[..., 3 * p:])
+        rgb_out = rgb_out[..., :3 * p]
+        if self.inpaint and not self.inpaint_mask:
+            mask = extra_mask_from_seg(rgb_out, seg_out, seg[..., -SEG_DIM:],
+                                       p)
+        if self.inpaint:
+            return rgb_out, seg_out, mask
+        return rgb_out, seg_out
+
+    def forward(self, rgb: torch.Tensor, seg: torch.Tensor):
         x = _encode_inputs(rgb, seg, self.seg_encoder, self.dtype)
-        return self._apply_heads(self._backbone(x))
+        rgb_out, seg_out = self._apply_heads(self._backbone(x))
+        if self.syn_type == "extra":
+            return self._extra_outputs(rgb_out, seg_out, seg)
+        return rgb_out, seg_out
+
+
+class InpaintUnet(nn.Module):
+    """Mask-region inpainting U-Net + composite (hrnet.py:1013-1058).
+
+    ``forward(rgb, mask, seg)``: rgb (B,H,W,3p), mask (B,H,W,p) with 1 =
+    keep the coarse frame, 0 = inpaint, seg (B,H,W,20p); returns (B,H,W,3p)
+    ``out * (1 - m) + rgb * m`` per frame.  5x5 convs, two stride-2 3x3s
+    with ResnetBlocks, four dilated 3x3s (rates 1, 2, 4, 8), two
+    ``align_corners=True`` bilinear x2 upsamplings, in ``dtype``; plain
+    PyTorch on cuDNN, as the JAX module runs no Pallas kernel.  ``convs.k``
+    and ``res.k`` are the flax ``Conv_k`` and ``ResnetBlock_k``."""
+
+    # (cout, kernel, stride, dilation) of Conv_0 .. Conv_10; Conv_11 is the
+    # 3x3 out to 3p channels
+    CONVS = ((128, 5, 1, 1), (64, 5, 1, 1), (128, 3, 2, 1), (256, 3, 2, 1),
+             (256, 3, 1, 1), (256, 3, 1, 2), (256, 3, 1, 4), (256, 3, 1, 8),
+             (128, 3, 1, 1), (64, 3, 1, 1), (64, 3, 1, 1))
+
+    def __init__(self, num_pred_once: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        p = num_pred_once
+        self.num_pred_once, self.dtype = p, dtype
+        cins = (3 * p + p + SEG_DIM * p, 128, 64, 128, 256, 256, 256, 256,
+                256, 128, 64)
+        self.convs = nn.ModuleList(
+            [Conv(ci, co, k, stride=s, dilation=d)
+             for ci, (co, k, s, d) in zip(cins, self.CONVS)]
+            + [Conv(64, 3 * p, 3)])
+        self.res = nn.ModuleList(ResnetBlock(c) for c in (128, 256, 256, 128))
+
+    def forward(self, rgb: torch.Tensor, mask: torch.Tensor,
+                seg: torch.Tensor) -> torch.Tensor:
+        c, r, dt = self.convs, self.res, self.dtype
+        x = torch.cat([rgb, mask.to(rgb.dtype), seg.to(rgb.dtype)], dim=-1)
+        h0 = lrelu(c[1](lrelu(c[0](x, dt))))
+        e1 = r[0](lrelu(c[2](h0)))
+        e2 = r[1](lrelu(c[3](e1)))
+        d = e2
+        for k in range(4, 8):      # dilation 1, 2, 4, 8; no lrelu after 8
+            d = c[k](d)
+            if k != 7:
+                d = lrelu(d)
+        d2 = interpolate_bilinear(r[2](e2 + d), scale_factor=2.0,
+                                  align_corners=True)
+        d2 = c[8](lrelu(d2))
+        d1 = interpolate_bilinear(r[3](d2 + e1), scale_factor=2.0,
+                                  align_corners=True)
+        d1 = c[9](lrelu(d1))
+        out = lrelu(d1 + h0)
+        out = c[11](lrelu(c[10](out)))
+        finals = []
+        for j in range(self.num_pred_once):
+            m = mask[..., j:j + 1]
+            finals.append(out[..., 3 * j:3 * j + 3] * (1 - m)
+                          + rgb[..., 3 * j:3 * j + 3] * m)
+        return torch.cat(finals, dim=-1)
 
 
 # ---- VAEHRNet ----------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Model registry (counterpart of models/registry.py) for the ported slices:
 ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net`` with
-``--coarse_model HRNet`` in interpolation mode; ``InterGANNet`` with
+``--coarse_model HRNet`` in interpolation mode; ``ExtraNet`` and
+``ExtraInpaintNet`` (``--inpaint_model InpaintUnet``) with HRNet in
+extrapolation mode (``--syn_type extra``); ``InterGANNet`` with
 ``--coarse_model VAEHRNet`` and every discriminator of
 ``models/discriminators`` and the six of ``models/detdisc``; every
 ``--refine_model``
@@ -30,8 +32,10 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
-    """``HRNet``, or ``VAEHRNet`` with its latent heads for the
-    (input_h, input_w) it trains at."""
+    """``HRNet`` (in extrapolation mode under ``--syn_type extra``: its
+    head widths by ``--num_pred_once`` and ``--inpaint_mask``, conv1 taking
+    three frames under ``--fix_init_frames``), or ``VAEHRNet`` with its
+    latent heads for the (input_h, input_w) it trains at."""
     from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
         HRNet,
         VAEHRNet,
@@ -40,13 +44,19 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
         raise NotImplementedError(
             f"coarse model {cfg.coarse_model!r} is not ported yet "
             f"({_QUEUE}, item 8)")
-    if cfg.syn_type != "inter":
-        raise NotImplementedError(
-            f"syn_type {cfg.syn_type!r} is not ported yet ({_QUEUE}, item 6)")
     kw = dict(dtype=compute_dtype(cfg), use_kernels=use_kernels,
               highres_large=cfg.highres_large)
     if cfg.coarse_model == "VAEHRNet":
+        if cfg.syn_type == "extra":
+            raise NotImplementedError(
+                "--coarse_model VAEHRNet in extrapolation (the plain VAE) is "
+                f"not ported yet ({_QUEUE}, item 5)")
         return VAEHRNet(size=(cfg.input_h, cfg.input_w), **kw)
+    if cfg.syn_type == "extra":
+        n_frames = 3 if cfg.fix_init_frames else 2
+        kw.update(syn_type="extra", num_pred_once=cfg.num_pred_once,
+                  inpaint=cfg.inpaint, inpaint_mask=cfg.inpaint_mask,
+                  in_ch=(3 + 4) * n_frames)
     return HRNet(**kw)
 
 
@@ -95,6 +105,17 @@ def build_stage3(cfg: Config, use_kernels: bool = True) -> nn.Module:
     variant = {"MSResAttnRefineV2": "v2", "MSResAttnRefineV2Base": "v2base",
                "MSResAttnRefineV3": "v3"}[cfg.stage3_model]
     return ar.PyramidAttnRefine(variant, cfg.stage3_prop, dtype=d)
+
+
+def build_inpaint(cfg: Config) -> nn.Module:
+    """``InpaintUnet`` for ``--num_pred_once`` frames (registry.py:110-113;
+    the only ``--inpaint_model``)."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
+        InpaintUnet,
+    )
+    assert cfg.inpaint_model == "InpaintUnet", cfg.inpaint_model
+    return InpaintUnet(num_pred_once=cfg.num_pred_once,
+                       dtype=compute_dtype(cfg))
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
@@ -152,12 +173,14 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
     heads = {"InterNet": composite.InterNet,
              "InterRefineNet": composite.InterRefineNet,
              "InterStage3Net": composite.InterStage3Net,
-             "InterGANNet": composite.InterGANNet}
+             "InterGANNet": composite.InterGANNet,
+             "ExtraNet": composite.ExtraNet,
+             "ExtraInpaintNet": composite.ExtraInpaintNet}
     vaes = {"VAE": "vae", "VAE_S": "vae_s", "VAE_SD": "vae_sd"}
     if cfg.model not in heads and cfg.model not in vaes:
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet ({_QUEUE}, item 8 for "
-            "the legacy models, item 6 for the extrapolation ones)")
+            f"model {cfg.model!r} is not ported yet ({_QUEUE}, item 8, the "
+            "legacy models)")
     if cfg.coarse_model == "VAEHRNet" and cfg.model != "InterGANNet":
         raise NotImplementedError(
             f"--coarse_model VAEHRNet under {cfg.model} (the plain VAE) is "

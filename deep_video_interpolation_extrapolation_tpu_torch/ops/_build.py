@@ -42,6 +42,8 @@ SIGNATURES = {
     # p0, p1, p2, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, C0, C1, C2,
     # N1, N2, stream
     "dvie_ups_head_taps": [P, P, P, P, P, P, P] + [I] * 12 + [P],
+    # the same at the taps width 216
+    "dvie_ups_head_taps_n216": [P, P, P, P, P, P, P] + [I] * 12 + [P],
     # p0, p1, p2, w1u, b1, h, B, H, W, H1, W1, H2, W2, C0, C1, C2, N1, stream
     "dvie_ups_head_1x1": [P] * 6 + [I] * 11 + [P],
     # x16, w1u, b1, w2u, b2, y, s1 (or NULL), B, H, W, stream
@@ -71,6 +73,8 @@ SIGNATURES = {
     "dvie_window_attn": [P] * 7 + [I] * 6 + [P],
     # yt, b2, out, B, H, W, stream (co = 23)
     "dvie_shifted_add_bias": [P] * 3 + [I] * 3 + [P],
+    # the same at co = 24
+    "dvie_shifted_add_bias_co24": [P] * 3 + [I] * 3 + [P],
     # x, grid, out, B, H, W, C, max_disp (-1: unbounded), x is bf16, stream
     "dvie_grid_sample": [P] * 3 + [I] * 6 + [P],
     # x, flow, mask (or NULL), bx, by, out, B, T, H, W, C, max_disp, x is

@@ -8,7 +8,9 @@ or the dual head write it) and the bias b2 (co,),
 
 with yt zero outside the image (SAME padding), summed in f32 and rounded
 once to yt's dtype.  The plain version is the JAX ``_ref``; the kernel is
-``csrc/shiftadd.cu``.  The op is linear, so its backward needs no forward
+``csrc/shiftadd.cu``, in two instances: co = 23 (every head but one,
+counter ``shifted_add_bias``) and co = 24 (ExtraInpaintNet's with
+``--inpaint_mask``, counter ``shiftadd_co24``).  The op is linear, so its backward needs no forward
 and keeps no tensor: the adjoint shifted add of the output grad (zero
 outside the image) and the bias grad as its sum over pixels, the vjp of
 ``_ref`` that the JAX ``custom_vjp`` takes.
@@ -47,17 +49,21 @@ def shifted_add_bias_plain(yt: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
 
 
 # the kernel's tiling (csrc/shiftadd.cu): co = CO, the width of every
-# head; a block owns STRIP_W output columns of STRIP_ROWS rows and keeps
-# RING yt row segments in shared memory
-CO, STRIP_W, STRIP_ROWS, RING = 23, 32, 16, 5
+# head but ExtraInpaintNet's with --inpaint_mask (CO24); a block owns
+# STRIP_W output columns of STRIP_ROWS rows and keeps RING yt row segments
+# in shared memory
+CO, CO24, STRIP_W, STRIP_ROWS, RING = 23, 24, 32, 16, 5
+# the instances: co -> (C entry, launch counter)
+INSTANCES = {CO: ("dvie_shifted_add_bias", NAME),
+             CO24: ("dvie_shifted_add_bias_co24", "shiftadd_co24")}
 
 
 def plan(b: int, h: int, w: int, co: int):
     """The kernel's grid for a (b, h, w, 9*co) taps tensor, or a
     ValueError for what it does not take."""
-    if co != CO:
-        raise ValueError(f"kernel takes co = {CO} (every head's width), "
-                         f"got {co}")
+    if co not in INSTANCES:
+        raise ValueError(f"kernel takes co = {CO} or {CO24} (the heads' "
+                         f"widths), got {co}")
     if b * h * w == 0:
         raise ValueError("kernel takes a non-empty taps tensor")
     return -(-w // STRIP_W), -(-h // STRIP_ROWS), b
@@ -70,11 +76,12 @@ def _kernel(yt: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     hw.check_bf16("yt", yt)
     b2k = b2.to(device=yt.device, dtype=torch.float32).contiguous()
     out = torch.empty((b, h, w, co), device=yt.device, dtype=torch.bfloat16)
-    err = _build.library().dvie_shifted_add_bias(
+    entry, counter = INSTANCES[co]
+    err = getattr(_build.library(), entry)(
         _build.ptr(yt), _build.ptr(b2k), _build.ptr(out), b, h, w,
         _build.stream(yt))
-    _build.check_launch(NAME, err)
-    hw.launches[NAME] += 1
+    _build.check_launch(counter, err)
+    hw.launches[counter] += 1
     return out
 
 

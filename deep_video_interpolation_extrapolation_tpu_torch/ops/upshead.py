@@ -11,12 +11,19 @@ so ``yt`` holds 9 * (Cr + Cs) channels and the heads finish with the 9-way
 shifted add + bias of ``ops/shiftadd.shifted_add_bias``, on its own kernel.
 
 The kernel is ``csrc/upshead.cu``, in two modes: taps (the heads'
-forward) and h (``ups_head_1x1``, the recompute of the backward).
+forward) and h (``ups_head_1x1``: the recompute of the backward, and the
+heads' route where the taps product does not fit, ``--num_pred_once 2``
+of extrapolation).  The taps mode has two instances, by the taps matrix's
+padded width: 208 (N2 <= 208: a head of 23 channels, counter
+``ups_head_taps``) and 216 (208 < N2 <= 216: ExtraInpaintNet's 24 with
+``--inpaint_mask``, counter ``upshead_taps_n216``).
 ``ups_head_taps`` is a ``torch.autograd.Function`` whose backward is
 ``pallas_upshead._explicit_taps_bwd`` (``ups_head_taps_bwd``): h is
 recomputed once through the h mode, the lrelu mask comes from the sign of
 h, the weight grads are f32 products, and dp1/dp2 go through the vjp of
-the bilinear upsampling.  The plain versions round where
+the bilinear upsampling.  ``ups_head_1x1`` is differentiable too, by
+autograd of its plain version recomputed (``ops/recompute.py``), as the
+JAX ``_bwd`` is ``jax.vjp`` of ``_ups_head_ref``.  The plain versions round where
 ``pallas_upshead._ups_head_taps_ref`` rounds (upsampled parts, h and yt in
 the compute dtype).
 
@@ -43,7 +50,11 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
 )
 
 NAME, NAME_1X1, NAME4 = "ups_head_taps", "ups_head_1x1", "ups_head_taps4"
+NAME_N216 = "upshead_taps_n216"   # the taps mode's 216-wide instance
 CT_MAX, N2_MAX = 448, 208   # the kernel's shared-memory tile widths
+# the taps mode's instances: padded width -> (C entry, launch counter)
+N2_WIDTHS = {208: ("dvie_ups_head_taps", NAME),
+             216: ("dvie_ups_head_taps_n216", NAME_N216)}
 CT4_MAX = 960               # upshead4.cu's concat width
 
 
@@ -124,23 +135,32 @@ def w1_units(w1: torch.Tensor, dev) -> torch.Tensor:
             .contiguous())
 
 
-def padded_taps(w2t: torch.Tensor, dev) -> torch.Tensor:
-    """The taps matrix (N1, N2) in bf16, zero-padded to the kernels' tile
-    width N2_MAX so each row is one run of 16-byte words (yt itself keeps
-    its N2 columns)."""
+def padded_taps(w2t: torch.Tensor, dev, n2p: int = N2_MAX) -> torch.Tensor:
+    """The taps matrix (N1, N2) in bf16, zero-padded to the kernel's tile
+    width ``n2p`` (208, or 216 for the 216 instance) so each row is one run
+    of 16-byte words (yt itself keeps its N2 columns)."""
     n1, n2 = w2t.shape
-    w2k = torch.zeros((n1, N2_MAX), device=dev, dtype=torch.bfloat16)
+    w2k = torch.zeros((n1, n2p), device=dev, dtype=torch.bfloat16)
     w2k[:, :n2] = w2t
     return w2k
 
 
-def w2_chunks(w2t: torch.Tensor, dev) -> torch.Tensor:
-    """``padded_taps`` as K4's bf16 chunks (N1/64, 8, N2_MAX, 8) of 64
-    hidden rows: W2t[nc*64 + 8*kg + k, n] at [nc, kg, n, k], K-major core
+def w2_chunks(w2t: torch.Tensor, dev, n2p: int = N2_MAX) -> torch.Tensor:
+    """``padded_taps`` as K4's bf16 chunks (N1/64, 8, n2p, 8) of 64 hidden
+    rows: W2t[nc*64 + 8*kg + k, n] at [nc, kg, n, k], K-major core
     matrices."""
     n1 = w2t.shape[0]
-    return (padded_taps(w2t, dev).reshape(n1 // 64, 8, 8, N2_MAX)
+    return (padded_taps(w2t, dev, n2p).reshape(n1 // 64, 8, 8, n2p)
             .permute(0, 1, 3, 2).contiguous())
+
+
+def taps_width(n2: int) -> int:
+    """The padded width of the taps instance that takes N2 columns: 208
+    up to 208, 216 up to 216; a ValueError above."""
+    for n2p in sorted(N2_WIDTHS):
+        if n2 <= n2p:
+            return n2p
+    raise ValueError(f"kernel takes N2 <= {max(N2_WIDTHS)}, got N2={n2}")
 
 
 def _launch(fn, p0, p1, p2, w1, b1, w2k, out, *tail):
@@ -161,24 +181,18 @@ def _launch(fn, p0, p1, p2, w1, b1, w2k, out, *tail):
 def _taps_kernel(p0, p1, p2, w1, b1, w2t):
     n1, n2 = w2t.shape
     _check(p0, p1, p2, w1, b1, n1)
-    if n2 > N2_MAX:
-        raise ValueError(f"kernel takes N2 <= {N2_MAX}, got N2={n2}")
+    n2p = taps_width(n2)
+    entry, counter = N2_WIDTHS[n2p]
     yt = torch.empty((*p0.shape[:3], n2), device=p0.device,
                      dtype=torch.bfloat16)
-    err = _launch(_build.library().dvie_ups_head_taps, p0, p1, p2, w1, b1,
-                  w2_chunks(w2t, p0.device), yt, n2)
-    _build.check_launch(NAME, err)
-    hw.launches[NAME] += 1
+    err = _launch(getattr(_build.library(), entry), p0, p1, p2, w1, b1,
+                  w2_chunks(w2t, p0.device, n2p), yt, n2)
+    _build.check_launch(counter, err)
+    hw.launches[counter] += 1
     return yt
 
 
-def ups_head_1x1(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
-                 w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
-    """h on CUDA bf16 tensors through the kernel's h mode; on CPU tensors
-    through the plain version.  Not differentiable (the backward of
-    ``ups_head_taps`` calls it)."""
-    if not hw.use_kernel(p0):
-        return ups_head_1x1_plain(p0, p1, p2, w1, b1)
+def _h_kernel(p0, p1, p2, w1, b1) -> torch.Tensor:
     n1 = w1.shape[1]
     _check(p0, p1, p2, w1, b1, n1)
     h = torch.empty((*p0.shape[:3], n1), device=p0.device,
@@ -188,6 +202,17 @@ def ups_head_1x1(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     _build.check_launch(NAME_1X1, err)
     hw.launches[NAME_1X1] += 1
     return h
+
+
+def ups_head_1x1(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                 w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """h on CUDA bf16 tensors through the kernel's h mode; on CPU tensors
+    through the plain version.  Differentiable, by autograd of
+    ``ups_head_1x1_plain`` recomputed: the route of the heads whose taps
+    product does not fit the taps mode (``pallas_upshead.ups_head_1x1``,
+    a ``custom_vjp`` whose backward is the vjp of ``_ups_head_ref``).  The
+    backward of ``ups_head_taps`` calls it without grad, for h alone."""
+    return recompute_vjp(_h_kernel, ups_head_1x1_plain, p0, p1, p2, w1, b1)
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:

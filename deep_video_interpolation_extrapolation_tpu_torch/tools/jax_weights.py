@@ -16,7 +16,10 @@ arrays; imports no jax (callers convert with ``np.asarray``).
 
 The video VAEs have no torch_port mapper: ``vae_key_map`` maps the flax
 tree's auto-names (``Conv_k``, ``BatchNorm_k``, ``ConvTranspose_k``, the
-named ``Dense`` layers) straight onto the port's module names.  VAEHRNet
+named ``Dense`` layers) straight onto the port's module names, and so does
+``inpaint_key_map`` for ExtraInpaintNet's ``InpaintUnet`` (``Conv_k``,
+``ResnetBlock_k``); an extrapolation HRNet's heads are HRNet's map at
+their own widths.  VAEHRNet
 is HRNet's map plus its latent modules by the same table
 (``from_jax_vaehrnet``); a discriminator's map walks the port module, whose
 containers keep their children's flax names (``disc_key_map``: kernels,
@@ -235,6 +238,20 @@ def refine_unet_key_map(params: Mapping
         yield from _conv(("unet", name) + inner, f"unet.{name}")
 
 
+def inpaint_key_map(params: Mapping
+                    ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(torch key, flax path) for every parameter of ``InpaintUnet``:
+    ``Conv_k`` is ``convs.k``, ``ResnetBlock_k``'s two convs are
+    ``res.k.conv.0`` and ``res.k.conv.2``."""
+    n_conv = sum(k.startswith("Conv_") for k in params)
+    n_res = sum(k.startswith("ResnetBlock_") for k in params)
+    for k in range(n_conv):
+        yield from _conv((f"Conv_{k}",), f"convs.{k}")
+    for k in range(n_res):
+        yield from _conv((f"ResnetBlock_{k}", "Conv_0"), f"res.{k}.conv.0")
+        yield from _conv((f"ResnetBlock_{k}", "Conv_1"), f"res.{k}.conv.2")
+
+
 def _state_dict(params: Mapping, keys) -> Dict[str, torch.Tensor]:
     sd = OrderedDict()
     for key, path in keys:
@@ -300,6 +317,8 @@ def from_jax_submodel(sub: torch.nn.Module, params: Mapping,
         return from_jax_vaehrnet(params, batch_stats or {})
     if isinstance(sub, hrnet.HRNet):
         return from_jax_params(params)
+    if isinstance(sub, hrnet.InpaintUnet):
+        return _state_dict(params, inpaint_key_map(params))
     if isinstance(sub, refine.SRNRefine):
         return from_jax_refine(params)
     if isinstance(sub, optical.RefineUnet):

@@ -1,7 +1,8 @@
 """Profile of one serving forward on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_serve \
-        [--model InterNet|InterStage3Net|recipe3|VAE|highres_large] [--out DIR]
+        [--model InterNet|InterStage3Net|recipe3|VAE|highres_large|ExtraNet|ExtraInpaintNet]
+        [--out DIR]
 
 ``InterStage3Net`` (the default): SRNRefine, then MSResAttnRefine at
 ``--n_sc 1``, over HRNet at full width on a seeded 2x512x1024 input, the
@@ -9,7 +10,11 @@ shape of ``chip_smoke.py``'s rollouts; ``recipe3``: the model recipe 3
 trains (docs/RECIPES.md:28-40: SRNRefine ``--n_sc 3``, then
 MSResAttnRefineV2 ``--stage3_prop``), the same input; ``InterNet``: that HRNet alone, the
 same input; ``highres_large``: InterNet with the 4-branch HRNet
-(``--highres_large``, the 4-part head), the same input.  ``VAE``: the video VAE at
+(``--highres_large``, the 4-part head), the same input; ``ExtraNet``:
+HRNet in extrapolation (recipe 6's served model, the same input: frames 1
+and 2); ``ExtraInpaintNet``: ExtraNet's coarse model with ``--inpaint
+--inpaint_mask`` (its heads 24 wide: K4's 216 and the shift add's 24
+instances) and InpaintUnet, the same input.  ``VAE``: the video VAE at
 ``--vid_len 2`` on a seeded 8x128x128 batch (``serve.predict_video``, the
 code drawn from a seeded generator), the shape of ``chip_smoke.py``'s vae
 phase.  Random seeded weights, bf16 compute with f32 masters.  For each
@@ -61,6 +66,13 @@ CONFIGS = {
     "highres_large": Config(model="InterNet", coarse_model="HRNet",
                             syn_type="inter", compute_dtype="bfloat16",
                             highres_large=True),
+    "ExtraNet": Config(model="ExtraNet", coarse_model="HRNet",
+                       syn_type="extra", runner="EXTRA",
+                       compute_dtype="bfloat16"),
+    "ExtraInpaintNet": Config(model="ExtraInpaintNet", coarse_model="HRNet",
+                              syn_type="extra", runner="EXTRA",
+                              compute_dtype="bfloat16", inpaint=True,
+                              inpaint_mask=True),
 }
 VAE_B = 8
 
@@ -128,8 +140,12 @@ def profile_model(dev, cfg: Config, use_kernels: bool):
         run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-    stages = (stage_ms(model, rgb, seg) if cfg.model == "InterStage3Net"
-              else None)
+    stages = None
+    if cfg.model == "InterStage3Net":
+        stages = stage_ms(model, rgb, seg)
+    elif cfg.model == "ExtraInpaintNet":    # (coarse, inpaint)
+        coarse = _event_ms(lambda: model.coarse_model(rgb, seg))
+        stages = (coarse, _event_ms(lambda: model(rgb, seg)) - coarse)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
@@ -166,9 +182,10 @@ def main(argv=None) -> int:
             "\n".join(r["lines"]) + "\n")
         stages = ""
         if r["stages"] is not None:
-            coarse, refine, stage3 = r["stages"]
-            stages = (f" stages by CUDA events: coarse {coarse:.3f}, refine "
-                      f"{refine:.3f}, stage3 {stage3:.3f} ms;")
+            names = (("coarse", "refine", "stage3") if len(r["stages"]) == 3
+                     else ("coarse", "inpaint"))
+            stages = " stages by CUDA events: " + ", ".join(
+                f"{n} {ms:.3f}" for n, ms in zip(names, r["stages"])) + " ms;"
         print(f"{args.model} {name} model {shape} bf16: wall "
               f"{r['wall_ms']:.3f} ms/forward (mean of 5);{stages} profiled "
               f"self device {r['device_ms']:.3f} ms, idle {r['idle']:.2%}")

@@ -1,7 +1,7 @@
 """Profile of one INTER train step on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_train \
-        [--recipe 1|2|3] [--out chiprun_out/profile_train]
+        [--recipe 1|2|3|4|6] [--out chiprun_out/profile_train]
 
 ``--recipe 1`` (the default): InterNet/HRNet at full width on one seeded
 24x128x128 batch (the INTER recipe, docs/RECIPES.md:11-14); ``2``:
@@ -11,7 +11,10 @@ frozen, MSResAttnRefineV2 ``--stage3_prop`` trained, refine weights 20,
 at 27x128x128 (:28-40); ``4``: InterGANNet (VAEHRNet and the four
 discriminator families of the VAE-GAN recipe, its weights and learning
 rates, ``--n_track 10``) at 18x128x128 (:42-62), a synthetic batch with
-its boxes, the step's generator seeded.  bf16 compute with f32 masters, frozen VGG19
+its boxes, the step's generator seeded; ``6``: ExtraNet/HRNet in
+extrapolation, ``--num_pred_step 3`` (three forwards, back-propagation
+through them; ``train/extra.make_train_step``) at 24x128x128 on a seeded
+synthetic batch of 5 frames (:76-83).  bf16 compute with f32 masters, frozen VGG19
 from a seed, Adamax; the same setups as ``chip_smoke.py``'s train and
 recipe phases.  For each model
 (``use_kernels`` True, then False): 3 warm-up steps, the mean wall time of
@@ -46,6 +49,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.data.synthetic import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
+    extra,
     inter,
     inter_gan,
     state as state_lib,
@@ -98,15 +102,20 @@ RECIPES = {1: (CFG, B),
                "--video_det_disc_model VideoLSSNDetDiscriminator "
                "--train_video_det_disc --video_det_disc_g_w 0.4 "
                "--video_det_disc_d_w 0.01 --video_det_disc_lr 0.0001")
-               .split()), 18)}
+               .split()), 18),
+           6: (parse_args((
+               "--syn_type extra --mode xs2xs --input_h 128 --input_w 128 "
+               "--bs 24 EXTRA --model ExtraNet --coarse_model HRNet "
+               "--train_coarse --num_pred_step 3").split()), B)}
 
 
-def _batch(dev, b=B, n_track=0):
-    """A seeded batch; with ``n_track``, the synthetic one with its boxes
-    (the GAN's detection discriminators read them)."""
-    if n_track:
+def _batch(dev, b=B, n_track=0, vid_len=3):
+    """A seeded batch; with ``n_track`` or more than 3 frames, the
+    synthetic one (with its boxes: the GAN's detection discriminators read
+    them)."""
+    if n_track or vid_len > 3:
         return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
-            b, H, W, n_track=n_track, seed=5).items()}
+            b, H, W, vid_len=vid_len, n_track=n_track or 4, seed=5).items()}
     g = torch.Generator(device=dev).manual_seed(5)
     batch = {f"frame{i}": torch.rand((b, H, W, 3), generator=g, device=dev)
              * 2 - 1 for i in (1, 2, 3)}
@@ -136,10 +145,13 @@ def profile_model(dev, use_kernels: bool, cfg: Config = CFG, b: int = B):
     state = state_lib.create_train_state(
         cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
     gan = cfg.model == "InterGANNet"
+    steps = extra if cfg.syn_type == "extra" else inter
     step = (inter_gan.make_train_step(
         cfg, model, torch.Generator(dev).manual_seed(11)) if gan
-        else inter.make_train_step(cfg, model))
-    batch = _batch(dev, b, cfg.num_track_per_img if gan else 0)
+        else steps.make_train_step(cfg, model))
+    vid_len = (2 + cfg.num_pred_once * cfg.num_pred_step
+               if cfg.syn_type == "extra" else 3)
+    batch = _batch(dev, b, cfg.num_track_per_img if gan else 0, vid_len)
     for _ in range(3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()

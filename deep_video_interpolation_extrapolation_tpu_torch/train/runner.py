@@ -1,6 +1,7 @@
 """Training, validation and cycgen orchestration of the port (counterpart of
 the JAX package's ``train/runner.py``; the reference's
-runners/InterTrainer.py) for ``syn_type inter``:
+runners/InterTrainer.py and ExtraTrainer.py) for ``syn_type inter`` and
+``extra``:
 
 - per-epoch training with a checkpoint each epoch, under the reference's
   filename contract, and ``--r`` resume;
@@ -21,7 +22,12 @@ InterGANNet (recipe 4) trains through ``train/inter_gan.py`` and
 validates, runs cycgen and logs its image panel through its coarse model
 in eval mode (``inter_gan.GanEvalAdapter``), the VAE's z drawn from the runner's
 generator (seeded by ``--seed``); its checkpoints hold every
-discriminator and its Adam state under the reference's names.  A stage
+discriminator and its Adam state under the reference's names.
+ExtraNet and ExtraInpaintNet (EXTRA, recipe 6) train and validate on
+``train/extra.py`` over clips of ``2 + num_pred_once * num_pred_step``
+frames, and their cycgen extrapolates from each val clip's first two
+frames (every predicted frame appended, ``--fix_init_frames`` honoured);
+ExtraInpaintNet's checkpoints hold ``inpaint_model`` and its optimizer.  A stage
 starts from the previous stage's experiment through ``--load_dir`` and
 ``--load_coarse`` / ``--load_refine`` (``--load_model`` names that
 experiment's model).  Batches
@@ -29,8 +35,7 @@ reach the card through pinned host memory and a side stream
 (``_device_prefetch``); losses stay on the card and are read back once per
 ``disp_interval``.  The paths the port does not have yet raise
 ``NotImplementedError`` with their ROADMAP item: TrackGen and the
-track-object loss (item 5), EXTRA (item 6), ``--remat`` (item 4) and
-sharding (item 9).
+track-object loss (item 5), ``--remat`` (item 4) and sharding (item 9).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.native import png
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
+    extra as extra_lib,
     inter as inter_lib,
     inter_gan as gan_lib,
     state as state_lib,
@@ -93,9 +99,6 @@ def _writer(cfg, exp_dir: str):
 
 
 def _check_supported(cfg) -> None:
-    if cfg.runner == "EXTRA" or cfg.syn_type == "extra":
-        raise NotImplementedError(
-            f"EXTRA / syn_type extra is not ported yet ({_QUEUE}, item 6)")
     if cfg.remat:
         raise NotImplementedError(
             f"--remat is not ported yet ({_QUEUE}, item 4)")
@@ -118,8 +121,8 @@ def _seg_ids(path: str) -> np.ndarray:
 
 
 class Runner:
-    """The INTER runner of the port, on ``device`` (the card unless the
-    caller asks for the CPU; without a card it raises)."""
+    """The INTER and EXTRA runner of the port, on ``device`` (the card
+    unless the caller asks for the CPU; without a card it raises)."""
 
     def __init__(self, cfg, exp_dir: str, device="cuda"):
         _check_supported(cfg)
@@ -127,12 +130,18 @@ class Runner:
         self.exp_dir = exp_dir
         self.device = hw.entry_device(device)
         self.is_gan = cfg.model == "InterGANNet"
+        self.is_extra = cfg.syn_type == "extra"
         # the VAE's eps and z and the sync_neg offsets; reseeded at each
         # epoch and each validation (``_reseed``)
         self.generator = torch.Generator(self.device)
         self._reseed(0)
         self.epoch = cfg.start_epoch
-        self.vid_len = 3
+        # an extrapolation clip: two input frames and every predicted one
+        # (runner.py:86-89); the models are built at their widths from the
+        # config (conv1 by --fix_init_frames, the heads by --num_pred_once
+        # and --inpaint_mask), so no example batch initialises them
+        self.vid_len = (2 + cfg.num_pred_once * cfg.num_pred_step
+                        if self.is_extra else 3)
         self.train_step = self.eval_step = None
         self._build_model_and_state()
         self._maybe_load()
@@ -210,17 +219,16 @@ class Runner:
         """The train or eval step, built on first use; the GAN evaluates
         its coarse model on the INTER eval step."""
         cfg = self.cfg
+        steps = extra_lib if self.is_extra else inter_lib
         if train and self.train_step is None:
             self.train_step = (
                 gan_lib.make_train_step(cfg, self.model, self.generator)
-                if self.is_gan else inter_lib.make_train_step(cfg,
-                                                              self.model))
+                if self.is_gan else steps.make_train_step(cfg, self.model))
         if not train and self.eval_step is None:
             self.eval_step = (
                 inter_lib.make_eval_step(cfg.replace(model="InterNet"),
                                          self._eval_model())
-                if self.is_gan else inter_lib.make_eval_step(cfg,
-                                                             self.model))
+                if self.is_gan else steps.make_eval_step(cfg, self.model))
 
     # ------------------------------------------------------------- data
     def _host_batches(self, loader, depth: int):
@@ -323,7 +331,9 @@ class Runner:
     # ------------------------------------------------------------- train
     def _log_images(self, batch, step: int) -> None:
         """Input/pred/GT + seg-vis grid every 30 steps
-        (InterTrainer.py:499-513)."""
+        (InterTrainer.py:499-513); in extrapolation the two input frames,
+        the first predicted frame, its ground truth frame3 and their
+        segs."""
         if not self.writer:
             return
         from deep_video_interpolation_extrapolation_tpu_torch.utils.vis import (
@@ -332,20 +342,34 @@ class Runner:
             to01,
         )
         with torch.no_grad():
-            x, seg, _, _ = get_inter_inputs(batch)
+            x, seg = self._inputs(batch)
             pred_rgb, pred_seg = serve.final_output(self._eval_model()(x,
                                                                        seg))
 
         def first(t):
             return t[0].float().cpu().numpy()
+        gt = "3" if self.is_extra else "2"
+        frames = ([batch["frame1"], batch["frame2"], pred_rgb[..., :3]]
+                  if self.is_extra else
+                  [batch["frame1"], pred_rgb, batch["frame2"]])
         row = make_grid([
-            to01(first(batch["frame1"])), to01(first(pred_rgb)),
-            to01(first(batch["frame2"])), to01(first(batch["frame3"])),
-            seg_to_rgb(first(pred_seg)),
-            vis_seg_ids(batch["seg2"][0].long().cpu().numpy()).astype(
+            *(to01(first(f)) for f in frames), to01(first(batch["frame3"])),
+            seg_to_rgb(first(pred_seg[..., :N_CLASSES])),
+            vis_seg_ids(batch[f"seg{gt}"][0].long().cpu().numpy()).astype(
                 np.float32),
         ])
         self.writer.add_image("train/in_pred_gt", row, step)
+
+    def _inputs(self, batch):
+        """The first forward's (rgb, seg) of a batch: frames 1 and 3 in
+        interpolation; frames 1 and 2 in extrapolation, behind frame 2
+        under ``--fix_init_frames``."""
+        if not self.is_extra:
+            x, seg, _, _ = get_inter_inputs(batch)
+            return x, seg
+        pair = ("1", "2") if not self.cfg.fix_init_frames else ("2", "1", "2")
+        return (torch.cat([batch[f"frame{i}"] for i in pair], dim=-1),
+                torch.cat([seg_oh(batch[f"seg{i}"]) for i in pair], dim=-1))
 
     def _local_disc_maps(self, batch, pred_rgb, pred_seg) -> List:
         """The local discriminators' probability maps on the panel's sample
@@ -546,9 +570,10 @@ class Runner:
 
         With ``--cycgen_load_dir`` it runs the reference contract
         (``_cycgen_reference``).  Without one it interpolates the midpoint
-        of each val clip (up to 61) and writes rgb / seg-id / seg-vis PNGs
-        ``clip_NNNNN/{rgb,seg,seg_vis}/TTT.png`` under
-        ``<exp>/cycgen/<dataset>/<HxW>/<split>/``.
+        of each val clip (up to 61), or extrapolates ``num_pred_step``
+        steps from its first two frames (runner.py:573-611), and writes
+        rgb / seg-id / seg-vis PNGs ``clip_NNNNN/{rgb,seg,seg_vis}/TTT.png``
+        under ``<exp>/cycgen/<dataset>/<HxW>/<split>/``.
         """
         if self.cfg.cycgen_load_dir:
             return self._cycgen_reference()
@@ -562,14 +587,8 @@ class Runner:
         loader = data_lib.make_loader(vcfg, val_ds or dataset, shuffle=False)
         n_clips = 0
         for batch in self._device_prefetch(loader):
-            # interpolation conditions on the clip's endpoints
-            imgs = [batch["frame1"], batch["frame3"]]
-            segs = [batch["seg1"], batch["seg3"]]
-            mid_rgb, mid_seg = self._forward(
-                torch.cat(imgs, dim=-1),
-                torch.cat([seg_oh(s) for s in segs], dim=-1))
-            frames = [imgs[0], torch.clamp(mid_rgb, -1, 1), imgs[1]]
-            ids = [segs[0], torch.argmax(mid_seg, dim=-1), segs[1]]
+            frames, ids = (self._extrapolate(batch) if self.is_extra
+                           else self._interpolate(batch))
             frames = [f.float().cpu().numpy() for f in frames]
             ids = [i.to(torch.uint8).cpu().numpy() for i in ids]
             for b in range(frames[0].shape[0]):
@@ -590,6 +609,37 @@ class Runner:
                 break
         logger.info("cycgen: wrote %d clips under %s", n_clips, out_root)
         return out_root
+
+    def _interpolate(self, batch):
+        """A clip's frames and seg ids for cycgen: the midpoint predicted
+        from the clip's endpoints."""
+        imgs = [batch["frame1"], batch["frame3"]]
+        segs = [batch["seg1"], batch["seg3"]]
+        mid_rgb, mid_seg = self._forward(
+            torch.cat(imgs, dim=-1),
+            torch.cat([seg_oh(s) for s in segs], dim=-1))
+        return ([imgs[0], torch.clamp(mid_rgb, -1, 1), imgs[1]],
+                [segs[0], torch.argmax(mid_seg, dim=-1), segs[1]])
+
+    def _extrapolate(self, batch):
+        """A clip's frames and seg ids for cycgen in extrapolation: frames
+        1 and 2, then every frame of ``num_pred_step`` forwards, each on
+        the two newest frames (clipped to [-1, 1]), behind frame 2 under
+        ``--fix_init_frames`` (runner.py:590-611)."""
+        cfg = self.cfg
+        frames = [batch["frame1"], batch["frame2"]]
+        ids = [batch["seg1"].long(), batch["seg2"].long()]
+        for _ in range(cfg.num_pred_step):
+            window = [1] * cfg.fix_init_frames + [-2, -1]
+            x = torch.cat([frames[i] for i in window], dim=-1)
+            seg = torch.cat([seg_oh(ids[i]) for i in window], dim=-1)
+            rgb, seg_logits = self._forward(x, seg)
+            for j in range(cfg.num_pred_once):
+                frames.append(torch.clamp(rgb[..., 3 * j:3 * j + 3], -1, 1))
+                ids.append(torch.argmax(
+                    seg_logits[..., N_CLASSES * j:N_CLASSES * (j + 1)],
+                    dim=-1))
+        return frames, ids
 
     def _clip_dirs(self, load_img_dir: str) -> List[str]:
         """``root_clip.pkl``'s first 61 ``val`` entries
@@ -682,31 +732,17 @@ class Runner:
 
         img_list: two (B,H,W,3) frames in [0, 1]; seg_list: two (B,H,W)
         uint8 id maps.  Returns ``num_pred_step * num_pred_once`` predicted
-        frames in [0, 1] and their uint8 id maps.  With ``num_pred_once
-        == 1`` the window slides by one (img1 <- img2, img2 <- pred), as
-        ``serve.rollout`` does; otherwise both slots take the two newest
-        predictions (runner.py:844-852 of the JAX package).
+        frames in [0, 1] and their uint8 id maps: ``serve.rollout``, whose
+        window slides by one at ``num_pred_once == 1`` and otherwise takes
+        the two newest predictions (runner.py:844-852 of the JAX package),
+        with the second input frame before every window under
+        extrapolation's ``--fix_init_frames`` (runner.py:827-836); on the
+        serving forward (``_forward``).
         """
         cfg = self.cfg
-        if cfg.num_pred_once == 1:
-            return serve.rollout(self._eval_model(), img_list, seg_list,
-                                 cfg.num_pred_step)
-        img1, img2 = [im * 2.0 - 1.0 for im in img_list]
-        seg1, seg2 = [seg_oh(s) for s in seg_list]
-        pred_imgs, pred_ids = [], []
-        for _ in range(cfg.num_pred_step):
-            img, seg_logits = self._forward(torch.cat([img1, img2], dim=-1),
-                                            torch.cat([seg1, seg2], dim=-1))
-            for j in range(cfg.num_pred_once):
-                pred_imgs.append(torch.clamp(
-                    (img[..., 3 * j:3 * j + 3] + 1.0) / 2.0, 0, 1))
-                pred_ids.append(torch.argmax(
-                    seg_logits[..., N_CLASSES * j:N_CLASSES * (j + 1)],
-                    dim=-1).to(torch.uint8))
-            img1 = pred_imgs[-2] * 2.0 - 1.0
-            img2 = pred_imgs[-1] * 2.0 - 1.0
-            seg1, seg2 = seg_oh(pred_ids[-2]), seg_oh(pred_ids[-1])
-        return pred_imgs, pred_ids
+        return serve.rollout_with(self._forward, img_list, seg_list,
+                                  cfg.num_pred_step, cfg.num_pred_once,
+                                  self.is_extra and cfg.fix_init_frames)
 
     def mycycgen(self, first_index: int = 25) -> str:
         """Legacy Refiner ``mycycgen`` (runners/refiner.py:835-1010): read

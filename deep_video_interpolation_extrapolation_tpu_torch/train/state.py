@@ -36,11 +36,13 @@ _QUEUE = "ROADMAP.md queue 1"
 def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
     """Submodule name -> (optimizer, lr, train flag) (state.py:79-110): the
     coarse model Adamax(coarse_lr) (InterTrainer.py:79), the refiner
-    Adamax(refine_lr) (:81), stage 3 the refiner's pair (:83); each
-    discriminator of InterGANNet Adam at its own learning rate behind its
-    own flag (InterGANTrainer.py:110-116)."""
+    Adamax(refine_lr) (:81), stage 3 the refiner's pair (:83); the
+    inpainter of ExtraInpaintNet its own (``--inpaint_o``, ``--inpaint_lr``,
+    ``--train_inpaint``; state.py:97-98); each discriminator of InterGANNet
+    Adam at its own learning rate behind its own flag
+    (InterGANTrainer.py:110-116)."""
     if cfg.model not in ("InterNet", "InterRefineNet", "InterStage3Net",
-                         "InterGANNet"):
+                         "InterGANNet", "ExtraNet", "ExtraInpaintNet"):
         raise NotImplementedError(
             f"the {cfg.model} train state is not ported yet ({_QUEUE})")
     specs = {"coarse_model": (cfg.coarse_optimizer, cfg.coarse_learning_rate,
@@ -51,6 +53,10 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
     if cfg.model == "InterStage3Net":
         specs["stage3_model"] = (cfg.refine_optimizer,
                                  cfg.refine_learning_rate, cfg.train_stage3)
+    if cfg.model == "ExtraInpaintNet":
+        specs["inpaint_model"] = (cfg.inpaint_optimizer,
+                                  cfg.inpaint_learning_rate,
+                                  cfg.train_inpaint)
     if cfg.model == "InterGANNet":
         for fam in ("frame_disc", "frame_det_disc", "video_disc",
                     "video_det_disc"):

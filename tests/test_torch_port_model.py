@@ -144,8 +144,11 @@ def test_port_config_mirrors_the_jax_config():
 
 @pytest.mark.parametrize("kw", [dict(model="InterGANNet", track_gen=True),
                                 dict(coarse_model="VAEHRNet"),
-                                dict(model="ExtraInpaintNet"),
-                                dict(syn_type="extra")])
+                                dict(model="ExtraNet", syn_type="extra",
+                                     coarse_model="VAEHRNet"),
+                                dict(model="ExtraInpaintNet",
+                                     syn_type="extra", inpaint=True,
+                                     inpaint_mask=True, highres_large=True)])
 def test_registry_refuses_unported_models(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.build_model(_cfg(**kw), device="cpu")

@@ -13,6 +13,8 @@ Cityscapes-layout PNG tree it writes (``--nw 2``), ``--split val`` on that
 epoch's checkpoint, and ``--split cycgen`` on synthetic data; and recipe
 4 through the launcher on synthetic data (InterGANNet, VAEHRNet and the
 recipe's four discriminator families at ``--n_track 2``): one epoch of 8
+steps, ``--split val`` on its checkpoint and ``--split cycgen``; and recipe
+6 through the launcher (ExtraNet, ``--num_pred_step 3``): one epoch of 8
 steps, ``--split val`` on its checkpoint and ``--split cycgen``.  Pillow and
 TensorBoard are blocked too, as the card's machine has neither: the PNGs go
 through ``native/png.py`` and the runner logs without a writer."""
@@ -183,6 +185,24 @@ assert np.isfinite(metrics["coarse_psnr"])
 out = run(parse_args(f"{{syn}} --split cycgen {{gan}}".split()),
           exp_dir=os.path.join(tmp, "gcyc"), device="cpu")
 assert png.read_png(os.path.join(out, "clip_00000", "rgb", "001.png"),
+                    3).shape == (32, 64, 3)
+ex = f"{{syn}} --syn_type extra".replace("--syn_type inter ", "")
+r6 = "EXTRA --model ExtraNet --train_coarse --num_pred_step 3"
+eexp = os.path.join(tmp, "extra")
+run(parse_args(f"{{ex}} --split train {{r6}}".split()), exp_dir=eexp,
+    device="cpu")
+assert os.listdir(os.path.join(eexp, "checkpoint")) == [
+    "ExtraNet_xs2xs_extra_4_1_0"]
+log = open(os.path.join(eexp, "experiment_train.log")).read()
+assert "[iter    7]" in log and "nan" not in log.split("[iter    7]")[1][:40]
+metrics = run(parse_args(f"{{ex}} --split val --load_dir {{eexp}} "
+                         f"--checksession 4 --checkepoch 1 {{r6}} "
+                         "--load_coarse".split()),
+              exp_dir=os.path.join(tmp, "eval"), device="cpu")
+assert np.isfinite(metrics["step_2_frame_0_coarse_psnr"])
+out = run(parse_args(f"{{ex}} --split cycgen {{r6}}".split()),
+          exp_dir=os.path.join(tmp, "ecyc"), device="cpu")
+assert png.read_png(os.path.join(out, "clip_00000", "rgb", "004.png"),
                     3).shape == (32, 64, 3)
 assert not any(sys.modules.get(n) for n in BLOCKED)
 print("modules", len(names))

@@ -210,7 +210,8 @@ def test_final_output_picks_the_last_stage():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(coarse_model="VAEHRNet"), NotImplementedError),
-    (dict(syn_type="extra"), NotImplementedError),
+    (dict(model="ExtraNet", syn_type="extra", highres_large=True,
+          inpaint=True, inpaint_mask=True), NotImplementedError),
     (dict(model="InterGANNet", coarse_model="VAEHRNet", track_gen=True),
      NotImplementedError),
     (dict(stage3_model="MSResAttnRefineV9"), KeyError)])
