@@ -192,9 +192,34 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     against a ``--checkepoch_range`` sweep within 1e-3, ``--r
     --checkepoch 1`` (epoch-2 losses within 2e-2), ``--split cycgen`` at
     2x512x1024 from the epoch-2 checkpoint (2 input and 3 extrapolated
-    frames a clip, 120 PNGs decoded back).
+    frames a clip, 120 PNGs decoded back);
+25. ExtraInpaintNet ``--inpaint_mask --highres_large`` served: kernel
+    against plain model at 2x128x256, the 3-step rollout at 2x512x1024
+    with the 4-part head's 216 instance and the co-24 shift add 1 a
+    forward; frames/s, peak memory;
+26. ``--highres_large`` training: recipes 1 and 6 at 24x128x128, the
+    gradient of a forward's loss terms on f32 outputs (whole, the 41
+    train-chain leaves of stages 2-4, the heads' 8) of the kernel and the
+    plain bf16 model against the plain f32 model, each loss term of one
+    step within 2e-2, 20 steps per model (finite; samples/s, peak
+    memory), the launches of one counted step (the chain 12 / 12 / 3, the
+    4-part head's taps and h mode 1 each); recipe 4 three steps, the third
+    counted;
+27. ``--remat``: recipes 1 (``--highres_large``), 4 and 6: the step's
+    gradient, loss terms and buffers (BatchNorm statistics, spectral-norm
+    vectors) against the same step without ``--remat``, 8 steps each way
+    (samples/s, peak memory: lower under ``--remat`` on recipe 6 or the
+    phase fails), the launches of one counted step (the regions' forward
+    kernels twice).
 
-The kernel phase also holds K4's 216-wide taps instance (rows
+The kernel phase also holds the 4-part head at 24x128x128
+(``ups_head_taps4_train``), its 216 instance (``upshead4_taps_n216``,
+``_train``) and its h mode (``ups_head_1x1_4``, ``_b1``), each at B=1
+512x1024 and 24x128x128 and a ragged 1x37x130, every kernel output
+allocated from NaN-filled memory (``poisoned``); the build prints
+upshead4.cu's ``ptxas`` registers and spills; ``taps4_backward_check``
+holds the 4-part backward against its f32-operand form.  It also holds
+K4's 216-wide taps instance (rows
 ``upshead_taps_n216`` at B=1 512x1024 and ``upshead_taps_n216_train`` at
 24x128x128, timed on the card alone too, a ragged 2x37x70 checked) and
 K4's h mode with its gradient (``ups_head_1x1``'s backward at 24x128x128,
@@ -289,6 +314,13 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     init_vgg_frozen,
+    rgb_bundle,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
+    cross_entropy_loss,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
+    make_vgg_l1_loss,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops import (
     _build,
@@ -403,6 +435,16 @@ META = {
                      "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:741"),
     "ups_head_taps4": ("cuda", f"{PKG}/csrc/upshead4.cu",
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
+    "ups_head_taps4_train": ("cuda", f"{PKG}/csrc/upshead4.cu",
+                             "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
+    "upshead4_taps_n216": ("cuda", f"{PKG}/csrc/upshead4.cu",
+                           "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
+    "upshead4_taps_n216_train": ("cuda", f"{PKG}/csrc/upshead4.cu",
+                                 "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
+    "ups_head_1x1_4": ("cuda", f"{PKG}/csrc/upshead4.cu",
+                       "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
+    "ups_head_1x1_4_b1": ("cuda", f"{PKG}/csrc/upshead4.cu",
+                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_upshead.py:1096"),
     "window_attention": ("cuda", f"{PKG}/csrc/window_attn.cu",
                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_corr.py:196"),
     "window_attention_b2": ("cuda", f"{PKG}/csrc/window_attn.cu",
@@ -481,7 +523,10 @@ COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "warp_steps_vae": "grid_sample",
            "warp_steps_vae_smooth": "grid_sample",
            "upshead_taps_n216_train": "upshead_taps_n216",
-           "shiftadd_co24_train": "shiftadd_co24"}
+           "shiftadd_co24_train": "shiftadd_co24",
+           "ups_head_taps4_train": "ups_head_taps4",
+           "upshead4_taps_n216_train": "upshead4_taps_n216",
+           "ups_head_1x1_4_b1": "ups_head_1x1_4"}
 # the video VAE serving forward: one grid sample (the flow entry) for all
 # its steps
 VAE_T = 2
@@ -512,6 +557,7 @@ SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
 # rows are, in their own checks
 DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
                 "ups_head_taps", "upshead_taps_n216", "ups_head_taps4",
+                "upshead4_taps_n216", "ups_head_1x1_4",
                 "stem_fwd", "stem_bwd", "stem48_fwd", "stem48_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
 # peaks (at the 700 W limit)
@@ -548,6 +594,7 @@ WEIGHT_ARGS = {
     "conv3x3_bias_res_lrelu": slice(1, 2), "bottleneck_tail": slice(2, None),
     "ups_head_taps": slice(3, None), "ups_head_taps4": slice(4, None),
     "upshead_taps_n216": slice(3, None),
+    "upshead4_taps_n216": slice(4, None), "ups_head_1x1_4": slice(4, None),
     "ups_head_1x1": slice(3, None), "dual_head": slice(1, None),
     "stem_fwd": slice(1, None), "stem48_fwd": slice(1, None),
     "stem_bwd": slice(4, None), "stem48_bwd": slice(4, None),
@@ -736,12 +783,34 @@ def kernel_phase(dev):
     b1_4 = w(1920, 1, 1, 1).flatten()
     w2t_4 = k4.build_dual_tap_kernel(w(3, 960, 3, 3), w(20, 960, 3, 3),
                                      torch.bfloat16)
+    # the 4-part pyramid of the train recipe (24x128x128) and a ragged one
+    # (not fits4: tiles and the x2/x4/x8 parts cut at the edge)
+    t4 = tuple(rnd(24, 128 // s, 128 // s, c)
+               for s, c in ((1, 64), (2, 128), (4, 256), (8, 512)))
+    r4 = (rnd(1, 37, 130, 64), rnd(1, 19, 65, 128), rnd(1, 10, 33, 256),
+          rnd(1, 5, 17, 512))
     cases["ups_head_taps4"] = [
         ("ups_head_taps4", "heads", (x64, p1, p2, p3, w1_4, b1_4, w2t_4)),
-        # not fits4: tiles and the x2/x4/x8 parts cut at the edge
-        (None, "ragged 1x37x130", (rnd(1, 37, 130, 64), rnd(1, 19, 65, 128),
-                                   rnd(1, 10, 33, 256), rnd(1, 5, 17, 512),
-                                   w1_4, b1_4, w2t_4))]
+        ("ups_head_taps4_train", "heads, 24x128x128",
+         (*t4, w1_4, b1_4, w2t_4)),
+        (None, "ragged 1x37x130", (*r4, w1_4, b1_4, w2t_4))]
+    # its 216-wide instance: ExtraInpaintNet --inpaint_mask under
+    # --highres_large (rgb 3 + mask 1, seg 20)
+    w2t4_216 = k4.build_dual_tap_kernel(w(4, 960, 3, 3), w(20, 960, 3, 3),
+                                        torch.bfloat16)
+    cases["upshead4_taps_n216"] = [
+        ("upshead4_taps_n216", "heads 216, B=1 512x1024",
+         (x64, p1, p2, p3, w1_4, b1_4, w2t4_216)),
+        ("upshead4_taps_n216_train", "heads 216, 24x128x128",
+         (*t4, w1_4, b1_4, w2t4_216)),
+        (None, "heads 216, ragged 1x37x130", (*r4, w1_4, b1_4, w2t4_216))]
+    # its h mode: the h the explicit backward recomputes (24x128x128, the
+    # train step's), and served size
+    cases["ups_head_1x1_4"] = [
+        ("ups_head_1x1_4", "h, 24x128x128", (*t4, w1_4, b1_4)),
+        ("ups_head_1x1_4_b1", "h, B=1 512x1024", (x64, p1, p2, p3, w1_4,
+                                                   b1_4)),
+        (None, "h, ragged 1x37x130", (*r4, w1_4, b1_4))]
 
     fns = {"conv3x3_bias_res_lrelu": (k1.conv3x3_bias_res_lrelu,
                                       k1.conv3x3_bias_res_lrelu_plain),
@@ -749,13 +818,15 @@ def kernel_phase(dev):
            "fuse_out0": (k3.fuse_out0, k3.fuse_out0_plain),
            "ups_head_taps": (k4.ups_head_taps, k4.ups_head_taps_plain),
            "upshead_taps_n216": (k4.ups_head_taps, k4.ups_head_taps_plain),
-           "ups_head_taps4": (k4.ups_head_taps4, k4.ups_head_taps4_plain)}
+           "ups_head_taps4": (k4.ups_head_taps4, k4.ups_head_taps4_plain),
+           "upshead4_taps_n216": (k4.ups_head_taps4, k4.ups_head_taps4_plain),
+           "ups_head_1x1_4": (k4.ups_head_1x1_4, k4.ups_head_1x1_4_plain)}
     results = {}
     for name, variants in cases.items():
         kern, plain = fns[name]
         worst_rel, err = 0.0, {}
         for _, label, args in variants:
-            out, ref = kern(*args), plain(*args)
+            out, ref = poisoned(kern, args), plain(*args)
             torch.cuda.synchronize()
             outs = out if isinstance(out, tuple) else (out,)
             refs = ref if isinstance(ref, tuple) else (ref,)
@@ -795,6 +866,24 @@ def kernel_phase(dev):
     results.update(grid_sample_check(dev))
     results["dual_head"] = dual_head_check(dev)
     return results
+
+
+def poisoned(fn, args):
+    """``fn(*args)`` into memory that held NaN: a first call gives the
+    outputs' shapes, NaN-filled tensors of those shapes are made and
+    freed, and the second call's outputs, allocated from the blocks they
+    freed, are returned, so that an element the kernel does not store
+    shows as non-finite instead of as what an earlier computation left
+    there."""
+    out = fn(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    shapes = [(o.shape, o.dtype) for o in outs if o is not None]
+    del out, outs
+    nan = [torch.full(sh, float("nan"), dtype=dt, device="cuda")
+           for sh, dt in shapes]
+    torch.cuda.synchronize()
+    del nan
+    return fn(*args)
 
 
 def k1_library(x, w, bias, res, relu):
@@ -1822,14 +1911,14 @@ def _flat(grads):
     return torch.cat([g.flatten() for g in grads.values()])
 
 
-def _train_chain_leaf(name: str, branches=(0,)) -> bool:
+def _train_chain_leaf(name: str, branches=(0,), stages=(2, 3)) -> bool:
     """The leaves the train kernels compute the grads of: the stem (conv1,
-    conv2), layer1, and the BasicBlocks of ``branches`` in stages 2 and 3
+    conv2), layer1, and the BasicBlocks of ``branches`` in ``stages``
     (branch 0 on the chain or on K1; branches 1 and 2 on the chain under
-    DVIE_BBCHAIN=rest|all)."""
+    DVIE_BBCHAIN=rest|all; stage 4's branch 0 under --highres_large)."""
     return name.startswith(("coarse_model.conv1.", "coarse_model.conv2.",
                             "coarse_model.layer1.") + tuple(
-        f"coarse_model.stage{s}.0.branches.{i}." for s in (2, 3)
+        f"coarse_model.stage{s}.0.branches.{i}." for s in stages
         for i in branches))
 
 
@@ -3077,32 +3166,6 @@ def r6_rgb_dx_check(dev):
         raise AssertionError(fail)
 
 
-def r6_trajectory(dev, cfg, use_kernels, batch, steps=20, warmup=2,
-                  count_at=2):
-    """``steps`` Adamax steps of ``cfg``'s model on one fixed batch: the
-    loss_all trajectory, the step times after the warm-ups, the launches
-    of step ``count_at`` and the peak memory (GiB) of the run."""
-    step, state = r6_setup(dev, cfg, use_kernels)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, times, counts = [], [], None
-    for i in range(steps):
-        torch.cuda.synchronize()
-        if i == count_at:
-            hw.reset_counters()
-        t0 = time.perf_counter()
-        state, ld = step(state, batch)
-        torch.cuda.synchronize()
-        if i >= warmup:
-            times.append(time.perf_counter() - t0)
-        if i == count_at:
-            counts = dict(hw.launches)
-        losses.append(float(ld["loss_all"]))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    del step, state
-    return losses, times, counts, peak
-
-
 def extra_serve_phase(dev, card):
     """Phases 19-20: ExtraNet and ExtraInpaintNet (``--inpaint
     --inpaint_mask``: the 216 and 24 instances) served: kernel against
@@ -3195,8 +3258,8 @@ def r6_step_phase(dev, card):
     batch = r6_batch(dev, 5)
     runs = {}
     for name, use_kernels in (("kernel", True), ("plain", False)):
-        losses, times, counts, peak = r6_trajectory(dev, CFG_R6, use_kernels,
-                                                    batch)
+        losses, times, counts, peak = _run(dev, CFG_R6, batch, 20,
+                                           use_kernels)
         if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"recipe 6 {name}: loss_all did not fall: "
                                  f"{losses}")
@@ -3222,8 +3285,8 @@ def r6_step_phase(dev, card):
         n_frames = 2 + cfg.num_pred_once * cfg.num_pred_step
         r6_grad_check(dev, cfg, f"recipe 6 {label}",
                       r6_batch(dev, 4, n_frames), leaves=False)
-        losses, times, counts, peak = r6_trajectory(
-            dev, cfg, True, r6_batch(dev, 5, n_frames), steps=8)
+        losses, times, counts, peak = _run(dev, cfg,
+                                           r6_batch(dev, 5, n_frames), 8)
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"recipe 6 {label}: losses {losses}")
         print(f"recipe 6 {label} kernel model: {b / statistics.median(times):.4f}"
@@ -3322,6 +3385,414 @@ def r6_runner_phase(dev, card):
     return runs
 
 
+# ---- --highres_large training, the 4-part head's backward, --remat -------
+
+def ptxas_report(source="upshead4.cu"):
+    """The ``-Xptxas -v`` lines of ``source`` from the build's log:
+    each kernel instance's registers, stack and spills."""
+    log = _build.library_path().with_suffix(".log")
+    if not log.exists():
+        raise AssertionError(f"no build log {log.name}")
+    text = log.read_text()
+    part = text.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    lines = [ln.strip() for ln in part.splitlines()
+             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    if not lines:
+        raise AssertionError(f"no ptxas lines for {source}")
+    for ln in lines:
+        print(f"  ptxas {source}: {ln}")
+
+
+def taps4_backward_check(dev):
+    """The 4-part head's backward (``upshead.ups_head_taps4_bwd``: h by the
+    kernel's h mode, then the products on bf16 operands, dh and dcat
+    rounded once to bf16, dw1 and dw2t f32 results) at the recipe shape,
+    24x128x128 (a head of 23: N2 = 207), against its f32-operand form: the
+    same function on f32 copies of the operands and of the same h, TF32
+    off.  dp0..dp3 by max|d|/max|ref| <= KERNEL_TOL (bf16 results), dw1,
+    db1, dw2t by rel-L2 <= WGRAD_TOL.  Prints the median CUDA-event ms of
+    both forms."""
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def act(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) / (
+            shape[1] * shape[2] * shape[3]) ** 0.5
+
+    b, h, w_ = B24
+    args = (*(act(b, h // s, w_ // s, c)
+              for s, c in ((1, 64), (2, 128), (4, 256), (8, 512))),
+            w(1920, 960, 1, 1)[:, :, 0, 0].t(), w(1920, 1, 1, 1).flatten(),
+            k4.build_dual_tap_kernel(w(3, 960, 3, 3), w(20, 960, 3, 3),
+                                     torch.float32),
+            act(b, h, w_, 207, scale=1e-2))
+    h32 = k4.ups_head_1x1_4(*args[:6]).float()
+
+    def f32_form():
+        return k4.ups_head_taps4_bwd(*(t.float() for t in args), h=h32)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, ref = k4.ups_head_taps4_bwd(*args), f32_form()
+        torch.cuda.synchronize()
+        for name, o, r in zip(("dp0", "dp1", "dp2", "dp3"), got[:4],
+                              ref[:4]):
+            if o.dtype != torch.bfloat16:
+                raise AssertionError(f"4-part backward {name}: dtype "
+                                     f"{o.dtype}")
+            _held("ups_head_taps4_bwd", name, o, r)
+        for name, o, r in zip(("dw1", "db1", "dw2t"), got[4:], ref[4:]):
+            l2 = rel_l2(o, r)
+            print(f"  ups_head_taps4_bwd [{name}] rel-L2={l2:.6g}")
+            if (o.dtype != torch.float32 or not torch.isfinite(o).all()
+                    or l2 > WGRAD_TOL):
+                raise AssertionError(f"4-part backward {name}: rel-L2 "
+                                     f"{l2:.4g} or dtype {o.dtype}")
+        del got, ref
+        ms = median_ms(lambda: k4.ups_head_taps4_bwd(*args), iters=3,
+                       reps=3)
+        f32_ms = median_ms(f32_form, iters=3, reps=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # its least time: the h recompute and the four products (dh, dW2t,
+    # dW1, dcat) at the bf16 peak, against the bytes of its operands and
+    # grads; the elementwise passes and the upsampling's vjp add none
+    m, ct = b * h * w_, args[4].shape[0]
+    n1, n2 = args[6].shape
+    ops = 2 * m * (3 * ct * n1 + 2 * n1 * n2)
+    grads = sum(a.nbytes for a in args[:4]) + 4 * sum(
+        a.numel() for a in args[4:7])      # dp0..dp3 bf16, f32 weight grads
+    t_ops, t_bytes = ops / BF16_PEAK, (moved_bytes(args) + grads) / HBM_RATE
+    print(f"  ups_head_taps4_bwd [24x128x128] bf16 {ms:.4f} ms (h mode "
+          f"included), f32-operand form {f32_ms:.4f} ms, bound "
+          f"{1e3 * max(t_ops, t_bytes):.4f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+          f"{ops / 1e12:.3f} TFLOP)")
+    return ms
+
+
+CFG_XI_HL = dataclasses.replace(CFG_XI, highres_large=True)
+# ExtraInpaintNet --inpaint_mask --highres_large served: the --highres_large
+# forward with the 4-part head's 216 instance and the co-24 shift add
+PER_FORWARD_XI_HL = {**PER_FORWARD_HL, "ups_head_taps4": 0,
+                     "upshead4_taps_n216": 1, "shifted_add_bias": 0,
+                     "shiftadd_co24": 1}
+
+
+def highres_extra_serve_phase(dev, card):
+    """ExtraInpaintNet ``--inpaint --inpaint_mask --highres_large`` served:
+    kernel against plain model at 2x128x256 (the inpainted frame), then
+    the 3-step rollout at 2x512x1024 bf16 with the launches per forward
+    (the 216 instance and the co-24 shift add 1 each), frames/s and peak
+    memory.  Returns the counted launches."""
+    slice_phase(dev, CFG_XI_HL,
+                "extrainpaintnet --inpaint_mask --highres_large slice")
+    return serve_phase(dev, card, CFG_XI_HL, PER_FORWARD_XI_HL,
+                       "extrainpaintnet --inpaint_mask --highres_large "
+                       "serve rollout")
+
+
+CFG_HL_TRAIN = dataclasses.replace(CFG_HL, train_coarse=True)
+CFG_R6_HL = dataclasses.replace(CFG_R6, highres_large=True)
+CFG_GAN_HL = dataclasses.replace(CFG_GAN, highres_large=True)
+# one --highres_large train step at 24x128x128 (b0): stage 4's branch 0 is
+# a third C = 64 chain call (4 blocks, one weight-grad launch), branches
+# 1-3 block by block; the 4-part head (208) in place of K4's taps and its
+# backward's h by the 4-part h mode in place of K4's; stage 4's out-0 fuse
+# is plain, so K3 stays 2
+PER_TRAIN_STEP_HL = {**PER_TRAIN_STEP, "bb_chain_fwd": 12,
+                     "bb_chain_bwd": 12, "bb_chain_wgrad": 3,
+                     "ups_head_taps": 0, "ups_head_1x1": 0,
+                     "ups_head_taps4": 1, "ups_head_1x1_4": 1}
+PER_R6_STEP_HL = {k: 3 * v for k, v in PER_TRAIN_STEP_HL.items()}
+PER_GAN_STEP_HL = {**PER_TRAIN_STEP_HL, "stem_fwd": 0, "stem_bwd": 0,
+                   "stem48_fwd": 1, "stem48_bwd": 1}
+# the forward kernels inside --remat's checkpoint regions (the stem and
+# layer1, the transitions, the stage modules): each launches again in the
+# region's recompute; the heads' kernels sit outside every region
+REMAT_RECOMPUTED = ("stem_fwd", "stem48_fwd", "bottleneck_fwd",
+                    "bb_chain_fwd", "bb_chain_fwd_c128", "bb_chain_fwd_c256",
+                    "fuse_out0", "conv3x3_bias_res_lrelu")
+
+
+def remat_counts(per_step):
+    """The launches of a --remat step: ``per_step``'s, the recomputed
+    regions' forward kernels twice."""
+    return {k: (2 * v if k in REMAT_RECOMPUTED else v)
+            for k, v in per_step.items()}
+
+
+def _setup(dev, cfg, use_kernels, dtype="bfloat16"):
+    """``cfg``'s model from seed 0, frozen VGG19 from seed 1, its
+    optimizers, and its train step: recipe 4's (a generator of seed 11 for
+    the VAE's eps and the sync_neg offsets), EXTRA's or INTER's."""
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    model = registry.build_model(cfg, device=dev, seed=0,
+                                 use_kernels=use_kernels)
+    state = state_lib.create_train_state(
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
+    if cfg.model == "InterGANNet":
+        step = inter_gan.make_train_step(
+            cfg, model, torch.Generator(dev).manual_seed(11))
+    elif cfg.syn_type == "extra":
+        step = extra.make_train_step(cfg, model)
+    else:
+        step = inter.make_train_step(cfg, model)
+    return step, state
+
+
+def _grads(dev, cfg, use_kernels, dtype, batch):
+    """One step's loss terms, the f32 gradient of every leaf and every
+    buffer after it (BatchNorm statistics, spectral-norm vectors)."""
+    step, state = _setup(dev, cfg, use_kernels, dtype)
+    _, losses = step(state, batch)
+    model = state.model
+    out = ({k: float(v) for k, v in losses.items()},
+           {n: p.grad.float() for n, p in model.named_parameters()},
+           {n: b.clone() for n, b in model.named_buffers()})
+    del step, state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _run(dev, cfg, batch, steps, use_kernels=True, warmup=2, count_at=2):
+    """``steps`` steps of ``cfg``'s model (the kernel one unless
+    ``use_kernels`` is False) on one fixed batch: loss_all of each, the
+    step times after the warm-ups (host clock around each synchronized
+    step), the launches of step ``count_at`` and the peak memory (GiB) of
+    the run."""
+    step, state = _setup(dev, cfg, use_kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        if i == count_at:
+            hw.reset_counters()
+        t0 = time.perf_counter()
+        state, ld = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        if i == count_at:
+            counts = dict(hw.launches)
+        losses.append(float(ld["loss_all"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del step, state
+    torch.cuda.empty_cache()
+    return losses, times, counts, peak
+
+
+def _losses_held(label, l_k, l_p):
+    for k in l_p:
+        rel = abs(l_k[k] - l_p[k]) / max(abs(l_p[k]), 1e-30)
+        print(f"  {k}: {l_k[k]:.6g} against {l_p[k]:.6g} rel {rel:.3g}")
+        if not math.isfinite(l_k[k]) or rel > LOSS_TOL:
+            raise AssertionError(f"{label}: {k} differs by {rel:.4g} > "
+                                 f"{LOSS_TOL}")
+
+
+def hl_grad_check(dev, cfg, label, batch):
+    """The gradient of a --highres_large forward, kernel model and plain
+    bf16 model, against the plain f32 model (TF32 off) by GRAD_RATIO and
+    GRAD_FLOOR: the whole gradient, each train-chain leaf (stages 2-4,
+    branch 0: 41) and each of the heads' 8 leaves (their grads from the
+    4-part head's explicit backward and the shift add's adjoint), of the
+    recipe's loss terms on the first predicted frame and its seg (L1, GDL,
+    VGG, SSIM, CE) computed on the outputs cast to f32.  The step's own
+    loss is no yardstick here: its SSIM runs in the prediction's dtype (the
+    blur and the variances, as the JAX package computes them), which in
+    bf16 is ill-conditioned where the init predicts far outside [-1, 1]
+    (|rgb| up to 4.7 at 24x128x128): forwards that differ by rounding give
+    rgb gradients 1.09 apart by rel-L2 there, 0.006 with the SSIM in f32.
+    Then one step of each model: every loss term of the kernel model within
+    LOSS_TOL of the plain bf16 model's."""
+    if cfg.syn_type == "extra":    # frames 1 and 2 in, frame 3 predicted
+        x = torch.cat([batch["frame1"], batch["frame2"]], -1)
+        seg = torch.cat([serve.seg_oh(batch["seg1"]),
+                         serve.seg_oh(batch["seg2"])], -1)
+        gt, ids = batch["frame3"], batch["seg3"]
+    else:
+        x, seg, gt, _ = inter.get_inter_inputs(batch)
+        ids = batch["seg2"]
+
+    def grads(use_kernels, dtype):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        model = registry.build_model(c, device=dev, seed=0,
+                                     use_kernels=use_kernels).coarse_model
+        vgg = init_vgg_frozen(c, seed=1, device=dev)
+        r, s = model(x, seg)[:2]
+        terms = rgb_bundle(c, r[..., :3].float(), gt, make_vgg_l1_loss(vgg),
+                           "coarse")
+        terms["ce"] = cross_entropy_loss(s[..., :20].float(), ids.long())
+        sum(v.mean() for v in terms.values()).backward()
+        out = {f"coarse_model.{n}": p.grad.float()
+               for n, p in model.named_parameters()}
+        del model, vgg
+        torch.cuda.empty_cache()
+        return out
+
+    g_ref = _f32(lambda: grads(False, "float32"))
+    g_k, g_p = grads(True, "bfloat16"), grads(False, "bfloat16")
+    print(f"{label} forward {tuple(x.shape[:3])}, gradient of its loss terms "
+          "on f32 outputs:")
+    chain = [n for n in g_ref if _train_chain_leaf(n, stages=(2, 3, 4))]
+    heads = [n for n in g_ref if n.startswith(("coarse_model.rgb_layer.",
+                                               "coarse_model.seg_layer."))]
+    if len(chain) != 41 or len(heads) != 8:
+        raise AssertionError(f"{label}: {len(chain)} train-chain leaves, "
+                             f"{len(heads)} head leaves")
+    fails = [_check_grad("whole gradient", _flat(g_k), _flat(g_p),
+                         _flat(g_ref))]
+    fails += [_check_grad(n, g_k[n], g_p[n], g_ref[n]) for n in chain + heads]
+    fails = [f for f in fails if f]
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
+    del g_ref, g_k, g_p
+    l_k, _, _ = _grads(dev, cfg, True, "bfloat16", batch)
+    l_p, _, _ = _grads(dev, cfg, False, "bfloat16", batch)
+    print(f"{label} step {tuple(batch['frame1'].shape[:3])}, loss terms "
+          "against the plain bf16 model's:")
+    _losses_held(label, l_k, l_p)
+
+
+def _hl_trajectories(dev, card, cfg, label, batch, per_step):
+    """20 steps of the kernel and the plain model of ``cfg`` on one fixed
+    batch: every loss finite; samples/s (median of 18 steps after 2
+    warm-ups), peak memory; the kernel model's launches of one counted
+    step against ``per_step``.  The loss is not required to fall, nor the
+    two models to end together: at the recipe's lr 1e-3 the seeded
+    --highres_large models' loss jumps by 1e2 to 1e8 after the first
+    Adamax step and stays chaotic (as the JAX package's does on the CPU,
+    tests/test_torch_port_highres_train.py), so two correct models part
+    after a few steps.  Returns the counted launches."""
+    b = batch["frame1"].shape[0]
+    for name, use_kernels in (("kernel", True), ("plain", False)):
+        losses, times, c, peak = _run(dev, cfg, batch, 20, use_kernels)
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label} {name}: a non-finite loss_all: "
+                                 f"{losses}")
+        print(f"{label} {name} model: loss_all {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g} over {len(losses)} steps; "
+              f"{b / statistics.median(times):.4f} samples/s (median of "
+              f"{len(times)} steps), peak memory {peak:.3f} GiB on {card}")
+        print(f"  loss_all: {' '.join(f'{v:.5g}' for v in losses)}")
+        if use_kernels:
+            counts = c
+    print(f"{label} step launches: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    _check_step_counts(label, counts, per_step)
+    return counts
+
+
+def highres_train_phase(dev, card):
+    """--highres_large training: recipe 1 (InterNet, b0) and recipe 6
+    (ExtraNet, three forwards) at 24x128x128 bf16 with f32 masters: the
+    gradient of a forward's loss terms on f32 outputs (whole, the 41
+    train-chain leaves, the heads' 8) of the kernel and the plain bf16
+    model against the plain f32 model, and one step's loss terms
+    (``hl_grad_check``); 20 steps per model:
+    finite losses, samples/s, peak memory, the launches of one counted
+    step.  Then recipe 4 (18x128x128) runs 3 steps, the third counted.
+    Returns the counted launches."""
+    out = []
+    batch = train_batch(dev, *B24, seed=4)
+    hl_grad_check(dev, CFG_HL_TRAIN, "recipe 1 --highres_large", batch)
+    out.append(_hl_trajectories(dev, card, CFG_HL_TRAIN,
+                                "recipe 1 --highres_large",
+                                train_batch(dev, *B24, seed=5),
+                                PER_TRAIN_STEP_HL))
+    hl_grad_check(dev, CFG_R6_HL, "recipe 6 --highres_large",
+                  r6_batch(dev, 4))
+    out.append(_hl_trajectories(dev, card, CFG_R6_HL,
+                                "recipe 6 --highres_large", r6_batch(dev, 5),
+                                PER_R6_STEP_HL))
+    losses, times, counts, peak = _run(dev, CFG_GAN_HL, gan_batch(dev, 5), 3)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"recipe 4 --highres_large: losses {losses}")
+    print(f"recipe 4 --highres_large kernel model: loss_all "
+          f"{' '.join(f'{v:.5g}' for v in losses)}; {B18[0] / times[0]:.4f} "
+          f"samples/s (step 3), peak memory {peak:.3f} GiB on {card}; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    _check_step_counts("recipe 4 --highres_large", counts, PER_GAN_STEP_HL)
+    out.append(counts)
+    return out
+
+
+REMAT_CASES = (("recipe 1 --highres_large", CFG_HL_TRAIN,
+                PER_TRAIN_STEP_HL),
+               ("recipe 4", CFG_GAN, PER_GAN_STEP),
+               ("recipe 6", CFG_R6, PER_R6_STEP))
+
+
+def remat_phase(dev, card):
+    """--remat: recipe 1 (InterNet --highres_large, 24x128x128), recipe 4
+    (18x128x128) and recipe 6 (24x128x128, three forwards), bf16: one
+    step's gradient under --remat and without it, each against the plain
+    f32 model without it (TF32 off), the --remat one within GRAD_RATIO x
+    the other's error + GRAD_FLOOR (the bf16 upsampling's backward adds by
+    atomics, so two runs of one step differ); its loss terms within
+    LOSS_TOL of the step's without it; every buffer after the step (the
+    BatchNorm statistics and spectral-norm vectors of recipe 4) within
+    1e-4 of max(1, max|ref|) of the step's without it (moved once, not
+    twice); then 8 steps with and without --remat: samples/s, peak memory
+    (lower under --remat on recipe 6, or the phase fails), the launches of
+    one counted step (the recomputed regions' forward kernels twice).
+    Returns the counted launches."""
+    out = []
+    for label, cfg, per_step in REMAT_CASES:
+        batch = (gan_batch(dev, 4) if cfg.model == "InterGANNet" else
+                 r6_batch(dev, 4) if cfg.syn_type == "extra" else
+                 train_batch(dev, *B24, seed=4))
+        remat = dataclasses.replace(cfg, remat=True)
+        _, g_ref, _ = _f32(lambda: _grads(dev, cfg, False, "float32", batch))
+        l_n, g_n, b_n = _grads(dev, cfg, True, "bfloat16", batch)
+        l_r, g_r, b_r = _grads(dev, remat, True, "bfloat16", batch)
+        print(f"{label} --remat step {tuple(batch['frame1'].shape[:3])}:")
+        fail = _check_grad("whole gradient (\"kernel\": --remat, "
+                           "\"plain bf16\": without)",
+                           _flat(g_r), _flat(g_n), _flat(g_ref))
+        if fail:
+            raise AssertionError(f"{label} --remat: {fail}")
+        _losses_held(f"{label} --remat", l_r, l_n)
+        worst = 0.0
+        for n, ref in b_n.items():
+            d = (b_r[n].float() - ref.float()).abs().max().item()
+            worst = max(worst, d / max(1.0, ref.float().abs().max().item()))
+        print(f"  {len(b_n)} buffers: worst max|d| {worst:.3g} of max(1, "
+              f"max|ref|) (bound 1e-4)")
+        if worst > 1e-4:
+            raise AssertionError(f"{label} --remat: a buffer moved "
+                                 f"otherwise ({worst:.4g})")
+        del g_ref, g_n, g_r
+        torch.cuda.empty_cache()
+        runs = {}
+        for name, c, per in (("without --remat", cfg, per_step),
+                             ("--remat", remat, remat_counts(per_step))):
+            losses, times, counts, peak = _run(dev, c, batch, 8)
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{label} {name}: losses {losses}")
+            rate = batch["frame1"].shape[0] / statistics.median(times)
+            print(f"{label} {name}: {rate:.4f} samples/s (median "
+                  f"of {len(times)} steps), peak memory {peak:.3f} GiB on "
+                  f"{card}; launches "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})}")
+            _check_step_counts(f"{label} {name}", counts, per)
+            runs[name] = peak
+            out.append(counts)
+        print(f"{label}: peak memory {runs['without --remat']:.3f} GiB "
+              f"without --remat, {runs['--remat']:.3f} with it")
+        if label == "recipe 6" and not (runs["--remat"]
+                                        < runs["without --remat"]):
+            raise AssertionError("recipe 6: the --remat peak is not below "
+                                 "the peak without it")
+    return out
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -3330,6 +3801,7 @@ def main():
     _build.library()
     print(f"nvcc build {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
+    ptxas_report()
     kernels = kernel_phase(dev)
     slice_phase(dev)
     counts = serve_phase(dev, card)
@@ -3337,6 +3809,7 @@ def main():
     batch27_kernel_phase(dev)
     k1_backward_check(dev)
     k4_backward_check(dev)
+    taps4_backward_check(dev)
     h_mode_backward_check(dev)
     train_counts, g_ref = train_phase(dev, card)
     runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
@@ -3347,6 +3820,8 @@ def main():
             gan_serve_phase(dev, card), gan_step_phase(dev, card),
             *gan_runner_phase(dev, card), *extra_serve_phase(dev, card),
             *r6_step_phase(dev, card), *r6_runner_phase(dev, card),
+            highres_extra_serve_phase(dev, card),
+            *highres_train_phase(dev, card), *remat_phase(dev, card),
             *runner_phase(dev, card)]
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],

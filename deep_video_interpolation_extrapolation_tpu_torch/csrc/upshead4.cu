@@ -7,8 +7,12 @@
 // F.interpolate's half-pixel, edge-clamped bilinear rule.
 //
 // Replaces ops/pallas_upshead.py:ups_head_taps4 (_pallas_impl4, pallas_call
-// at :1096).  Its backward (_bwd_taps4) is the vjp of the XLA reference, so
-// the port's backward is autograd of the plain version (ops/upshead.py).
+// at :1096) in both its modes: taps (yt, the forward of the heads) and h
+// (w2t=None: h itself, 1920 channels in bf16, written to device memory),
+// which the port's explicit backward (ops/upshead.py: ups_head_taps4_bwd)
+// recomputes h with.  The JAX backward (_bwd_taps4) is the vjp of the XLA
+// reference: its products run outside any Pallas kernel, and so do the
+// port's (library products on bf16 operands).
 // The TPU kernel's f8 column packing, lane rolls and per-phase blend tables
 // exist for the 128-lane VMEM layout and are dropped; its pre-dot (p2 and
 // p3 multiplied by their W1 rows at low resolution, then expanded) is not
@@ -54,6 +58,18 @@
 //   by one bulk copy, halves that traffic but ran slower: 8.68 ms against
 //   6.64 (8.61 and 6.47 on the card alone; one call).  It is not kept.
 // - No wgmma under a thread-dependent branch (C7518).
+// - The taps width is a template parameter, N2P in {208, 216}: 208 takes a
+//   head of 23 channels (rgb 3 + seg 20), 216 one of 24 (ExtraInpaintNet's
+//   rgb 3 + mask 1 + seg 20 under --inpaint_mask; dvie_ups_head_taps4_n216)
+//   by wgmma m64n216k16, 108 accumulator registers a thread and a 27 KB W2t
+//   chunk: 227,456 B of shared memory against 225,408 (the yt staging,
+//   82,944 B, in the concat's 122,880).  The 208 instance is the code it
+//   was.
+// - h mode (TAPS = false, dvie_ups_head_1x1_4): no W2t; each warpgroup's
+//   chunk of h goes through a staging buffer in the W2t ring's room to
+//   16-byte stores.  At the train recipe (24x128x128, M = 393,216): 1.45
+//   TFLOP, 1.47 ms of tensor cores against 0.45 ms of HBM (h 1.45 GiB).
+//   The two modes are two instantiations: no wgmma sits under a branch.
 //
 // Prediction (written before the first chip run of this design, NVIDIA
 // H100 at 700 W): 27.24 -> 6-10 ms at B=1 512x1024 without the cluster
@@ -70,17 +86,29 @@ using namespace hop;
 
 constexpr int TM = 64, NWG = 2, CT = NWG * 128, NT = CT + 128;
 constexpr int R_CONS = 232, R_PROD = 40;  // registers a thread after setmaxnreg
-constexpr int CT_MAX = 960, N2P = 208;
+constexpr int CT_MAX = 960;
 constexpr int UB1 = 64 * 64 * 2, NS1 = 6;     // a W1 unit; its ring slots (3 a warpgroup)
-constexpr int UB2 = 64 * N2P * 2, NS2 = NWG;  // a W2t chunk; one slot a warpgroup
+constexpr int NS2 = NWG;                      // the W2t ring: one slot a warpgroup
 constexpr int IW2 = 4;                        // a pair's W2t chunks follow its W1 unit pair IW2
 constexpr int O_R1 = TM * CT_MAX * 2;         // after the concat
 constexpr int O_R2 = O_R1 + NS1 * UB1;
-constexpr int O_BAR = O_R2 + NS2 * UB2;
-constexpr int SMEM = O_BAR + 2 * (NS1 + NS2) * 8;
-constexpr int O_YB = TM * N2P * 4;            // bf16 yt rows, after the f32 staging
-static_assert(SMEM <= 232448, "shared memory per block");
-static_assert(O_YB + TM * N2P * 2 <= O_R1, "yt staging fits the concat's room");
+constexpr int LDH = 64 + 8;                   // h mode staging pitch
+
+// The layout of an instance whose taps matrix is padded to N2P columns
+// (208: 9 x 23 = 207; 216: 9 x 24): a W2t chunk of 64 hidden rows (26 or
+// 27 KB), the barriers after the ring, the dynamic shared memory (225,408
+// or 227,456 B), the bf16 yt rows after the f32 staging.
+template <int N2P>
+struct Lay {
+  static constexpr int UB2 = 64 * N2P * 2;
+  static constexpr int O_BAR = O_R2 + NS2 * UB2;
+  static constexpr int SMEM = O_BAR + 2 * (NS1 + NS2) * 8;
+  static constexpr int O_YB = TM * N2P * 4;
+  static_assert(N2P == 208 || N2P == 216, "wgmma208 or wgmma216");
+  static_assert(SMEM <= 232448, "shared memory per block");
+  static_assert(O_YB + TM * N2P * 2 <= O_R1, "yt staging fits the concat's room");
+  static_assert(NWG * 64 * LDH * 2 <= NS2 * UB2, "h staging fits the W2t ring");
+};
 
 // ---- the bilinear taps (K4's) -------------------------------------------------
 
@@ -131,6 +159,9 @@ __device__ __forceinline__ void cat_part(unsigned char *row, const bf16 *__restr
     *reinterpret_cast<uint4 *>(row + (long)(gbase + g) * TM * 16) = ok ? bil8(src, q, g * 8) : zero;
 }
 
+// TAPS: yt (B,H,W,N2) of the taps product; else h (B,H,W,N2): the first N2
+// of the N1 (padded) hidden channels
+template <bool TAPS, int N2P>
 __global__ void __launch_bounds__(NT, 1)
 ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
                       const bf16 *__restrict__ p2, const bf16 *__restrict__ p3,
@@ -138,8 +169,9 @@ ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
                       const bf16 *__restrict__ w2u, bf16 *__restrict__ yt, int B, int H, int W,
                       int H1, int W1, int H2, int W2, int H3, int W3, int C0, int C1, int C2,
                       int C3, int N1, int N2) {
+  constexpr int UB2 = Lay<N2P>::UB2, NACC = N2P / 2;  // yacc: f32 a thread
   extern __shared__ __align__(1024) unsigned char smem[];
-  uint64_t *full1 = reinterpret_cast<uint64_t *>(smem + O_BAR), *empty1 = full1 + NS1;
+  uint64_t *full1 = reinterpret_cast<uint64_t *>(smem + Lay<N2P>::O_BAR), *empty1 = full1 + NS1;
   uint64_t *full2 = empty1 + NS1, *empty2 = full2 + NS2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long M = (long)B * H * W;
@@ -177,7 +209,7 @@ ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
             for (int j = 0; j < 2; ++j, ++q1)
               put(smem + O_R1, UB1, NS1, full1, empty1,
                   w1u + ((long)(p * NKU + u) * 2 + j) * (UB1 / 2), q1);
-            if (u == iw2)
+            if (TAPS && u == iw2)
               for (int j = 0; j < 2; ++j, ++q2)
                 put(smem + O_R2, UB2, NS2, full2, empty2, w2u + (long)(2 * p + j) * (UB2 / 2), q2);
           }
@@ -189,7 +221,8 @@ ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
     const int lrow = wq * 16 + (lane >> 2), ec = 2 * (lane & 3);  // accumulator row, column
     const bool rel = lane == 0;  // the lane that releases a slot for its warp
     int k1 = 0, k2 = 0;          // W1 units, W2t chunks this warpgroup has taken
-    float yacc[104];
+    bf16 *Hst = reinterpret_cast<bf16 *>(smem + O_R2) + wg * 64 * LDH;  // h mode staging
+    float yacc[TAPS ? NACC : 1];
     for (int t = blockIdx.x; t < nt; t += gridDim.x) {
       const long m0 = (long)t * TM;
       bar_sync(1, CT);  // the previous tile is done with the concat's room
@@ -215,8 +248,10 @@ ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
       fence_async_smem();  // the concat is read by wgmma
       bar_sync(1, CT);
 
+      if constexpr (TAPS) {
 #pragma unroll
-      for (int i = 0; i < 104; ++i) yacc[i] = 0.f;
+        for (int i = 0; i < NACC; ++i) yacc[i] = 0.f;
+      }
 #pragma unroll 1
       for (int p = 0; p < NP; ++p) {
         const int nc = 2 * p + wg;  // this warpgroup's hidden chunk
@@ -237,7 +272,7 @@ ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
           // the previous unit's product is done: its slot is free
           mbar_arrive_if(empty1 + (q + NS1 - 2) % NS1, u > 0 && rel);
           // the previous chunk's taps product is done: its W2t slot is free
-          mbar_arrive_if(empty2 + wg, u == 0 && p > 0 && rel);
+          mbar_arrive_if(empty2 + wg, TAPS && u == 0 && p > 0 && rel);
         }
         wg_wait<0>();
         fence_acc(hacc);
@@ -252,67 +287,94 @@ ups_head_taps4_kernel(const bf16 *__restrict__ p0, const bf16 *__restrict__ p1,
             hacc[4 * j + 2 * hh + 1] = lrelu_bf(rbf(rbf(hacc[4 * j + 2 * hh + 1]) + rbf(b.y)));
           }
         }
-        uint32_t ha[4][4];
-        acc_to_a(ha, hacc);
-        mbar_wait(&full2[wg], k2 & 1);  // slot wg: this warpgroup's W2t chunks
-        wg_fence();
+        if constexpr (TAPS) {  // yacc += h . W2t[chunk], left in flight
+          uint32_t ha[4][4];
+          acc_to_a(ha, hacc);
+          mbar_wait(&full2[wg], k2 & 1);  // slot wg: this warpgroup's W2t chunks
+          wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma208(yacc, ha[kk], desc(r2 + wg * UB2 + kk * 2 * N2P * 16, N2P * 16, 128));
-        wg_commit();
-        ++k2;
-      }
-      wg_wait<0>();
-      fence_acc(yacc);
-      mbar_arrive_if(empty2 + wg, rel);
-      bar_sync(1, CT);  // both warpgroups are done reading the concat
-      // yt = bf16(yacc of warpgroup 0 + yacc of warpgroup 1), f32 sum
-      float *Y32 = reinterpret_cast<float *>(smem);
-      bf16 *Yb = reinterpret_cast<bf16 *>(smem + O_YB);  // yt rows, as in device memory
-      if (wg == 1) {
-#pragma unroll
-        for (int j = 0; j < 26; ++j)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            *reinterpret_cast<float2 *>(Y32 + (lrow + 8 * hh) * N2P + 8 * j + ec) =
-                make_float2(yacc[4 * j + 2 * hh], yacc[4 * j + 2 * hh + 1]);
-      }
-      bar_sync(1, CT);
-      if (wg == 0) {
-#pragma unroll
-        for (int j = 0; j < 26; ++j)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int r = lrow + 8 * hh, c = 8 * j + ec;
-            const float2 o = *reinterpret_cast<const float2 *>(Y32 + r * N2P + c);
-            if (c < N2) Yb[r * N2 + c] = __float2bfloat16(yacc[4 * j + 2 * hh] + o.x);
-            if (c + 1 < N2) Yb[r * N2 + c + 1] = __float2bfloat16(yacc[4 * j + 2 * hh + 1] + o.y);
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t bd = desc(r2 + wg * UB2 + kk * 2 * N2P * 16, N2P * 16, 128);
+            if constexpr (N2P == 208)
+              wgmma208(yacc, ha[kk], bd);
+            else
+              wgmma216(yacc, ha[kk], bd);
           }
+          wg_commit();
+          ++k2;
+        } else {  // h mode: this warpgroup's chunk of the tile's 64 rows
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<__nv_bfloat162 *>(Hst + (lrow + 8 * hh) * LDH + 8 * j + ec) =
+                  __floats2bfloat162_rn(hacc[4 * j + 2 * hh], hacc[4 * j + 2 * hh + 1]);
+          bar_sync(2 + wg, 128);
+          if (nc * 64 < N2)  // a chunk of the zero padding past h's channels is not stored
+            for (int i = ct % 128; i < 64 * 8; i += 128) {
+              const int r = i / 8, v = (i % 8) * 8;
+              const long m = m0 + r;
+              if (m < M)
+                st16(yt + m * N2 + nc * 64 + v, *reinterpret_cast<const uint4 *>(Hst + r * LDH + v));
+            }
+          bar_sync(2 + wg, 128);
+        }
       }
-      bar_sync(1, CT);
-      const long rows = M - m0 < TM ? M - m0 : TM;
-      const long n = rows * N2, nv = n / 8;  // the span starts 16-byte aligned
-      for (long e = ct; e < nv; e += CT)
-        st16(yt + m0 * N2 + e * 8, reinterpret_cast<const uint4 *>(Yb)[e]);
-      for (long e = nv * 8 + ct; e < n; e += CT) yt[m0 * N2 + e] = Yb[e];
+      if constexpr (TAPS) {
+        wg_wait<0>();
+        fence_acc(yacc);
+        mbar_arrive_if(empty2 + wg, rel);
+        bar_sync(1, CT);  // both warpgroups are done reading the concat
+        // yt = bf16(yacc of warpgroup 0 + yacc of warpgroup 1), f32 sum
+        float *Y32 = reinterpret_cast<float *>(smem);
+        bf16 *Yb = reinterpret_cast<bf16 *>(smem + Lay<N2P>::O_YB);  // yt rows, as in device memory
+        if (wg == 1) {
+#pragma unroll
+          for (int j = 0; j < N2P / 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<float2 *>(Y32 + (lrow + 8 * hh) * N2P + 8 * j + ec) =
+                  make_float2(yacc[4 * j + 2 * hh], yacc[4 * j + 2 * hh + 1]);
+        }
+        bar_sync(1, CT);
+        if (wg == 0) {
+#pragma unroll
+          for (int j = 0; j < N2P / 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = lrow + 8 * hh, c = 8 * j + ec;
+              const float2 o = *reinterpret_cast<const float2 *>(Y32 + r * N2P + c);
+              if (c < N2) Yb[r * N2 + c] = __float2bfloat16(yacc[4 * j + 2 * hh] + o.x);
+              if (c + 1 < N2) Yb[r * N2 + c + 1] = __float2bfloat16(yacc[4 * j + 2 * hh + 1] + o.y);
+            }
+        }
+        bar_sync(1, CT);
+        const long rows = M - m0 < TM ? M - m0 : TM;
+        const long n = rows * N2, nv = n / 8;  // the span starts 16-byte aligned
+        for (long e = ct; e < nv; e += CT)
+          st16(yt + m0 * N2 + e * 8, reinterpret_cast<const uint4 *>(Yb)[e]);
+        for (long e = nv * 8 + ct; e < n; e += CT) yt[m0 * N2 + e] = Yb[e];
+      }
     }
   }
 }
 
+template <bool TAPS, int N2P>
 int launch(const void *p0, const void *p1, const void *p2, const void *p3, const void *w1u,
-           const void *b1, const void *w2u, void *yt, int B, int H, int W, int H1, int W1, int H2,
+           const void *b1, const void *w2u, void *out, int B, int H, int W, int H1, int W1, int H2,
            int W2, int H3, int W3, int C0, int C1, int C2, int C3, int N1, int N2,
            cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(ups_head_taps4_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  auto kern = ups_head_taps4_kernel<TAPS, N2P>;
+  constexpr int SMEM = Lay<N2P>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   int dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const long tiles = ((long)B * H * W + TM - 1) / TM;
-  ups_head_taps4_kernel<<<(unsigned)(tiles < sms ? tiles : sms), NT, SMEM, st>>>(
+  kern<<<(unsigned)(tiles < sms ? tiles : sms), NT, SMEM, st>>>(
       (const bf16 *)p0, (const bf16 *)p1, (const bf16 *)p2, (const bf16 *)p3, (const bf16 *)w1u,
-      (const float *)b1, (const bf16 *)w2u, (bf16 *)yt, B, H, W, H1, W1, H2, W2, H3, W3, C0, C1,
+      (const float *)b1, (const bf16 *)w2u, (bf16 *)out, B, H, W, H1, W1, H2, W2, H3, W3, C0, C1,
       C2, C3, N1, N2);
   return (int)cudaGetLastError();
 }
@@ -333,7 +395,31 @@ extern "C" int dvie_ups_head_taps4(const void *p0, const void *p1, const void *p
                                    const void *w2u, void *yt, int B, int H, int W, int H1, int W1,
                                    int H2, int W2, int H3, int W3, int C0, int C1, int C2, int C3,
                                    int N1, int N2, void *stream) {
-  if (N1 % 128 || N2 > dvie::N2P) return (int)cudaErrorInvalidValue;
-  return dvie::launch(p0, p1, p2, p3, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0, C1,
-                      C2, C3, N1, N2, (cudaStream_t)stream);
+  if (N1 % 128 || N2 > 208) return (int)cudaErrorInvalidValue;
+  return dvie::launch<true, 208>(p0, p1, p2, p3, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, H3, W3,
+                                 C0, C1, C2, C3, N1, N2, (cudaStream_t)stream);
+}
+
+// The taps mode at N2P = 216, a head of 24 channels (ExtraInpaintNet's rgb 3
+// + mask 1 with seg 20): the same arguments, w2u padded to 216 columns as
+// (N1/64, 8, 216, 8) chunks, 208 < N2 <= 216.
+extern "C" int dvie_ups_head_taps4_n216(const void *p0, const void *p1, const void *p2,
+                                        const void *p3, const void *w1u, const void *b1,
+                                        const void *w2u, void *yt, int B, int H, int W, int H1,
+                                        int W1, int H2, int W2, int H3, int W3, int C0, int C1,
+                                        int C2, int C3, int N1, int N2, void *stream) {
+  if (N1 % 128 || N2 > 216) return (int)cudaErrorInvalidValue;
+  return dvie::launch<true, 216>(p0, p1, p2, p3, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, H3, W3,
+                                 C0, C1, C2, C3, N1, N2, (cudaStream_t)stream);
+}
+
+// h mode: the same pyramid, w1u and b1 (N1 padded to a multiple of 128);
+// h (B,H,W,NH) bf16, the first NH hidden channels, NH % 64 == 0, NH <= N1.
+extern "C" int dvie_ups_head_1x1_4(const void *p0, const void *p1, const void *p2,
+                                   const void *p3, const void *w1u, const void *b1, void *h, int B,
+                                   int H, int W, int H1, int W1, int H2, int W2, int H3, int W3,
+                                   int C0, int C1, int C2, int C3, int N1, int NH, void *stream) {
+  if (N1 % 128 || NH % 64 || NH > N1) return (int)cudaErrorInvalidValue;
+  return dvie::launch<false, 208>(p0, p1, p2, p3, w1u, b1, nullptr, h, B, H, W, H1, W1, H2, W2, H3,
+                                  W3, C0, C1, C2, C3, N1, NH, (cudaStream_t)stream);
 }

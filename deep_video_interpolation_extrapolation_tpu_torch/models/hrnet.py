@@ -35,13 +35,21 @@ routes its Pallas kernels, by the JAX package's own shape predicates:
   ``highres_large`` the 4-part head ``ups_head_taps4`` (hrnet.py:796-823).
   The JAX package takes its 4-part kernel only where ``fits4`` holds; the
   Hopper kernel tiles over pixels and takes any pyramid size, so the port
-  always runs it, and a pyramid it cannot take raises.  Where the heads'
+  always runs it (its 208 or 216 instance, ExtraInpaintNet
+  ``--inpaint_mask`` the latter), and a pyramid it cannot take raises.
+  Its backward is explicit, K4's on four parts (``ups_head_taps4_bwd``: h
+  recomputed by the 4-part kernel's h mode).  Where the heads'
   taps do not fit the taps product (the JAX predicate ``rgb * 9 <= 128
   and seg * 9 <= 256``, hrnet.py:829-830: extrapolation at
   ``--num_pred_once`` >= 2, whose seg head is 40 wide) K4's h mode
   ``ups_head_1x1`` makes h, differentiable, and the two 3x3s run on its
   halves as ``F.conv2d`` (hrnet.py:897-900, where JAX runs them outside
   any Pallas kernel).
+
+With ``remat`` (``--remat``) the backbone checkpoints the regions the JAX
+``_HRBackbone.remat`` does (hrnet.py:618-625): the stem and layer1, each
+transition and each stage module, each recomputed in the backward
+(``core/remat.checkpoint``).
 
 Every other conv (the stem conv1 at W >= 256, the 1x1 and stride-2 fuse
 convs, the transitions' stride-2 convs, branches 1-3 off the chain route)
@@ -79,6 +87,9 @@ import torch
 import torch.nn as nn
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
+from deep_video_interpolation_extrapolation_tpu_torch.core.remat import (
+    checkpoint,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     BasicBlock,
     Bottleneck,
@@ -116,7 +127,6 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.trainchain import (
     stem_layer1,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
-    N2_MAX,
     build_dual_tap_kernel,
     ups_head_1x1,
     ups_head_1x1_plain,
@@ -134,7 +144,6 @@ STAGE4_CFG = dict(num_branches=4, num_blocks=(4, 4, 4, 4),
                   num_channels=(64, 128, 256, 512))
 N_FRAMES, RGB_DIM, SEG_DIM = 2, 3, 20   # interpolation: 2 frames in, 1 out
 FG_CLASS = 11    # classes from here on are foreground (hrnet.py:932)
-_QUEUE = "ROADMAP.md queue 1"
 
 
 def head_widths(syn_type: str = "inter", num_pred_once: int = 1,
@@ -389,31 +398,26 @@ class HRNet(nn.Module):
     ``syn_type="extra"`` is extrapolation: rgb_out (B,H,W,3p) and seg_out
     (B,H,W,20p) for ``num_pred_once`` = p frames, and with ``inpaint`` the
     mask (B,H,W,p) too: the sigmoid of the rgb head's mask channels under
-    ``inpaint_mask``, else ``extra_mask_from_seg``."""
+    ``inpaint_mask``, else ``extra_mask_from_seg``.
+
+    ``remat`` (``--remat``) checkpoints the backbone at stage granularity
+    while a gradient is being taken (``_backbone``)."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  use_kernels: bool = True, highres_large: bool = False,
                  in_ch: int = (3 + 4) * N_FRAMES, syn_type: str = "inter",
                  num_pred_once: int = 1, inpaint: bool = False,
-                 inpaint_mask: bool = False):
+                 inpaint_mask: bool = False, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.highres_large = highres_large
+        self.remat = remat
         self.syn_type = syn_type
         self.num_pred_once = num_pred_once
         self.inpaint, self.inpaint_mask = inpaint, inpaint_mask
         self.rgb_dim, self.seg_dim = head_widths(syn_type, num_pred_once,
                                                  inpaint_mask)
-        co = self.rgb_dim + self.seg_dim
-        if highres_large and taps_fit(self.rgb_dim, self.seg_dim) \
-                and 9 * co > N2_MAX:
-            # the JAX package takes its 4-part kernel here (hrnet.py:
-            # 796-799) at N2 = 216, which csrc/upshead4.cu does not take
-            raise NotImplementedError(
-                "--highres_large with a 24-wide head (--inpaint_mask) needs "
-                f"the 4-part head kernel at N2 = {9 * co}, which is not "
-                f"ported yet ({_QUEUE}, item 2)")
         k = use_kernels
         self.seg_encoder = SegEncoder()
         self.conv1 = Conv(in_ch, 64, 3)   # rgb + seg encoding (+ VAE feature)
@@ -469,15 +473,22 @@ class HRNet(nn.Module):
 
     def _backbone(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Stem + layer1 + stage2/3 (/4); returns the raw pyramid
-        (_HRBackbone with return_parts, hrnet.py:463-692)."""
+        (_HRBackbone with return_parts, hrnet.py:463-692).  Under ``remat``
+        with grad, each of stem + layer1, the transitions and the stage
+        modules is a checkpoint region (hrnet.py:618-625)."""
         packed = packed_route(x.shape[2])
-        x = self._stem_layer1(x)
-        xs = self.transition1([x], kernel=self.use_kernels and packed)
-        xs = self.stage2[0](xs)
-        xs = self.transition2(xs)
-        xs = self.stage3[0](xs)
+
+        def region(fn, arg):     # no region holds a buffer or a generator
+            return checkpoint(fn, arg) if self.remat else fn(arg)
+
+        x = region(self._stem_layer1, x)
+        xs = region(lambda t: self.transition1(
+            [t], kernel=self.use_kernels and packed), x)
+        xs = region(self.stage2[0], xs)
+        xs = region(self.transition2, xs)
+        xs = region(self.stage3[0], xs)
         if self.highres_large:
-            xs = self.stage4[0](self.transition3(xs))
+            xs = region(self.stage4[0], region(self.transition3, xs))
         return xs
 
     def _head_weights(self, dt: torch.dtype, taps: bool = True):
@@ -711,9 +722,9 @@ class VAEHRNet(HRNet):
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  use_kernels: bool = True, highres_large: bool = False,
-                 size: Tuple[int, int] = (128, 128)):
+                 size: Tuple[int, int] = (128, 128), remat: bool = False):
         super().__init__(dtype, use_kernels, highres_large,
-                         in_ch=VAE_FEAT + (3 + 4) * N_FRAMES)
+                         in_ch=VAE_FEAT + (3 + 4) * N_FRAMES, remat=remat)
         self.vae_encoder = _VAEEncoder()
         self.vae_decoder = _VAEDecoder()
         h, w = size

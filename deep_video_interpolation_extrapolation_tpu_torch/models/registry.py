@@ -44,8 +44,10 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
         raise NotImplementedError(
             f"coarse model {cfg.coarse_model!r} is not ported yet "
             f"({_QUEUE}, item 8)")
+    # --remat checkpoints the backbone at stage granularity inside the
+    # model (hrnet.HRNet._backbone); remat_internal is the runner side
     kw = dict(dtype=compute_dtype(cfg), use_kernels=use_kernels,
-              highres_large=cfg.highres_large)
+              highres_large=cfg.highres_large, remat=cfg.remat)
     if cfg.coarse_model == "VAEHRNet":
         if cfg.syn_type == "extra":
             raise NotImplementedError(
@@ -58,6 +60,20 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
                   inpaint=cfg.inpaint, inpaint_mask=cfg.inpaint_mask,
                   in_ch=(3 + 4) * n_frames)
     return HRNet(**kw)
+
+
+def remat_internal(cfg: Config) -> bool:
+    """``registry.remat_internal`` (:54-69): True when the built model
+    checkpoints itself at stage granularity under ``--remat`` (an HRNet or
+    VAEHRNet coarse under InterNet or ExtraNet, no inpainting), so the
+    train step must not wrap its forward in a whole-forward checkpoint on
+    top (it would recompute the forward a third time for no memory); every
+    other model (the refine and stage-3 composites, InpaintUnet) keeps the
+    step's outer checkpoint."""
+    return (bool(cfg.remat)
+            and cfg.coarse_model in ("HRNet", "VAEHRNet")
+            and cfg.model in ("InterNet", "ExtraNet")
+            and not getattr(cfg, "inpaint", False))
 
 
 def build_disc(cfg: Config, name: str) -> nn.Module:

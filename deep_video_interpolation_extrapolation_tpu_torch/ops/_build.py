@@ -69,6 +69,11 @@ SIGNATURES = {
     # p0, p1, p2, p3, w1u, b1, w2u, yt, B, H, W, H1, W1, H2, W2, H3, W3, C0,
     # C1, C2, C3, N1, N2, stream
     "dvie_ups_head_taps4": [P] * 8 + [I] * 15 + [P],
+    # the same at the taps width 216
+    "dvie_ups_head_taps4_n216": [P] * 8 + [I] * 15 + [P],
+    # p0, p1, p2, p3, w1u, b1, h, B, H, W, H1, W1, H2, W2, H3, W3, C0, C1,
+    # C2, C3, N1, NH, stream
+    "dvie_ups_head_1x1_4": [P] * 7 + [I] * 15 + [P],
     # q, k1, k2, v1, v2, out, flow, B, H, W, win_h, win_w, kv_same, stream
     "dvie_window_attn": [P] * 7 + [I] * 6 + [P],
     # yt, b2, out, B, H, W, stream (co = 23)

@@ -29,12 +29,20 @@ the compute dtype).
 
 ``ups_head_taps4`` is the 4-part head of ``--highres_large``
 (``pallas_upshead.ups_head_taps4``: p3 at 1/8 resolution added, 960 ->
-1920 -> 207), on its own kernel ``csrc/upshead4.cu``; its backward is
-autograd of the plain version recomputed (``ops/recompute.py``), as the
-JAX ``_bwd_taps4`` is ``jax.vjp`` of its reference.
+1920 -> 207 or 216), on its own kernel ``csrc/upshead4.cu``, with the same
+two taps instances (208: counter ``ups_head_taps4``; 216: ExtraInpaintNet
+``--inpaint_mask``, counter ``upshead4_taps_n216``) and an h mode
+(``ups_head_1x1_4``, the ``w2t=None`` mode of ``_pallas_impl4``, counter
+``ups_head_1x1_4``; its only caller is the backward).  It is a ``torch.autograd.Function`` whose backward
+is ``ups_head_taps4_bwd``, K4's explicit backward on four parts: h
+recomputed once through the h mode, the products on compute-dtype
+operands, as the JAX ``_bwd_taps4`` (``jax.vjp`` of
+``_ups_head_taps_ref4``) computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -51,10 +59,14 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
 
 NAME, NAME_1X1, NAME4 = "ups_head_taps", "ups_head_1x1", "ups_head_taps4"
 NAME_N216 = "upshead_taps_n216"   # the taps mode's 216-wide instance
+NAME4_N216 = "upshead4_taps_n216"  # the 4-part taps mode's 216-wide instance
+NAME4_1X1 = "ups_head_1x1_4"      # the 4-part head's h mode
 CT_MAX, N2_MAX = 448, 208   # the kernel's shared-memory tile widths
 # the taps mode's instances: padded width -> (C entry, launch counter)
 N2_WIDTHS = {208: ("dvie_ups_head_taps", NAME),
              216: ("dvie_ups_head_taps_n216", NAME_N216)}
+N2_WIDTHS4 = {208: ("dvie_ups_head_taps4", NAME4),
+              216: ("dvie_ups_head_taps4_n216", NAME4_N216)}
 CT4_MAX = 960               # upshead4.cu's concat width
 
 
@@ -83,6 +95,13 @@ def ups_head_taps_plain(p0, p1, p2, w1, b1, w2t):
     """``ups_head_1x1_plain`` then the taps product by w2t (N1, N2).
     Returns yt (B,H,W,N2)."""
     return _taps_plain(_h_plain((p0, p1, p2), w1, b1), w2t)
+
+
+def ups_head_1x1_4_plain(p0, p1, p2, p3, w1, b1):
+    """The 4-part head's h (``_ups_head_ref4``): as ``ups_head_1x1_plain``
+    with p3 (B,H/8,W/8,C3) and w1 (C0+C1+C2+C3, N1).  Returns h
+    (B,H,W,N1)."""
+    return _h_plain((p0, p1, p2, p3), w1, b1)
 
 
 def ups_head_taps4_plain(p0, p1, p2, p3, w1, b1, w2t):
@@ -230,35 +249,41 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b).float()
 
 
-def ups_head_taps_bwd(p0, p1, p2, w1, b1, w2t, g, h=None):
-    """``pallas_upshead._explicit_taps_bwd`` (:415-472): grads of yt
-    w.r.t. (p0, p1, p2, w1, b1, w2t) given its cotangent g; ``h``, the
-    hidden map, is recomputed through ``ups_head_1x1`` unless given.  The
-    products
-    take the JAX dtypes (:450-466): dh = g . W2t^T and dcat = dpre . W1^T
-    on compute-dtype operands, rounded once to it; dw2t = h^T . g and dw1 =
-    part^T . dpre (per pyramid part, no 448-ch concat is built) on
-    compute-dtype operands with f32 results; db1 summed in f32; dp1 and dp2
-    the upsampling's vjp of dcat's slices."""
-    dt = p0.dtype
-    c0, c1 = p0.shape[-1], p1.shape[-1]
-    size = tuple(p0.shape[1:3])
+def _taps_bwd(parts, w1, b1, w2t, g, h):
+    """The explicit backward of a head over ``parts`` (3 or 4) given its
+    cotangent g and the hidden map h: grads of (*parts, w1, b1, w2t).  The
+    products take the JAX dtypes (``_explicit_taps_bwd``, :450-466): dh =
+    g . W2t^T and dcat = dpre . W1^T on compute-dtype operands, rounded
+    once to it; dw2t = h^T . g and dw1 = part^T . dpre (per pyramid part,
+    no concat is built) on compute-dtype operands with f32 results; db1
+    summed in f32; the upsampled parts' grads the upsampling's vjp of
+    dcat's slices."""
+    dt = parts[0].dtype
+    size = tuple(parts[0].shape[1:3])
     g = g.to(dt)
-    if h is None:
-        h = ups_head_1x1(p0, p1, p2, w1, b1)             # recomputed once
     dw2t = _mm_f32(_flat(h).t(), _flat(g))
     dh = torch.matmul(g, w2t.to(dt).t())
     dpre = torch.where(h >= 0, dh, 0.2 * dh)
     dflat = _flat(dpre)
     db1 = dflat.sum(0, dtype=torch.float32)
-    up1 = interpolate_bilinear(p1, size=size)
-    up2 = interpolate_bilinear(p2, size=size)
-    dw1 = torch.cat([_mm_f32(_flat(part).t(), dflat)
-                     for part in (p0, up1, up2)], dim=0)
+    ups = [parts[0]] + [interpolate_bilinear(p, size=size) for p in parts[1:]]
+    dw1 = torch.cat([_mm_f32(_flat(u).t(), dflat) for u in ups], dim=0)
     dcat = torch.matmul(dpre, w1.to(dt).t())
-    dp1 = _upsample_vjp(dcat[..., c0:c0 + c1], p1.shape)
-    dp2 = _upsample_vjp(dcat[..., c0 + c1:], p2.shape)
-    return dcat[..., :c0], dp1, dp2, dw1, db1, dw2t
+    dps, c = [], 0
+    for p in parts:
+        dps.append(_upsample_vjp(dcat[..., c:c + p.shape[-1]], p.shape))
+        c += p.shape[-1]
+    return (*dps, dw1, db1, dw2t)
+
+
+def ups_head_taps_bwd(p0, p1, p2, w1, b1, w2t, g, h=None):
+    """``pallas_upshead._explicit_taps_bwd`` (:415-472): grads of yt
+    w.r.t. (p0, p1, p2, w1, b1, w2t) given its cotangent g (``_taps_bwd``);
+    ``h``, the hidden map, is recomputed through ``ups_head_1x1`` unless
+    given."""
+    if h is None:
+        h = ups_head_1x1(p0, p1, p2, w1, b1)             # recomputed once
+    return _taps_bwd((p0, p1, p2), w1, b1, w2t, g, h)
 
 
 def _upsample_vjp(g: torch.Tensor, shape) -> torch.Tensor:
@@ -334,34 +359,41 @@ def w1_units4(w1: torch.Tensor, dev) -> torch.Tensor:
             .permute(3, 0, 4, 1, 5, 2).contiguous())
 
 
-def taps4_weights(w1: torch.Tensor, b1: torch.Tensor, w2t: torch.Tensor,
-                  dev):
+def taps4_weights(w1: torch.Tensor, b1: torch.Tensor,
+                  w2t: Optional[torch.Tensor], dev):
     """The 4-part kernel's weights on ``dev``, built once per weight
     (``hw.derived``): W1 units (``w1_units4``), b1 in f32 and W2t chunks
-    (``w2_chunks``), all three zero-padded to the same N1p hidden channels
-    (a padded channel's h is lrelu(0 + 0) = 0 and adds nothing)."""
+    at the taps instance's width (``w2_chunks``; None for the h mode), all
+    three zero-padded to the same N1p hidden channels (a padded channel's h
+    is lrelu(0 + 0) = 0 and adds nothing)."""
     def build():
         n1 = w1.shape[1]
         n1p = -(-n1 // 128) * 128
         b1k = torch.zeros((n1p,), device=dev, dtype=torch.float32)
         b1k[:n1] = b1
-        w2p = torch.zeros((n1p, w2t.shape[1]), device=dev,
-                          dtype=torch.bfloat16)
-        w2p[:n1] = w2t
-        return w1_units4(w1, dev), b1k, w2_chunks(w2p, dev)
-    return hw.derived(f"{NAME4}:{dev}", (w1, b1, w2t), build)
+        w2u = None
+        if w2t is not None:
+            w2p = torch.zeros((n1p, w2t.shape[1]), device=dev,
+                              dtype=torch.bfloat16)
+            w2p[:n1] = w2t
+            w2u = w2_chunks(w2p, dev, taps_width(w2t.shape[1]))
+        return w1_units4(w1, dev), b1k, w2u
+    return hw.derived(f"{NAME4}:{dev}:{w2t is not None}", (w1, b1, w2t),
+                      build)
 
 
-def check_taps4(p0, p1, p2, p3, w1, b1, w2t) -> None:
+def check_taps4(p0, p1, p2, p3, w1, b1, w2t=None) -> None:
     """Raises ``ValueError`` for what the 4-part kernel cannot take: the
     batch differing between parts, a part's channels not a multiple of 8,
     the concat's not a multiple of 64 or over 960, weights that do not
-    match, N2 over 208, an empty image or too many pixels for the kernel's
-    32-bit tile count.  Any pyramid size is taken (``fits4`` or not)."""
+    match, N1 not a multiple of 64, N2 over 216 (``w2t`` None: the h
+    mode), an empty image or too many pixels for the kernel's 32-bit tile
+    count.  Any pyramid size is taken (``fits4`` or not)."""
     parts = (p0, p1, p2, p3)
     b = p0.shape[0]
     cs = [p.shape[-1] for p in parts]
-    n1, n2 = w2t.shape
+    n1, n2 = (w1.shape[1], 0) if w2t is None else w2t.shape
+    n2_max = max(N2_WIDTHS4)
     if (any(p.shape[0] != b for p in parts) or any(c % 8 for c in cs)
             or sum(cs) % 64 or sum(cs) > CT4_MAX):
         raise ValueError(f"pyramid {[tuple(p.shape) for p in parts]} not "
@@ -369,8 +401,8 @@ def check_taps4(p0, p1, p2, p3, w1, b1, w2t) -> None:
     if tuple(w1.shape) != (sum(cs), n1) or tuple(b1.shape) != (n1,):
         raise ValueError(f"w1 {tuple(w1.shape)} / b1 {tuple(b1.shape)} do "
                          f"not match C={sum(cs)}, N1={n1}")
-    if n1 % 64 or n2 > N2_MAX:
-        raise ValueError(f"kernel takes N1 % 64 == 0 and N2 <= {N2_MAX}, "
+    if n1 % 64 or n2 > n2_max:
+        raise ValueError(f"kernel takes N1 % 64 == 0 and N2 <= {n2_max}, "
                          f"got N1={n1} N2={n2}")
     if min(p.shape[1] * p.shape[2] for p in parts) < 1:
         raise ValueError("4-part kernel: an empty image in the pyramid "
@@ -380,31 +412,78 @@ def check_taps4(p0, p1, p2, p3, w1, b1, w2t) -> None:
                          f"ints: {tuple(p0.shape[:3])} is too many pixels")
 
 
-def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t):
+def _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t=None):
+    """One launch of ``csrc/upshead4.cu``: the taps mode at the instance
+    N2 takes (yt), or with ``w2t`` None the h mode (h, N1 channels)."""
     parts = (p0, p1, p2, p3)
     check_taps4(*parts, w1, b1, w2t)
     for i, p in enumerate(parts):
         hw.check_bf16(f"p{i}", p)
     dev = p0.device
     w1u, b1k, w2u = taps4_weights(w1, b1, w2t, dev)
-    n2 = w2t.shape[1]
-    yt = torch.empty((*p0.shape[:3], n2), device=dev, dtype=torch.bfloat16)
+    if w2t is None:
+        n, entry, counter = w1.shape[1], "dvie_ups_head_1x1_4", NAME4_1X1
+    else:
+        n = w2t.shape[1]
+        entry, counter = N2_WIDTHS4[taps_width(n)]
+    out = torch.empty((*p0.shape[:3], n), device=dev, dtype=torch.bfloat16)
     p = _build.ptr
     sizes = [d for q in parts[1:] for d in q.shape[1:3]]
-    err = _build.library().dvie_ups_head_taps4(
-        p(p0), p(p1), p(p2), p(p3), p(w1u), p(b1k), p(w2u), p(yt),
-        *p0.shape[:3], *sizes, *(q.shape[-1] for q in parts), b1k.shape[0],
-        n2, _build.stream(p0))
-    _build.check_launch(NAME4, err)
-    hw.launches[NAME4] += 1
-    return yt
+    ptrs = [p(q) for q in parts] + [p(w1u), p(b1k)]
+    ptrs += [p(w2u)] if w2u is not None else []
+    err = getattr(_build.library(), entry)(
+        *ptrs, p(out), *p0.shape[:3], *sizes, *(q.shape[-1] for q in parts),
+        b1k.shape[0], n, _build.stream(p0))
+    _build.check_launch(counter, err)
+    hw.launches[counter] += 1
+    return out
+
+
+def ups_head_1x1_4(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                   p3: torch.Tensor, w1: torch.Tensor,
+                   b1: torch.Tensor) -> torch.Tensor:
+    """The 4-part head's h on CUDA bf16 tensors through the kernel's h mode
+    (``_pallas_impl4(..., w2t=None)``); on CPU tensors through
+    ``ups_head_1x1_4_plain``.  The backward of ``ups_head_taps4`` calls it
+    for h alone, without grad."""
+    if hw.use_kernel(p0):
+        return _taps4_kernel(p0, p1, p2, p3, w1, b1)
+    return ups_head_1x1_4_plain(p0, p1, p2, p3, w1, b1)
+
+
+def ups_head_taps4_bwd(p0, p1, p2, p3, w1, b1, w2t, g, h=None):
+    """The 4-part head's backward: grads of yt w.r.t. (p0, p1, p2, p3, w1,
+    b1, w2t) given its cotangent g, as ``ups_head_taps_bwd`` on four parts
+    (``_taps_bwd``): h recomputed through ``ups_head_1x1_4`` (on the card
+    the kernel's h mode) unless given, the products on compute-dtype
+    operands (dh and dcat rounded once; dw1, per part, and dw2t f32
+    results; db1 summed in f32), dp1..dp3 the upsampling's vjp of dcat's
+    slices: the vjp of ``_ups_head_taps_ref4``."""
+    if h is None:
+        h = ups_head_1x1_4(p0, p1, p2, p3, w1, b1)       # recomputed once
+    return _taps_bwd((p0, p1, p2, p3), w1, b1, w2t, g, h)
+
+
+class _UpsHeadTaps4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p0, p1, p2, p3, w1, b1, w2t):
+        ctx.save_for_backward(p0, p1, p2, p3, w1, b1, w2t)
+        if hw.use_kernel(p0):
+            return _taps4_kernel(p0, p1, p2, p3, w1, b1, w2t)
+        return ups_head_taps4_plain(p0, p1, p2, p3, w1, b1, w2t)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        grads = ups_head_taps4_bwd(*saved, g.contiguous())
+        return tuple(d.to(s.dtype) for d, s in zip(grads, saved))
 
 
 def ups_head_taps4(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                    p3: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                    w2t: torch.Tensor) -> torch.Tensor:
-    """The 4-part head on CUDA bf16 tensors through ``csrc/upshead4.cu``; on
-    CPU tensors through ``ups_head_taps4_plain``.  Differentiable, by
-    autograd of the plain version recomputed."""
-    return recompute_vjp(_taps4_kernel, ups_head_taps4_plain, p0, p1, p2, p3,
-                         w1, b1, w2t)
+    """The 4-part head on CUDA bf16 tensors through ``csrc/upshead4.cu``
+    (its 208 or 216 instance by N2); on CPU tensors through
+    ``ups_head_taps4_plain``.  Same arguments as the plain version;
+    differentiable, by the explicit backward ``ups_head_taps4_bwd``."""
+    return _UpsHeadTaps4.apply(p0, p1, p2, p3, w1, b1, w2t)

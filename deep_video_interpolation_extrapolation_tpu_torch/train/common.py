@@ -10,6 +10,9 @@ import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.core.remat import (
+    checkpoint,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.core.seg import seg_oh
 from deep_video_interpolation_extrapolation_tpu_torch.losses.bundles import (
     rgb_loss_bundle,
@@ -44,13 +47,18 @@ def rgb_bundle(cfg: Config, pred: torch.Tensor, gt: torch.Tensor,
                ) -> "OrderedDict[str, torch.Tensor]":
     """The RGB loss bundle with the global weights, or with the
     ``refine_*`` weights for a refine or stage-3 output (losses.py:228-241,
-    common.py:50-65)."""
+    common.py:50-79).  Under ``--remat`` the whole bundle (L1, GDL, SSIM
+    and the frozen VGG19 tower) is one checkpoint region: its outputs are
+    scalars, so only (pred, gt) are kept across the backward."""
     if refine:
         w = (cfg.refine_l1_weight, cfg.refine_gdl_weight,
              cfg.refine_vgg_weight, cfg.refine_ssim_weight)
     else:
         w = (cfg.l1_weight, cfg.gdl_weight, cfg.vgg_weight, cfg.ssim_weight)
-    return rgb_loss_bundle(pred, gt, *w, vgg_fn=vgg_fn, prefix=prefix)
+
+    def bundle(p, g):
+        return rgb_loss_bundle(p, g, *w, vgg_fn=vgg_fn, prefix=prefix)
+    return checkpoint(bundle, pred, gt) if cfg.remat else bundle(pred, gt)
 
 
 def sum_losses(loss_dict: "OrderedDict[str, torch.Tensor]") -> torch.Tensor:

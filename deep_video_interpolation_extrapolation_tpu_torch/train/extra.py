@@ -13,7 +13,9 @@ An autoregressive rollout over ``num_pred_step`` steps, each predicting
   the inpainted frame on the region to inpaint (``* (1 - m)``) and the
   mask term (weight 80 with ``--inpaint_mask``, else 0), keyed
   ``..._inpaint_*``.  One backward of their sum, then the per-submodel
-  optimizer steps behind the train_* flags.
+  optimizer steps behind the train_* flags.  Under ``--remat`` ExtraNet's
+  HRNet checkpoints its stages, ExtraInpaintNet's each rollout forward is
+  one checkpoint region, and so is each loss bundle.
 - eval: the full rollout with the same feedback, without gradients:
   L1 / PSNR / SSIM / VGG cosine of each predicted frame on [0, 1] and the
   IoU (pixel accuracy) of its seg, keyed ``step_{i}_frame_{j}_coarse_*``
@@ -35,6 +37,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.core.remat import (
+    checkpoint,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.core.seg import (
     N_CLASSES,
     seg_oh,
@@ -49,6 +54,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
 from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
     make_vgg_cosine_score,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.models.registry import (
+    remat_internal,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     state as state_lib,
 )
@@ -60,7 +68,6 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     vgg_loss_from_frozen,
 )
 
-_QUEUE = "ROADMAP.md queue 1"
 MODELS = ("ExtraNet", "ExtraInpaintNet")
 
 
@@ -124,13 +131,10 @@ def make_train_step(cfg: Config, model: nn.Module) -> Callable:
     """``train_step(state, batch) -> (state, loss_dict)``; the loss dict's
     values are detached scalars."""
     _check(cfg)
-    if cfg.highres_large:
-        raise NotImplementedError(
-            f"--highres_large training is not ported yet ({_QUEUE}, item 2)")
-    if cfg.remat:
-        raise NotImplementedError(
-            f"--remat is not ported yet ({_QUEUE}, item 4)")
     p = cfg.num_pred_once
+    # --remat: ExtraNet's HRNet checkpoints its own stages; ExtraInpaintNet's
+    # each rollout forward is one checkpoint region (extra.py:89-101)
+    outer = cfg.remat and not remat_internal(cfg)
 
     def train_step(state: state_lib.TrainState, batch):
         for opt in state.optimizers.values():
@@ -144,8 +148,9 @@ def make_train_step(cfg: Config, model: nn.Module) -> Callable:
             start = 3 + ii * p
             gt_x = _frames(batch, "frame", start, p)
             x, seg = _window(cfg, batch, last_rgb, last_seg)
-            coarse_img, coarse_seg, mask, inpaint_img = _unpack(
-                cfg, model(x, seg))
+            out = (checkpoint(model, x, seg, modules=(model,)) if outer
+                   else model(x, seg))
+            coarse_img, coarse_seg, mask, inpaint_img = _unpack(cfg, out)
             for j in range(p):
                 prefix = f"step_{ii + 1}_frame_{j + 1}_coarse"
                 gt = gt_x[..., 3 * j:3 * j + 3]

@@ -9,7 +9,9 @@ for ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net``.
   ``refine_<scale>_*`` then ``stage3_<scale>_*`` by each stage's actual
   output count; one backward of their sum, then the per-submodel
   optimizer steps behind the train_* flags.  The step updates the
-  model's parameters and the optimizer state in place.
+  model's parameters and the optimizer state in place.  Under ``--remat``
+  the HRNet coarse checkpoints its stages, the refine composites' whole
+  forward is one checkpoint region, and so is each loss bundle.
 - eval: L1 / PSNR / SSIM on [0, 1], IoU (pixel accuracy) of the argmax
   ids and the VGG cosine (InterTrainer.py:612-633) of the coarse frame,
   then the same of the last refined and stage-3 frames (``refine_*``,
@@ -29,6 +31,9 @@ import torch
 import torch.nn as nn
 
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.core.remat import (
+    checkpoint,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
     cross_entropy_loss,
     iou_accuracy,
@@ -38,6 +43,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
     make_vgg_cosine_score,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.models.registry import (
+    remat_internal,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     interpolate_bilinear,
@@ -62,8 +70,9 @@ def _check(cfg: Config) -> None:
     if cfg.model != "InterNet" and cfg.model not in _REFINE:
         raise NotImplementedError(
             f"the {cfg.model} train and eval steps are not here "
-            "(InterGANNet: train/inter_gan.py) or not ported yet "
-            f"({_QUEUE}, items 6 and 8)")
+            "(InterGANNet: train/inter_gan.py; ExtraNet and "
+            "ExtraInpaintNet: train/extra.py) or not ported yet "
+            f"({_QUEUE}, item 8)")
 
 
 def _check_vae_combo(cfg: Config) -> None:
@@ -93,18 +102,16 @@ def make_train_step(cfg: Config, model: nn.Module) -> Callable:
     values are detached scalars."""
     _check_vae_combo(cfg)
     _check(cfg)
-    if cfg.highres_large:
-        raise NotImplementedError(
-            f"--highres_large training is not ported yet ({_QUEUE}, item 2)")
-    if cfg.remat:
-        raise NotImplementedError(
-            f"--remat is not ported yet ({_QUEUE}, item 4)")
+    # --remat: the HRNet-family coarse checkpoints its own stages; any other
+    # model's whole forward is one checkpoint region (inter.py:86-99)
+    outer = cfg.remat and not remat_internal(cfg)
 
     def train_step(state: state_lib.TrainState, batch):
         x, seg, gt_x, _ = get_inter_inputs(batch)
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        out = model(x, seg)
+        out = (checkpoint(model, x, seg, modules=(model,)) if outer
+               else model(x, seg))
         vgg_fn = vgg_loss_from_frozen(state.frozen_vgg)
         loss_dict = rgb_bundle(cfg, out[0], gt_x, vgg_fn, "coarse")
         if cfg.mode == "xs2xs":

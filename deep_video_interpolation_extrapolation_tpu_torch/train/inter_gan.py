@@ -17,9 +17,12 @@ norms' ``u`` (inter_gan.py:209-238).  The coarse RGB bundle is computed on
 The loss keys and their order are InterGANTrainer.py:395-436's.
 
 The VAE's eps and the sync_neg offsets come from the step's ``generator``
-(the JAX step's ``noise`` and ``sync_neg`` keys).  ``--track_gen`` and
-``--track_obj_loss`` (ROADMAP.md queue 1, item 5) and ``--remat`` (item 4)
-raise.
+(the JAX step's ``noise`` and ``sync_neg`` keys).  Under ``--remat`` the
+VAEHRNet checkpoints its stages and each family's passes are one
+checkpoint region (inter_gan.py:239-247), whose recompute sees the
+spectral-norm vectors, BatchNorm statistics and generator state of the
+first pass (``core/remat.checkpoint``).  ``--track_gen`` and
+``--track_obj_loss`` (ROADMAP.md queue 1, item 5) raise.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.core.remat import (
+    checkpoint,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.losses.gan import (
     gan_scalar_loss,
 )
@@ -64,12 +70,6 @@ def _check(cfg: Config) -> None:
         raise NotImplementedError(
             "--track_gen and --track_obj_loss are not ported yet "
             f"({_QUEUE}, item 5)")
-    if cfg.remat:
-        raise NotImplementedError(
-            f"--remat is not ported yet ({_QUEUE}, item 4)")
-    if cfg.highres_large:
-        raise NotImplementedError(
-            f"--highres_large training is not ported yet ({_QUEUE}, item 2)")
 
 
 def frozen_call(module: nn.Module, *args, **kwargs):
@@ -124,18 +124,26 @@ def make_train_step(cfg: Config, model: nn.Module,
         fake, fake_soft = coarse_rgb.detach(), soft.detach()
         for disc, stem, video, d_w, g_w in discs:
             extra = (x, seg) if video else ()
-            with torch.set_grad_enabled(needs_grad(disc)):
-                d_fake = disc(fake, fake_soft, *extra, bboxes=bboxes,
-                              train=True)
-                if stem == "video_det":
-                    d_sync = disc(gt_x, gt_seg, *extra, bboxes=bboxes,
-                                  sync_neg=True, train=True,
-                                  generator=generator)
-                    d_fake = (d_fake + d_sync) / 2
-                d_real = disc(gt_x, gt_seg, *extra, bboxes=bboxes,
-                              train=True)
-            g_fake = frozen_call(disc, coarse_rgb, soft, *extra,
-                                 bboxes=bboxes, train=True)
+
+            def family(coarse_rgb, soft, disc=disc, stem=stem, extra=extra):
+                with torch.set_grad_enabled(needs_grad(disc)):
+                    d_fake = disc(fake, fake_soft, *extra, bboxes=bboxes,
+                                  train=True)
+                    if stem == "video_det":
+                        d_sync = disc(gt_x, gt_seg, *extra, bboxes=bboxes,
+                                      sync_neg=True, train=True,
+                                      generator=generator)
+                        d_fake = (d_fake + d_sync) / 2
+                    d_real = disc(gt_x, gt_seg, *extra, bboxes=bboxes,
+                                  train=True)
+                g_fake = frozen_call(disc, coarse_rgb, soft, *extra,
+                                     bboxes=bboxes, train=True)
+                return d_fake, d_real, g_fake
+
+            d_fake, d_real, g_fake = (
+                checkpoint(family, coarse_rgb, soft, modules=(disc,),
+                           generators=(generator,)) if cfg.remat
+                else family(coarse_rgb, soft))
             ld[f"coarse_{stem}_loss"] = gan_scalar_loss(g_fake, True, g_w)
             ld[f"disc_{stem}_real_loss"] = gan_scalar_loss(d_real, True, d_w)
             ld[f"disc_{stem}_fake_loss"] = gan_scalar_loss(d_fake, False,

@@ -35,7 +35,7 @@ reach the card through pinned host memory and a side stream
 (``_device_prefetch``); losses stay on the card and are read back once per
 ``disp_interval``.  The paths the port does not have yet raise
 ``NotImplementedError`` with their ROADMAP item: TrackGen and the
-track-object loss (item 5), ``--remat`` (item 4) and sharding (item 9).
+track-object loss (item 5) and sharding (item 9).
 """
 
 from __future__ import annotations
@@ -99,9 +99,6 @@ def _writer(cfg, exp_dir: str):
 
 
 def _check_supported(cfg) -> None:
-    if cfg.remat:
-        raise NotImplementedError(
-            f"--remat is not ported yet ({_QUEUE}, item 4)")
     if cfg.num_data_shards > 1 or cfg.num_spatial_shards > 1:
         raise NotImplementedError(
             f"data and spatial sharding (DDP) are not ported yet ({_QUEUE}, "

@@ -366,18 +366,22 @@ def test_intergannet_forward_matches_jax(monkeypatch):
 
 
 def test_refusals():
-    """--track_gen, --track_obj_loss and --remat raise naming their
-    ROADMAP items; a video_det family without sync_neg support raises as
-    the JAX step does."""
+    """--track_gen and --track_obj_loss raise naming their ROADMAP item;
+    --remat is taken: the step builds and runs one step to finite losses
+    (tests/test_torch_port_gan_remat.py holds it to JAX); a video_det
+    family without sync_neg support raises as the JAX step does."""
     base = Config(**RECIPE4)
     with pytest.raises(NotImplementedError, match="item 5"):
         registry.build_model(dataclasses.replace(base, track_gen=True),
                              device="cpu")
     _, model, _ = _port()
-    for kw, match in ((dict(track_obj_loss=True), "item 5"),
-                      (dict(remat=True), "item 4")):
-        with pytest.raises(NotImplementedError, match=match):
-            inter_gan.make_train_step(dataclasses.replace(base, **kw), model)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        inter_gan.make_train_step(
+            dataclasses.replace(base, track_obj_loss=True), model)
+    cfg, model, state = _port({**RECIPE4, "remat": True})
+    state, ld = inter_gan.make_train_step(cfg, model, torch.Generator())(
+        state, {k: torch.from_numpy(v) for k, v in _batch(1).items()})
+    assert state.step == 1 and np.isfinite(float(ld["loss_all"]))
     bad = dataclasses.replace(base,
                               video_det_disc_model="VideoSNDiscriminator")
     with pytest.raises(ValueError, match="sync_neg"):

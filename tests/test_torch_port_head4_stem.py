@@ -124,13 +124,13 @@ def _pyramid(c=(64, 128, 256, 512), hw_=((16, 64), (8, 32), (4, 16), (2, 8)),
 @pytest.mark.parametrize("case,match", [
     ("channels", "4-part kernel"), ("part channels", "4-part kernel"),
     ("batch", "4-part kernel"), ("w1", "do not match"),
-    ("n1", "N1 % 64"), ("n2", "N2 <= 208"), ("empty", "empty image"),
+    ("n1", "N1 % 64"), ("n2", "N2 <= 216"), ("empty", "empty image"),
     ("cpu", "CUDA")])
 def test_taps4_kernel_raises_before_any_launch(no_launch, case, match):
     """What the 4-part kernel cannot take is a ``ValueError`` before the
     library is reached: a concat over 960 channels or not a multiple of 64,
     a part's channels not a multiple of 8, batches that differ, weights
-    that do not match, N1 not a multiple of 64, N2 over 208, an empty
+    that do not match, N1 not a multiple of 64, N2 over 216, an empty
     image; and on the CPU every operand (a CUDA tensor is required)."""
     parts = _pyramid()
     w1 = torch.zeros((960, 1920))
@@ -149,7 +149,7 @@ def test_taps4_kernel_raises_before_any_launch(no_launch, case, match):
         w1, b1, w2t = (torch.zeros((960, 1900)), torch.zeros((1900,)),
                        torch.zeros((1900, 207)))
     elif case == "n2":
-        w2t = torch.zeros((1920, 216))
+        w2t = torch.zeros((1920, 217))
     elif case == "empty":
         parts = _pyramid(hw_=((16, 64), (8, 32), (4, 16), (0, 8)))
     with pytest.raises(ValueError, match=match):

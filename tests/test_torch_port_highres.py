@@ -34,7 +34,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.tools.jax_weights import (
     from_jax_params,
     key_map,
 )
-from deep_video_interpolation_extrapolation_tpu_torch.train import inter
+from deep_video_interpolation_extrapolation_tpu_torch.train import (
+    inter,
+    state as state_lib,
+)
 
 torch.set_num_threads(1)
 
@@ -182,6 +185,32 @@ def test_highres_internet_matches_jax(jax_model, dtype, tol, agree):
     assert (s.argmax(-1) == js.argmax(-1)).mean() >= agree
 
 
+def test_highres_internet_matches_jax_at_64x128():
+    """The 4-branch InterNet at 1x64x128 (stage 4's branch 3 at 8x16, the
+    4-part head's x8 part at 8x16) against the JAX model on the same
+    weights, f32, with the 1x16x64 case's tolerances."""
+    h, w = 64, 128
+    rng = np.random.RandomState(3)
+    rgb = rng.uniform(-1, 1, (1, h, w, 6)).astype(np.float32)
+    seg = np.eye(20, dtype=np.float32)[
+        rng.randint(0, 20, (1, h, w, 2))].reshape(1, h, w, 40)
+    cfg = _cfg(input_h=h, input_w=w)
+    jm = jregistry.build_model(cfg)
+    variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(rgb),
+                        jnp.asarray(seg), train=False)
+    jr, js = (np.asarray(t, np.float32) for t in jm.apply(
+        variables, jnp.asarray(rgb), jnp.asarray(seg), train=False))
+    model = registry.build_model(cfg, device="cpu")
+    model.coarse_model.load_state_dict(from_jax_params(jax.tree_util.tree_map(
+        np.asarray, variables["params"]["coarse_model"])))
+    r, s = serve.forward(model, torch.from_numpy(rgb), torch.from_numpy(seg))
+    r, s = r.float().numpy(), s.float().numpy()
+    assert r.shape == (1, h, w, 3) and s.shape == (1, h, w, 20)
+    for out, ref in ((r, jr), (s, js)):
+        assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
+    assert (s.argmax(-1) == js.argmax(-1)).mean() >= 0.999
+
+
 def test_key_map_covers_every_jax_leaf_once(jax_model):
     """The JAX tools' port_hrnet stops at stage3, so the highres_large keys
     are held against the JAX parameter tree itself: every leaf is mapped
@@ -201,6 +230,16 @@ def test_key_map_covers_every_jax_leaf_once(jax_model):
 
 
 def test_highres_training_is_refused():
-    cfg = dataclasses.replace(_cfg(), train_coarse=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inter.make_train_step(cfg, registry.build_model(cfg, device="cpu"))
+    """No longer refused: the --highres_large INTER step builds and runs
+    one step to finite losses (tests/test_torch_port_highres_train.py holds
+    it to JAX)."""
+    cfg = dataclasses.replace(_cfg(), train_coarse=True, vgg_weight=0.0)
+    model = registry.build_model(cfg, device="cpu")
+    state = state_lib.create_train_state(cfg, model, None)
+    rng = np.random.RandomState(7)
+    batch = {f"frame{i}": torch.from_numpy(rng.uniform(
+        -1, 1, (1, H, W, 3)).astype(np.float32)) for i in (1, 2, 3)}
+    batch.update({f"seg{i}": torch.from_numpy(rng.randint(
+        0, 20, (1, H, W)).astype(np.uint8)) for i in (1, 2, 3)})
+    state, losses = inter.make_train_step(cfg, model)(state, batch)
+    assert state.step == 1 and np.isfinite(float(losses["loss_all"]))

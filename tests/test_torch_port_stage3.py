@@ -211,13 +211,19 @@ def test_final_output_picks_the_last_stage():
 @pytest.mark.parametrize("kw,exc", [
     (dict(coarse_model="VAEHRNet"), NotImplementedError),
     (dict(model="ExtraNet", syn_type="extra", highres_large=True,
-          inpaint=True, inpaint_mask=True), NotImplementedError),
+          inpaint=True, inpaint_mask=True), None),
     (dict(model="InterGANNet", coarse_model="VAEHRNet", track_gen=True),
      NotImplementedError),
     (dict(stage3_model="MSResAttnRefineV9"), KeyError)])
 def test_unported_stage3_routes_raise(kw, exc):
     """What stays unported raises naming its ROADMAP item; an unknown
-    stage-3 name raises KeyError, as the JAX registry does."""
+    stage-3 name raises KeyError, as the JAX registry does; the 4-part
+    head at N2 = 216 (``--highres_large`` with a 24-wide head) is ported
+    and builds."""
+    if exc is None:
+        model = registry.build_model(_cfg(**kw), device="cpu")
+        assert model.coarse_model.highres_large
+        return
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else None):
         registry.build_model(_cfg(**kw), device="cpu")

@@ -193,17 +193,34 @@ def test_eval_metrics_match_jax(jax_side):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(highres_large=True), NotImplementedError),
-    (dict(remat=True), NotImplementedError),
+    (dict(highres_large=True), None),
+    (dict(remat=True), None),
     (dict(model="InterRefineNet", coarse_model="VAEHRNet"), ValueError)])
 def test_unported_train_options_raise(kw, exc):
-    """--highres_large training and --remat raise naming their ROADMAP
-    item; a VAEHRNet coarse under a refine composite raises the JAX
-    package's ValueError (train/inter.py:53-65)."""
-    model = registry.build_model(_cfg(), device="cpu")
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
-                       else "VAEHRNet"):
-        inter.make_train_step(_cfg(**kw), model)
+    """--highres_large training and --remat are taken: the step builds and
+    runs one step to finite losses (tests/test_torch_port_highres_train.py
+    holds them to JAX); a VAEHRNet coarse under a refine composite raises
+    the JAX package's ValueError (train/inter.py:53-65)."""
+    if exc is not None:
+        model = registry.build_model(_cfg(), device="cpu")
+        with pytest.raises(exc, match="VAEHRNet"):
+            inter.make_train_step(_cfg(**kw), model)
+        return
+    cfg = _cfg(**kw, vgg_weight=0.0)
+    model = registry.build_model(cfg, device="cpu")
+    state = state_lib.create_train_state(cfg, model, None)
+    state, losses = inter.make_train_step(cfg, model)(state, _tb(_batch(6)))
+    assert state.step == 1 and np.isfinite(float(losses["loss_all"]))
+
+
+@pytest.mark.parametrize("model", ["ExtraNet", "ExtraInpaintNet", "VAE"])
+def test_other_models_name_their_step(model):
+    """The INTER step refuses the models whose steps live elsewhere, naming
+    where: the extrapolation models train through train/extra.py; the
+    video VAEs' step is not ported (ROADMAP item 8)."""
+    where = "train/extra.py" if model.startswith("Extra") else "item 8"
+    with pytest.raises(NotImplementedError, match=where):
+        inter.make_train_step(_cfg(model=model), None)
 
 
 @pytest.mark.parametrize("name", ["sgd"])
