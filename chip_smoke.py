@@ -44,7 +44,9 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
    input channels, VAEHRNet's 46 zero-padded, at recipe 4's 18x128x128
    and a ragged 2x36x120, forward, stored s1 and y, and backward on
    fixed-mask and random inputs, rows ``stem48_fwd``,
-   ``stem48_fwd_saved`` and ``stem48_bwd``) and K4's h mode
+   ``stem48_fwd_saved`` and ``stem48_bwd``; likewise at 64, VAEHRNet's 53
+   in extrapolation with three frames, at 24x128x128, rows ``stem64_*``)
+   and K4's h mode
    against their plain versions at the recipe shapes (bf16):
    outputs by max|d|/max|ref| <= 2e-2, weight and bias grads by rel-L2 <=
    1e-2; each backward on inputs whose lrelu masks are fixed per channel
@@ -201,16 +203,37 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     gradient of a forward's loss terms on f32 outputs (whole, the 41
     train-chain leaves of stages 2-4, the heads' 8) of the kernel and the
     plain bf16 model against the plain f32 model, each loss term of one
-    step within 2e-2, 20 steps per model (finite; samples/s, peak
+    step within 2e-2, 8 steps per model (finite; samples/s, peak
     memory), the launches of one counted step (the chain 12 / 12 / 3, the
     4-part head's taps and h mode 1 each); recipe 4 three steps, the third
     counted;
 27. ``--remat``: recipes 1 (``--highres_large``), 4 and 6: the step's
     gradient, loss terms and buffers (BatchNorm statistics, spectral-norm
-    vectors) against the same step without ``--remat``, 8 steps each way
+    vectors) against the same step without ``--remat``, 6 steps each way
     (samples/s, peak memory: lower under ``--remat`` on recipe 6 or the
     phase fails), the launches of one counted step (the regions' forward
-    kernels twice).
+    kernels twice);
+28. recipe 4's track-object variant (``--track_obj_loss --track_obj_w 8
+    --n_track 4``, the frozen ResNet101 from a seed) at 18x128x128: each
+    submodel's one-step gradient and the stem's leaves, kernel model and
+    plain bf16 model against the plain f32 model, each loss term within
+    2e-2 of the plain model's; 20 steps of the kernel model
+    (reconstruction terms falling, samples/s, peak memory, recipe 4's
+    launches);
+29. ``--track_gen`` with TrackGen and TrackGenV2: one step each under the
+    same gate, ``coarse_loc_diff_loss`` finite;
+30. each of the seven newer box discriminators as the video det family:
+    one family pass (fake, sync_neg, real, G) at 18x128x128, 10 tracks,
+    logits and grads finite;
+31-32. InterNet on a VAEHRNet (the plain VAE) served at 2x128x256 and
+    2x512x1024 with the served VAEHRNet's launches, trained at 24x128x128
+    under the gate, 8 steps; ExtraNet on a VAEHRNet, recipe 6's step
+    (three forwards) under the gate, 8 steps (samples/s, peak memory,
+    three times recipe 4's launches), and under ``--fix_init_frames``
+    (the 64-channel stem kernels, rows ``stem64_*`` of the train-kernel
+    phase) the gate and 6 finite steps;
+33. the track-object variant through the launcher: an epoch with its
+    checkpoint, then ``--r`` to a second epoch.
 
 The kernel phase also holds the 4-part head at 24x128x128
 (``ups_head_taps4_train``), its 216 instance (``upshead4_taps_n216``,
@@ -313,6 +336,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
     Runner,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
+    init_resnet_frozen,
     init_vgg_frozen,
     rgb_bundle,
 )
@@ -419,6 +443,12 @@ META = {
                          "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
     "stem48_bwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
                    "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:565"),
+    "stem64_fwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
+    "stem64_fwd_saved": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                         "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:530"),
+    "stem64_bwd": ("cuda", f"{PKG}/csrc/trainchain_stem.cu",
+                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:565"),
     "bottleneck_fwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_trainchain.py:400"),
     "bottleneck_bwd": ("cuda", f"{PKG}/csrc/trainchain_bottleneck.cu",
@@ -505,6 +535,7 @@ META = {
 COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "stem_fwd_saved": "stem_fwd",
            "stem48_fwd_saved": "stem48_fwd",
+           "stem64_fwd_saved": "stem64_fwd",
            "bottleneck_fwd_b0": "bottleneck_fwd",
            "bottleneck_bwd_b0": "bottleneck_bwd",
            "conv3x3_stem": "conv3x3_bias_res_lrelu",
@@ -558,7 +589,8 @@ SLICE_FLOW_AGREE = 0.90    # stage-3 flow maps, kernel vs plain model
 DEVICE_TIMED = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
                 "ups_head_taps", "upshead_taps_n216", "ups_head_taps4",
                 "upshead4_taps_n216", "ups_head_1x1_4",
-                "stem_fwd", "stem_bwd", "stem48_fwd", "stem48_bwd")
+                "stem_fwd", "stem_bwd", "stem48_fwd", "stem48_bwd",
+                "stem64_fwd", "stem64_bwd")
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core
 # peaks (at the 700 W limit)
 HBM_RATE, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
@@ -598,6 +630,7 @@ WEIGHT_ARGS = {
     "ups_head_1x1": slice(3, None), "dual_head": slice(1, None),
     "stem_fwd": slice(1, None), "stem48_fwd": slice(1, None),
     "stem_bwd": slice(4, None), "stem48_bwd": slice(4, None),
+    "stem64_fwd": slice(1, None), "stem64_bwd": slice(4, None),
     "bottleneck_fwd": slice(1, None),
     "bottleneck_bwd": slice(2, None), "bb_chain_fwd": slice(1, None),
     "bb_chain_bwd": slice(2, 3), "bb_chain_fwd_c128": slice(1, None),
@@ -606,7 +639,7 @@ WEIGHT_ARGS = {
 # a backward without saved activations recomputes its forward (3 passes);
 # the chain's and the stem's backwards read the kept ones (2: the input
 # grads, the weight grads)
-PASSES = {"stem_bwd": 2, "stem48_bwd": 2, "bottleneck_bwd": 3,
+PASSES = {"stem_bwd": 2, "stem48_bwd": 2, "stem64_bwd": 2, "bottleneck_bwd": 3,
           "bb_chain_bwd": 2,
           "bb_chain_bwd_c128": 2, "bb_chain_bwd_c256": 2}
 
@@ -1571,7 +1604,9 @@ def k4_backward_check(dev):
 def _stem_cases(dev, g, act, w, name, ci, b):
     """The stem kernels' cases of ``train_kernel_phase`` at ``ci`` input
     channels (14: HRNet's, the 16-channel kernels, rows ``stem_*``; 46:
-    VAEHRNet's, the 48-channel ones, rows ``stem48_*``) at b x 128 x 128
+    VAEHRNet's, the 48-channel ones, rows ``stem48_*``; 53: VAEHRNet's in
+    extrapolation with three frames, the 64-channel ones, rows
+    ``stem64_*``) at b x 128 x 128
     and a ragged 2x36x120 (tiles cut at both edges): the forward, and the
     s1 and y it stores for the backward held as its output is; the
     backward on what the kernel forward kept and the zero-padded x, as in
@@ -1685,6 +1720,7 @@ def train_kernel_phase(dev):
     cases = {
         **_stem_cases(dev, g, act, w, "stem", 14, B),
         **_stem_cases(dev, g, act, w, "stem48", 46, B18[0]),
+        **_stem_cases(dev, g, act, w, "stem64", 53, B),
         "bottleneck_fwd": [("block 0", *fwd, (x64, *blk0), "max",
                             "bottleneck_fwd_b0"),
                            ("block 1", *fwd, (x256, *blk1), "max",
@@ -2797,11 +2833,11 @@ GAN_SUBMODELS = ("coarse_model", "frame_disc_model", "frame_det_disc_model",
                  "video_disc_model", "video_det_disc_model")
 
 
-def gan_batch(dev, seed):
+def gan_batch(dev, seed, n_track=10):
     """A seeded synthetic batch of recipe 4: 18x128x128, 10 tracks."""
     b, h, w = B18
     return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
-        b, h, w, n_track=10, seed=seed).items()}
+        b, h, w, n_track=n_track, seed=seed).items()}
 
 
 def gan_setup(dev, use_kernels, dtype="bfloat16"):
@@ -3514,7 +3550,7 @@ PER_GAN_STEP_HL = {**PER_TRAIN_STEP_HL, "stem_fwd": 0, "stem_bwd": 0,
 # the forward kernels inside --remat's checkpoint regions (the stem and
 # layer1, the transitions, the stage modules): each launches again in the
 # region's recompute; the heads' kernels sit outside every region
-REMAT_RECOMPUTED = ("stem_fwd", "stem48_fwd", "bottleneck_fwd",
+REMAT_RECOMPUTED = ("stem_fwd", "stem48_fwd", "stem64_fwd", "bottleneck_fwd",
                     "bb_chain_fwd", "bb_chain_fwd_c128", "bb_chain_fwd_c256",
                     "fuse_out0", "conv3x3_bias_res_lrelu")
 
@@ -3527,21 +3563,21 @@ def remat_counts(per_step):
 
 
 def _setup(dev, cfg, use_kernels, dtype="bfloat16"):
-    """``cfg``'s model from seed 0, frozen VGG19 from seed 1, its
-    optimizers, and its train step: recipe 4's (a generator of seed 11 for
-    the VAE's eps and the sync_neg offsets), EXTRA's or INTER's."""
+    """``cfg``'s model from seed 0, frozen VGG19 from seed 1 (and under
+    ``--track_obj_loss`` the frozen ResNet101 from seed 2), its
+    optimizers, and its train step: recipe 4's, EXTRA's or INTER's, with a
+    generator of seed 11 for the VAE's eps and the sync_neg offsets."""
     cfg = dataclasses.replace(cfg, compute_dtype=dtype)
     model = registry.build_model(cfg, device=dev, seed=0,
                                  use_kernels=use_kernels)
+    resnet = (init_resnet_frozen(cfg, seed=2, device=dev)
+              if cfg.track_obj_loss else None)
     state = state_lib.create_train_state(
-        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
-    if cfg.model == "InterGANNet":
-        step = inter_gan.make_train_step(
-            cfg, model, torch.Generator(dev).manual_seed(11))
-    elif cfg.syn_type == "extra":
-        step = extra.make_train_step(cfg, model)
-    else:
-        step = inter.make_train_step(cfg, model)
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev), resnet)
+    lib = (inter_gan if cfg.model == "InterGANNet" else
+           extra if cfg.syn_type == "extra" else inter)
+    step = lib.make_train_step(cfg, model,
+                               torch.Generator(dev).manual_seed(11))
     return step, state
 
 
@@ -3559,12 +3595,13 @@ def _grads(dev, cfg, use_kernels, dtype, batch):
     return out
 
 
-def _run(dev, cfg, batch, steps, use_kernels=True, warmup=2, count_at=2):
+def _run(dev, cfg, batch, steps, use_kernels=True, warmup=2, count_at=2,
+         terms=("loss_all",)):
     """``steps`` steps of ``cfg``'s model (the kernel one unless
-    ``use_kernels`` is False) on one fixed batch: loss_all of each, the
-    step times after the warm-ups (host clock around each synchronized
-    step), the launches of step ``count_at`` and the peak memory (GiB) of
-    the run."""
+    ``use_kernels`` is False) on one fixed batch: the sum of ``terms``
+    (loss_all) of each, the step times after the warm-ups (host clock
+    around each synchronized step), the launches of step ``count_at`` and
+    the peak memory (GiB) of the run."""
     step, state = _setup(dev, cfg, use_kernels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3580,7 +3617,7 @@ def _run(dev, cfg, batch, steps, use_kernels=True, warmup=2, count_at=2):
             times.append(time.perf_counter() - t0)
         if i == count_at:
             counts = dict(hw.launches)
-        losses.append(float(ld["loss_all"]))
+        losses.append(sum(float(ld[k]) for k in terms))
     peak = torch.cuda.max_memory_allocated() / 2**30
     del step, state
     torch.cuda.empty_cache()
@@ -3661,9 +3698,9 @@ def hl_grad_check(dev, cfg, label, batch):
 
 
 def _hl_trajectories(dev, card, cfg, label, batch, per_step):
-    """20 steps of the kernel and the plain model of ``cfg`` on one fixed
-    batch: every loss finite; samples/s (median of 18 steps after 2
-    warm-ups), peak memory; the kernel model's launches of one counted
+    """HL_STEPS steps of the kernel and the plain model of ``cfg`` on one
+    fixed batch: every loss finite; samples/s (median after 2 warm-ups),
+    peak memory; the kernel model's launches of one counted
     step against ``per_step``.  The loss is not required to fall, nor the
     two models to end together: at the recipe's lr 1e-3 the seeded
     --highres_large models' loss jumps by 1e2 to 1e8 after the first
@@ -3672,7 +3709,8 @@ def _hl_trajectories(dev, card, cfg, label, batch, per_step):
     after a few steps.  Returns the counted launches."""
     b = batch["frame1"].shape[0]
     for name, use_kernels in (("kernel", True), ("plain", False)):
-        losses, times, c, peak = _run(dev, cfg, batch, 20, use_kernels)
+        losses, times, c, peak = _run(dev, cfg, batch, HL_STEPS,
+                                      use_kernels)
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"{label} {name}: a non-finite loss_all: "
                                  f"{losses}")
@@ -3695,7 +3733,7 @@ def highres_train_phase(dev, card):
     gradient of a forward's loss terms on f32 outputs (whole, the 41
     train-chain leaves, the heads' 8) of the kernel and the plain bf16
     model against the plain f32 model, and one step's loss terms
-    (``hl_grad_check``); 20 steps per model:
+    (``hl_grad_check``); HL_STEPS steps per model:
     finite losses, samples/s, peak memory, the launches of one counted
     step.  Then recipe 4 (18x128x128) runs 3 steps, the third counted.
     Returns the counted launches."""
@@ -3723,6 +3761,9 @@ def highres_train_phase(dev, card):
     return out
 
 
+# steps of the --highres_large trajectories and of each --remat run, short
+# enough to leave the whole script's time for phases 28-33
+HL_STEPS, REMAT_STEPS = 8, 6
 REMAT_CASES = (("recipe 1 --highres_large", CFG_HL_TRAIN,
                 PER_TRAIN_STEP_HL),
                ("recipe 4", CFG_GAN, PER_GAN_STEP),
@@ -3739,7 +3780,7 @@ def remat_phase(dev, card):
     LOSS_TOL of the step's without it; every buffer after the step (the
     BatchNorm statistics and spectral-norm vectors of recipe 4) within
     1e-4 of max(1, max|ref|) of the step's without it (moved once, not
-    twice); then 8 steps with and without --remat: samples/s, peak memory
+    twice); then 6 steps with and without --remat: samples/s, peak memory
     (lower under --remat on recipe 6, or the phase fails), the launches of
     one counted step (the recomputed regions' forward kernels twice).
     Returns the counted launches."""
@@ -3773,7 +3814,7 @@ def remat_phase(dev, card):
         runs = {}
         for name, c, per in (("without --remat", cfg, per_step),
                              ("--remat", remat, remat_counts(per_step))):
-            losses, times, counts, peak = _run(dev, c, batch, 8)
+            losses, times, counts, peak = _run(dev, c, batch, REMAT_STEPS)
             if not all(map(math.isfinite, losses)):
                 raise AssertionError(f"{label} {name}: losses {losses}")
             rate = batch["frame1"].shape[0] / statistics.median(times)
@@ -3791,6 +3832,261 @@ def remat_phase(dev, card):
             raise AssertionError("recipe 6: the --remat peak is not below "
                                  "the peak without it")
     return out
+
+
+# ---- the rest of recipe 4 and the plain VAE (phases 28-33) -----------------
+
+# the track-object variant of recipe 4 (RECIPES.md:60-61)
+CFG_TOBJ = parse_args(f"{GAN_GLOBAL} --track_obj_loss --track_obj_w 8 "
+                      f"--n_track 4 --split train {GAN_TRAIN}".split())
+DET_REST = ("VideoVecSNDetDiscriminator", "VideoPoolSNDetDiscriminator",
+            "VideoGlobalZeroSNDetDiscriminator",
+            "VideoGlobalMaskSNDetDiscriminator",
+            "VideoGlobalCoordSNDetDiscriminator",
+            "VideoGlobalResSNDetDiscriminator",
+            "VideoLocalPatchSNDetDiscriminator")
+# the plain VAE: a VAEHRNet under InterNet (recipe 1's batch) and under
+# ExtraNet (recipe 6's three forwards)
+CFG_PV = dataclasses.replace(CFG, coarse_model="VAEHRNet", train_coarse=True,
+                             input_h=128, input_w=128)
+CFG_R6_PV = dataclasses.replace(CFG_R6, coarse_model="VAEHRNet")
+PER_R6_PV_STEP = {k: 3 * v for k, v in PER_GAN_STEP.items()}
+# under --fix_init_frames the VAEHRNet's stem takes 53 channels, padded to 64
+PER_R6_PV_FIX_STEP = {**PER_R6_PV_STEP, "stem48_fwd": 0, "stem48_bwd": 0,
+                      "stem64_fwd": 3, "stem64_bwd": 3}
+
+
+def _gate(label, cfg, batch):
+    """One step of ``cfg``'s kernel model and plain bf16 model against the
+    plain f32 model (TF32 off): each submodel's gradient by GRAD_RATIO and
+    GRAD_FLOOR, and the stem's four leaves (its 48-channel kernels); each
+    loss term of the kernel model within LOSS_TOL of the plain bf16
+    model's.  Returns the kernel model's loss terms."""
+    _, g_ref, _ = _f32(lambda: _grads(dev_of(batch), cfg, False, "float32",
+                                      batch))
+    l_k, g_k, _ = _grads(dev_of(batch), cfg, True, "bfloat16", batch)
+    l_p, g_p, _ = _grads(dev_of(batch), cfg, False, "bfloat16", batch)
+    print(f"{label} step {tuple(batch['frame1'].shape[:3])}:")
+    fails = []
+    for sub in sorted({n.split(".")[0] for n in g_ref}):
+        names = [n for n in g_ref if n.startswith(sub + ".")]
+        cat = [torch.cat([g[n].flatten() for n in names])
+               for g in (g_k, g_p, g_ref)]
+        fails.append(_check_grad(f"{sub} gradient ({cat[2].numel()} "
+                                 "values)", *cat))
+    for n in ("conv1.weight", "conv1.bias", "conv2.weight", "conv2.bias"):
+        n = f"coarse_model.{n}"
+        fails.append(_check_grad(n, g_k[n], g_p[n], g_ref[n]))
+    fails = [f for f in fails if f]
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
+    _losses_held(label, l_k, l_p)
+    del g_ref, g_k, g_p
+    torch.cuda.empty_cache()
+    return l_k
+
+
+def dev_of(batch):
+    return batch["frame1"].device
+
+
+def _timed_steps(label, card, cfg, batch, steps, per_step, terms=GAN_RECON,
+                 falling=True):
+    """``steps`` steps of the kernel model: the sum of ``terms`` finite and
+    (``falling``) falling, samples/s (median after 2 warm-ups), peak
+    memory, and the launches of one counted step against ``per_step``."""
+    losses, times, counts, peak = _run(dev_of(batch), cfg, batch, steps,
+                                       terms=terms)
+    if not all(map(math.isfinite, losses)) or (
+            falling and not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: {'+'.join(terms)} {losses}")
+    rate = batch["frame1"].shape[0] / statistics.median(times)
+    print(f"{label} kernel model: {' + '.join(terms)} {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g} over {steps} steps; {rate:.4f} samples/s "
+          f"(median of {len(times)} steps), peak memory {peak:.3f} GiB on "
+          f"{card}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    _check_step_counts(label, counts, per_step)
+    return counts
+
+
+def track_obj_phase(dev, card):
+    """Phase 28: recipe 4 with ``--track_obj_loss --track_obj_w 8 --n_track
+    4`` at 18x128x128 bf16 (the frozen ResNet101 on 216 64x128 patches a
+    step): the step's gradient gate and loss terms (``_gate``), then 20
+    steps of the kernel model (the reconstruction terms falling, samples/s,
+    peak memory, recipe 4's launches).  Returns the counted launches."""
+    batch = gan_batch(dev, 4, n_track=4)
+    l_k = _gate("recipe 4 --track_obj_loss", CFG_TOBJ, batch)
+    if not l_k["coarse_track_obj_loss"] > 0:
+        raise AssertionError(f"--track_obj_loss: {l_k}")
+    return _timed_steps("recipe 4 --track_obj_loss", card, CFG_TOBJ,
+                        gan_batch(dev, 5, n_track=4), 20, PER_GAN_STEP)
+
+
+def track_gen_phase(dev, card):
+    """Phase 29: recipe 4 with ``--track_gen`` and ``--track_gen_model``
+    TrackGen and TrackGenV2 at 18x128x128 bf16, one step each under the
+    gradient gate, ``coarse_loc_diff_loss`` finite (0 for TrackGen)."""
+    batch = gan_batch(dev, 4)
+    for name in ("TrackGen", "TrackGenV2"):
+        cfg = dataclasses.replace(CFG_GAN, track_gen=True,
+                                  track_gen_model=name)
+        l_k = _gate(f"recipe 4 --track_gen {name}", cfg, batch)
+        loc = l_k["coarse_loc_diff_loss"]
+        if not math.isfinite(loc) or (name == "TrackGen") != (loc == 0):
+            raise AssertionError(f"{name}: coarse_loc_diff_loss {loc}")
+
+
+def det_disc_phase(dev, card):
+    """Phase 30: each of the seven newer box discriminators as recipe 4's
+    video det family at 18x128x128 bf16, 10 tracks: one family pass (the
+    detached fake, the sync_neg pass, the real, the G pass on frozen
+    weights, train mode), every logit finite, and the hinge losses'
+    gradients finite in every weight and in the fake; the passes' time."""
+    cfg = dataclasses.replace(CFG_GAN, compute_dtype="bfloat16")
+    batch = gan_batch(dev, 4)
+    x, seg, gt_x, gt_seg = inter.get_inter_inputs(batch)
+    g = torch.Generator(dev).manual_seed(13)
+    fake = (gt_x + 0.2 * torch.randn(gt_x.shape, generator=g, device=dev)
+            ).clamp(-1, 1).to(torch.bfloat16).requires_grad_()
+    soft = torch.softmax(torch.randn(gt_seg.shape, generator=g, device=dev),
+                         -1)
+    from deep_video_interpolation_extrapolation_tpu_torch.losses.gan import (
+        gan_scalar_loss,
+    )
+    for name in DET_REST:
+        disc = registry.init_weights(registry.build_disc(cfg, name), 0).to(dev)
+        kw = {"gt_x": gt_x} if disc.wants_gt else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_fake = disc(fake.detach(), soft, x, seg, bboxes=batch["bboxes"],
+                      train=True, **kw)
+        d_sync = disc(gt_x, gt_seg, x, seg, bboxes=batch["bboxes"],
+                      sync_neg=True, train=True, generator=g, **kw)
+        d_real = disc(gt_x, gt_seg, x, seg, bboxes=batch["bboxes"],
+                      train=True, **kw)
+        g_fake = inter_gan.frozen_call(disc, fake, soft, x, seg,
+                                       bboxes=batch["bboxes"], train=True,
+                                       **kw)
+        loss = (gan_scalar_loss(g_fake, True, 0.4)
+                + gan_scalar_loss((d_fake + d_sync) / 2, False, 0.01)
+                + gan_scalar_loss(d_real, True, 0.01))
+        loss.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        logits = torch.stack([d_fake, d_sync, d_real, g_fake]).float()
+        grads = [p.grad for p in disc.parameters()]
+        ok = (torch.isfinite(logits).all() and torch.isfinite(fake.grad).all()
+              and all(gr is not None and torch.isfinite(gr).all()
+                      for gr in grads))
+        print(f"{name}: family pass {B18[0]}x{B18[1]}x{B18[2]}, 10 tracks: "
+              f"logits {tuple(logits.shape)} in [{logits.min():.4g}, "
+              f"{logits.max():.4g}], |d fake| {fake.grad.abs().max():.4g}, "
+              f"{len(grads)} weight grads finite: {bool(ok)}; "
+              f"{1e3 * dt:.2f} ms on {card}")
+        if not ok:
+            raise AssertionError(f"{name}: non-finite logits or grads")
+        fake.grad = None
+        del disc
+    torch.cuda.empty_cache()
+
+
+def plain_vae_phase(dev, card):
+    """Phases 31-32: the plain VAE.  InterNet on a VAEHRNet served through
+    the eval adapter (z from a seeded generator) as phase 15: kernel
+    against plain model at 2x128x256, the 3-step 2x512x1024 rollout with
+    the served VAEHRNet's launches; trained at 24x128x128 under the
+    gradient gate, 8 steps (the reconstruction terms falling, samples/s,
+    recipe 4's launches).  ExtraNet on a VAEHRNet: recipe 6's step at
+    24x128x128 (three forwards, a KL term each) under the gradient gate, 8
+    steps (samples/s, peak memory, three times recipe 4's launches); then
+    under ``--fix_init_frames`` (the stem at 53 channels: the 64-channel
+    stem kernels, held to their plain version in the train-kernel phase)
+    the gate and 6 steps, finite.  Returns the counted launches."""
+    def adapter(use_kernels):
+        model = registry.build_model(CFG_PV, device=dev, seed=0,
+                                     use_kernels=use_kernels)
+        return inter_gan.GanEvalAdapter(
+            model.coarse_model, torch.Generator(dev).manual_seed(5))
+    slice_phase(dev, CFG_PV, "plain VAE InterNet slice",
+                models=(adapter(True), adapter(False)))
+    out = [serve_phase(dev, card, CFG_PV,
+                       label="plain VAE InterNet serve rollout",
+                       model=adapter(True))]
+    recon = ("coarse_l1_loss", "coarse_gdl_loss", "coarse_ssim_loss")
+    batch = train_batch(dev, *B24, seed=4)
+    l_k = _gate("plain VAE InterNet", CFG_PV, batch)
+    if "coarse_kld_loss" not in l_k:
+        raise AssertionError(f"plain VAE InterNet: {list(l_k)}")
+    out.append(_timed_steps("plain VAE InterNet", card, CFG_PV,
+                            train_batch(dev, *B24, seed=5), 8, PER_GAN_STEP,
+                            recon))
+    l_k = _gate("plain VAE ExtraNet", CFG_R6_PV, r6_batch(dev, 4))
+    if not all(f"step_{i}_coarse_kld_loss" in l_k for i in (1, 2, 3)):
+        raise AssertionError(f"plain VAE ExtraNet: {list(l_k)}")
+    l1 = tuple(f"step_{i}_frame_1_coarse_l1_loss" for i in (1, 2, 3))
+    out.append(_timed_steps("plain VAE ExtraNet", card, CFG_R6_PV,
+                            r6_batch(dev, 5), 8, PER_R6_PV_STEP, l1))
+    # its seeded model's loss jumps by up to 1e3 after the first Adamax step
+    # and wanders (251 -> 159260 -> 131 -> 266 over 6 steps on the card),
+    # as the recipe-6 and --highres_large ones do: the gate holds it, the
+    # steps are held finite only
+    fix = dataclasses.replace(CFG_R6_PV, fix_init_frames=True)
+    _gate("plain VAE ExtraNet --fix_init_frames", fix, r6_batch(dev, 4))
+    out.append(_timed_steps("plain VAE ExtraNet --fix_init_frames", card, fix,
+                            r6_batch(dev, 5), 6, PER_R6_PV_FIX_STEP, l1,
+                            falling=False))
+    return out
+
+
+def track_obj_runner_phase(dev, card):
+    """Phase 33: the track-object variant through the launcher on synthetic
+    data: one epoch of 8 steps and its checkpoint, then ``--r --checkepoch
+    1`` to a second epoch from it (losses finite, recipe 4's launches each
+    step).  Returns the counted launches of each run."""
+    tmp = tempfile.mkdtemp(prefix="dvie_tobj_runner_")
+    runs = []
+    args = (f"{GAN_GLOBAL} --track_obj_loss --track_obj_w 8 --n_track 4 "
+            "--split train")
+    try:
+        exp_a = os.path.join(tmp, "a")
+        os.makedirs(exp_a)
+        get_logger(exp_a, "train")
+        cfg = parse_args(f"{args} --epochs 1 {GAN_TRAIN}".split())
+        _, counts = _counted("--track_obj_loss runner epoch 1", PER_GAN_STEP,
+                             RUNNER_EPOCH_STEPS,
+                             lambda: _quiet(lambda: run(cfg, exp_a)))
+        runs.append(counts)
+        names = sorted(os.listdir(os.path.join(exp_a, "checkpoint")))
+        if names != ["InterGANNet_xs2xs_inter_24_1_0"]:
+            raise AssertionError(f"--track_obj_loss runner: {names}")
+        exp_b = os.path.join(tmp, "b")
+        resume = parse_args(f"{args} --epochs 2 --r --checkepoch 1 "
+                            f"--checksession 24 --load_dir {exp_a} "
+                            f"{GAN_TRAIN}".split())
+        _, counts = _counted("--track_obj_loss runner resumed epoch 2",
+                             PER_GAN_STEP, RUNNER_EPOCH_STEPS,
+                             lambda: _quiet(lambda: run(resume, exp_b)))
+        runs.append(counts)
+        for exp in (exp_a, exp_b):
+            log = _log_of(exp)
+            losses = [float(v) for _, _, v in LOSS_LINE.findall(log)]
+            epochs = sorted({int(e) for e, _, _ in LOSS_LINE.findall(log)})
+            if len(losses) != RUNNER_EPOCH_STEPS or not all(
+                    map(math.isfinite, losses)):
+                raise AssertionError(f"--track_obj_loss runner: {losses}")
+            for e, n, wall, rate, load, comp in EPOCH_LINE.findall(log):
+                print(f"--track_obj_loss runner epoch {e}: {n} samples in "
+                      f"{wall} s, {rate} samples/s, load {load} s, comp "
+                      f"{comp} s on {card}")
+            print(f"--track_obj_loss runner epochs {epochs}: loss_all "
+                  f"{losses[0]:.6g} -> {losses[-1]:.6g}")
+        if epochs != [2]:
+            raise AssertionError(f"--track_obj_loss resume ran {epochs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
 
 
 def main():
@@ -3822,7 +4118,10 @@ def main():
             *r6_step_phase(dev, card), *r6_runner_phase(dev, card),
             highres_extra_serve_phase(dev, card),
             *highres_train_phase(dev, card), *remat_phase(dev, card),
-            *runner_phase(dev, card)]
+            track_obj_phase(dev, card), *track_obj_runner_phase(dev, card),
+            *plain_vae_phase(dev, card), *runner_phase(dev, card)]
+    track_gen_phase(dev, card)
+    det_disc_phase(dev, card)
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

@@ -59,14 +59,18 @@
 //   wrapper: deterministic, no atomics.
 //
 // Input width: a template parameter CI of every kernel, 16 (HRNet's 14
-// channels, rgb and the seg encodings of two frames) or 48 (VAEHRNet's 46:
-// its VAE decoder's 32 channels first), x zero-padded to CI by the wrapper.
+// channels, rgb and the seg encodings of two frames), 48 (VAEHRNet's 46:
+// its VAE decoder's 32 channels first) or 64 (VAEHRNet's 53 in
+// extrapolation with three input frames), x zero-padded to CI by the
+// wrapper.
 // At 48 conv1 takes three k16 steps a tap (54 KB of k1 beside k2's 72 KB;
 // the forward's shared memory 196 KB), dx is a wgmma m64n48 (the flipped
 // k1, 54 KB), and dk1 no longer stacks taps: a tap's 48 input channels
 // fill the rows of three warps (the fourth warp's rows repeat channels
 // 32-47 and are dropped), three taps a warpgroup at one tile a step, as
-// dk2.  At 16 every kernel is the one described above.
+// dk2.  At 64 the same with four k16 steps a tap (72 KB of k1; the
+// forward's shared memory 221 KB), dx a wgmma m64n64 and dk1's tap in all
+// four warps' rows.  At 16 every kernel is the one described above.
 //
 // Prediction (written before the first chip run of this design, NVIDIA
 // H100 at 700 W): at 24x128x128 the forward 0.666 -> 0.15-0.30 ms, the
@@ -96,10 +100,11 @@ constexpr int ST = 16 * LDS * 2;      // a warp's y staging rows
 constexpr int G_D = TH * TW * 64 * 2;  // weight grads: d at a tile, 16 KB
 constexpr int G_SLOT2 = align128(NPOS1 * LDS * 2 + G_D);
 
-// the layout of the kernels at CI (16 or 48) input channels
+// the layout of the kernels at CI (16, 48 or 64) input channels
 template <int CI>
 struct Stem {
-  static_assert(CI == 16 || CI == 48, "the stem kernels take 16 or 48 input channels");
+  static_assert(CI == 16 || CI == 48 || CI == 64,
+                "the stem kernels take 16, 48 or 64 input channels");
   static constexpr int LDX = CI + 8;               // x region pitch, elements
   static constexpr int KS1 = CI / 16;              // conv1's k16 steps a tap
   static constexpr int UK1 = CI / 8 * 64 * 8 * 2;  // a k1 tap: (CI/8, 64, 8)
@@ -114,7 +119,7 @@ struct Stem {
   static constexpr int B_H = B_D + NPOS2 * LDS * 2, B_BAR = B_H + NPOS1 * LDS * 2;
   static constexpr int B_SMEM = B_BAR + 8;
   // weight grads: at 16, dk1 stacks four taps in a wgmma's rows and a
-  // step takes three tiles (one a warpgroup); at 48 one tile, as dk2
+  // step takes three tiles (one a warpgroup); at 48 and 64 one tile, as dk2
   static constexpr bool STACK = CI == 16;
   static constexpr int NSLOT1 = STACK ? 3 : 1;
   static constexpr int G_SLOT1 = align128(NPOS1 * LDX * 2 + G_D);
@@ -423,11 +428,12 @@ stem_bwd_kernel(const bf16 *__restrict__ dy, const bf16 *__restrict__ y,
 // s1 (a = x, CI channels; d = dpre1).  Per pipeline step a dk2 block takes
 // one 8x16 tile (three taps a warpgroup); a dk1 block at CI = 16 three (one
 // a warpgroup, its four warps' rows four taps of each wgmma), at CI = 48
-// one (three taps a warpgroup, a tap's 48 channels in three warps' rows).
+// one (three taps a warpgroup, a tap's 48 channels in three warps' rows),
+// at CI = 64 one (a tap's 64 channels in the four warps' rows).
 // Both run the same instructions on other addresses.
 
-// dk2p (s0, 9, 64, 64), dk1p (3 s1, 9, 16, 64) at CI = 16 or (s1, 9, 48,
-// 64) at 48: f32 partials [tap, input channel, output channel]; dbp (s0 +
+// dk2p (s0, 9, 64, 64), dk1p (3 s1, 9, 16, 64) at CI = 16 or (s1, 9, CI,
+// 64) at 48 and 64: f32 partials [tap, input channel, output channel]; dbp (s0 +
 // s1, 64): db2 then db1 partials
 template <int CI>
 __global__ void __launch_bounds__(NT, 1)
@@ -653,5 +659,22 @@ extern "C" int dvie_stem48_bwd(const void *dy, const void *y, const void *s1, co
                                void *dx, void *dk2p, void *dk1p, void *dbp, int B, int H, int W,
                                int cx, int s0, int s1n, void *stream) {
   return dvie::stem_bwd<48>(dy, y, s1, x48, w2f, wxf, dpre2, dpre1, dx, dk2p, dk1p, dbp, B, H, W,
+                            cx, s0, s1n, (cudaStream_t)stream);
+}
+
+// The same at 64 input channels (VAEHRNet's 53 in extrapolation under
+// --fix_init_frames, zero-padded): x64 (B,H,W,64); w1u (9, 8, 64, 8); wxf
+// (9, 8, 64, 8); dx (B,H,W,cx), cx <= 64; dk1p (s1, 9, 64, 64).
+extern "C" int dvie_stem64_fwd(const void *x64, const void *w1u, const void *b1, const void *w2u,
+                               const void *b2, void *y, void *s1, int B, int H, int W,
+                               void *stream) {
+  return dvie::stem_fwd<64>(x64, w1u, b1, w2u, b2, y, s1, B, H, W, (cudaStream_t)stream);
+}
+
+extern "C" int dvie_stem64_bwd(const void *dy, const void *y, const void *s1, const void *x64,
+                               const void *w2f, const void *wxf, void *dpre2, void *dpre1,
+                               void *dx, void *dk2p, void *dk1p, void *dbp, int B, int H, int W,
+                               int cx, int s0, int s1n, void *stream) {
+  return dvie::stem_bwd<64>(dy, y, s1, x64, w2f, wxf, dpre2, dpre1, dx, dk2p, dk1p, dbp, B, H, W,
                             cx, s0, s1n, (cudaStream_t)stream);
 }

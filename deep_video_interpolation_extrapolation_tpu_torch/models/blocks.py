@@ -34,6 +34,15 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
+def lrelu0(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2) with the JAX package's derivative at 0 (1, where
+    ``F.leaky_relu``'s is the slope): for the modules where whole channels
+    sit exactly at 0 -- a train-mode BatchNorm over a constant channel
+    (VAEHRNet's encoder at its 1/16 maps), a zero canvas under a zero bias
+    (TrackGen's pasted tracks) -- and the two conventions part."""
+    return torch.where(x >= 0, x, x * 0.2)
+
+
 def needs_grad(module: nn.Module) -> bool:
     """Whether autograd needs ``module``'s gradient here: grad is enabled
     and one of its parameters requires it (a frozen submodel's do not)."""

@@ -34,19 +34,34 @@ def _grad_through(module: nn.Module, *inputs: torch.Tensor) -> bool:
         t.requires_grad for t in inputs))
 
 
+def _coarse(model: nn.Module, rgb, seg, gt_rgb, gt_seg, train: bool,
+            generator: Optional[torch.Generator]):
+    """The coarse model's outputs: (rgb, seg) of an HRNet; of a VAEHRNet
+    (the plain VAE) (rgb, seg, mu, logvar) in train mode, its posterior
+    conditioned on (gt_rgb, gt_seg), and (rgb, seg) at eval, z from the
+    prior (composite.py:36-42), eps and z drawn from ``generator``."""
+    if not model.vae:
+        return tuple(model(rgb, seg)[:2])
+    out = model(rgb, seg, gt_rgb, gt_seg, train=train, generator=generator)
+    return tuple(out if train else out[:2])
+
+
 class InterNet(nn.Module):
     """Coarse-only interpolation (composite.py:28-42):
-    ``(rgb, seg) -> (rgb_out, seg_out)``, differentiable."""
+    ``(rgb, seg) -> (rgb_out, seg_out)``, differentiable.  On a VAEHRNet
+    coarse (the plain VAE), ``forward(rgb, seg, gt_seg, gt_rgb, train=True,
+    generator=None)`` also returns (mu, logvar) for the KL term."""
 
     def __init__(self, cfg: Config, use_kernels: bool = True):
         super().__init__()
         self.coarse_model = registry.build_coarse(cfg, use_kernels)
 
     def forward(self, rgb: torch.Tensor, seg: torch.Tensor,
-                gt_seg: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        out = self.coarse_model(rgb, seg)
-        return out[0], out[1]
+                gt_seg: Optional[torch.Tensor] = None,
+                gt_rgb: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        return _coarse(self.coarse_model, rgb, seg, gt_rgb, gt_seg, train,
+                       generator)
 
 
 def _as_scale_list(refine_out) -> List[torch.Tensor]:
@@ -137,28 +152,32 @@ DISC_FAMILIES = (("frame_disc", "frame_disc_model", False),
 
 class InterGANNet(nn.Module):
     """VAE coarse + the four discriminator families (composite.py:153-224):
-    ``coarse_model`` (VAEHRNet) and ``<family>_model`` for each family whose
-    flag is set.  ``forward(rgb, seg, gt_rgb=None, gt_seg=None,
-    bboxes=None, train=False, generator=None)`` returns the reference's
+    ``coarse_model`` (VAEHRNet), ``track_gen_model`` under ``--track_gen``
+    and ``<family>_model`` for each family whose flag is set.
+    ``forward(rgb, seg, gt_rgb=None, gt_seg=None, bboxes=None,
+    train=False, generator=None)`` returns the reference's
     19-tuple (coarse_rgb, coarse_seg, mu, logvar, D_fake_frame,
     D_real_frame, D_fake_video, D_real_video, G_fake_frame, G_fake_video,
     D_fake_fdet, D_real_fdet, D_fake_vdet, D_syncfake_vdet, D_real_vdet,
     G_fake_fdet, G_fake_vdet, gen_bbox, loc_diff_loss); the discriminator
-    terms are None at eval.  The train step (``train/inter_gan``) applies
-    the submodules itself, isolating the gradients there.  TrackGen
-    (``--track_gen``) waits in ROADMAP.md queue 1, item 5."""
+    terms are None at eval.  The track branch runs on the coarse outputs in
+    train mode, or at eval when boxes are given (composite.py:185-193); it
+    is given ``gt_bbox_for_loss`` where its name holds "V2".  The train
+    step (``train/inter_gan``) applies the submodules itself, isolating the
+    gradients there."""
 
     def __init__(self, cfg: Config, use_kernels: bool = True):
         super().__init__()
-        if cfg.track_gen:
-            raise NotImplementedError(
-                "TrackGen (--track_gen) is not ported yet (ROADMAP.md queue "
-                "1, item 5)")
         if cfg.coarse_model != "VAEHRNet":
             raise ValueError("InterGANNet takes --coarse_model VAEHRNet "
                              f"(its (rgb, seg, mu, logvar)), not "
                              f"{cfg.coarse_model!r}")
         self.coarse_model = registry.build_coarse(cfg, use_kernels)
+        self.track_kw = None
+        if cfg.track_gen:
+            self.track_gen_model = registry.build_track_gen(cfg)
+            self.track_kw = ({"gt_bbox_for_loss": True}
+                             if "V2" in cfg.track_gen_model else {})
         self.families = []
         for flag, attr, video in DISC_FAMILIES:
             if getattr(cfg, flag):
@@ -171,6 +190,10 @@ class InterGANNet(nn.Module):
                 generator: Optional[torch.Generator] = None):
         coarse_rgb, coarse_seg, mu, logvar = self.coarse_model(
             rgb, seg, gt_rgb, gt_seg, train=train, generator=generator)
+        gen_bbox, loc_diff = None, torch.zeros((), device=rgb.device)
+        if self.track_kw is not None and (train or bboxes is not None):
+            coarse_rgb, coarse_seg, gen_bbox, loc_diff = self.track_gen_model(
+                rgb, seg, coarse_rgb, coarse_seg, bboxes, **self.track_kw)
         out = {}
         if train:
             soft = torch.softmax(coarse_seg, dim=-1)
@@ -192,27 +215,29 @@ class InterGANNet(nn.Module):
             "frame_det_disc_model", none3)
         vi, vd = out.get("video_disc_model", none3), out.get(
             "video_det_disc_model", none3)
-        loc_diff = torch.zeros((), device=rgb.device)
         return (coarse_rgb, coarse_seg, mu, logvar, fr[0], fr[1], vi[0],
                 vi[1], fr[2], vi[2], fd[0], fd[1], vd[0], out.get("sync"),
-                vd[1], fd[2], vd[2], None, loc_diff)
+                vd[1], fd[2], vd[2], gen_bbox, loc_diff)
 
 
 class ExtraNet(nn.Module):
     """Coarse-only extrapolation (composite.py:114-128): ``(rgb, seg) ->
-    (rgb_out, seg_out)`` of ``num_pred_once`` frames, differentiable.
-    VAEHRNet under it (the plain VAE) is refused by the registry."""
+    (rgb_out, seg_out)`` of ``num_pred_once`` frames, differentiable.  On a
+    VAEHRNet coarse (the plain VAE), ``forward(rgb, seg, gt_seg, gt_rgb,
+    train=True, generator=None)`` also returns (mu, logvar) for the KL
+    term, as InterNet."""
 
     def __init__(self, cfg: Config, use_kernels: bool = True):
         super().__init__()
         self.coarse_model = registry.build_coarse(cfg, use_kernels)
 
     def forward(self, rgb: torch.Tensor, seg: torch.Tensor,
-                gt_seg: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                gt_seg: Optional[torch.Tensor] = None,
+                gt_rgb: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         with torch.set_grad_enabled(_grad_through(self.coarse_model, rgb)):
-            out = self.coarse_model(rgb, seg)
-        return out[0], out[1]
+            return _coarse(self.coarse_model, rgb, seg, gt_rgb, gt_seg,
+                           train, generator)
 
 
 class ExtraInpaintNet(nn.Module):

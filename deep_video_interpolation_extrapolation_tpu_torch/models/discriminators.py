@@ -121,7 +121,8 @@ class Seq(nn.Module):
         self._count = {}
 
     def add(self, module: nn.Module) -> nn.Module:
-        cls = {Block: "_Block", ResBlock: "_ResBlock"}[type(module)]
+        cls = {Block: "_Block", ResBlock: "_ResBlock",
+               SNResBlock: "_SNResBlock"}[type(module)]
         k = self._count.get(cls, 0)
         self._count[cls] = k + 1
         self.names.append(f"{cls}_{k}")
@@ -151,6 +152,25 @@ class ResBlock(Seq):
 
     def forward(self, x, train, dtype):
         return super().forward(x, train, dtype) + x
+
+
+class SNResBlock(Seq):
+    """Two SN 3x3 blocks (the second without lrelu), the input through an
+    SN 1x1 without lrelu where the widths differ, summed, then lrelu
+    (``_SNResBlock``, detdisc.py:189-199; the reference's ResnetSNBlock)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.block(cin, features, sn=True)
+        self.block(features, features, sn=True, act=False)
+        if cin != features:
+            self.block(cin, features, 1, sn=True, act=False)
+
+    def forward(self, x, train, dtype):
+        h = self.layers[1](self.layers[0](x, train, dtype), train, dtype)
+        if len(self.layers) == 3:
+            x = self.layers[2](x, train, dtype)
+        return lrelu(h + x)
 
 
 def scalar_head(x: torch.Tensor) -> torch.Tensor:

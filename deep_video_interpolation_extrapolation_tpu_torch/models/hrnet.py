@@ -99,6 +99,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     SegEncoder,
     conv3x3_site,
     lrelu,
+    lrelu0,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models.subnets import (
     BatchNorm,
@@ -403,6 +404,8 @@ class HRNet(nn.Module):
     ``remat`` (``--remat``) checkpoints the backbone at stage granularity
     while a gradient is being taken (``_backbone``)."""
 
+    vae = False     # a VAEHRNet takes the ground truth and draws a latent
+
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  use_kernels: bool = True, highres_large: bool = False,
                  in_ch: int = (3 + 4) * N_FRAMES, syn_type: str = "inter",
@@ -668,7 +671,7 @@ class _VAEEncoder(nn.Module):
                 x = self.bns[k](x, train, dtype)
                 k += 1
             if i < len(self.LAYERS) - 1:
-                x = lrelu(x)
+                x = lrelu0(x)
         return x
 
 
@@ -690,10 +693,10 @@ class _VAEDecoder(nn.Module):
                 dtype: torch.dtype) -> torch.Tensor:
         x = z.to(dtype)
         for i in range(4):
-            x = lrelu(self.bns[2 * i](self.ups[i](x), train, dtype))
+            x = lrelu0(self.bns[2 * i](self.ups[i](x), train, dtype))
             x = self.convs[i](x)
             if i != 3:   # the last conv has no BN or activation
-                x = lrelu(self.bns[2 * i + 1](x, train, dtype))
+                x = lrelu0(self.bns[2 * i + 1](x, train, dtype))
         return x
 
 
@@ -709,6 +712,12 @@ class VAEHRNet(HRNet):
 
     ``forward(rgb, seg, gt_rgb=None, gt_seg=None, train=False,
     generator=None, noise=None)`` returns (rgb_out, seg_out, mu, logvar).
+    In extrapolation (``syn_type="extra"``; the plain VAE under ExtraNet)
+    the heads are ``(4 if inpaint_mask else 3) * p`` and ``20 * p`` wide
+    for ``num_pred_once`` = p frames, rgb_out keeps the first ``3 * p``
+    channels and no mask is made (hrnet.py:1140-1152); conv1 takes the
+    decoder's 32 channels and 7 per input frame (``n_frames``), the
+    posterior encoder the input and ground-truth frames' rgb and seg.
     Train: (inputs, ground truth) are encoded to (mu, logvar) and z = mu +
     eps * exp(logvar / 2); eval: z ~ N(0, I) of shape (B, H/16 * W/16 * 16)
     (Dense latent) or (B, H/16, W/16, 16) (spatial), and mu, logvar are
@@ -720,12 +729,20 @@ class VAEHRNet(HRNet):
     128x128 serves at 512x1024, where eval needs none), as the JAX tree is
     replaced whole on load."""
 
+    vae = True
+
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  use_kernels: bool = True, highres_large: bool = False,
-                 size: Tuple[int, int] = (128, 128), remat: bool = False):
+                 size: Tuple[int, int] = (128, 128), remat: bool = False,
+                 syn_type: str = "inter", num_pred_once: int = 1,
+                 inpaint_mask: bool = False, n_frames: int = N_FRAMES):
         super().__init__(dtype, use_kernels, highres_large,
-                         in_ch=VAE_FEAT + (3 + 4) * N_FRAMES, remat=remat)
-        self.vae_encoder = _VAEEncoder()
+                         in_ch=VAE_FEAT + (3 + 4) * n_frames,
+                         syn_type=syn_type, num_pred_once=num_pred_once,
+                         inpaint_mask=inpaint_mask, remat=remat)
+        n_out = num_pred_once if syn_type == "extra" else 1
+        self.vae_encoder = _VAEEncoder(
+            (RGB_DIM + SEG_DIM) * (n_frames + n_out))
         self.vae_decoder = _VAEDecoder()
         h, w = size
         self._latent_heads(LATENT_C * (h // 16) * (w // 16)
@@ -789,4 +806,6 @@ class VAEHRNet(HRNet):
         x = _encode_inputs(rgb, seg, self.seg_encoder, dt)
         x = torch.cat([feat.to(x.dtype), x], dim=-1)
         rgb_out, seg_out = self._apply_heads(self._backbone(x))
+        if self.syn_type == "extra":
+            rgb_out = rgb_out[..., :3 * self.num_pred_once]
         return rgb_out, seg_out, mu, logvar

@@ -3,9 +3,11 @@
 ``--coarse_model HRNet`` in interpolation mode; ``ExtraNet`` and
 ``ExtraInpaintNet`` (``--inpaint_model InpaintUnet``) with HRNet in
 extrapolation mode (``--syn_type extra``); ``InterGANNet`` with
-``--coarse_model VAEHRNet`` and every discriminator of
-``models/discriminators`` and the six of ``models/detdisc``; every
-``--refine_model``
+``--coarse_model VAEHRNet``, ``--track_gen`` (``TrackGen``, ``TrackGenV2``)
+and every discriminator of ``models/discriminators`` and
+``models/detdisc``; the plain VAE (``VAEHRNet`` under ``InterNet`` or
+``ExtraNet``, or under a refine composite, whose train step refuses it as
+the JAX one does); every ``--refine_model``
 (``SRNRefine`` at any ``--n_sc``, ``refineUnet``) and ``--stage3_model``
 (``MSResAttnRefine`` at any ``--n_sc`` and ``--stage3_prop``, ``V2``,
 ``V2Base``, ``V3``) the JAX registry takes; and the video VAEs ``--model
@@ -32,10 +34,11 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
-    """``HRNet`` (in extrapolation mode under ``--syn_type extra``: its
-    head widths by ``--num_pred_once`` and ``--inpaint_mask``, conv1 taking
-    three frames under ``--fix_init_frames``), or ``VAEHRNet`` with its
-    latent heads for the (input_h, input_w) it trains at."""
+    """``HRNet`` or ``VAEHRNet`` (with its latent heads for the (input_h,
+    input_w) it trains at), in extrapolation mode under ``--syn_type
+    extra``: the head widths by ``--num_pred_once`` and ``--inpaint_mask``,
+    conv1 (and VAEHRNet's posterior encoder) taking three frames under
+    ``--fix_init_frames``."""
     from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
         HRNet,
         VAEHRNet,
@@ -48,17 +51,16 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
     # model (hrnet.HRNet._backbone); remat_internal is the runner side
     kw = dict(dtype=compute_dtype(cfg), use_kernels=use_kernels,
               highres_large=cfg.highres_large, remat=cfg.remat)
-    if cfg.coarse_model == "VAEHRNet":
-        if cfg.syn_type == "extra":
-            raise NotImplementedError(
-                "--coarse_model VAEHRNet in extrapolation (the plain VAE) is "
-                f"not ported yet ({_QUEUE}, item 5)")
-        return VAEHRNet(size=(cfg.input_h, cfg.input_w), **kw)
     if cfg.syn_type == "extra":
         n_frames = 3 if cfg.fix_init_frames else 2
         kw.update(syn_type="extra", num_pred_once=cfg.num_pred_once,
-                  inpaint=cfg.inpaint, inpaint_mask=cfg.inpaint_mask,
-                  in_ch=(3 + 4) * n_frames)
+                  inpaint_mask=cfg.inpaint_mask)
+        if cfg.coarse_model == "VAEHRNet":
+            kw.update(n_frames=n_frames)
+        else:
+            kw.update(inpaint=cfg.inpaint, in_ch=(3 + 4) * n_frames)
+    if cfg.coarse_model == "VAEHRNet":
+        return VAEHRNet(size=(cfg.input_h, cfg.input_w), **kw)
     return HRNet(**kw)
 
 
@@ -88,10 +90,17 @@ def build_disc(cfg: Config, name: str) -> nn.Module:
         return discriminators.FACTORIES[name](cfg.seg_disc, d)
     if name in detdisc.CLASSES:
         return detdisc.CLASSES[name](seg_disc=cfg.seg_disc, dtype=d)
-    if name in detdisc.NOT_PORTED:
-        raise NotImplementedError(
-            f"discriminator {name!r} is not ported yet ({_QUEUE}, item 5)")
     raise KeyError(name)
+
+
+def build_track_gen(cfg: Config) -> nn.Module:
+    """``TrackGen`` or ``TrackGenV2`` (``--track_gen_model``) for
+    ``--n_track`` tracks, in the compute dtype (registry.py:117-122)."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        trackgen,
+    )
+    return trackgen.build(cfg.track_gen_model, cfg.num_track_per_img,
+                          compute_dtype(cfg))
 
 
 def build_refine(cfg: Config) -> nn.Module:
@@ -197,10 +206,6 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
         raise NotImplementedError(
             f"model {cfg.model!r} is not ported yet ({_QUEUE}, item 8, the "
             "legacy models)")
-    if cfg.coarse_model == "VAEHRNet" and cfg.model != "InterGANNet":
-        raise NotImplementedError(
-            f"--coarse_model VAEHRNet under {cfg.model} (the plain VAE) is "
-            f"not ported yet ({_QUEUE}, item 5); InterGANNet takes it")
     device = hw.entry_device(device)
     if cfg.model in vaes:
         model = vae_video.VideoVAE(

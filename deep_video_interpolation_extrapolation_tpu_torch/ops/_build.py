@@ -54,6 +54,9 @@ SIGNATURES = {
     # the same two at 48 input channels
     "dvie_stem48_fwd": [P] * 7 + [I] * 3 + [P],
     "dvie_stem48_bwd": [P] * 12 + [I] * 6 + [P],
+    # and at 64
+    "dvie_stem64_fwd": [P] * 7 + [I] * 3 + [P],
+    "dvie_stem64_bwd": [P] * 12 + [I] * 6 + [P],
     # x, wu, y, B, H, W, Ci, stream
     "dvie_bottleneck_fwd": [P] * 3 + [I] * 4 + [P],
     # x, dy, wf, wb, h1, h2, dpre_y, dpre2, dpre1, dx, B, H, W, Ci, stream

@@ -51,11 +51,15 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
 
 STEM_FWD, STEM_BWD = "stem_fwd", "stem_bwd"
 STEM48_FWD, STEM48_BWD = "stem48_fwd", "stem48_bwd"   # the kernels at Ci 48
+STEM64_FWD, STEM64_BWD = "stem64_fwd", "stem64_bwd"   # ... and at Ci 64
 BN_FWD, BN_BWD = "bottleneck_fwd", "bottleneck_bwd"
 BN_WGRAD = "bottleneck_wgrad"
 P, CO = 64, 256      # layer1 widths: planes and planes * expansion
 STEM_CIN_PAD = 16    # the stem kernels take x zero-padded to 16 channels
-STEM_CIN_PADS = (16, 48)   # ... or, VAEHRNet's 46, to 48
+STEM_CIN_PADS = (16, 48, 64)   # ... or, VAEHRNet's 46 and 53, to 48, 64
+# the (forward, backward) kernels at each input width
+STEM_KERNELS = {16: (STEM_FWD, STEM_BWD), 48: (STEM48_FWD, STEM48_BWD),
+                64: (STEM64_FWD, STEM64_BWD)}
 
 
 # ---- plain versions -------------------------------------------------------
@@ -223,7 +227,8 @@ def _taps_t(w: torch.Tensor, dev) -> torch.Tensor:
 
 def stem_cin_pad(ci: int) -> int:
     """The input width of the stem kernels that take ``ci`` channels: 16
-    (HRNet's 14) or 48 (VAEHRNet's 46); raises above 48."""
+    (HRNet's 14), 48 (VAEHRNet's 46) or 64 (VAEHRNet's 53 in extrapolation
+    with three input frames); raises above 64."""
     for cp in STEM_CIN_PADS:
         if ci <= cp:
             return cp
@@ -243,7 +248,7 @@ def stem_units(k1, b1, k2, b2, dev) -> dict:
     set (``hw.derived``: a train step's forward and backward share them),
     as tap units (tap ky*3+kx; (k-group, n, k) in the no-swizzle K-major
     core-matrix order of csrc/hopper.cuh), in the order the kernels keep
-    them, at the kernels' input width cp (``stem_cin_pad``, 16 or 48):
+    them, at the kernels' input width cp (``stem_cin_pad``, 16, 48, 64):
     ``w1u`` k1 (9, cp/8, 64, 8), its input channels zero-padded to cp;
     ``w2u`` k2 (9, 8, 64, 8); ``w2f`` and ``wxf`` the flipped, transposed
     k2 (9, 8, 64, 8) and k1 (9, 8, cp, 8) of the backward (the transposed
@@ -280,10 +285,10 @@ def stem_wgrad_splits(b: int, h: int, w: int, cp: int = STEM_CIN_PAD
     s1 for dk1 and db1, together one block per SM of an H100 (132), at
     least one tile (dk1 at cp 16: three) per range.  At cp 16 dk1 is a
     third of dk2's work a tile (16 input channels against 64, three tiles
-    a step): 99 and 33.  At cp 48 a dk1 step is dk2's (one tile, the 48
-    channels in 64 rows): 66 and 66."""
+    a step): 99 and 33.  At cp 48 and 64 a dk1 step is dk2's (one tile,
+    the channels in 64 rows): 66 and 66."""
     tiles = stem_tiles(b, h, w)
-    if cp == 48:
+    if cp != STEM_CIN_PAD:
         return max(1, min(66, tiles)), max(1, min(66, tiles))
     return max(1, min(99, tiles)), max(1, min(33, -(-tiles // 3)))
 
@@ -324,13 +329,13 @@ def _call(name: str, *args) -> None:
 
 def _stem_fwd(xp, k1, b1, k2, b2, save):
     """The forward launch on x zero-padded to the kernels' width (16: the
-    ``stem_fwd`` kernel, 48: ``stem48_fwd``)."""
+    ``stem_fwd`` kernel, 48: ``stem48_fwd``, 64: ``stem64_fwd``)."""
     b, h, w, cp = xp.shape
     wt = stem_units(k1, b1, k2, b2, xp.device)
     act = dict(device=xp.device, dtype=torch.bfloat16)
     y = torch.empty((b, h, w, P), **act)
     s1 = torch.empty((b, h, w, P), **act) if save else None
-    _call(STEM_FWD if cp == STEM_CIN_PAD else STEM48_FWD, xp, wt["w1u"],
+    _call(STEM_KERNELS[cp][0], xp, wt["w1u"],
           wt["b1"], wt["w2u"], wt["b2"], y, s1, b, h, w)
     return y, s1
 
@@ -360,8 +365,8 @@ def stem_bwd_kernel(x, dy, s1, y, k1, b1, k2, b2):
     """The stem backward on the card from what the forward kept (s1, y):
     one launch for dx (storing dpre2 and dpre1), one for the f32 weight and
     bias grads, whose partials are summed here.  x: the stem input, or its
-    copy zero-padded to the kernels' width (16, or 48 for more than 16
-    input channels); dx has k1's input channels."""
+    copy zero-padded to the kernels' width (16, or 48 or 64 for more than
+    16 input channels); dx has k1's input channels."""
     _check_stem(x, k1, k2)
     b, h, w, _ = x.shape
     ci = k1.shape[1]
@@ -380,7 +385,7 @@ def stem_bwd_kernel(x, dy, s1, y, k1, b1, k2, b2):
     dk1p = torch.empty(((3 if cp == STEM_CIN_PAD else 1) * s1n, 9, cp, P),
                        **f32)
     dbp = torch.empty((s0 + s1n, P), **f32)
-    _call(STEM_BWD if cp == STEM_CIN_PAD else STEM48_BWD, dy, y, s1, xp,
+    _call(STEM_KERNELS[cp][1], dy, y, s1, xp,
           wt["w2f"], wt["wxf"], dpre2, dpre1, dx, dk2p, dk1p, dbp, b, h, w,
           ci, s0, s1n)
     return (dx, *stem_wgrads(dk2p, dk1p, dbp, s0, ci))

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
+    RESNET101_PLAN,
     conv_names,
 )
 
@@ -252,6 +253,36 @@ def inpaint_key_map(params: Mapping
         yield from _conv((f"ResnetBlock_{k}", "Conv_1"), f"res.{k}.conv.2")
 
 
+def trackgen_key_map(params: Mapping
+                     ) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+    """(torch key, flax path) for every parameter of ``TrackGen`` and
+    ``TrackGenV2``, the inverse of port_track_gen (torch_port.py:338-370):
+    the U-Net's ``<group>_<k>`` ConvLReLUs onto ``<group>.<2k>``, its
+    ``up_<k>`` transposed convs onto ``up_<k>.0``, the fusion head's
+    auto-named layers onto the reference's Sequentials.  V2's last decoder
+    conv is a bare ``Conv``, V1's a ConvLReLU."""
+    unet = params["unet"]
+    for grp in ("encoder_1", "encoder_2", "encoder_3", "encoder_4",
+                "bottom_layer", "decoder_4", "decoder_3", "decoder_2",
+                "decoder_1"):
+        for k in range(3):
+            node = unet[f"{grp}_{k}"]
+            yield from _conv(("unet", f"{grp}_{k}") + (
+                ("Conv_0",) if "Conv_0" in node else ()), f"{grp}.{2 * k}")
+    for up in ("up_4", "up_3", "up_2", "up_1"):
+        yield from _conv(("unet", up, "ConvTranspose_0"), f"{up}.0")
+    head = ("head",)
+    yield from _conv(head + ("ConvLReLU_0", "Conv_0"), "track_fusion_layer.0")
+    yield from _conv(head + ("ConvLReLU_1", "Conv_0"), "track_fusion_layer.2")
+    yield from _conv(head + ("Conv_0",), "track_fusion_layer.4")
+    for k in range(5):
+        yield from _conv(head + (f"ConvLReLU_{2 + k}", "Conv_0"),
+                         f"fusion_layer.{2 * k}")
+    for stem in ("rgb_out", "seg_out"):
+        yield from _conv(head + (f"{stem}_0", "Conv_0"), f"{stem}_layer.0")
+        yield from _conv(head + (f"{stem}_1",), f"{stem}_layer.2")
+
+
 def _state_dict(params: Mapping, keys) -> Dict[str, torch.Tensor]:
     sd = OrderedDict()
     for key, path in keys:
@@ -310,6 +341,7 @@ def from_jax_submodel(sub: torch.nn.Module, params: Mapping,
         hrnet,
         optical,
         refine,
+        trackgen,
     )
     if isinstance(sub, (discriminators.Seq, detdisc._DetDisc)):
         return from_jax_disc(sub, params, batch_stats or {})
@@ -319,6 +351,8 @@ def from_jax_submodel(sub: torch.nn.Module, params: Mapping,
         return from_jax_params(params)
     if isinstance(sub, hrnet.InpaintUnet):
         return _state_dict(params, inpaint_key_map(params))
+    if isinstance(sub, trackgen._TrackModel):
+        return _state_dict(params, trackgen_key_map(params))
     if isinstance(sub, refine.SRNRefine):
         return from_jax_refine(params)
     if isinstance(sub, optical.RefineUnet):
@@ -363,6 +397,59 @@ def from_jax_vgg(vgg_params: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"convs.{name}.bias"] = torch.from_numpy(np.array(
             vgg_params[name]["bias"], dtype=np.float32))
     return sd
+
+
+def resnet101_key_map() -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch key, (collection, *flax path), leaf kind) of every leaf of
+    the JAX ``ResNet101Features`` variables: the inverse of
+    ``load_torch_resnet101_state`` (features.py:109-153), ``Conv_k`` and
+    ``BatchNorm_k`` of the root and of each ``_RNBottleneck_i`` onto
+    torchvision's names."""
+    def bn(path, tname):
+        for leaf, coll, port in _LEAVES["bn"]:
+            yield f"{tname}.{port}", (coll,) + path + (leaf,), "bn"
+
+    yield "conv1.weight", ("params", "Conv_0", "kernel"), "conv"
+    yield from bn(("BatchNorm_0",), "bn1")
+    bi = 0
+    for layer, (_, blocks, _) in enumerate(RESNET101_PLAN, start=1):
+        for b in range(blocks):
+            path, t = (f"_RNBottleneck_{bi}",), f"layer{layer}.{b}"
+            for c in range(3):
+                yield (f"{t}.conv{c + 1}.weight",
+                       ("params",) + path + (f"Conv_{c}", "kernel"), "conv")
+                yield from bn(path + (f"BatchNorm_{c}",), f"{t}.bn{c + 1}")
+            if b == 0:        # each stage's block 0 projects its input
+                yield (f"{t}.downsample.0.weight",
+                       ("params",) + path + ("Conv_3", "kernel"), "conv")
+                yield from bn(path + ("BatchNorm_3",), f"{t}.downsample.1")
+            bi += 1
+
+
+def _from_trees(keys, trees: Mapping) -> Dict[str, torch.Tensor]:
+    """The state_dict of (torch key, (collection, *path), kind) ``keys``
+    read from ``trees`` (collection -> nested dict); kernels transformed by
+    their kind."""
+    sd = OrderedDict()
+    for key, (coll, *path), kind in keys:
+        a = trees[coll]
+        for p in path:
+            a = a[p]
+        a = np.asarray(a, dtype=np.float32)
+        if path[-1] == "kernel" and kind in KERNEL_TRANSFORM:
+            a = KERNEL_TRANSFORM[kind](a)
+        sd[key] = torch.from_numpy(np.array(a, order="C"))   # a writable copy
+    return sd
+
+
+def from_jax_resnet101(params: Mapping, batch_stats: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """The JAX ``ResNet101Features``' ``params`` and ``batch_stats`` (its
+    frozen variables) -> the ``state_dict`` of the port's
+    ``models/features.ResNet101Features``: conv kernels HWIO -> OIHW, each
+    BatchNorm's scale, bias, mean and var."""
+    return _from_trees(resnet101_key_map(),
+                       {"params": params, "batch_stats": batch_stats})
 
 
 # ---- the video VAEs --------------------------------------------------------
@@ -502,17 +589,8 @@ def from_jax_vae(params: Mapping, batch_stats: Mapping,
     """A JAX ``VideoVAE``'s ``params`` and ``batch_stats`` -> the
     ``state_dict`` of the port's ``models/vae_video.VideoVAE`` (or of the
     port's module ``root`` of ``models/subnets``)."""
-    trees = {"params": params, "batch_stats": batch_stats}
-    sd = OrderedDict()
-    for key, (coll, *path), kind in vae_key_map(params, batch_stats, root):
-        a = trees[coll]
-        for p in path:
-            a = a[p]
-        a = np.asarray(a, dtype=np.float32)
-        if path[-1] == "kernel":
-            a = KERNEL_TRANSFORM[kind](a)
-        sd[key] = torch.from_numpy(np.array(a, order="C"))   # a writable copy
-    return sd
+    return _from_trees(vae_key_map(params, batch_stats, root),
+                       {"params": params, "batch_stats": batch_stats})
 
 
 def from_jax_vaehrnet(params: Mapping, batch_stats: Mapping
@@ -533,9 +611,10 @@ def disc_key_map(disc: torch.nn.Module
                  ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
     """(torch key, (collection, *flax path), leaf kind) of every leaf of a
     port discriminator (``models/discriminators``, ``models/detdisc``),
-    walking its containers' flax names.  A spectral norm's ``u`` and
-    ``sigma`` sit in ``batch_stats`` under ``SpectralNorm_0`` as
-    ``Conv_0/kernel/u`` and ``Conv_0/kernel/sigma``."""
+    walking its containers' flax names (and VecSN's ``Dense_k`` and
+    ``BatchNorm_k``).  A spectral norm's ``u`` and ``sigma`` sit in
+    ``batch_stats`` under ``SpectralNorm_0`` as ``Conv_0/kernel/u`` and
+    ``Conv_0/kernel/sigma``."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
         detdisc,
         discriminators as dd,
@@ -573,7 +652,15 @@ def disc_key_map(disc: torch.nn.Module
             yield from out_conv(m.sn, path, f"{prefix}out.")
 
     if isinstance(disc, detdisc._DetDisc):
-        yield from seq(disc.tower, (disc.tower_name,), "tower.")
+        yield from seq(disc.tower, (disc.tower_name,) if disc.tower_name
+                       else (), "tower.")
+        # VecSN's head: Dense_k and BatchNorm_k beside its blocks
+        for i, _ in enumerate(getattr(disc, "fc", ())):
+            yield from conv((f"Dense_{i}",), f"fc.{i}.", "dense")
+        for i, _ in enumerate(getattr(disc, "fc_bn", ())):
+            for leaf, coll, port in _LEAVES["bn"]:
+                yield (f"fc_bn.{i}.{port}", (coll, f"BatchNorm_{i}", leaf),
+                       "bn")
     else:
         yield from seq(disc, (), "")
 
@@ -582,14 +669,5 @@ def from_jax_disc(disc: torch.nn.Module, params: Mapping,
                   batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX discriminator's ``params`` and ``batch_stats`` -> the
     state_dict of the port's ``disc`` (kernels HWIO -> OIHW)."""
-    trees = {"params": params, "batch_stats": batch_stats}
-    sd = OrderedDict()
-    for key, (coll, *path), kind in disc_key_map(disc):
-        a = trees[coll]
-        for p in path:
-            a = a[p]
-        a = np.asarray(a, dtype=np.float32)
-        if kind == "conv":
-            a = KERNEL_TRANSFORM["conv"](a)
-        sd[key] = torch.from_numpy(np.array(a, order="C"))
-    return sd
+    return _from_trees(disc_key_map(disc),
+                       {"params": params, "batch_stats": batch_stats})

@@ -21,7 +21,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
     make_vgg_l1_loss,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
+    ResNet101Features,
     VGG19Features,
+    init_resnet_weights,
     init_vgg_weights,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models.registry import (
@@ -36,6 +38,18 @@ def init_vgg_frozen(cfg: Config, seed: int, device="cuda") -> VGG19Features:
     device = hw.entry_device(device)
     vgg = VGG19Features(dtype=compute_dtype(cfg))
     return init_vgg_weights(vgg, seed).to(device).eval()
+
+
+def init_resnet_frozen(cfg: Config, seed: int, device="cuda"
+                       ) -> ResNet101Features:
+    """A frozen ResNet101 for the track-object loss (common.py:31-40 of the
+    JAX package), in the compute dtype, its BatchNorms in eval mode, weights
+    from a numpy seed (its ImageNet weights are not in the repository; a
+    torchvision state_dict loads into it as it is), on ``device`` (the card
+    unless the caller asks for the CPU; without a card it raises)."""
+    device = hw.entry_device(device)
+    net = ResNet101Features(dtype=compute_dtype(cfg))
+    return init_resnet_weights(net, seed).to(device).eval()
 
 
 def vgg_loss_from_frozen(vgg: Optional[VGG19Features]) -> Optional[Callable]:

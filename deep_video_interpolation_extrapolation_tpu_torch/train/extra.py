@@ -12,7 +12,10 @@ An autoregressive rollout over ``num_pred_step`` steps, each predicting
   ``step_{i+1}_frame_{j+1}_coarse_*``; under ``--inpaint`` the bundle of
   the inpainted frame on the region to inpaint (``* (1 - m)``) and the
   mask term (weight 80 with ``--inpaint_mask``, else 0), keyed
-  ``..._inpaint_*``.  One backward of their sum, then the per-submodel
+  ``..._inpaint_*``.  On a VAEHRNet coarse (the plain VAE, extra.py:120-145)
+  each step's posterior is conditioned on that step's ground truth, a
+  fresh eps drawn from the step's ``generator``, and the step's
+  ``step_{i+1}_coarse_kld_loss`` comes before its frame terms.  One backward of their sum, then the per-submodel
   optimizer steps behind the train_* flags.  Under ``--remat`` ExtraNet's
   HRNet checkpoints its stages, ExtraInpaintNet's each rollout forward is
   one checkpoint region, and so is each loss bundle.
@@ -30,7 +33,7 @@ every step's input.  Batches are dicts of NHWC tensors: frame1..frameN in
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -53,6 +56,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
     make_vgg_cosine_score,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.losses.vae import (
+    kld_loss,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models.registry import (
     remat_internal,
@@ -127,11 +133,13 @@ def _feedback(x, seg, back_img, coarse_seg):
                        one_hot_from_logits(coarse_seg).to(seg.dtype)], dim=-1))
 
 
-def make_train_step(cfg: Config, model: nn.Module) -> Callable:
+def make_train_step(cfg: Config, model: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> Callable:
     """``train_step(state, batch) -> (state, loss_dict)``; the loss dict's
-    values are detached scalars."""
+    values are detached scalars.  ``generator`` draws a VAEHRNet's eps."""
     _check(cfg)
     p = cfg.num_pred_once
+    vae = cfg.model == "ExtraNet" and cfg.coarse_model == "VAEHRNet"
     # --remat: ExtraNet's HRNet checkpoints its own stages; ExtraInpaintNet's
     # each rollout forward is one checkpoint region (extra.py:89-101)
     outer = cfg.remat and not remat_internal(cfg)
@@ -148,8 +156,14 @@ def make_train_step(cfg: Config, model: nn.Module) -> Callable:
             start = 3 + ii * p
             gt_x = _frames(batch, "frame", start, p)
             x, seg = _window(cfg, batch, last_rgb, last_seg)
-            out = (checkpoint(model, x, seg, modules=(model,)) if outer
-                   else model(x, seg))
+            if vae:
+                out = model(x, seg, _frames(batch, "seg", start, p, seg_oh),
+                            gt_x, train=True, generator=generator)
+                loss_dict[f"step_{ii + 1}_coarse_kld_loss"] = kld_loss(
+                    out[2], out[3], cfg.kld_weight)
+            else:
+                out = (checkpoint(model, x, seg, modules=(model,)) if outer
+                       else model(x, seg))
             coarse_img, coarse_seg, mask, inpaint_img = _unpack(cfg, out)
             for j in range(p):
                 prefix = f"step_{ii + 1}_frame_{j + 1}_coarse"

@@ -8,14 +8,19 @@ for ``--model InterNet``, ``InterRefineNet`` and ``InterStage3Net``.
   with align_corners=True (InterTrainer.py:415-425), keyed
   ``refine_<scale>_*`` then ``stage3_<scale>_*`` by each stage's actual
   output count; one backward of their sum, then the per-submodel
-  optimizer steps behind the train_* flags.  The step updates the
+  optimizer steps behind the train_* flags.  On a VAEHRNet coarse (the
+  plain VAE, inter.py:53-65, :107-125) the posterior is conditioned on the
+  ground truth, eps drawn from the step's ``generator``, and
+  ``coarse_kld_loss`` follows the cross-entropy.  The step updates the
   model's parameters and the optimizer state in place.  Under ``--remat``
   the HRNet coarse checkpoints its stages, the refine composites' whole
   forward is one checkpoint region, and so is each loss bundle.
 - eval: L1 / PSNR / SSIM on [0, 1], IoU (pixel accuracy) of the argmax
   ids and the VGG cosine (InterTrainer.py:612-633) of the coarse frame,
   then the same of the last refined and stage-3 frames (``refine_*``,
-  ``stage3_*``), without gradients.
+  ``stage3_*``), without gradients; a VAEHRNet draws z from its prior (the
+  runner evaluates it through ``inter_gan.GanEvalAdapter``, z from its
+  generator).
 
 The loss-dict and metric keys are the reference's logging keys, in the
 JAX package's order.  Batches are dicts of NHWC tensors: frame1..3 in
@@ -25,7 +30,7 @@ JAX package's order.  Batches are dicts of NHWC tensors: frame1..3 in
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -43,6 +48,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.losses.image import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.losses.perceptual import (
     make_vgg_cosine_score,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.losses.vae import (
+    kld_loss,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models.registry import (
     remat_internal,
@@ -97,26 +105,35 @@ def _per_scale(cfg: Config, loss_dict, imgs, gt_x, vgg_fn, stem: str):
                                     stem + str(scale), refine=True))
 
 
-def make_train_step(cfg: Config, model: nn.Module) -> Callable:
+def make_train_step(cfg: Config, model: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> Callable:
     """``train_step(state, batch) -> (state, loss_dict)``; the loss dict's
-    values are detached scalars."""
+    values are detached scalars.  ``generator`` draws a VAEHRNet's eps."""
     _check_vae_combo(cfg)
     _check(cfg)
     # --remat: the HRNet-family coarse checkpoints its own stages; any other
     # model's whole forward is one checkpoint region (inter.py:86-99)
     outer = cfg.remat and not remat_internal(cfg)
+    vae = cfg.model == "InterNet" and cfg.coarse_model == "VAEHRNet"
 
     def train_step(state: state_lib.TrainState, batch):
-        x, seg, gt_x, _ = get_inter_inputs(batch)
+        x, seg, gt_x, gt_seg = get_inter_inputs(batch)
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        out = (checkpoint(model, x, seg, modules=(model,)) if outer
-               else model(x, seg))
+        if vae:
+            out = model(x, seg, gt_seg, gt_x, train=True,
+                        generator=generator)
+        else:
+            out = (checkpoint(model, x, seg, modules=(model,)) if outer
+                   else model(x, seg))
         vgg_fn = vgg_loss_from_frozen(state.frozen_vgg)
         loss_dict = rgb_bundle(cfg, out[0], gt_x, vgg_fn, "coarse")
         if cfg.mode == "xs2xs":
             loss_dict["coarse_ce_loss"] = cfg.ce_weight * cross_entropy_loss(
                 out[1], seg_id_targets(batch["seg2"]))
+        if vae:
+            loss_dict["coarse_kld_loss"] = kld_loss(out[2], out[3],
+                                                    cfg.kld_weight)
         if cfg.model in _REFINE:
             _per_scale(cfg, loss_dict, out[2], gt_x, vgg_fn, "refine_")
         if cfg.model == "InterStage3Net":

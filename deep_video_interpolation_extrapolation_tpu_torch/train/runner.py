@@ -18,11 +18,16 @@ InterNet, InterRefineNet and InterStage3Net train and validate
 (``train/inter.py``; the refine stages log ``refine_<scale>_*`` and
 ``stage3_<scale>_*`` losses and validate ``refine_*`` and ``stage3_*``
 metrics), and run cycgen and mycycgen on their serving forward.
-InterGANNet (recipe 4) trains through ``train/inter_gan.py`` and
+InterGANNet (recipe 4) trains through ``train/inter_gan.py`` (with
+``--track_gen``, its track generator beside the coarse model; with
+``--track_obj_loss``, a frozen ResNet101 built once beside the VGG19) and
 validates, runs cycgen and logs its image panel through its coarse model
 in eval mode (``inter_gan.GanEvalAdapter``), the VAE's z drawn from the runner's
 generator (seeded by ``--seed``); its checkpoints hold every
-discriminator and its Adam state under the reference's names.
+discriminator and its Adam state under the reference's names.  A
+VAEHRNet under InterNet or ExtraNet (the plain VAE) trains with its KL
+term, eps from the same generator, and evaluates through the same
+adapter.
 ExtraNet and ExtraInpaintNet (EXTRA, recipe 6) train and validate on
 ``train/extra.py`` over clips of ``2 + num_pred_once * num_pred_step``
 frames, and their cycgen extrapolates from each val clip's first two
@@ -33,9 +38,8 @@ starts from the previous stage's experiment through ``--load_dir`` and
 experiment's model).  Batches
 reach the card through pinned host memory and a side stream
 (``_device_prefetch``); losses stay on the card and are read back once per
-``disp_interval``.  The paths the port does not have yet raise
-``NotImplementedError`` with their ROADMAP item: TrackGen and the
-track-object loss (item 5) and sharding (item 9).
+``disp_interval``.  Sharding, which the port does not have yet, raises
+``NotImplementedError`` with its ROADMAP item (9).
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.train import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     get_inter_inputs,
+    init_resnet_frozen,
     init_vgg_frozen,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.metrics import (
@@ -128,6 +133,10 @@ class Runner:
         self.device = hw.entry_device(device)
         self.is_gan = cfg.model == "InterGANNet"
         self.is_extra = cfg.syn_type == "extra"
+        # a VAEHRNet coarse (the GAN's, or the plain VAE's) evaluates
+        # through the adapter, z from the generator
+        self.vae_eval = (cfg.coarse_model == "VAEHRNet" and cfg.model in
+                         ("InterGANNet", "InterNet", "ExtraNet"))
         # the VAE's eps and z and the sync_neg offsets; reseeded at each
         # epoch and each validation (``_reseed``)
         self.generator = torch.Generator(self.device)
@@ -158,9 +167,15 @@ class Runner:
         if (cfg.vgg_weight > 0 or uses_refine_vgg
                 or cfg.split in ("val", "test")):
             vgg = init_vgg_frozen(cfg, seed=cfg.seed + 1, device=self.device)
+        resnet = None
+        if self.is_gan and cfg.track_obj_loss:
+            # the track-object loss's frozen ResNet101 (runner.py:126-130)
+            resnet = init_resnet_frozen(cfg, seed=cfg.seed + 2,
+                                        device=self.device)
         self.model = registry.build_model(cfg, device=self.device,
                                           seed=cfg.seed)
-        self.state = state_lib.create_train_state(cfg, self.model, vgg)
+        self.state = state_lib.create_train_state(cfg, self.model, vgg,
+                                                  resnet)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("model %s: %d params, submodels=%s", cfg.model, n_params,
                     [n for n, _ in self.model.named_children()])
@@ -204,10 +219,10 @@ class Runner:
         self.generator.manual_seed(self.cfg.seed * 100003 + tag)
 
     def _eval_model(self):
-        """The model of eval, cycgen and the image panels: the GAN's coarse
-        model behind ``GanEvalAdapter`` (the JAX runner's
-        ``_GanEvalAdapter``, runner.py:949), else the model."""
-        if self.is_gan:
+        """The model of eval, cycgen and the image panels: a VAEHRNet coarse
+        (the GAN's, or the plain VAE's) behind ``GanEvalAdapter`` (the JAX
+        runner's ``_GanEvalAdapter``, runner.py:949), else the model."""
+        if self.vae_eval:
             return gan_lib.GanEvalAdapter(self.model.coarse_model,
                                           self.generator)
         return self.model
@@ -218,14 +233,15 @@ class Runner:
         cfg = self.cfg
         steps = extra_lib if self.is_extra else inter_lib
         if train and self.train_step is None:
-            self.train_step = (
-                gan_lib.make_train_step(cfg, self.model, self.generator)
-                if self.is_gan else steps.make_train_step(cfg, self.model))
+            self.train_step = (gan_lib if self.is_gan else steps
+                               ).make_train_step(cfg, self.model,
+                                                 self.generator)
         if not train and self.eval_step is None:
             self.eval_step = (
                 inter_lib.make_eval_step(cfg.replace(model="InterNet"),
                                          self._eval_model())
-                if self.is_gan else steps.make_eval_step(cfg, self.model))
+                if self.is_gan else steps.make_eval_step(
+                    cfg, self._eval_model()))
 
     # ------------------------------------------------------------- data
     def _host_batches(self, loader, depth: int):

@@ -27,6 +27,7 @@ import torch.nn as nn
 
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
+    ResNet101Features,
     VGG19Features,
 )
 
@@ -38,9 +39,10 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
     coarse model Adamax(coarse_lr) (InterTrainer.py:79), the refiner
     Adamax(refine_lr) (:81), stage 3 the refiner's pair (:83); the
     inpainter of ExtraInpaintNet its own (``--inpaint_o``, ``--inpaint_lr``,
-    ``--train_inpaint``; state.py:97-98); each discriminator of InterGANNet
-    Adam at its own learning rate behind its own flag
-    (InterGANTrainer.py:110-116)."""
+    ``--train_inpaint``; state.py:97-98); InterGANNet's track generator
+    Adamax at the coarse learning rate behind ``--train_coarse``
+    (InterGANTrainer.py:108, :452) and each discriminator Adam at its own
+    learning rate behind its own flag (InterGANTrainer.py:110-116)."""
     if cfg.model not in ("InterNet", "InterRefineNet", "InterStage3Net",
                          "InterGANNet", "ExtraNet", "ExtraInpaintNet"):
         raise NotImplementedError(
@@ -58,6 +60,9 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
                                   cfg.inpaint_learning_rate,
                                   cfg.train_inpaint)
     if cfg.model == "InterGANNet":
+        if cfg.track_gen:
+            specs["track_gen_model"] = ("adamax", cfg.coarse_learning_rate,
+                                        cfg.train_coarse)
         for fam in ("frame_disc", "frame_det_disc", "video_disc",
                     "video_det_disc"):
             if getattr(cfg, fam):
@@ -85,10 +90,13 @@ class TrainState:
     optimizers: Dict[str, torch.optim.Optimizer]
     step: int = 0
     frozen_vgg: Optional[VGG19Features] = None   # not optimized
+    # the track-object loss's network (--track_obj_loss), not optimized
+    frozen_resnet: Optional[ResNet101Features] = None
 
 
 def create_train_state(cfg: Config, model: nn.Module,
-                       frozen_vgg: Optional[VGG19Features] = None
+                       frozen_vgg: Optional[VGG19Features] = None,
+                       frozen_resnet: Optional[ResNet101Features] = None
                        ) -> TrainState:
     specs = {name: spec for name, spec in submodel_specs(cfg).items()
              if hasattr(model, name)}
@@ -99,7 +107,7 @@ def create_train_state(cfg: Config, model: nn.Module,
         for name, (_, _, trains) in specs.items():
             getattr(model, name).requires_grad_(trains)
     return TrainState(model=model, optimizers=optimizers,
-                      frozen_vgg=frozen_vgg)
+                      frozen_vgg=frozen_vgg, frozen_resnet=frozen_resnet)
 
 
 def apply_updates(cfg: Config, state: TrainState) -> TrainState:

@@ -324,18 +324,28 @@ def test_head_routes_follow_the_jax_predicates():
 # ---- registry, serving --------------------------------------------------------
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(model="ExtraNet", coarse_model="VAEHRNet"), NotImplementedError),
+    (dict(model="ExtraNet", coarse_model="VAEHRNet"), "vae"),
     (dict(model="ExtraNet", highres_large=True, inpaint=True,
           inpaint_mask=True), None),
     (dict(model="ExtraInpaintNet"), ValueError)])
 def test_unported_extra_models_raise(kw, exc):
-    """VAEHRNet under ExtraNet (the plain VAE, ROADMAP item 5) raises;
-    the 4-part head at N2 = 216 (``--highres_large`` with a 24-wide head)
-    is taken: the model builds, its coarse model's forward gives a finite
-    frame and a mask in [0, 1] (ExtraNet returns the frame and the seg);
+    """VAEHRNet under ExtraNet (the plain VAE) is taken: its eval forward
+    gives (rgb, seg) of one frame, z from the prior
+    (tests/test_torch_port_plain_vae.py holds its step to JAX); the 4-part
+    head at N2 = 216 (``--highres_large`` with a 24-wide head) is taken:
+    the model builds, its coarse model's forward gives a finite frame and a
+    mask in [0, 1] (ExtraNet returns the frame and the seg);
     ExtraInpaintNet whose coarse model returns no mask raises the JAX
     ValueError on its forward."""
     cfg = Config(**{**EXTRA, "compute_dtype": "float32", **kw})
+    if exc == "vae":
+        model = registry.build_model(cfg, device="cpu")
+        rgb, seg = _inputs(kw)
+        with torch.no_grad():
+            out = model(torch.from_numpy(rgb), torch.from_numpy(seg))
+        assert len(out) == 2 and out[0].shape == (B, H, W, 3)
+        assert out[1].shape == (B, H, W, 20) and torch.isfinite(out[0]).all()
+        return
     if exc is None:
         model = registry.build_model(cfg, device="cpu")
         rgb, seg = _inputs(kw)
@@ -346,10 +356,6 @@ def test_unported_extra_models_raise(kw, exc):
         mask = out[2]
         assert mask.shape == (B, H, W, 1)
         assert bool((mask >= 0).all() and (mask <= 1).all())
-        return
-    if exc is NotImplementedError:
-        with pytest.raises(exc, match="ROADMAP"):
-            registry.build_model(cfg, device="cpu")
         return
     model = registry.build_model(cfg, device="cpu")
     rgb, seg = _inputs(kw)

@@ -350,8 +350,10 @@ def test_stem_48_splits_and_partials():
     66) and the (s1, 9, 48, 64) partials decoded to dk1 (64, 46, 3, 3)."""
     assert trainchain.stem_cin_pad(14) == 16
     assert trainchain.stem_cin_pad(46) == 48
-    with pytest.raises(ValueError, match="48"):
-        trainchain.stem_cin_pad(49)
+    assert trainchain.stem_cin_pad(49) == trainchain.stem_cin_pad(53) == 64
+    with pytest.raises(ValueError, match="64"):
+        trainchain.stem_cin_pad(65)
+    assert trainchain.stem_wgrad_splits(24, 128, 128, 64) == (66, 66)
     assert trainchain.stem_wgrad_splits(18, 128, 128, 48) == (66, 66)
     assert trainchain.stem_wgrad_splits(2, 16, 32, 48) == (8, 8)
     rng = np.random.RandomState(13)
@@ -372,8 +374,9 @@ def test_stem_48_splits_and_partials():
 def test_stem_routes_46_channels_to_the_48_kernels(monkeypatch):
     """On the kernel route a 46-channel stem pads x to 48 and calls
     ``dvie_stem48_fwd`` / ``dvie_stem48_bwd`` (counted as ``stem48_fwd``
-    and ``stem48_bwd``), with dk1's partials (s1, 9, 48, 64); a 14-channel
-    one the 16-channel kernels."""
+    and ``stem48_bwd``), with dk1's partials (s1, 9, 48, 64); a 53-channel
+    one (VAEHRNet in extrapolation with three input frames) the 64-channel
+    kernels; a 14-channel one the 16-channel kernels."""
     calls = []
 
     def fake_call(name, *args):
@@ -391,6 +394,7 @@ def test_stem_routes_46_channels_to_the_48_kernels(monkeypatch):
     monkeypatch.setattr(hw, "check_bf16", lambda *a, **k: None)
     rng = np.random.RandomState(14)
     for ci, fwd, bwd, xin in ((SCI, "stem48_fwd", "stem48_bwd", 48),
+                              (53, "stem64_fwd", "stem64_bwd", 64),
                               (14, "stem_fwd", "stem_bwd", 16)):
         calls.clear()
         ws = [torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32))

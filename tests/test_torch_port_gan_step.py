@@ -366,18 +366,22 @@ def test_intergannet_forward_matches_jax(monkeypatch):
 
 
 def test_refusals():
-    """--track_gen and --track_obj_loss raise naming their ROADMAP item;
-    --remat is taken: the step builds and runs one step to finite losses
+    """--track_gen builds the track generator beside the coarse model and
+    --track_obj_loss without its frozen network raises the JAX ValueError
+    (tests/test_torch_port_track_obj.py holds both to JAX); --remat is
+    taken: the step builds and runs one step to finite losses
     (tests/test_torch_port_gan_remat.py holds it to JAX); a video_det
     family without sync_neg support raises as the JAX step does."""
     base = Config(**RECIPE4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        registry.build_model(dataclasses.replace(base, track_gen=True),
-                             device="cpu")
-    _, model, _ = _port()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    model = registry.build_model(dataclasses.replace(base, track_gen=True),
+                                 device="cpu")
+    assert type(model.track_gen_model).__name__ == "TrackGen"
+    cfg, model, state = _port()
+    with pytest.raises(ValueError, match="ResNet101"):
         inter_gan.make_train_step(
-            dataclasses.replace(base, track_obj_loss=True), model)
+            dataclasses.replace(base, track_obj_loss=True), model,
+            torch.Generator())(state, {k: torch.from_numpy(v)
+                                       for k, v in _batch(1).items()})
     cfg, model, state = _port({**RECIPE4, "remat": True})
     state, ld = inter_gan.make_train_step(cfg, model, torch.Generator())(
         state, {k: torch.from_numpy(v) for k, v in _batch(1).items()})

@@ -364,13 +364,13 @@ def test_stem_tiles_and_splits(shape, tiles, splits):
 def test_stem_wrappers_raise_before_any_launch(no_launch, case, match):
     """The stem's forward and backward wrappers raise ``ValueError`` for
     what the kernels cannot take before the library is reached: k1 with
-    over 48 inputs, x whose channels are neither k1's nor 16, another k2,
+    over 64 inputs, x whose channels are neither k1's nor 16, another k2,
     an empty input, and on the CPU any operand."""
     rng = np.random.RandomState(9)
     k1, b1, k2, b2 = _stem_params(rng)
     x = torch.zeros((1, 8, 16, 14), dtype=torch.bfloat16)
     if case == "k1 inputs":
-        k1, x = _w(rng, 64, 50, 3, 3), torch.zeros((1, 8, 16, 50),
+        k1, x = _w(rng, 64, 66, 3, 3), torch.zeros((1, 8, 16, 66),
                                                     dtype=torch.bfloat16)
     elif case == "x channels":
         x = torch.zeros((1, 8, 16, 12), dtype=torch.bfloat16)

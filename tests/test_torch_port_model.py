@@ -142,20 +142,29 @@ def test_port_config_mirrors_the_jax_config():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(model="InterGANNet", track_gen=True),
+@pytest.mark.parametrize("kw", [dict(model="InterGANNet",
+                                     coarse_model="VAEHRNet", track_gen=True),
                                 dict(coarse_model="VAEHRNet"),
                                 dict(model="ExtraNet", syn_type="extra",
                                      coarse_model="VAEHRNet"),
                                 dict(model="ExtraInpaintNet",
                                      syn_type="extra", inpaint=True,
-                                     inpaint_mask=True, highres_large=True)])
+                                     inpaint_mask=True, highres_large=True),
+                                dict(coarse_model="UNet"),
+                                dict(model="GridNet")])
 def test_registry_refuses_unported_models(kw):
-    """What stays unported raises naming its ROADMAP item; the 4-part head
-    at N2 = 216 (ExtraInpaintNet ``--inpaint_mask --highres_large``) is
-    ported and builds."""
+    """What stays unported (the legacy models, ROADMAP queue 1 item 8)
+    raises naming its ROADMAP item; TrackGen, the plain VAE (VAEHRNet under
+    InterNet and ExtraNet) and the 4-part head at N2 = 216 (ExtraInpaintNet
+    ``--inpaint_mask --highres_large``) are ported and build."""
     if kw.get("highres_large"):
         model = registry.build_model(_cfg(**kw), device="cpu")
         assert model.coarse_model.rgb_dim + model.coarse_model.seg_dim == 24
+        return
+    if kw.get("coarse_model") == "VAEHRNet":
+        model = registry.build_model(_cfg(**kw), device="cpu")
+        assert model.coarse_model.vae
+        assert hasattr(model, "track_gen_model") == bool(kw.get("track_gen"))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.build_model(_cfg(**kw), device="cpu")

@@ -15,7 +15,13 @@ epoch's checkpoint, and ``--split cycgen`` on synthetic data; and recipe
 recipe's four discriminator families at ``--n_track 2``): one epoch of 8
 steps, ``--split val`` on its checkpoint and ``--split cycgen``; and recipe
 6 through the launcher (ExtraNet, ``--num_pred_step 3``): one epoch of 8
-steps, ``--split val`` on its checkpoint and ``--split cycgen``.  Pillow and
+steps, ``--split val`` on its checkpoint and ``--split cycgen``; and the
+rest of recipe 4: the track-object variant (``--track_obj_loss
+--track_obj_w 8 --track_gen --track_gen_model TrackGenV2``, GlobalMask as
+its det family) through the launcher, one epoch and val, each of the
+seven newer det discriminators and TrackGen in one train step, and the
+plain VAE (ExtraNet on a VAEHRNet) through the launcher, one epoch and
+val.  Pillow and
 TensorBoard are blocked too, as the card's machine has neither: the PNGs go
 through ``native/png.py`` and the runner logs without a writer."""
 
@@ -204,6 +210,60 @@ out = run(parse_args(f"{{ex}} --split cycgen {{r6}}".split()),
           exp_dir=os.path.join(tmp, "ecyc"), device="cpu")
 assert png.read_png(os.path.join(out, "clip_00000", "rgb", "004.png"),
                     3).shape == (32, 64, 3)
+# the rest of recipe 4: the track-object variant with TrackGenV2 and the
+# GlobalMask det family through the launcher (an epoch, its checkpoint
+# holding the track generator and its Adamax, val), each of the seven
+# newer det discriminators and TrackGen in one step; the plain VAE
+# (ExtraNet on a VAEHRNet) through the launcher
+tobj = ("INTER --model InterGANNet --load_model InterGANNet --coarse_model "
+        "VAEHRNet --train_coarse --vae --gan "
+        "--track_gen --track_gen_model TrackGenV2 --video_det_disc "
+        "--video_det_disc_model VideoGlobalMaskSNDetDiscriminator "
+        "--train_video_det_disc")
+tsyn = f"{{syn}} --track_obj_loss --track_obj_w 8"
+texp = os.path.join(tmp, "tobj")
+run(parse_args(f"{{tsyn}} --split train {{tobj}}".split()), exp_dir=texp,
+    device="cpu")
+ck = torch.load(os.path.join(texp, "checkpoint", "InterGANNet_xs2xs_inter_4_1_0"),
+                weights_only=True)
+assert "track_gen_model" in ck and "track_gen_optimizer" in ck
+log = open(os.path.join(texp, "experiment_train.log")).read()
+assert "[iter    7]" in log and "nan" not in log.split("[iter    7]")[1][:40]
+metrics = run(parse_args(f"{{tsyn}} --split val --load_dir {{texp}} "
+                         f"--checksession 4 --checkepoch 1 {{tobj}} "
+                         "--load_coarse".split()),
+              exp_dir=os.path.join(tmp, "tval"), device="cpu")
+assert np.isfinite(metrics["coarse_psnr"])
+from {pkg}.data.synthetic import synthetic_batch
+from {pkg}.models import detdisc
+from {pkg}.train import inter_gan
+sb = {{k: torch.from_numpy(v) for k, v in synthetic_batch(
+    2, 32, 64, n_track=2, seed=1).items()}}
+for kw in ([dict(video_det_disc_model=n) for n in sorted(detdisc.CLASSES)
+            if n.startswith("Video") and n not in (
+                "VideoDetDiscriminator", "VideoSNDetDiscriminator",
+                "VideoLSSNDetDiscriminator")]
+           + [dict(track_gen=True, track_gen_model="TrackGen")]):
+    gcfg = parse_args(f"{{syn}} --split train {{gan}}".split()).replace(
+        frame_disc=False, frame_det_disc=False, video_disc=False, **kw)
+    gm = registry.build_model(gcfg, device="cpu", seed=3)
+    gs = state_lib.create_train_state(gcfg, gm)
+    gs, gl = inter_gan.make_train_step(gcfg, gm, torch.Generator())(gs, sb)
+    assert torch.isfinite(gl["loss_all"]), kw
+# the EXTRA parser offers --coarse_model HRNet only, as the JAX one: the
+# plain VAE goes through run() with the Config's coarse_model replaced
+vexp = os.path.join(tmp, "pvae")
+pv = "EXTRA --model ExtraNet --train_coarse --num_pred_step 2"
+run(parse_args(f"{{ex}} --split train {{pv}}".split()).replace(
+    coarse_model="VAEHRNet"), exp_dir=vexp, device="cpu")
+log = open(os.path.join(vexp, "experiment_train.log")).read()
+assert "[iter    7]" in log and "nan" not in log.split("[iter    7]")[1][:40]
+metrics = run(parse_args(f"{{ex}} --split val --load_dir {{vexp}} "
+                         f"--checksession 4 --checkepoch 1 {{pv}} "
+                         "--load_coarse".split()).replace(
+                             coarse_model="VAEHRNet"),
+              exp_dir=os.path.join(tmp, "pval"), device="cpu")
+assert np.isfinite(metrics["step_1_frame_0_coarse_psnr"])
 assert not any(sys.modules.get(n) for n in BLOCKED)
 print("modules", len(names))
 """

@@ -237,6 +237,7 @@ def test_vae_coarse_under_refine_raises_as_jax():
         jinter.make_train_step(JConfig(**kw), None)
     with pytest.raises(ValueError, match="VAEHRNet"):
         inter.make_train_step(Config(**kw), None)
+    # under InterNet it is the plain VAE, which the port takes
+    # (tests/test_torch_port_plain_vae.py)
     cfg = dataclasses.replace(Config(**kw), model="InterNet")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_model(cfg, device="cpu")
+    assert registry.build_model(cfg, device="cpu").coarse_model.vae
