@@ -233,7 +233,26 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     (the 64-channel stem kernels, rows ``stem64_*`` of the train-kernel
     phase) the gate and 6 finite steps;
 33. the track-object variant through the launcher: an epoch with its
-    checkpoint, then ``--r`` to a second epoch.
+    checkpoint, then ``--r`` to a second epoch;
+34. the vimeo and ucf101 triplet sets (``--mode xx2x``, no segmentation):
+    the kernels they run against their plain versions at B=1 and 8
+    256x448 and 8x256x256 (K1 at its three sites, K2 in its three block
+    forms, K3, K4's taps and h modes, the shift add bit for bit); trees
+    written by the port's PNG encoder (80 vimeo triplets of 448x256, 8
+    ucf101 clips of 320x240 with the clip pickle of
+    ``tools/build_clips``); one 448x256 frame's host decode time by the
+    fused path, the numpy decoder and Pillow; two vimeo epochs of 8 steps
+    at batch 8 through the launcher with ``DVIE_PROFILE_DIR`` set (the
+    first epoch traced): the launches of each step
+    (at 256x448 the serving kernels, K1 18, K2 4, K3 2, K4 taps 1 and h
+    1, the shift add 1; no train-chain kernel, as branch 0 fails
+    ``bb_fits``), every frame decoded by the fused PNG path, finite
+    losses, one trace naming the port's kernels (its device time a step),
+    each epoch's samples/s, load and comp seconds, peak memory; then
+    ``--split val`` on vimeo from the epoch-2 checkpoint and a ucf101
+    ``--checkepoch_range``
+    sweep over it (256x256): the serving launches, PSNR and SSIM, no
+    ``coarse_iou``.
 
 The kernel phase also holds the 4-part head at 24x128x128
 (``ups_head_taps4_train``), its 216 instance (``upshead4_taps_n216``,
@@ -324,7 +343,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
     _concat_pyramid,
     _encode_inputs,
 )
-from deep_video_interpolation_extrapolation_tpu_torch.native import png
+from deep_video_interpolation_extrapolation_tpu_torch.native import host, png
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
     extra,
@@ -334,6 +353,9 @@ from deep_video_interpolation_extrapolation_tpu_torch.train import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
     Runner,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.tools import (
+    build_clips,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     init_resnet_frozen,
@@ -4089,6 +4111,324 @@ def track_obj_runner_phase(dev, card):
     return runs
 
 
+# ---- the vimeo and ucf101 triplet sets (phase 34) --------------------------
+
+VIMEO_HW, UCF_HW = (256, 448), (240, 320)
+TRIPLET_BS, TRIPLET_STEPS, VIMEO_VAL_BATCHES, UCF_CLIPS = 8, 8, 2, 8
+# at 256x448 (W >= 256: the packed stem/layer1 route) branch 0 is 64 ch at
+# 256x448, past bb_fits's 40 MiB budget (~200 MB at a batch tile of 1), so
+# the xx2x train step runs the serving route's forward kernels (K1 18:
+# stem conv2, trans_0 and the 16 branch-0 convs; K2 4; K3 2), K4's taps
+# and, in its backward, K4's h mode, and the shift add; no train-chain
+# kernel
+PER_TRIPLET_STEP = {"conv3x3_bias_res_lrelu": 18, "bottleneck_tail": 4,
+                    "fuse_out0": 2, "ups_head_taps": 1, "ups_head_1x1": 1,
+                    "shifted_add_bias": 1}
+# the names of those kernels' functions, which the DVIE_PROFILE_DIR trace
+# must hold (K1, K2, the Triton K3, K4 in both modes, the shift add)
+TRACE_KERNELS = ("conv3x3_kernel", "tail_kernel", "_fuse_out0",
+                 "ups_head_kernel", "shifted_add_bias_kernel")
+TRIPLET_SHAPES = ((1, 256, 448), (8, 256, 448), (8, 256, 256))
+
+
+def triplet_kernel_check(dev):
+    """The kernels of the triplet paths against their plain versions at
+    the shapes those paths give them, B=1 and 8 at 256x448 (vimeo: the 1/2
+    and 1/4 maps 128x224 and 64x112, K1's 16-wide tiles across 28 of them)
+    and 8x256x256 (ucf101), by max|d|/max|ref| <= KERNEL_TOL, each output
+    from NaN-filled memory: K1 at its three sites, K2 in its three block
+    forms, K3 for stages 2 and 3, K4's taps and h modes; the shift add bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(34)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def w(*shape):
+        fan_in = shape[1] * shape[2] * shape[3]
+        return torch.randn(shape, generator=g, device=dev) / fan_in ** 0.5
+
+    lrelu = torch.nn.functional.leaky_relu
+    w64, w256, bias = w(64, 64, 3, 3), w(64, 256, 3, 3), w(64, 1, 1, 1).flatten()
+    w2, w3 = w(64, 64, 3, 3), w(256, 64, 1, 1)
+    wres, w1n = w(256, 64, 1, 1), w(64, 256, 1, 1)
+    w1 = w(896, 448, 1, 1)[:, :, 0, 0].t()
+    b1 = w(896, 1, 1, 1).flatten()
+    w2t = k4.build_dual_tap_kernel(w(3, 448, 3, 3), w(20, 448, 3, 3),
+                                   torch.bfloat16)
+    for b, h, wd in TRIPLET_SHAPES:
+        x64, x256, res = rnd(b, h, wd, 64), rnd(b, h, wd, 256), \
+            rnd(b, h, wd, 64)
+        h1 = lrelu(rnd(b, h, wd, 64), 0.2)
+        t1, t2 = rnd(b, h // 2, wd // 2, 64), rnd(b, h // 4, wd // 4, 64)
+        p1, p2 = rnd(b, h // 2, wd // 2, 128), rnd(b, h // 4, wd // 4, 256)
+        cases = (
+            ("conv3x3_bias_res_lrelu", k1.conv3x3_bias_res_lrelu,
+             k1.conv3x3_bias_res_lrelu_plain,
+             {"stem conv2": (x64, w64, bias, None, True),
+              "trans_0": (x256, w256, None, None, True),
+              "basicblock conv2": (x64, w64, None, res, True)}),
+            ("bottleneck_tail", k2.bottleneck_tail, k2.bottleneck_tail_plain,
+             {"block 0": (h1, x64, w2, w3, wres, w1n),
+              "block 1": (h1, x256, w2, w3, None, w1n),
+              "block 3": (h1, x256, w2, w3, None, None)}),
+            ("fuse_out0", k3.fuse_out0, k3.fuse_out0_plain,
+             {"stage2": (x64, t1, None), "stage3": (x64, t1, t2)}),
+            ("ups_head_taps", k4.ups_head_taps, k4.ups_head_taps_plain,
+             {"heads": (x64, p1, p2, w1, b1, w2t)}),
+            ("ups_head_1x1", k4.ups_head_1x1, k4.ups_head_1x1_plain,
+             {"h": (x64, p1, p2, w1, b1)}))
+        for name, kern, plain, variants in cases:
+            for label, args in variants.items():
+                out, ref = poisoned(kern, args), plain(*args)
+                torch.cuda.synchronize()
+                outs = out if isinstance(out, tuple) else (out,)
+                refs = ref if isinstance(ref, tuple) else (ref,)
+                for o, r in zip(outs, refs):
+                    if (o is None) != (r is None):
+                        raise AssertionError(f"{name} [{label}]: outputs")
+                    if o is not None:
+                        _held(name, f"{label}, {b}x{h}x{wd}", o, r)
+                del out, ref, outs, refs
+        del x64, x256, res, h1, t1, t2, p1, p2
+        torch.cuda.empty_cache()
+    shifted_add_check(dev, 23, [(None, f"{b}x{h}x{wd}", (b, h, wd))
+                                for b, h, wd in TRIPLET_SHAPES])
+
+
+def _moving_frames(g, dev, n, h, w, shift=3):
+    """``n`` uint8 (h, w, 3) frames of one smooth seeded scene moving
+    ``shift`` px to the left a frame."""
+    base = torch.rand((1, 3, h // 16 + 1, (w + n * shift) // 16 + 1),
+                      generator=g, device=dev)
+    big = torch.nn.functional.interpolate(base, size=(h, w + n * shift),
+                                          mode="bilinear", align_corners=True)
+    big = (big * 255).round().to(torch.uint8)[0].permute(1, 2, 0).cpu()
+    return [big[:, i * shift:i * shift + w].numpy() for i in range(n)]
+
+
+def _write_triplet_trees(root, dev):
+    """A vimeo tree (``TRIPLET_BS * TRIPLET_STEPS`` train and
+    ``TRIPLET_BS * VIMEO_VAL_BATCHES`` test triplets of 448x256 frames,
+    ``sequences/<dir>/im1..3.png`` and the two lists) and a ucf101 tree
+    (``UCF_CLIPS`` clips of 320x240 frames) whose clip pickle
+    ``tools/build_clips.create_root_clip`` writes (3-frame clips of
+    ``<scene>_<video>_<frame>_frame.png``; each row then names its files),
+    all PNGs by the port's encoder.  Returns (vimeo root, ucf101 img_dir)."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    vimeo = os.path.join(root, "vimeo_triplet")
+    lists = {"tri_trainlist.txt": TRIPLET_BS * TRIPLET_STEPS,
+             "tri_testlist.txt": TRIPLET_BS * VIMEO_VAL_BATCHES}
+    k = 0
+    for name, n in lists.items():
+        rows = []
+        for _ in range(n):
+            row = f"{k // 7 + 1:05d}/{k % 7 + 1:04d}"
+            d = os.path.join(vimeo, "sequences", row)
+            os.makedirs(d)
+            for i, f in enumerate(_moving_frames(g, dev, 3, *VIMEO_HW)):
+                png.save_png(os.path.join(d, f"im{i + 1}.png"), f)
+            rows.append(row)
+            k += 1
+        with open(os.path.join(vimeo, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    ucf = os.path.join(root, "ucf101", "ucf101_interp_ours")
+    scene = os.path.join(ucf, "test", "ucf")
+    os.makedirs(scene)
+    for c in range(UCF_CLIPS):
+        for i, f in enumerate(_moving_frames(g, dev, 3, *UCF_HW)):
+            png.save_png(os.path.join(scene, f"ucf_{c:06d}_{i:06d}_frame.png"),
+                         f)
+    pkl = os.path.join(root, "ucf101", "UCF101_test_root_clip.pkl")
+    clips = build_clips.create_root_clip(ucf, pkl, tail="frame", clip_len=3,
+                                         scene_dict={"test": ["ucf"]})
+    rows = [[p + "_frame.png" for p in clip] for clip in clips["test"]]
+    if len(rows) != UCF_CLIPS:
+        raise AssertionError(f"ucf101 tree: {len(rows)} clips")
+    with open(pkl, "wb") as f:
+        pickle.dump({"test": rows}, f)
+    return vimeo, ucf
+
+
+def _decode_times(frame):
+    """Host ms to decode one whole frame (a 448x256 RGB array) written by
+    Pillow (its adaptive row filters, as real trees have), by the fused
+    path, the zlib + numpy decoder (``DVIE_NATIVE_LOADER=0``) and Pillow:
+    the median of 5 decodes each, after one."""
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    data = buf.getvalue()
+    h, w = frame.shape[:2]
+    old = os.environ.get("DVIE_NATIVE_LOADER")
+
+    def fused():
+        return host.decode_rgb_norm(data, 0, 0, h, w, False)
+
+    def numpy_path():
+        os.environ["DVIE_NATIVE_LOADER"] = "0"
+        try:
+            return host.decode_rgb_norm(data, 0, 0, h, w, False)
+        finally:
+            if old is None:
+                os.environ.pop("DVIE_NATIVE_LOADER")
+            else:
+                os.environ["DVIE_NATIVE_LOADER"] = old
+
+    def pillow():
+        return host.NORM[png.decode_u8(data, 3, use_pil=True)]
+    ms = {}
+    for name, fn in (("fused", fused), ("numpy", numpy_path),
+                     ("Pillow", pillow)):
+        out = fn()
+        if not torch.equal(torch.from_numpy(out), torch.from_numpy(fused())):
+            raise AssertionError(f"decode {name}: differs from the fused path")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+    return ms
+
+
+def _trace_kernels(trace_dir):
+    """The one Chrome trace under ``trace_dir``: (its device events' names,
+    their summed device time in ms)."""
+    names = os.listdir(trace_dir)
+    if len(names) != 1 or not names[0].endswith(".json"):
+        raise AssertionError(f"DVIE_PROFILE_DIR: {names}")
+    with open(os.path.join(trace_dir, names[0])) as f:
+        events = json.load(f)["traceEvents"]
+    dev_events = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    return ({e["name"] for e in dev_events if e["cat"] == "kernel"},
+            sum(float(e.get("dur", 0)) for e in dev_events) / 1e3)
+
+
+def triplet_phase(dev, card):
+    """Phase 34: the vimeo and ucf101 triplet sets (``--mode xx2x``) through
+    the launcher at 256x448 and 256x256, InterNet/HRNet at its published
+    widths, bf16; first the triplet paths' kernels against their plain
+    versions (``triplet_kernel_check``) and one frame's host decode time
+    by the three PNG decoders.  Trains two vimeo epochs of 8 steps at
+    batch 8 with ``DVIE_PROFILE_DIR`` set (the counted launches, each
+    epoch's image-grid forward where a writer exists; every frame decoded
+    by the fused PNG path; finite losses; one trace, of the first epoch's
+    steps 2-6, holding the port's kernels, its device time a step),
+    prints each epoch's samples/s, load and comp seconds and the peak
+    memory; then validates vimeo from the epoch-2 checkpoint and sweeps
+    ucf101 over it (``--checkepoch_range``): the serving launches, PSNR
+    and SSIM.  Returns the counted launches of each run."""
+    triplet_kernel_check(dev)
+    tmp = tempfile.mkdtemp(prefix="dvie_triplet_")
+    old_trace = os.environ.get("DVIE_PROFILE_DIR")
+    runs = []
+    try:
+        t0 = time.perf_counter()
+        vimeo, ucf = _write_triplet_trees(tmp, dev)
+        print(f"triplet trees: {TRIPLET_BS * (TRIPLET_STEPS + VIMEO_VAL_BATCHES)}"
+              f" vimeo triplets, {UCF_CLIPS} ucf101 clips written in "
+              f"{time.perf_counter() - t0:.3f} s")
+        ms = _decode_times(_moving_frames(
+            torch.Generator(device=dev).manual_seed(35), dev, 1,
+            *VIMEO_HW)[0])
+        print("triplet decode of one 448x256 frame (Pillow-written), host "
+              "ms on the card's machine: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in ms.items()))
+        trace_dir = os.path.join(tmp, "trace")
+        os.environ["DVIE_PROFILE_DIR"] = trace_dir
+        common = (f"--mode xx2x --syn_type inter --bs {TRIPLET_BS} "
+                  "--disp_interval 1 --nw 4")
+        train = parse_args(
+            f"--dataset vimeo --img_dir {vimeo} {common} --split train "
+            f"--input_h {VIMEO_HW[0]} --input_w {VIMEO_HW[1]} --epochs 2 "
+            "INTER --model InterNet --train_coarse".split())
+        exp = os.path.join(tmp, "exp")
+        host.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hw.reset_counters()
+        _quiet(lambda: run(train, exp))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        os.environ.pop("DVIE_PROFILE_DIR")
+        counts = dict(hw.launches)
+        runs.append(counts)
+        # with a TensorBoard writer, each epoch's step 0 also logs the image
+        # grid: one eval forward an epoch
+        grids = 2 * int(os.path.isdir(os.path.join(
+            exp, "train_int_1_len_1_vimeo_logs")))
+        print(f"triplet vimeo train launches (2 epochs, {grids} image grid "
+              f"forwards): {json.dumps({k: v for k, v in counts.items() if v})}")
+        for name in hw.KERNELS:
+            want = (2 * TRIPLET_STEPS * PER_TRIPLET_STEP.get(name, 0)
+                    + grids * PER_FORWARD.get(name, 0))
+            if counts[name] != want:
+                raise AssertionError(f"triplet vimeo train: {name} launched "
+                                     f"{counts[name]} times, expected {want}")
+        frames = 2 * TRIPLET_STEPS * TRIPLET_BS * 3
+        if host.counts != {"fused": frames, "numpy": 0, "other": 0}:
+            raise AssertionError(f"triplet vimeo train: decoded {host.counts}"
+                                 f", expected {frames} fused")
+        log = _log_of(exp)
+        losses = [float(v) for _, _, v in LOSS_LINE.findall(log)]
+        if len(losses) != 2 * TRIPLET_STEPS or not all(map(math.isfinite,
+                                                           losses)):
+            raise AssertionError(f"triplet vimeo train: losses {losses}")
+        names, device_ms = _trace_kernels(trace_dir)
+        missing = [k for k in TRACE_KERNELS
+                   if not any(k in n for n in names)]
+        if missing or "trace of steps 2-6 written" not in log:
+            raise AssertionError(f"triplet trace: {missing} not among "
+                                 f"{sorted(names)}")
+        print(f"triplet trace: {len(names)} kernel names, the port's "
+              f"{', '.join(TRACE_KERNELS)} among them; device time "
+              f"{device_ms / 5:.3f} ms a step (steps 2-6, under the "
+              f"profiler) on {card}")
+        for e, n, wall, rate, load, comp in EPOCH_LINE.findall(log):
+            print(f"triplet vimeo train 8x256x448 epoch {e}"
+                  f"{' (traced, warm-up)' if e == '1' else ''}: {n} samples"
+                  f" in {wall} s, {rate} samples/s, load {load} s, comp "
+                  f"{comp} s on {card}")
+        print(f"triplet vimeo train: peak {peak:.3f} GiB, {frames} frames on"
+              f" the fused PNG path, loss_all {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g}")
+
+        load = f"--load_dir {exp} --checksession 0"
+        vval = parse_args(
+            f"--dataset vimeo --img_dir {vimeo} {common} --split val "
+            f"--checkepoch 2 {load} INTER --model InterNet "
+            "--load_coarse".split())
+        metrics, counts = _counted(
+            "triplet vimeo val", PER_FORWARD, VIMEO_VAL_BATCHES,
+            lambda: _quiet(lambda: run(vval, os.path.join(tmp, "vval"))))
+        runs.append(counts)
+        uval = parse_args(
+            f"--dataset ucf101 --img_dir {ucf} {common} --split val "
+            f"{load} --checkepoch_range --checkepoch_low 2 --checkepoch_up 2 "
+            "INTER --model InterNet".split())
+        swept, counts = _counted(
+            "triplet ucf101 val sweep", PER_FORWARD, 1,
+            lambda: _quiet(lambda: run(uval, os.path.join(tmp, "uval"))))
+        runs.append(counts)
+        for label, m in (("vimeo 8x256x448", metrics),
+                         ("ucf101 8x256x256", swept[2])):
+            if "coarse_iou" in m or not all(map(math.isfinite, m.values())):
+                raise AssertionError(f"triplet val {label}: {m}")
+            print(f"triplet val {label}: PSNR {m['coarse_psnr']:.4f}, SSIM "
+                  f"{m['coarse_ssim']:.4f}, L1 {m['coarse_l1']:.5f}")
+    finally:
+        if old_trace is None:
+            os.environ.pop("DVIE_PROFILE_DIR", None)
+        else:
+            os.environ["DVIE_PROFILE_DIR"] = old_trace
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -4120,6 +4460,7 @@ def main():
             *highres_train_phase(dev, card), *remat_phase(dev, card),
             track_obj_phase(dev, card), *track_obj_runner_phase(dev, card),
             *plain_vae_phase(dev, card), *runner_phase(dev, card)]
+    runs += triplet_phase(dev, card)
     track_gen_phase(dev, card)
     det_disc_phase(dev, card)
     print(json.dumps({"kernels": [

@@ -20,6 +20,12 @@ SEG_ID2INDEX = np.array(
 
 N_CLASSES = 20
 
+# The port's own: the seg id of a frame that has no segmentation (the
+# vimeo and ucf101 triplets).  ``core/seg.seg_oh`` expands it to an all-zero
+# row, the JAX package's dummy one-hot; ``ClipDataset`` still refuses it, as
+# it refuses every id >= N_CLASSES.
+NO_SEG = 255
+
 # 20-class visualization palette (utils/data_utils.py color_map)
 COLOR_MAP = np.array([
     [128, 64, 128],   # road

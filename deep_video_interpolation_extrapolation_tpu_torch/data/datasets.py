@@ -1,13 +1,15 @@
 """Dataset factory of the port (counterpart of the JAX package's
-``data/datasets.py``; reference data.py:21-143) for ``--dataset
-synthetic`` and ``--dataset cityscape``.
+``data/datasets.py``; reference data.py:21-143) for every ``--dataset``.
 
 The Cityscapes split comes from the reference's pickled clip lists, keyed
 by interval, track count and area (data.py:25-32), with the bbox
 coordinate pickles beside them; the root is ``$DVIE_DATA_ROOT`` and the
-frame trees ``--img_dir`` / ``--seg_dir``, as in the JAX package.
-``--dataset synthetic`` generates clips, so every stage runs without the
-download.  ucf101 and vimeo (``TripletDataset``) are not ported yet.
+frame trees ``--img_dir`` / ``--seg_dir``, as in the JAX package.  ucf101
+(val only: ``UCF101_test_root_clip.pkl`` beside ``--img_dir``, frames
+resized to 256x256) and vimeo (``tri_trainlist.txt`` / ``tri_testlist.txt``
+under ``--img_dir``, frames in its ``sequences/``) are
+``TripletDataset``s.  ``--dataset synthetic`` generates clips, so every
+stage runs without the download.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 from deep_video_interpolation_extrapolation_tpu_torch.data.folder import (
     ClipDataset,
     Loader,
+    TripletDataset,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.data.synthetic import (
     SyntheticClipDataset,
@@ -81,11 +84,40 @@ def get_dataset(cfg, vid_len: int = 3):
                 bboxes=boxes["val"] if boxes else None, split="val")
         return train, val
 
-    if cfg.dataset in ("ucf101", "vimeo"):
-        raise NotImplementedError(
-            f"--dataset {cfg.dataset} (TripletDataset, the JAX package's "
-            "data/folder.py:353) is not ported yet (ROADMAP.md queue 1, "
-            "item 4)")
+    if cfg.dataset == "ucf101":
+        # val-only xx2x triplets from a pickled clip list (data.py:75-93)
+        root = cfg.img_dir or os.path.join(data_root(), "ucf101_interp_ours")
+        clip_path = os.path.join(
+            os.path.dirname(root.rstrip("/")), "UCF101_test_root_clip.pkl")
+        with open(clip_path, "rb") as f:
+            clips = pickle.load(f)["test"]
+        val = TripletDataset(cfg, clips, root, style="ucf101",
+                             resize=(256, 256))
+        return None, val
+
+    if cfg.dataset == "vimeo":
+        # tri_trainlist/tri_testlist of triplet dirs (data.py:95-137); a
+        # row shorter than 4 characters ends the list
+        root = cfg.img_dir or os.path.join(data_root(), "vimeo_triplet")
+
+        def read_list(name):
+            rows = []
+            with open(os.path.join(root, name)) as f:
+                for line in f:
+                    line = line.strip()
+                    if len(line) < 4:
+                        break
+                    rows.append(line)
+            return rows
+
+        seq_dir = os.path.join(root, "sequences")
+        train = val = None
+        if cfg.split == "train":
+            train = TripletDataset(cfg, read_list("tri_trainlist.txt"),
+                                   seq_dir)
+        if cfg.split == "val":
+            val = TripletDataset(cfg, read_list("tri_testlist.txt"), seq_dir)
+        return train, val
     raise KeyError(cfg.dataset)
 
 

@@ -1,6 +1,7 @@
-"""Cityscapes clip dataset and loader of the port (counterpart of the JAX
-package's ``data/folder.py``: ``correlated_crop_params`` :67,
-``ClipDataset`` :83 and ``Loader`` :413; reference folder.py:38-313).
+"""Cityscapes clip dataset, vimeo / ucf101 triplet dataset and loader of
+the port (counterpart of the JAX package's ``data/folder.py``:
+``correlated_crop_params`` :67, ``ClipDataset`` :83, ``TripletDataset``
+:353 and ``Loader`` :413; reference folder.py:38-313, data.py:75-137).
 
 Host-side numpy pipeline producing fixed-shape batches:
 
@@ -15,12 +16,14 @@ Host-side numpy pipeline producing fixed-shape batches:
   to image scale and converted to (y1, x1, y2, x2) (folder.py:108-123),
   crop/flip-adjusted and clamped, degenerate tracks dropped, missing tracks
   re-sampled by duplication, and clips with no usable track resampled
-  (folder.py:219-276).
+  (folder.py:219-276);
+- the vimeo and ucf101 triplets (``TripletDataset``): whole frames, seg
+  maps of ``NO_SEG`` (no segmentation) and boxes of the whole frame.
 
-PNGs decode through ``native/png.py``.  Every random draw is the JAX
-copy's, in the same order, so the two give the same batches bit for bit.
-``TripletDataset`` (ucf101, vimeo) is not ported yet (ROADMAP.md queue 1,
-item 4).
+Every frame is decoded, flipped and cropped in one pass, down to the
+crop's last row only, by the fused path of ``native/host.py``.  Every random
+draw is the JAX copy's, in the same order, so the two give the same batches
+bit for bit.
 """
 
 from __future__ import annotations
@@ -32,15 +35,10 @@ import numpy as np
 
 from deep_video_interpolation_extrapolation_tpu_torch.data.cityscapes import (
     IMG_EXT,
-    N_CLASSES,
+    NO_SEG,
     SEG_EXT,
 )
-from deep_video_interpolation_extrapolation_tpu_torch.native import png
-
-# (v / 255) * 2 - 1 in f32 for every byte value, as the JAX package's
-# native decoder and its PIL branch compute it
-_NORM = np.arange(256, dtype=np.float32) / np.float32(255.0) * np.float32(
-    2.0) - np.float32(1.0)
+from deep_video_interpolation_extrapolation_tpu_torch.native import host, png
 
 
 def correlated_crop_params(rng: np.random.RandomState, src: int, crop: int):
@@ -119,15 +117,6 @@ class ClipDataset:
             if len(self.clips) > 1:
                 index = (index + rng.randint(1, len(self.clips))) % len(self.clips)
         raise RuntimeError("no clip with usable tracks after 16 resamples")
-
-    @staticmethod
-    def _check_ids(ids: np.ndarray) -> np.ndarray:
-        """An id >= N_CLASSES raises rather than becoming an all-zero
-        one-hot row on the device."""
-        if ids.max(initial=0) >= N_CLASSES:
-            raise IndexError(
-                f"seg id {int(ids.max())} >= N_CLASSES ({N_CLASSES})")
-        return np.ascontiguousarray(ids)
 
     def _try_sample(self, index, rng):
         cfg = self.cfg
@@ -221,16 +210,70 @@ class ClipDataset:
                 np.array([0.0, 0.0, ch - 1.0, cw - 1.0], np.float32),
                 (3, n_track, 1))
 
+        # an id >= N_CLASSES raises rather than becoming an all-zero
+        # one-hot row on the device
         out: Dict[str, np.ndarray] = {}
         for i in range(self.vid_len):
             y0, x0 = crops[i]
-            rgb = png.decode_u8(img_bytes[i], 3)
-            ids = png.decode_u8(seg_bytes[i], 1)
-            if flip:
-                rgb, ids = rgb[:, ::-1], ids[:, ::-1]
-            out[f"frame{i + 1}"] = _NORM[rgb[y0:y0 + ch, x0:x0 + cw]]
-            out[f"seg{i + 1}"] = self._check_ids(ids[y0:y0 + ch, x0:x0 + cw])
+            out[f"frame{i + 1}"] = host.decode_rgb_norm(
+                img_bytes[i], y0, x0, ch, cw, bool(flip))
+            out[f"seg{i + 1}"] = host.decode_seg_ids(
+                seg_bytes[i], y0, x0, ch, cw, bool(flip))
         out["bboxes"] = boxes
+        return out
+
+
+class TripletDataset:
+    """UCF101 / Vimeo-triplet frame datasets (reference data.py:75-137,
+    folder.py:99-104,152-156,284-290): xx2x sets with no segmentation, so
+    every seg map is ``NO_SEG`` (the model sees all-zero one-hots, as the
+    JAX class's dummy ones) and the boxes cover the whole frame.
+
+    ``clips`` entries are either 3 frame paths (ucf101 pkl rows) or one
+    triplet directory (vimeo ``tri_*list.txt`` rows, frames ``im1..3.png``).
+    With ``resize`` (w, h), each frame is resized by Pillow's bilinear filter
+    (ucf101's 256x256); without, it is decoded whole by the fused path.
+    """
+
+    def __init__(self, cfg, clips: Sequence, img_dir: str,
+                 style: str = "vimeo", resize=None):
+        self.cfg = cfg
+        self.clips = list(clips)
+        self.img_dir = img_dir
+        self.style = style
+        self.resize = resize  # (w, h) or None
+
+    def __len__(self):
+        return len(self.clips)
+
+    def _frame(self, data: bytes) -> np.ndarray:
+        if self.resize is None:
+            h, w = png.png_info(data)[:2]
+            return host.decode_rgb_norm(data, 0, 0, h, w, False)
+        import io
+
+        from PIL import Image
+        img = Image.open(io.BytesIO(data)).convert("RGB").resize(
+            self.resize, Image.BILINEAR)
+        return host.NORM[np.asarray(img)]
+
+    def sample(self, index: int, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+        entry = self.clips[index]
+        if self.style == "vimeo":
+            paths = [os.path.join(self.img_dir, entry, f"im{i + 1}.png")
+                     for i in range(3)]
+        else:  # ucf101: explicit 3-frame rows
+            paths = [os.path.join(self.img_dir, p) for p in entry]
+        out: Dict[str, np.ndarray] = {}
+        for i, p in enumerate(paths):
+            with open(p, "rb") as f:
+                frame = self._frame(f.read())
+            out[f"frame{i + 1}"] = frame
+            out[f"seg{i + 1}"] = np.full(frame.shape[:2], NO_SEG, np.uint8)
+        h, w = frame.shape[:2]
+        out["bboxes"] = np.tile(
+            np.array([0.0, 0.0, h - 1.0, w - 1.0], np.float32),
+            (3, self.cfg.num_track_per_img, 1))
         return out
 
 
@@ -248,7 +291,7 @@ class Loader:
     same-epoch iteration stays reproducible regardless of thread timing.
     """
 
-    def __init__(self, dataset: ClipDataset, batch_size: int, seed: int = 0,
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
                  shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 0, prefetch: int = 2):
         self.ds = dataset

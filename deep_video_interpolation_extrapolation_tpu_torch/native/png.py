@@ -15,6 +15,12 @@ numpy: no Pillow, no libpng (counterpart of the JAX package's
 Filters 0-2 reconstruct a row with numpy; the Average and Paeth filters
 (3, 4) depend on the pixel to the left, so those rows run a Python loop
 over their bytes (slower, and never written by ``encode_png``).
+
+``inflate_rows`` inflates the image data only down to a given row and
+stops reading there (the loaders' crops need no row below their last);
+``decode_crop`` is the zlib + numpy decoder on those rows, with the flip
+and the crop, the reference the fused path of ``native/host.py`` is held
+to and the decoder it hands over to under ``DVIE_NATIVE_LOADER=0``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2}          # channels -> PNG color type (gray, RGB)
+CHANNELS = {0: 1, 2: 3}             # PNG color type -> channels
 _FORMAT_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha",
                  6: "RGBA"}
 
@@ -145,9 +152,9 @@ def _unfilter_left(kind: int, line, prev, bpp: int):
     return cur
 
 
-def decode_png(buf: bytes, channels: int) -> np.ndarray:
-    """The zlib + numpy decoder: 8-bit non-interlaced gray (``channels``
-    1) or RGB (3) -> uint8 (H, W) or (H, W, 3)."""
+def check_format(buf: bytes, channels: int) -> Tuple[int, int]:
+    """(h, w) of an 8-bit non-interlaced PNG of ``channels`` (1 gray, 3
+    RGB); a ``ValueError`` naming the format for any other."""
     h, w, ctype, depth, interlace = png_info(buf)
     want = _COLOR_TYPE[channels]
     if ctype != want or depth != 8 or interlace != 0:
@@ -155,14 +162,59 @@ def decode_png(buf: bytes, channels: int) -> np.ndarray:
             f"PNG is {depth}-bit {_FORMAT_NAMES.get(ctype, ctype)}"
             f"{', interlaced' if interlace else ''}; this decoder reads "
             f"8-bit non-interlaced {_FORMAT_NAMES[want]} only")
-    idat = b"".join(d for t, d in _chunks(buf) if t == b"IDAT")
-    stride = w * channels
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
-    if raw.size != h * (1 + stride):
-        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
-                         f"{h * (1 + stride)}")
-    out = _unfilter(raw, h, stride, channels)
-    return out.reshape((h, w, 3) if channels == 3 else (h, w))
+    return h, w
+
+
+def inflate_rows(buf: bytes, rows: int) -> bytes:
+    """The inflated image data of rows [0, ``rows``) of an 8-bit gray or RGB
+    PNG: each row its filter byte, then its pixels.  Below the last image
+    row the IDAT chunks are inflated only until those rows are out, and the
+    chunks after it are not read; every chunk read has its CRC checked.
+    All rows: the whole stream, which must end where the image does."""
+    h, w, ctype, _, _ = png_info(buf)
+    size = rows * (1 + w * CHANNELS[ctype])
+    d = zlib.decompressobj()
+    parts, got = [], 0
+    for tag, data in _chunks(buf):
+        if tag != b"IDAT":
+            continue
+        # below the last row, stop at the crop's: max_length keeps the rest
+        # of the stream in the decompressor, never inflated
+        piece = d.decompress(data) if rows >= h else d.decompress(
+            data, size - got)
+        parts.append(piece)
+        got += len(piece)
+        if rows < h and got == size:
+            break
+    if got != size or (rows >= h and not d.eof):
+        raise ValueError(f"PNG image data holds {got} bytes of {h} rows, "
+                         f"expected {size}{'' if d.eof else ' (truncated)'}")
+    return b"".join(parts)
+
+
+def decode_crop(buf: bytes, channels: int, y0: int, x0: int, ch: int,
+                cw: int, flip: bool) -> np.ndarray:
+    """The zlib + numpy decoder down to the crop's last row: uint8 (ch, cw)
+    or (ch, cw, 3) of the image flipped left to right (if ``flip``), then
+    cropped at (y0, x0)."""
+    h, w = check_format(buf, channels)
+    if y0 < 0 or x0 < 0 or ch <= 0 or cw <= 0 or y0 + ch > h or x0 + cw > w:
+        raise ValueError(f"crop ({y0}, {x0}, {ch}, {cw}) outside a {h}x{w} "
+                         "image")
+    rows = y0 + ch
+    raw = np.frombuffer(inflate_rows(buf, rows), np.uint8)
+    out = _unfilter(raw, rows, w * channels, channels)
+    out = out.reshape((rows, w, 3) if channels == 3 else (rows, w))
+    if flip:
+        out = out[:, ::-1]
+    return np.ascontiguousarray(out[y0:, x0:x0 + cw])
+
+
+def decode_png(buf: bytes, channels: int) -> np.ndarray:
+    """The zlib + numpy decoder: 8-bit non-interlaced gray (``channels``
+    1) or RGB (3) -> uint8 (H, W) or (H, W, 3)."""
+    h, w = check_format(buf, channels)
+    return decode_crop(buf, channels, 0, 0, h, w, False)
 
 
 def decode_u8(buf: bytes, channels: int,

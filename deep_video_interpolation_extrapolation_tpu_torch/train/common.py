@@ -13,7 +13,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 from deep_video_interpolation_extrapolation_tpu_torch.core.remat import (
     checkpoint,
 )
-from deep_video_interpolation_extrapolation_tpu_torch.core.seg import seg_oh
+from deep_video_interpolation_extrapolation_tpu_torch.core.seg import (
+    oh_ids,
+    seg_oh,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.losses.bundles import (
     rgb_loss_bundle,
 )
@@ -97,5 +100,7 @@ def normalize01(img: torch.Tensor) -> torch.Tensor:
 
 
 def seg_id_targets(seg: torch.Tensor) -> torch.Tensor:
-    """Integer class-id targets from uint8 (B,H,W) ids."""
-    return seg.long()
+    """Integer class-id targets from uint8 (B,H,W) ids; a frame with no
+    segmentation (``NO_SEG``) targets class 0, the argmax of the JAX
+    package's all-zero one-hot (``core/seg.oh_ids``)."""
+    return oh_ids(seg).long()

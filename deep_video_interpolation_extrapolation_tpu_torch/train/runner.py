@@ -38,7 +38,13 @@ starts from the previous stage's experiment through ``--load_dir`` and
 experiment's model).  Batches
 reach the card through pinned host memory and a side stream
 (``_device_prefetch``); losses stay on the card and are read back once per
-``disp_interval``.  Sharding, which the port does not have yet, raises
+``disp_interval``.  With ``DVIE_PROFILE_DIR`` set, steps 2-6 of the first
+epoch are traced by ``torch.profiler`` (the host, and on the card its
+kernels) into a Chrome trace in that directory, once per runner, as the
+JAX runner traces them (runner.py:404-427).  The vimeo and ucf101 triplet
+sets (``--mode xx2x``) carry no segmentation; ucf101 has a val split only,
+so its runner validates and sweeps ``--checkepoch_range`` and ``train``
+raises.  Sharding, which the port does not have yet, raises
 ``NotImplementedError`` with its ROADMAP item (9).
 """
 
@@ -57,7 +63,10 @@ import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch import serve
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
-from deep_video_interpolation_extrapolation_tpu_torch.core.seg import seg_oh
+from deep_video_interpolation_extrapolation_tpu_torch.core.seg import (
+    oh_ids,
+    seg_oh,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.data import (
     datasets as data_lib,
 )
@@ -155,6 +164,7 @@ class Runner:
         self._train_loader = None
         self._val_loader = None
         self._copy_stream = None
+        self._profiled = False     # the DVIE_PROFILE_DIR trace is taken once
 
     # ------------------------------------------------------------- build
     def _build_model_and_state(self) -> None:
@@ -368,8 +378,8 @@ class Runner:
         row = make_grid([
             *(to01(first(f)) for f in frames), to01(first(batch["frame3"])),
             seg_to_rgb(first(pred_seg[..., :N_CLASSES])),
-            vis_seg_ids(batch[f"seg{gt}"][0].long().cpu().numpy()).astype(
-                np.float32),
+            vis_seg_ids(oh_ids(batch[f"seg{gt}"][0]).long().cpu().numpy()
+                        ).astype(np.float32),
         ])
         self.writer.add_image("train/in_pred_gt", row, step)
 
@@ -436,8 +446,8 @@ class Runner:
         def first(t):
             return t[0].float().cpu().numpy()
         f = [to01(first(batch[f"frame{i}"])) for i in (1, 2, 3)]
-        s = [vis_seg_ids(batch[f"seg{i}"][0].long().cpu().numpy()).astype(
-            np.float32) for i in (1, 2, 3)]
+        s = [vis_seg_ids(oh_ids(batch[f"seg{i}"][0]).long().cpu().numpy()
+                         ).astype(np.float32) for i in (1, 2, 3)]
         rgbs = [f[0], f[1], to01(first(pred_rgb)), f[2]]
         imgs = rgbs + [s[0], s[1], seg_to_rgb(first(pred_seg)), s[2]]
         need_bbox = (cfg.frame_det_disc or cfg.video_det_disc
@@ -458,12 +468,39 @@ class Runner:
         self.writer.add_image("train/gan_panel", make_grid(imgs, nrow=4),
                               step)
 
+    def _start_trace(self):
+        """``torch.profiler`` over the host and, on the card, the device
+        (runner.py:404-427 of the JAX package traces with
+        ``jax.profiler``)."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        self._profiled = True
+        return prof
+
+    def _stop_trace(self, prof, profile_dir: str, last: int) -> None:
+        """Ends the trace once the device has run the traced steps, and
+        writes it as a Chrome trace into ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"dvie_trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("trace of steps 2-%d written to %s", last, path)
+
     def train(self) -> Dict[str, float]:
         cfg = self.cfg
         self._build_steps(train=True)
         if self._train_loader is None:
             # built once across epochs; set_epoch reshuffles
             dataset, _ = data_lib.get_dataset(cfg, vid_len=self.vid_len)
+            if dataset is None:
+                raise ValueError(f"--dataset {cfg.dataset} has no train "
+                                 "split (it is val only)")
             self._train_loader = data_lib.make_loader(cfg, dataset)
         loader = self._train_loader
         loader.set_epoch(self.epoch)
@@ -474,13 +511,24 @@ class Runner:
         last: Dict[str, float] = {}
         pending = []      # loss dicts on the device, read at disp_interval
         n_samples = 0
+        # DVIE_PROFILE_DIR: one trace of steps 2-6 per runner (one a
+        # process, through the launcher); an epoch of fewer than 7 steps
+        # ends it at the epoch's end
+        profile_dir = (None if self._profiled
+                       else os.environ.get("DVIE_PROFILE_DIR"))
+        prof = None
         for i, batch in enumerate(self._device_prefetch(loader)):
+            if profile_dir and i == 2:
+                prof = self._start_trace()
             load_t += time.time() - t0
             t0 = time.time()
             self.state, losses = self.train_step(self.state, batch)
             pending.append(losses)
             n_samples += int(batch["frame1"].shape[0])
             comp_t += time.time() - t0
+            if prof is not None and i == 6:
+                self._stop_trace(prof, profile_dir, i)
+                prof = None
             t0 = time.time()  # the readback below is timed on its own
             if i % cfg.disp_interval == 0:
                 for d in self._read_back(pending):
@@ -504,6 +552,8 @@ class Runner:
                     self._log_images
                 log(batch, self.epoch * len(loader) + i)
             t0 = time.time()
+        if prof is not None:
+            self._stop_trace(prof, profile_dir, i)
         for d in self._read_back(pending):
             last = d
             bank.update(d)
@@ -603,7 +653,9 @@ class Runner:
             frames, ids = (self._extrapolate(batch) if self.is_extra
                            else self._interpolate(batch))
             frames = [f.float().cpu().numpy() for f in frames]
-            ids = [i.to(torch.uint8).cpu().numpy() for i in ids]
+            # a frame with no segmentation is written as class 0, the
+            # argmax of the JAX package's all-zero one-hot
+            ids = [oh_ids(i).to(torch.uint8).cpu().numpy() for i in ids]
             for b in range(frames[0].shape[0]):
                 if n_clips >= _MAX_CLIPS:
                     break

@@ -11,7 +11,8 @@ gradient is computed and no submodel steps, as in the JAX step.  Adamax here is 
 puts eps inside the max exactly as optax's adamax does
 (u = max(b2 * u, |g| + eps)), with the same bias-corrected step; Adam is
 torch's, the update of ``optax.adam`` (eps outside the square root of the
-bias-corrected second moment).
+bias-corrected second moment); SGD is torch's without momentum, the update
+of ``optax.sgd`` (w -= lr * g).
 
 Unlike the JAX state, this one is mutable: ``apply_updates`` steps the
 optimizers, which update the model's parameters in place.
@@ -73,15 +74,17 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
 
 
 def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
-    """torch's Adamax or Adam (betas (0.9, 0.999), eps 1e-8) at a constant
-    learning rate, as the reference (state.py:60-76)."""
+    """torch's Adamax or Adam (betas (0.9, 0.999), eps 1e-8), or plain SGD
+    (no momentum, as ``optax.sgd(lr)``), at a constant learning rate, as
+    the reference (state.py:60-76)."""
     if name == "adamax":
         return torch.optim.Adamax(params, lr=lr, betas=(0.9, 0.999),
                                   eps=1e-8)
     if name == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    raise NotImplementedError(
-        f"optimizer {name!r} is not ported yet ({_QUEUE})")
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    raise KeyError(name)
 
 
 @dataclasses.dataclass

@@ -157,9 +157,20 @@ def test_workers_match_sequential(tree, monkeypatch):
 
 
 def test_triplet_datasets_refused(tmp_path):
-    for name in ("ucf101", "vimeo"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            datasets.get_dataset(_cfg(tmp_path, dataset=name, split="val"))
+    """The triplet sets (``tests/test_torch_port_triplet_data.py`` holds
+    them to the JAX package) refuse a tree without their clip lists, naming
+    the missing file, and ucf101 offers no train set."""
+    for name, missing in (("ucf101", "UCF101_test_root_clip.pkl"),
+                          ("vimeo", "tri_testlist.txt")):
+        with pytest.raises(FileNotFoundError, match=missing):
+            datasets.get_dataset(_cfg(tmp_path, dataset=name, split="val",
+                                      img_dir=str(tmp_path / "x")))
+    (tmp_path / "UCF101_test_root_clip.pkl").write_bytes(
+        pickle.dumps({"test": []}))
+    train, val = datasets.get_dataset(_cfg(tmp_path, dataset="ucf101",
+                                           split="train",
+                                           img_dir=str(tmp_path / "x")))
+    assert train is None and len(val) == 0
 
 
 def test_out_of_range_ids_raise(tmp_path, monkeypatch):

@@ -23,7 +23,10 @@ seven newer det discriminators and TrackGen in one train step, and the
 plain VAE (ExtraNet on a VAEHRNet) through the launcher, one epoch and
 val.  Pillow and
 TensorBoard are blocked too, as the card's machine has neither: the PNGs go
-through ``native/png.py`` and the runner logs without a writer."""
+through ``native/png.py`` and the runner logs without a writer.  A second
+interpreter, blocked alike, runs the vimeo triplet set through the
+launcher (train under ``--coarse_o sgd``, val, cycgen) on the fused PNG
+path, and the host tools ``tools/build_clips`` and ``utils/flow_vis``."""
 
 import os
 import subprocess
@@ -267,6 +270,78 @@ assert np.isfinite(metrics["step_1_frame_0_coarse_psnr"])
 assert not any(sys.modules.get(n) for n in BLOCKED)
 print("modules", len(names))
 """
+
+
+TRIPLET_SCRIPT = r"""
+import os, pickle, sys, tempfile
+BLOCKED = ("jax", "jaxlib", "flax", "optax",
+           "deep_video_interpolation_extrapolation_tpu", "PIL", "tensorboardX",
+           "tensorboard")
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from {pkg}.cli.main import run
+from {pkg}.cli.options import parse_args
+from {pkg}.native import host, png
+from {pkg}.tools import build_clips
+from {pkg}.utils import flow_vis
+tmp = tempfile.mkdtemp()
+rs = np.random.RandomState(0)
+rows = [f"0000{{i}}/0001" for i in range(4)]
+for row in rows:
+    os.makedirs(os.path.join(tmp, "sequences", row))
+    for i in range(3):
+        png.save_png(os.path.join(tmp, "sequences", row, f"im{{i + 1}}.png"),
+                     rs.randint(0, 256, (32, 64, 3)).astype(np.uint8))
+for name in ("tri_trainlist.txt", "tri_testlist.txt"):
+    with open(os.path.join(tmp, name), "w") as f:
+        f.write("\n".join(rows) + "\n")
+g = (f"--dataset vimeo --img_dir {{tmp}} --mode xx2x --syn_type inter "
+     "--input_h 32 --input_w 64 --bs 2 --epochs 1 --nw 2 --disp_interval 1 "
+     "--compute_dtype float32 --vgg_w 0")
+exp = os.path.join(tmp, "exp")
+host.reset_counts()
+run(parse_args(f"{{g}} --split train INTER --model InterNet --train_coarse "
+               "--coarse_o sgd".split()), exp_dir=exp, device="cpu")
+log = open(os.path.join(exp, "experiment_train.log")).read()
+assert "[iter    1]" in log and "nan" not in log.split("[iter    1]")[1][:40]
+assert host.counts == {{"fused": 12, "numpy": 0, "other": 0}}, host.counts
+metrics = run(parse_args(f"{{g}} --split val --load_dir {{exp}} --checksession "
+                         "0 --checkepoch 1 INTER --model InterNet "
+                         "--load_coarse".split()),
+              exp_dir=os.path.join(tmp, "val"), device="cpu")
+assert np.isfinite(metrics["coarse_psnr"]) and "coarse_iou" not in metrics
+out = run(parse_args(f"{{g}} --split cycgen INTER --model InterNet".split()),
+          exp_dir=os.path.join(tmp, "cyc"), device="cpu")
+assert png.read_png(os.path.join(out, "clip_00000", "seg", "000.png"),
+                    1).max() == 0
+clips = {{"test": [["t/s/s_000000_{{:06d}}".format(i) for i in range(3)]]}}
+with open(os.path.join(tmp, "root.pkl"), "wb") as f:
+    pickle.dump(clips, f)
+build_clips.main(["interp", os.path.join(tmp, "root.pkl"),
+                  os.path.join(tmp, "interp.pkl"), "--interval", "1"])
+assert len(pickle.load(open(os.path.join(tmp, "interp.pkl"), "rb"))["test"]) == 1
+assert flow_vis.flow_to_image(rs.normal(size=(4, 4, 2))).shape == (4, 4, 3)
+assert not any(sys.modules.get(n) for n in BLOCKED)
+print("ok")
+"""
+
+
+def test_triplet_path_runs_without_jax():
+    """The vimeo set through the launcher (an epoch of 2 steps under
+    ``--coarse_o sgd``, every frame on the fused PNG path, ``--split val``
+    without ``coarse_iou``, ``--split cycgen`` writing class 0 for the
+    frames with no segmentation), ``tools/build_clips`` and
+    ``utils/flow_vis``, with jax, the JAX package, Pillow and TensorBoard
+    blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", TRIPLET_SCRIPT.format(pkg=PKG)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split()[-1] == "ok", proc.stdout[-2000:]
 
 
 def test_port_runs_without_jax():

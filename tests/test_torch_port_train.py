@@ -225,6 +225,14 @@ def test_other_models_name_their_step(model):
 
 @pytest.mark.parametrize("name", ["sgd"])
 def test_unported_optimizers_raise(name):
+    """Every optimizer the ``*_o`` flags offer is ported, ``sgd`` last: plain
+    SGD without momentum, as ``optax.sgd`` (its step is held to the JAX one
+    in ``tests/test_torch_port_triplet_step.py``); a name the flags do not
+    offer raises, as the JAX ``make_tx`` does."""
     model = registry.build_model(_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state_lib.create_train_state(_cfg(coarse_optimizer=name), model)
+    state = state_lib.create_train_state(_cfg(coarse_optimizer=name), model)
+    opt = state.optimizers["coarse_model"]
+    assert type(opt) is torch.optim.SGD
+    assert opt.defaults["lr"] == LR and opt.defaults["momentum"] == 0
+    with pytest.raises(KeyError, match="rmsprop"):
+        state_lib.create_train_state(_cfg(coarse_optimizer="rmsprop"), model)
