@@ -289,6 +289,13 @@ model's K4-route heads.
 
 K3's rows are timed on the card alone too, as K1's and K2's are.
 
+The legacy trainers (``train/legacy.py``): the grid sample's backward
+(row 18c, ``grid_sample_bwd_check``: rows ``grid_sample_bwd`` and
+``grid_sample_bwd_b16``) against autograd of its plain version at the VAE
+step's two warps; the VideoVAE train step at 8x128x128 against f32 and its
+plain model, 20 steps, its launches (``vae_train_phase``); the simple,
+GAN, Refiner and RefinerGAN steps at 24x128x128 (``legacy_steps_phase``).
+
 Every rollout asserts every kernel's launches, the ones not named above at
 0.  Prints the card's name and power limit, one JSON line of per-kernel
 results (``launches``: the serve rollout's count plus the counted train
@@ -349,6 +356,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.train import (
     extra,
     inter,
     inter_gan,
+    legacy,
     state as state_lib,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
@@ -531,6 +539,10 @@ META = {
                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "warp_steps_vae_smooth": ("cuda", f"{PKG}/csrc/grid_sample.cu",
                               "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "grid_sample_bwd": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                        "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
+    "grid_sample_bwd_b16": ("cuda", f"{PKG}/csrc/grid_sample.cu",
+                            "deep_video_interpolation_extrapolation_tpu/ops/pallas_warp.py:134"),
     "dual_head": ("cuda", f"{PKG}/csrc/upshead.cu",
                   "deep_video_interpolation_extrapolation_tpu/ops/pallas_head.py:147"),
     "bb_chain_fwd_n1": ("cuda", f"{PKG}/csrc/trainchain_basicblock.cu",
@@ -579,7 +591,8 @@ COUNTER = {"bb_chain_fwd_n1": "bb_chain_fwd",
            "shiftadd_co24_train": "shiftadd_co24",
            "ups_head_taps4_train": "ups_head_taps4",
            "upshead4_taps_n216_train": "upshead4_taps_n216",
-           "ups_head_1x1_4_b1": "ups_head_1x1_4"}
+           "ups_head_1x1_4_b1": "ups_head_1x1_4",
+           "grid_sample_bwd_b16": "grid_sample_bwd"}
 # the video VAE serving forward: one grid sample (the flow entry) for all
 # its steps
 VAE_T = 2
@@ -680,6 +693,10 @@ def operations(name, args):
         return args[0].numel() * (2 + 8 * ups), F32_PEAK
     if name == "shifted_add_bias":
         return 9 * _px(args[0]) * args[1].numel(), F32_PEAK
+    if name == "grid_sample_bwd":  # (x, flow, mask, dout): per output
+        # pixel ~22 for the coordinates, weights and the chain through
+        # flow * mask, per channel ~14 for the two corner differences
+        return _px(args[3]) * (14 * args[3].shape[-1] + 22), F32_PEAK
     if name.startswith("grid_sample"):
         return _px(args[0]) * (9 * args[0].shape[-1] + 10), F32_PEAK
     if name == "warp_steps":       # (x, flow, mask, max_disp)
@@ -4428,6 +4445,328 @@ def triplet_phase(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
     return runs
 
+# ---- the legacy trainers (train/legacy.py) ----------------------------------
+
+# row 18c: the flow entry's backward at the VAE step's two warps: its
+# forward warp of frame1 (8 frames, T = 2) and the consistency warps of the
+# ground truth (B * T = 16 frames at T = 1), both with a mask
+BWD_CASES = (("grid_sample_bwd", "VAE warp, 8x128x128 T=2, mask", (8, 2)),
+             ("grid_sample_bwd_b16", "consistency warps, 16x128x128 T=1, "
+              "mask", (16, 1)))
+BWD_L2_TOL = 1e-2          # dflow and dmask rel-L2, kernel vs plain
+# one VAE train step: the model's warp and the consistency warps, each
+# forward and backward once
+PER_VAE_STEP = {"grid_sample": 2, "grid_sample_bwd": 2}
+VAE_TRAIN_B, VAE_TRAIN_STEPS = 8, 20
+VAE_RECON = ("recon_warp_loss", "recon_refine_loss")
+# the legacy steps at the INTER recipe's shape (docs/RECIPES.md:11-14)
+LEGACY_SHAPE, LEGACY_STEPS = (24, 128, 128), 6
+CFG_LEGACY = Config(syn_type="inter", mode="xs2xs", coarse_model="HRNet",
+                    refine_model="refineUnet", n_scales=1, input_h=128,
+                    input_w=128, compute_dtype="bfloat16")
+
+
+def _bwd_case(dev, g, b, t, h=128, w=128, c=3, flow_dtype=torch.float32):
+    """x (B,H,W,C) and dout (B,T,H,W,C) f32; a mask in [0.5, 1] and a flow
+    whose masked displacement is an integer of up to 10 px plus a fraction
+    in [0.15, 0.85] (the bilinear derivative jumps where a coordinate is an
+    integer), both in ``flow_dtype``."""
+    x = torch.randn((b, h, w, c), generator=g, device=dev)
+    px = (torch.randint(-10, 11, (b, t, h, w, 2), generator=g, device=dev)
+          + 0.15 + 0.7 * torch.rand((b, t, h, w, 2), generator=g,
+                                    device=dev))
+    mask = 0.5 + 0.5 * torch.rand((b, t, h, w, 1), generator=g, device=dev)
+    flow = px * torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=dev) / mask
+    dout = torch.randn((b, t, h, w, c), generator=g, device=dev)
+    return x, flow.to(flow_dtype), mask.to(flow_dtype), dout
+
+
+def _plain_bwd(x, flow, mask, dout):
+    """The plain version's backward alone: autograd of
+    ``warp_steps_plain``, its graph built once."""
+    fl, mk = flow.detach().requires_grad_(), mask.detach().requires_grad_()
+    out = warp.warp_steps_plain(x, fl, mk)
+    return lambda: torch.autograd.grad(out, (fl, mk), dout,
+                                       retain_graph=True)
+
+
+def grid_sample_bwd_check(dev):
+    """Row 18c, the grid sample's flow-entry backward (``dvie_warp_steps_bwd``)
+    against autograd of ``warp_steps_plain`` at the VAE step's two warps,
+    on flows away from integer coordinates: in f32, and in the step's own
+    types (x and dout f32, flow and mask bf16), dflow and dmask each within
+    BWD_L2_TOL rel-L2; then through ``warp_steps`` with a gradient (the
+    autograd wiring).  Each row timed at the step's types: the kernel host
+    issue included and on the card alone, the plain backward, and
+    ``aten.grid_sampler_2d_backward`` (the grid's gradient, f32, NCHW, on
+    the same grid)."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    for row, label, (b, t) in BWD_CASES:
+        h = w = 128
+        for ftype in (torch.float32, torch.bfloat16):
+            args = _bwd_case(dev, g, b, t, flow_dtype=ftype)
+            kernel = lambda: warp._steps_bwd_kernel(*args)
+            out, ref = kernel(), _plain_bwd(*args)()
+            torch.cuda.synchronize()
+            errs = [rel_l2(o, r) for o, r in zip(out, ref)]
+            d = max((o.float() - r.float()).abs().max().item()
+                    for o, r in zip(out, ref))
+            print(f"  grid_sample_bwd [{label}, flow {ftype}]: dflow rel-L2 "
+                  f"{errs[0]:.3g}, dmask rel-L2 {errs[1]:.3g} (bound "
+                  f"{BWD_L2_TOL}), max|d| {d:.4g}")
+            if not all(torch.isfinite(o.float()).all() for o in out) or \
+                    max(errs) > BWD_L2_TOL:
+                raise AssertionError(f"grid_sample_bwd [{label}, {ftype}]: "
+                                     f"rel-L2 {errs}")
+        x, flow, mask, dout = args
+        fl, mk = flow.clone().requires_grad_(), mask.clone().requires_grad_()
+        torch.autograd.backward(warp.warp_steps(x, fl, mk), dout)
+        torch.cuda.synchronize()
+        if not (torch.equal(fl.grad, out[0]) and torch.equal(mk.grad, out[1])):
+            raise AssertionError(f"grid_sample_bwd [{label}]: warp_steps' "
+                                 "gradient is not the kernel's")
+        bt = b * t
+        base = warp.make_base_grid(h, w, device=dev)[None, None]
+        grid = (base - (flow * mask).float()).reshape(bt, h, w, 2)
+        x_bt = nchw(x[:, None].expand(b, t, h, w, 3).reshape(bt, h, w, 3))
+        d_bt = nchw(dout.reshape(bt, h, w, 3))
+        x_bt, d_bt = x_bt.contiguous(), d_bt.contiguous()
+        lib = lambda: torch.ops.aten.grid_sampler_2d_backward(
+            d_bt, x_bt, grid, 0, 0, True, [False, True])
+        ms, device = _both_ways({"": kernel, "plain_": _plain_bwd(*args),
+                                 "library_": lib})
+        rows[row] = timed("grid_sample_bwd", label + ", x f32, flow bf16",
+                          args, out, d, *ms, device)
+    return rows
+
+
+def vae_train_batch(dev, b, seed):
+    """A seeded VAE batch: T+1 smooth frames in [0, 1] (bilinear
+    upsamplings of 8x8 fields: random pixels leave the warp nothing to
+    learn), uint8 seg ids, complementary fg / bg masks."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w, t1 = CFG_VAE.input_h, CFG_VAE.input_w, VAE_T + 1
+    coarse = torch.rand((b * t1, 3, 8, 8), generator=g, device=dev)
+    frames = nhwc(torch.nn.functional.interpolate(
+        coarse, size=(h, w), mode="bilinear", align_corners=False))
+    fg = (torch.rand((b, t1, h, w, 1), generator=g, device=dev) > 0.5).float()
+    return {"frames": frames.reshape(b, t1, h, w, 3),
+            "segs": torch.randint(0, 20, (b, t1, h, w), generator=g,
+                                  device=dev, dtype=torch.uint8),
+            "fg_masks": fg, "bg_masks": 1.0 - fg}
+
+
+def _vae_setup(dev, use_kernels, dtype="bfloat16"):
+    cfg = dataclasses.replace(CFG_VAE, compute_dtype=dtype)
+    model = registry.build_model(cfg, device=dev, seed=0,
+                                 use_kernels=use_kernels)
+    state = state_lib.create_train_state(
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
+    return legacy.make_vae_train_step(cfg, model), state
+
+
+def _vae_grads(dev, use_kernels, dtype, batch, eps):
+    step, state = _vae_setup(dev, use_kernels, dtype)
+    _, ld = step(state, batch, eps=eps)
+    out = ({k: float(v) for k, v in ld.items()},
+           torch.cat([p.grad.float().flatten()
+                      for p in state.model.parameters()]))
+    del step, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vae_run(dev, use_kernels, batch, eps):
+    """VAE_TRAIN_STEPS steps on one batch and eps: the reconstruction terms
+    of each, the step times after 2 warm-ups, the launches of step 2, the
+    peak memory (GiB)."""
+    step, state = _vae_setup(dev, use_kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], None
+    for i in range(VAE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        if i == 2:
+            hw.reset_counters()
+        t0 = time.perf_counter()
+        state, ld = step(state, batch, eps=eps)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+        if i == 2:
+            counts = dict(hw.launches)
+        losses.append(sum(float(ld[k]) for k in VAE_RECON))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del step, state
+    torch.cuda.empty_cache()
+    return losses, times, counts, peak
+
+
+def vae_train_phase(dev, card):
+    """The VideoVAE train step (``--model VAE``, 76.4 M parameters, T = 2)
+    at 8x128x128, bf16 with f32 masters, the frozen VGG19 from seed 1, one
+    eps for every model and step: the one-step gradient of the kernel model
+    and of the plain bf16 model against the plain f32 model (TF32 off), by
+    GRAD_RATIO and GRAD_FLOOR; each loss term within LOSS_TOL of the plain
+    bf16 model's; 20 steps per model whose reconstruction terms fall and
+    end within TRAJ_TOL of the plain model's; the launches of one counted
+    step (grid sample 2, its backward 2, every other kernel 0), samples/s
+    (median of the synchronized steps after 2 warm-ups) and peak memory.
+    Returns the counted launches."""
+    b = VAE_TRAIN_B
+    h, w = CFG_VAE.input_h, CFG_VAE.input_w
+    batch = vae_train_batch(dev, b, 21)
+    eps = torch.randn((b, 1024), generator=torch.Generator(
+        device=dev).manual_seed(22), device=dev)
+    _, g_ref = _f32(lambda: _vae_grads(dev, False, "float32", batch, eps))
+    l_k, g_k = _vae_grads(dev, True, "bfloat16", batch, eps)
+    l_p, g_p = _vae_grads(dev, False, "bfloat16", batch, eps)
+    label = f"vae train {b}x{h}x{w} T={VAE_T}"
+    print(f"{label} step:")
+    fail = _check_grad(f"VideoVAE gradient ({g_ref.numel()} values)", g_k,
+                       g_p, g_ref)
+    if fail:
+        raise AssertionError(f"{label}: {fail}")
+    _losses_held(label, l_k, l_p)
+    del g_ref, g_k, g_p
+    runs = {}
+    for name, use_kernels in (("kernel", True), ("plain", False)):
+        losses, times, counts, peak = _vae_run(dev, use_kernels, batch, eps)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{label} {name}: the reconstruction terms "
+                                 f"did not fall: {losses}")
+        rate = b / statistics.median(times)
+        print(f"{label} {name} model: recon terms {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g} over {len(losses)} steps; {rate:.4f} "
+              f"samples/s (median of {len(times)} steps), peak memory "
+              f"{peak:.3f} GiB on {card}")
+        runs[name] = (losses[-1], counts)
+    gap = abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    print(f"{label}: final recon terms kernel {runs['kernel'][0]:.6g} plain "
+          f"{runs['plain'][0]:.6g} (rel {gap:.4g}, bound {TRAJ_TOL})")
+    if gap > TRAJ_TOL:
+        raise AssertionError(f"{label}: final recon terms differ by {gap:.4g}")
+    counts = runs["kernel"][1]
+    print(f"{label} step launches: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    _check_step_counts(label, counts, PER_VAE_STEP)
+    _check_step_counts(f"{label} plain", runs["plain"][1], {})
+    return counts
+
+
+# (label, config, step factory, launches a step, trained submodels)
+LEGACY_CASES = (
+    ("simple MyFRRN", dataclasses.replace(CFG_LEGACY, model="MyFRRN"),
+     legacy.make_simple_train_step, {}, ()),
+    ("GAN multi_scale_img_seg num_d=2",
+     dataclasses.replace(CFG_LEGACY, model="GAN"),
+     legacy.make_gan_train_step, {}, ()),
+    ("Refiner, frozen coarse",
+     dataclasses.replace(CFG_LEGACY, model="RefineNet", train_refine=True),
+     legacy.make_refiner_train_step, PER_VAL_FORWARD, ("refine_model",)),
+    ("Refiner --train_coarse",
+     dataclasses.replace(CFG_LEGACY, model="RefineNet", train_refine=True,
+                         train_coarse=True),
+     legacy.make_refiner_train_step, PER_TRAIN_STEP,
+     ("coarse_model", "refine_model")),
+    ("RefinerGAN, frozen coarse",
+     dataclasses.replace(CFG_LEGACY, model="RefineGAN"),
+     legacy.make_refiner_gan_train_step, PER_VAL_FORWARD,
+     ("refine_model", "discriminator")),
+    ("RefinerGAN --train_coarse",
+     dataclasses.replace(CFG_LEGACY, model="RefineGAN", train_coarse=True),
+     legacy.make_refiner_gan_train_step, PER_TRAIN_STEP,
+     ("coarse_model", "refine_model", "discriminator")),
+)
+
+
+def _legacy_setup(dev, cfg, make, use_kernels, dtype="bfloat16"):
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    model = registry.build_model(cfg, device=dev, seed=0,
+                                 use_kernels=use_kernels)
+    if cfg.model == "GAN":
+        legacy.init_gan_variables(model, seed=3)
+    state = state_lib.create_train_state(
+        cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
+    return make(cfg, model), state
+
+
+def _legacy_grads(dev, cfg, make, use_kernels, dtype, batch, subs):
+    step, state = _legacy_setup(dev, cfg, make, use_kernels, dtype)
+    step(state, batch)
+    grads = {sub: torch.cat([p.grad.float().flatten() for p in
+                             getattr(state.model, sub).parameters()])
+             for sub in subs}
+    del step, state
+    torch.cuda.empty_cache()
+    return grads
+
+
+def legacy_steps_phase(dev, card):
+    """The legacy steps at 24x128x128 bf16 (f32 masters, the frozen VGG19):
+    ``make_simple_train_step`` on MyFRRN, ``make_gan_train_step`` on
+    ``GAN(net_d="multi_scale_img_seg", num_d=2)`` (its DCGAN init), and
+    ``make_refiner_train_step`` / ``make_refiner_gan_train_step`` on HRNet
+    + refineUnet with the coarse frozen and with ``--train_coarse``.  Where
+    a step runs kernels (the HRNet coarse), each trained submodel's
+    one-step gradient, kernel model and plain bf16 model against the plain
+    f32 model (TF32 off), by GRAD_RATIO and GRAD_FLOOR.  Then LEGACY_STEPS
+    steps of the kernel model: finite losses (the simple step's falling),
+    the launches of one counted step (the frozen coarse's forward kernels,
+    as recipes 2-3; under --train_coarse recipe 1's train step; none for
+    MyFRRN and GAN), samples/s (median after 2 warm-ups) and peak memory.
+    Returns the counted launches of each."""
+    b, h, w = LEGACY_SHAPE
+    batch = train_batch(dev, b, h, w, seed=23)
+    runs = []
+    for label, cfg, make, per_step, subs in LEGACY_CASES:
+        label = f"legacy {label} {b}x{h}x{w}"
+        if subs:
+            g_ref = _f32(lambda: _legacy_grads(dev, cfg, make, False,
+                                               "float32", batch, subs))
+            g_k = _legacy_grads(dev, cfg, make, True, "bfloat16", batch, subs)
+            g_p = _legacy_grads(dev, cfg, make, False, "bfloat16", batch,
+                                subs)
+            print(f"{label} step:")
+            fails = [_check_grad(f"{sub} gradient ({g_ref[sub].numel()} "
+                                 "values)", g_k[sub], g_p[sub], g_ref[sub])
+                     for sub in subs]
+            fails = [f for f in fails if f]
+            if fails:
+                raise AssertionError(f"{label}: " + "; ".join(fails))
+            del g_ref, g_k, g_p
+        step, state = _legacy_setup(dev, cfg, make, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, counts = [], [], None
+        for i in range(LEGACY_STEPS):
+            torch.cuda.synchronize()
+            if i == 2:
+                hw.reset_counters()
+            t0 = time.perf_counter()
+            state, ld = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+            if i == 2:
+                counts = dict(hw.launches)
+            if not all(math.isfinite(float(v)) for v in ld.values()):
+                raise AssertionError(f"{label}: non-finite losses {dict(ld)}")
+            losses.append(float(ld["loss_all"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del step, state
+        torch.cuda.empty_cache()
+        if cfg.model == "MyFRRN" and not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: loss_all did not fall: {losses}")
+        print(f"{label}: loss_all {' '.join(f'{v:.5g}' for v in losses)}; "
+              f"{b / statistics.median(times):.4f} samples/s (median of "
+              f"{len(times)} steps), peak memory {peak:.3f} GiB on {card}; "
+              f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+        _check_step_counts(label, counts, per_step)
+        runs.append(counts)
+    return runs
+
 
 def main():
     dev = require_card()
@@ -4447,6 +4786,7 @@ def main():
     k4_backward_check(dev)
     taps4_backward_check(dev)
     h_mode_backward_check(dev)
+    kernels.update(grid_sample_bwd_check(dev))
     train_counts, g_ref = train_phase(dev, card)
     runs = [counts, train_counts, *bbchain_modes_phase(dev, card, g_ref),
             recipe_step_phase(dev, card, CFG_R2, "refine_model", "recipe 2"),
@@ -4459,7 +4799,8 @@ def main():
             highres_extra_serve_phase(dev, card),
             *highres_train_phase(dev, card), *remat_phase(dev, card),
             track_obj_phase(dev, card), *track_obj_runner_phase(dev, card),
-            *plain_vae_phase(dev, card), *runner_phase(dev, card)]
+            *plain_vae_phase(dev, card), vae_train_phase(dev, card),
+            *legacy_steps_phase(dev, card), *runner_phase(dev, card)]
     runs += triplet_phase(dev, card)
     track_gen_phase(dev, card)
     det_disc_phase(dev, card)

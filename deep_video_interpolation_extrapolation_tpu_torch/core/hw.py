@@ -29,7 +29,8 @@ KERNELS = ("conv3x3_bias_res_lrelu", "bottleneck_tail", "fuse_out0",
            "bb_chain_fwd_c128", "bb_chain_bwd_c128", "bb_chain_fwd_c256",
            "bb_chain_bwd_c256", "bb_chain_wgrad", "bottleneck_wgrad",
            "stem48_fwd", "stem48_bwd", "upshead_taps_n216", "shiftadd_co24",
-           "upshead4_taps_n216", "ups_head_1x1_4", "stem64_fwd", "stem64_bwd")
+           "upshead4_taps_n216", "ups_head_1x1_4", "stem64_fwd", "stem64_bwd",
+           "grid_sample_bwd")
 
 launches = {name: 0 for name in KERNELS}
 

@@ -9,7 +9,8 @@
 // from its output pixel gives 0, and one at the window's edge keeps only the
 // corners inside it.  R < 0 is unbounded (ops/warp.grid_sample's function).
 //
-// Two entries.  dvie_grid_sample reads an f32 grid (B,H,W,2).
+// Two forward entries and a backward.  dvie_grid_sample reads an f32 grid
+// (B,H,W,2).
 // dvie_warp_steps reads the flow instead: x (B,H,W,C) is warped by each of
 // T steps of flow (B,T,H,W,2), optionally times mask (B,T,H,W,1), into out
 // (B,T,H,W,C) = stack_t backward_warp(x, flow[:, t] * mask[:, t]): the
@@ -18,6 +19,8 @@
 // shape by torch.linspace on the card, so the coordinates are the model's
 // bit for bit).  No grid is written and there is no stack; x is read from
 // HBM once for all T steps (L2 serves the rest).
+// dvie_warp_steps_bwd is the flow entry's backward with respect to flow and
+// mask (unbounded mode; see warp_bwd_kernel below).
 //
 // Replaces ops/pallas_warp.py:grid_sample_pallas (pallas_call at :134).  The
 // TPU has no vector gather, so its kernel rolls a zero-padded halo slab over
@@ -347,6 +350,92 @@ int dispatch(const Src &src, const Geo &g, cudaStream_t s) {
   return launch_rows<TX, 0>(src, g, s);
 }
 
+// ---- the flow entry's backward (row 18c) ----------------------------------
+// The adjoint of warp_steps(x, flow, mask) in the unbounded mode with
+// respect to flow and mask (x is data on every path that trains through
+// it: the VideoVAE warps frame1 and the ground-truth frames).  Gather form:
+// one thread an output pixel (b, t, i, j) forms the forward's coordinates
+// with the same arithmetic, reads its own four corners of x and its dout
+// row, and sums over C in f32:
+//   d(fx) = sum_c dout_c * ((1 - ty) * (v01 - v00) + ty * (v11 - v10))
+//   d(fy) = sum_c dout_c * ((1 - tx) * (v10 - v00) + tx * (v11 - v01))
+// corners outside the image counting as 0, as in the forward.  fx = ((bx -
+// f.x) + 1) * 0.5 * (W - 1), so d(f.x) = -d(fx) * (W - 1) * 0.5 (f.y alike),
+// and through f = flow * mask: dflow = d(f) * mask, dmask = d(f) . flow.
+// Each pixel writes only its own dflow and dmask: deterministic, no atomics.
+// It replaces no TPU kernel: grid_sample_pallas has no backward, and the JAX
+// package trains the VAE through XLA's differentiable grid_sample
+// (ops/warp.py:116-142 there, use_pallas=None).
+// Bound: bytes (x, flow, mask and dout read once, dflow and dmask written
+// once; ~5.5 MB at the VAE's 8x128x128, T = 2, bf16: ~1.6 us at 3.35 TB/s),
+// so at the VAE's shapes the launch itself dominates.  A block is a 64 x 4
+// tile of one image and step: a warp on 32 neighbouring columns (coalesced
+// flow, mask, dout and gradient traffic; the corner reads hit L1 / L2).
+struct BwdGeo {
+  const unsigned char *x;  // (B,H,W,C), (H,W,C) contiguous
+  long long sxb;           // bytes between frames
+  const unsigned char *dout;  // (B,T,H,W,C) contiguous, x's type
+  unsigned char *dflow;       // (B,T,H,W,2) contiguous, the flow's type
+  unsigned char *dmask;       // (B,T,H,W) contiguous, the flow's type, or null
+  int B, T, H, W, C;
+};
+
+constexpr int BTW = 64, BTH = THREADS / BTW;
+
+template <typename TX, typename TF>
+__global__ void __launch_bounds__(THREADS) warp_bwd_kernel(const FlowSrc<TF> src, const BwdGeo g) {
+  const int H = g.H, W = g.W, C = g.C;
+  const int j = blockIdx.x * BTW + (int)threadIdx.x % BTW;
+  const int i = blockIdx.y * BTH + (int)threadIdx.x / BTW;
+  const int b = (int)blockIdx.z / g.T, t = (int)blockIdx.z - b * g.T;
+  if (i >= H || j >= W) return;
+  const TF *f = src.flow + b * src.sfb + t * src.sft + i * src.sfh + j * src.sfw;
+  const float ux = ldf(f), uy = ldf(f + src.sfc);
+  float mk = 1.f, fxv = ux, fyv = uy;
+  if (src.mask) {  // flow * mask, rounded to the flow's type, as the forward
+    mk = ldf(src.mask + b * src.smb + t * src.smt + i * src.smh + j * src.smw);
+    fxv = round_as(f, __fmul_rn(ux, mk));
+    fyv = round_as(f, __fmul_rn(uy, mk));
+  }
+  const float px = pix(__fsub_rn(__ldg(src.bx + j), fxv), W);
+  const float py = pix(__fsub_rn(__ldg(src.by + i), fyv), H);
+  const float x0 = floorf(px), y0 = floorf(py);
+  const float tx = __fsub_rn(px, x0), ty = __fsub_rn(py, y0);
+  const bool ox0 = counts(x0, W, j, -1), ox1 = counts(x0 + 1.f, W, j, -1);
+  const bool oy0 = counts(y0, H, i, -1), oy1 = counts(y0 + 1.f, H, i, -1);
+  const int xi = ox0 || ox1 ? (int)x0 : 0;
+  const int y0i = oy0 ? (int)y0 : 0, y1i = oy1 ? (int)y0 + 1 : 0;
+  const long long PB = (long long)C * sizeof(TX);
+  const unsigned char *ximg = g.x + b * g.sxb;
+  const TX *p0 = reinterpret_cast<const TX *>(ximg + (y0i * W + xi) * PB);
+  const TX *p1 = reinterpret_cast<const TX *>(ximg + (y1i * W + xi) * PB);
+  const long long pix_id = (((long long)b * g.T + t) * H + i) * W + j;
+  const TX *d = reinterpret_cast<const TX *>(g.dout) + pix_id * C;
+  float sx = 0.f, sy = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float v00 = oy0 && ox0 ? ldf(p0 + c) : 0.f;
+    const float v01 = oy0 && ox1 ? ldf(p0 + C + c) : 0.f;
+    const float v10 = oy1 && ox0 ? ldf(p1 + c) : 0.f;
+    const float v11 = oy1 && ox1 ? ldf(p1 + C + c) : 0.f;
+    const float dc = ldf(d + c);
+    sx += dc * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
+    sy += dc * ((1.f - tx) * (v10 - v00) + tx * (v11 - v01));
+  }
+  // d(loss)/d(f): through the pixel scale and g = base - f
+  const float gfx = -(sx * (float)(W - 1) * 0.5f), gfy = -(sy * (float)(H - 1) * 0.5f);
+  TF *df = reinterpret_cast<TF *>(g.dflow) + pix_id * 2;
+  st_elem(df, gfx * mk);
+  st_elem(df + 1, gfy * mk);
+  if (g.dmask) st_elem(reinterpret_cast<TF *>(g.dmask) + pix_id, gfx * ux + gfy * uy);
+}
+
+template <typename TX, typename TF>
+int launch_bwd(const FlowSrc<TF> &src, const BwdGeo &g, cudaStream_t s) {
+  const dim3 grid((g.W + BTW - 1) / BTW, (g.H + BTH - 1) / BTH, g.B * g.T);
+  warp_bwd_kernel<TX, TF><<<grid, THREADS, 0, s>>>(src, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace dvie
 
@@ -390,4 +479,31 @@ extern "C" int dvie_warp_steps(const void *x, const void *flow, const void *mask
                                  (const float *)by, sfb, sft, smb, smt, sfh, sfw, sfc, smh, smw,
                                  packed};
   return x_bf16 ? dvie::dispatch<bf16>(src, g, s) : dvie::dispatch<float>(src, g, s);
+}
+
+// The backward of dvie_warp_steps in the unbounded mode (row 18c): x, flow,
+// mask (or NULL), bx, by and strides as dvie_warp_steps; dout (B,T,H,W,C)
+// contiguous in x's type; dflow (B,T,H,W,2) and dmask (B,T,H,W) or NULL
+// (exactly when mask is NULL) contiguous in the flow's type.
+extern "C" int dvie_warp_steps_bwd(const void *x, const void *flow, const void *mask,
+                                   const void *bx, const void *by, const void *dout, void *dflow,
+                                   void *dmask, int B, int T, int H, int W, int C, int x_bf16,
+                                   int flow_bf16, long long sxb, long long sfb, long long sft,
+                                   int sfh, int sfw, int sfc, long long smb, long long smt,
+                                   int smh, int smw, void *stream) {
+  using dvie::bf16;
+  const int es = x_bf16 ? 2 : 4;
+  const dvie::BwdGeo g{(const unsigned char *)x, sxb * es, (const unsigned char *)dout,
+                       (unsigned char *)dflow, (unsigned char *)dmask, B, T, H, W, C};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (flow_bf16) {
+    const dvie::FlowSrc<bf16> src{(const bf16 *)flow, (const bf16 *)mask, (const float *)bx,
+                                  (const float *)by, sfb, sft, smb, smt, sfh, sfw, sfc, smh, smw,
+                                  false};
+    return x_bf16 ? dvie::launch_bwd<bf16>(src, g, s) : dvie::launch_bwd<float>(src, g, s);
+  }
+  const dvie::FlowSrc<float> src{(const float *)flow, (const float *)mask, (const float *)bx,
+                                 (const float *)by, sfb, sft, smb, smt, sfh, sfw, sfc, smh, smw,
+                                 false};
+  return x_bf16 ? dvie::launch_bwd<bf16>(src, g, s) : dvie::launch_bwd<float>(src, g, s);
 }

@@ -12,9 +12,11 @@ the JAX one does); every ``--refine_model``
 (``MSResAttnRefine`` at any ``--n_sc`` and ``--stage3_prop``, ``V2``,
 ``V2Base``, ``V3``) the JAX registry takes; and the video VAEs ``--model
 VAE``, ``VAE_S`` and ``VAE_SD`` (``--vid_len``), built for frames of
-``(input_h, input_w)``.  Any other model raises ``NotImplementedError``
-naming its ROADMAP queue; an unknown stage-3 name raises ``KeyError``, as
-in the JAX registry."""
+``(input_h, input_w)``; and the legacy models of ``train/legacy.py``: the
+coarse generators ``MyFRRN``, ``PSPNet``, ``PSPNetV2``, ``B2SNet``,
+``UNet`` and ``SepUNet`` (as ``--model`` and as ``--coarse_model``),
+``GridNet`` and the heads ``GAN``, ``RefineNet`` and ``RefineGAN``.  An
+unknown name raises ``KeyError``, as in the JAX registry."""
 
 from __future__ import annotations
 
@@ -25,12 +27,25 @@ import torch.nn as nn
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
 
-_QUEUE = "ROADMAP.md queue 1"
-
-
 def compute_dtype(cfg: Config) -> torch.dtype:
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[cfg.compute_dtype]
+
+
+def legacy_generators(cfg: Config) -> dict:
+    """Name -> constructor of the legacy coarse generators (registry.py:40-51),
+    in the compute dtype."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        legacy_gen,
+        unet,
+    )
+    d = compute_dtype(cfg)
+    return {"MyFRRN": lambda: legacy_gen.MyFRRN(mode=cfg.mode, dtype=d),
+            "PSPNet": lambda: legacy_gen.PSPNet(mode=cfg.mode, dtype=d),
+            "PSPNetV2": lambda: legacy_gen.PSPNetV2(mode=cfg.mode, dtype=d),
+            "B2SNet": lambda: legacy_gen.B2SNet(dtype=d),
+            "UNet": lambda: unet.UNet(dtype=d),
+            "SepUNet": lambda: unet.SepUNet(dtype=d)}
 
 
 def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
@@ -38,15 +53,13 @@ def build_coarse(cfg: Config, use_kernels: bool = True) -> nn.Module:
     input_w) it trains at), in extrapolation mode under ``--syn_type
     extra``: the head widths by ``--num_pred_once`` and ``--inpaint_mask``,
     conv1 (and VAEHRNet's posterior encoder) taking three frames under
-    ``--fix_init_frames``."""
+    ``--fix_init_frames``; or one of the legacy generators."""
     from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
         HRNet,
         VAEHRNet,
     )
     if cfg.coarse_model not in ("HRNet", "VAEHRNet"):
-        raise NotImplementedError(
-            f"coarse model {cfg.coarse_model!r} is not ported yet "
-            f"({_QUEUE}, item 8)")
+        return legacy_generators(cfg)[cfg.coarse_model]()
     # --remat checkpoints the backbone at stage granularity inside the
     # model (hrnet.HRNet._backbone); remat_internal is the runner side
     kw = dict(dtype=compute_dtype(cfg), use_kernels=use_kernels,
@@ -158,12 +171,17 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     from deep_video_interpolation_extrapolation_tpu_torch.models.discriminators import (
         SNConv,
     )
+    from deep_video_interpolation_extrapolation_tpu_torch.models.gridnet import (
+        PReLUPair,
+    )
     # a transposed conv's weight is (Cin, Cout, kh, kw); a BatchNorm scale
-    # starts at one (flax's init)
+    # starts at one (flax's init), a PReLU slope at 0.25
     convt = {id(m.weight) for m in model.modules()
              if isinstance(m, (ConvT, ConvTranspose))}
     scales = {id(m.weight) for m in model.modules()
               if isinstance(m, BatchNorm)}
+    slopes = {id(a) for m in model.modules() if isinstance(m, PReLUPair)
+              for a in (m.a0, m.a1)}
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, p in sorted(model.named_parameters()):
@@ -171,6 +189,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 p.zero_()
             elif id(p) in scales:
                 p.fill_(1.0)
+            elif id(p) in slopes:
+                p.fill_(0.25)
             else:
                 fan_in = int(np.prod(p.shape[1:]))
                 if id(p) in convt:
@@ -190,28 +210,36 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
                 use_kernels: bool = True) -> nn.Module:
     """Build the model named by ``cfg.model``, weights from ``seed``, in
     eval mode on ``device`` (the card unless the caller asks for the CPU;
-    without a card it raises)."""
+    without a card it raises).  An unknown name raises ``KeyError``."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
         composite,
+        gridnet,
+        legacy_heads,
         vae_video,
     )
+    d = compute_dtype(cfg)
     heads = {"InterNet": composite.InterNet,
              "InterRefineNet": composite.InterRefineNet,
              "InterStage3Net": composite.InterStage3Net,
              "InterGANNet": composite.InterGANNet,
              "ExtraNet": composite.ExtraNet,
-             "ExtraInpaintNet": composite.ExtraInpaintNet}
+             "ExtraInpaintNet": composite.ExtraInpaintNet,
+             "RefineNet": legacy_heads.RefineNet,
+             "RefineGAN": legacy_heads.RefineGAN}
     vaes = {"VAE": "vae", "VAE_S": "vae_s", "VAE_SD": "vae_sd"}
-    if cfg.model not in heads and cfg.model not in vaes:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet ({_QUEUE}, item 8, the "
-            "legacy models)")
+    legacy = {**legacy_generators(cfg),
+              "GridNet": lambda: gridnet.GridNet(mode=cfg.mode, dtype=d),
+              "GAN": lambda: legacy_heads.GAN(mode=cfg.mode, dtype=d)}
+    if cfg.model not in heads and cfg.model not in vaes and \
+            cfg.model not in legacy:
+        raise KeyError(cfg.model)
     device = hw.entry_device(device)
     if cfg.model in vaes:
         model = vae_video.VideoVAE(
-            vid_length=cfg.vid_length, variant=vaes[cfg.model],
-            dtype=compute_dtype(cfg), size=(cfg.input_h, cfg.input_w),
-            use_kernels=use_kernels)
+            vid_length=cfg.vid_length, variant=vaes[cfg.model], dtype=d,
+            size=(cfg.input_h, cfg.input_w), use_kernels=use_kernels)
+    elif cfg.model in legacy:
+        model = legacy[cfg.model]()
     else:
         model = heads[cfg.model](cfg, use_kernels=use_kernels)
     init_weights(model, seed)

@@ -14,12 +14,14 @@ every frame's, take frame differences as the motion input (latent 512 /
 module structure).  Time is an explicit axis (B, T, ...).
 
 ``forward(rgb_seq, seg_seq, bg_mask, fg_mask, noise_bg=None, z_m=None,
-train=None, generator=None)``: rgb_seq (B, T+1, H, W, 3) in [0, 1],
+train=None, generator=None, eps=None)``: rgb_seq (B, T+1, H, W, 3) in [0, 1],
 seg_seq (B, T+1, H, W, 20) one-hot, masks (B, T+1, H, W, 1), noise_bg
 (B, H, W, 3).  ``train`` (default: ``self.training``) picks the BatchNorm
 statistics and, without ``z_m``, whether the code comes from the posterior
 (mu + eps * std) or from the prior; the noise is drawn from ``generator``,
-where the JAX forward draws from its ``noise`` rng.  Returns (train)
+where the JAX forward draws from its ``noise`` rng, unless the posterior's
+``eps`` (B, 1024) is given (a test feeds the JAX draw).  On the card the
+warp trains through the grid-sample kernel's backward (``warp_steps``).  Returns (train)
 (output, y_pred, mu, logvar, flow, flowback, mask_fw, mask_bw), (eval)
 (output, y_pred, flow, flowback, mask_fw, mask_bw).  Shapes the JAX module
 takes from its input at init are fixed by ``size`` = (H, W).
@@ -93,7 +95,8 @@ class VideoVAE(nn.Module):
 
     def forward(self, rgb_seq, seg_seq, bg_mask, fg_mask, noise_bg=None,
                 z_m=None, train: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
         train = self.training if train is None else train
         t = self.vid_length
         b, _, h, w, _ = rgb_seq.shape
@@ -126,8 +129,10 @@ class VideoVAE(nn.Module):
                     torch.cat([y, fg_seg], -1), train)
                 mu = torch.cat([mu_bg, mu_fg], -1)
                 logvar = torch.cat([logvar_bg, logvar_fg], -1)
-                eps = torch.randn(mu.shape, generator=generator,
-                                  device=mu.device).to(mu.dtype)
+                if eps is None:
+                    eps = torch.randn(mu.shape, generator=generator,
+                                      device=mu.device)
+                eps = eps.to(mu.dtype)
                 z_m = mu + eps * torch.exp(0.5 * logvar)
             else:
                 z_m = torch.randn((b, self.latent_bg + self.latent_fg),

@@ -90,6 +90,11 @@ SIGNATURES = {
     # c: I), mask's (b, t: L; h, w: I), stream
     "dvie_warp_steps": [P] * 6 + [I] * 8 + [L] * 3 + [I] * 3 + [L] * 2
     + [I] * 2 + [P],
+    # x, flow, mask (or NULL), bx, by, dout, dflow, dmask (or NULL), B, T, H,
+    # W, C, x is bf16, flow is bf16, x's frame stride, flow's strides (b, t:
+    # L; h, w, c: I), mask's (b, t: L; h, w: I), stream
+    "dvie_warp_steps_bwd": [P] * 8 + [I] * 7 + [L] * 3 + [I] * 3 + [L] * 2
+    + [I] * 2 + [P],
     # feat, w1u, b1, w2u, yt, B, H, W, C, N1, N2, stream
     "dvie_dual_head_taps": [P] * 5 + [I] * 6 + [P],
 }

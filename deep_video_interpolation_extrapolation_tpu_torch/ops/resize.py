@@ -8,8 +8,9 @@ truth) the corner pixels of input and output aligned, computed as the JAX
 ``_resize_axis_align_corners`` computes it (resize.py:28-45): one axis at
 a time, H then W, each a lerp of two gathered rows in x's dtype,
 ``x_lo * (1 - frac) + x_hi * frac``, rounded after every operation.
-``avg_pool`` is the JAX ``avg_pool`` (resize.py:223-245) with explicit
-paddings; ``max_pool`` the JAX ``max_pool`` with its defaults: VALID,
+``interpolate_nearest`` is the JAX function of the same name
+(resize.py:210-222).  ``avg_pool`` is the JAX ``avg_pool`` (resize.py:223-245)
+with explicit paddings; ``max_pool`` the JAX ``max_pool`` with its defaults: VALID,
 stride = window.
 """
 
@@ -78,17 +79,33 @@ def interpolate_bilinear(x: torch.Tensor,
 
 def avg_pool(x: torch.Tensor, window: Tuple[int, int],
              padding: Sequence[Tuple[int, int]],
-             count_include_pad: bool = True) -> torch.Tensor:
-    """NHWC average pool at stride 1 with symmetric ``padding`` ((top,
-    bottom), (left, right)), each at most half its window (torch's
-    ``F.avg_pool2d``); ``count_include_pad=False`` divides each sum by the
-    window's in-image pixels."""
+             count_include_pad: bool = True,
+             stride: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """NHWC average pool at ``stride`` (default 1) with symmetric
+    ``padding`` ((top, bottom), (left, right)), each at most half its
+    window (torch's ``F.avg_pool2d``); ``count_include_pad=False`` divides
+    each sum by the window's in-image pixels."""
     (pt, pb), (pl, pr) = padding
     if pt != pb or pl != pr:
         raise ValueError(f"symmetric paddings only, got {padding}")
-    return nhwc(F.avg_pool2d(nchw(x), tuple(window), stride=1,
+    return nhwc(F.avg_pool2d(nchw(x), tuple(window), stride=tuple(stride),
                              padding=(pt, pl),
                              count_include_pad=count_include_pad))
+
+
+def interpolate_nearest(x: torch.Tensor,
+                        size: Optional[Tuple[int, int]] = None,
+                        scale_factor: Optional[float] = None) -> torch.Tensor:
+    """Nearest-neighbour resize of an NHWC tensor to ``size``, or by
+    ``scale_factor`` (the size ``int(n * factor)``), as the JAX function's
+    ``jax.image.resize(method="nearest")``: output pixel i reads input
+    pixel floor((i + 0.5) * in / out), torch's ``nearest-exact``."""
+    if x.dim() != 4:
+        raise ValueError(f"expected an NHWC tensor, got shape {tuple(x.shape)}")
+    if size is None:
+        size = (int(x.shape[1] * scale_factor), int(x.shape[2] * scale_factor))
+    return nhwc(F.interpolate(nchw(x), size=tuple(size),
+                              mode="nearest-exact")).to(x.dtype)
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:

@@ -22,10 +22,16 @@ Pallas kernel does.
   from linspaces kept once per shape and device (``base_vectors``).  No
   grid is written.  ``backward_warp`` takes it with T = 1 on the card.
 ``backward_warp`` takes the bounded mode for ``use_pallas=True`` (the TPU
-kernel's own function) and the unbounded one by default.  Neither mode has
-a backward on the card: the JAX kernel has none, and VideoVAE training is
-not ported (ROADMAP.md queue 1 item 8), so the wrappers raise for CUDA
-inputs that require grad; the plain versions are differentiable.
+kernel's own function) and the unbounded one by default.  The flow entry
+in the unbounded mode has a backward on the card with respect to flow and
+mask, the kernel's second entry ``dvie_warp_steps_bwd`` (counter
+``grid_sample_bwd``), through ``_WarpSteps``: the VideoVAE trains on it
+(``train/legacy.make_vae_train_step``).  Every path that trains through a
+warp warps data (frame1, the ground-truth frames), so the kernel gives no
+gradient for x: the wrappers raise, before any launch, for a CUDA x that
+requires grad, for the bounded mode with a gradient and for the grid entry
+with a gradient (no path reaches them; ROADMAP.md section 3).  The plain
+versions are differentiable everywhere and are the CPU route.
 ``grid_sample_border`` (border padding) stays plain, as the JAX package
 leaves it to XLA.
 """
@@ -42,6 +48,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
 
 NAME = "grid_sample"
 NAME_BOUNDED = "grid_sample_bounded"     # the same kernel with max_disp set
+NAME_BWD = "grid_sample_bwd"             # the flow entry's backward
 
 
 def make_base_grid(h: int, w: int, dtype=torch.float32,
@@ -151,8 +158,9 @@ def _check_frames(x: torch.Tensor, max_disp: Optional[int]):
         raise ValueError(f"max_disp must be >= 0, got {max_disp}")
 
 
-_NO_GRAD = ("{} has no backward on the card: VideoVAE training is not "
-            "ported yet (ROADMAP.md queue 1 item 8)")
+_NO_GRAD = ("{} has no backward on the card for this call: only the flow "
+            "entry's unbounded mode has one, with respect to flow and mask "
+            "(x is data on every path that trains; ROADMAP.md section 3)")
 
 
 def _count(max_disp: Optional[int]) -> None:
@@ -224,20 +232,66 @@ def _steps_kernel(x: torch.Tensor, flow: torch.Tensor,
     return out
 
 
+def _steps_bwd_kernel(x: torch.Tensor, flow: torch.Tensor,
+                      mask: Optional[torch.Tensor], dout: torch.Tensor):
+    """(dflow, dmask) of the unbounded flow entry, one launch: dflow
+    (B,T,H,W,2) and dmask (B,T,H,W,1) (None without a mask), contiguous, in
+    the flow's dtype.  Takes the operands the forward took."""
+    b, h, w, c = x.shape
+    t = flow.shape[1]
+    if x.stride()[1:] != (w * c, c, 1):
+        x = x.contiguous()
+    dout = dout.to(x.dtype).contiguous()
+    bx, by = base_vectors(h, w, x.device)
+    dflow = torch.empty((b, t, h, w, 2), dtype=flow.dtype, device=x.device)
+    dmask = None if mask is None else torch.empty(
+        (b, t, h, w, 1), dtype=flow.dtype, device=x.device)
+    ms = (0, 0, 0, 0) if mask is None else mask.stride()[:4]
+    err = _build.library().dvie_warp_steps_bwd(
+        x.data_ptr(), flow.data_ptr(), _build.ptr(mask), bx.data_ptr(),
+        by.data_ptr(), dout.data_ptr(), dflow.data_ptr(), _build.ptr(dmask),
+        b, t, h, w, c, x.dtype == torch.bfloat16,
+        flow.dtype == torch.bfloat16, x.stride(0), *flow.stride(), *ms,
+        _build.stream(x))
+    _build.check_launch(NAME_BWD, err)
+    hw.launches[NAME_BWD] += 1
+    return dflow, dmask
+
+
+class _WarpSteps(torch.autograd.Function):
+    """The unbounded flow entry with its backward kernel: one forward
+    launch, one backward launch giving (dflow, dmask); x takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, flow, mask):
+        ctx.save_for_backward(x, flow, mask)
+        return _steps_kernel(x, flow, mask, None)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, flow, mask = ctx.saved_tensors
+        dflow, dmask = _steps_bwd_kernel(x, flow, mask, dout)
+        return None, dflow, dmask
+
+
 def warp_steps(x: torch.Tensor, flow: torch.Tensor,
                mask: Optional[torch.Tensor] = None,
                max_disp: Optional[int] = None) -> torch.Tensor:
     """``x`` (B,H,W,C) warped backward by each of the T steps of ``flow``
     (B,T,H,W,2, normalized units), times ``mask`` (B,T,H,W,1) if given:
     (B,T,H,W,C).  On a CUDA tensor one launch of the Hopper kernel for all
-    T steps; on a CPU tensor ``warp_steps_plain``.  Unbounded unless
-    ``max_disp`` is given."""
+    T steps, and where flow or mask requires grad one launch of its
+    backward kernel in the backward pass; on a CPU tensor
+    ``warp_steps_plain``.  Unbounded unless ``max_disp`` is given."""
     if not hw.use_kernel(x):
         return warp_steps_plain(x, flow, mask, max_disp)
     if torch.is_grad_enabled() and (
             x.requires_grad or flow.requires_grad
             or (mask is not None and mask.requires_grad)):
-        raise NotImplementedError(_NO_GRAD.format("warp_steps"))
+        if x.requires_grad or max_disp is not None:
+            raise NotImplementedError(_NO_GRAD.format("warp_steps"))
+        return _WarpSteps.apply(x, flow, mask)
     return _steps_kernel(x, flow, mask, max_disp)
 
 

@@ -24,11 +24,15 @@ is HRNet's map plus its latent modules by the same table
 (``from_jax_vaehrnet``); a discriminator's map walks the port module, whose
 containers keep their children's flax names (``disc_key_map``: kernels,
 biases, BatchNorm scale, bias and statistics, and each spectral norm's
-``u`` and ``sigma``).
+``u`` and ``sigma``).  The legacy models' port modules carry the flax
+module names, so ``flax_key_map`` maps their trees generically
+(``load_jax_legacy``; the legacy heads' HRNet coarse and refiner by their
+own maps).
 """
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Mapping, Tuple
 
@@ -663,6 +667,84 @@ def disc_key_map(disc: torch.nn.Module
                        "bn")
     else:
         yield from seq(disc, (), "")
+
+
+# ---- the legacy models -------------------------------------------------------
+
+# flax leaf -> (port leaf, kind); kernels transform by their rank
+_FLAX_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
+                "mean": "running_mean", "var": "running_var"}
+# the port's SegEncoder is a Sequential: flax Conv_k is its child 2k
+_SEG_ENCODER = re.compile(r"(^|\.)seg_encoder\.Conv_(\d)\.")
+
+
+def flax_key_map(params: Mapping, batch_stats: Mapping = None
+                 ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch key, (collection, *flax path), leaf kind) of every leaf of a
+    JAX legacy model (``models/unet``, ``legacy_gen``, ``gridnet``,
+    ``legacy_disc`` and the ``GAN`` head), whose port modules carry the
+    flax module names: the path joined by dots, ``kernel`` / ``scale`` ->
+    ``weight`` (a 4-D kernel HWIO -> OIHW, a 2-D one transposed), BatchNorm
+    ``mean`` / ``var`` -> ``running_mean`` / ``running_var``, PReLU slopes
+    (``a0``, ``a1``) as they are; a ``seg_encoder``'s ``Conv_k`` is the
+    port Sequential's child 2k."""
+    def walk(tree, coll, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                yield from walk(v, coll, path + (k,))
+                continue
+            key = ".".join(path + (_FLAX_LEAVES.get(k, k),))
+            key = _SEG_ENCODER.sub(
+                lambda m: f"{m[1]}seg_encoder.{2 * int(m[2])}.", key)
+            kind = {4: "conv", 2: "dense"}.get(np.ndim(v), "leaf")
+            yield key, (coll,) + path + (k,), kind
+
+    yield from walk(params, "params", ())
+    yield from walk(batch_stats or {}, "batch_stats", ())
+
+
+def from_jax_legacy(params: Mapping, batch_stats: Mapping = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A JAX legacy model's ``params`` and ``batch_stats`` -> the port
+    model's ``state_dict`` (``flax_key_map``)."""
+    return _from_trees(flax_key_map(params, batch_stats),
+                       {"params": params, "batch_stats": batch_stats or {}})
+
+
+def legacy_state_dict(model: torch.nn.Module, params: Mapping,
+                      batch_stats: Mapping = None
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX legacy model's trees (``params``, or a gradient of the same
+    structure; ``batch_stats``) -> the port ``model``'s keys: a generator,
+    GridNet, a discriminator or ``GAN`` by ``flax_key_map``; ``RefineNet``
+    and ``RefineGAN`` by submodel (an HRNet coarse and the refiner by their
+    own maps)."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        hrnet,
+        legacy_heads,
+    )
+    batch_stats = batch_stats or {}
+    if not isinstance(model, (legacy_heads.RefineNet,
+                              legacy_heads.RefineGAN)):
+        return from_jax_legacy(params, batch_stats)
+    sd = OrderedDict()
+    for name, sub in model.named_children():
+        if name not in params:
+            continue
+        if isinstance(sub, hrnet.HRNet) or name == "refine_model":
+            part = from_jax_submodel(sub, params[name], batch_stats.get(name))
+        else:
+            part = from_jax_legacy(params[name], batch_stats.get(name))
+        sd.update((f"{name}.{k}", v) for k, v in part.items())
+    return sd
+
+
+def load_jax_legacy(model: torch.nn.Module, params: Mapping,
+                    batch_stats: Mapping = None) -> None:
+    """Load a JAX legacy model's variables into the port's ``model``,
+    strictly (``legacy_state_dict``)."""
+    model.load_state_dict(legacy_state_dict(model, params, batch_stats),
+                          strict=True)
 
 
 def from_jax_disc(disc: torch.nn.Module, params: Mapping,

@@ -1,7 +1,7 @@
 """Profile of one INTER train step on a CUDA card, kernel model and plain.
 
     python3 -m deep_video_interpolation_extrapolation_tpu_torch.tools.profile_train \
-        [--recipe 1|2|3|4|6] [--out chiprun_out/profile_train]
+        [--recipe 1|2|3|4|6|vae] [--out DIR]
 
 ``--recipe 1`` (the default): InterNet/HRNet at full width on one seeded
 24x128x128 batch (the INTER recipe, docs/RECIPES.md:11-14); ``2``:
@@ -14,7 +14,10 @@ rates, ``--n_track 10``) at 18x128x128 (:42-62), a synthetic batch with
 its boxes, the step's generator seeded; ``6``: ExtraNet/HRNet in
 extrapolation, ``--num_pred_step 3`` (three forwards, back-propagation
 through them; ``train/extra.make_train_step``) at 24x128x128 on a seeded
-synthetic batch of 5 frames (:76-83).  bf16 compute with f32 masters, frozen VGG19
+synthetic batch of 5 frames (:76-83); ``vae``: the VideoVAE (``--model
+VAE``, ``--vid_len 2``) through ``train/legacy.make_vae_train_step`` at
+8x128x128 on seeded smooth frames, eps from a seeded generator.  bf16
+compute with f32 masters, frozen VGG19
 from a seed, Adamax; the same setups as ``chip_smoke.py``'s train and
 recipe phases.  For each model
 (``use_kernels`` True, then False): 3 warm-up steps, the mean wall time of
@@ -23,7 +26,8 @@ then one step under ``torch.profiler``: the time of every device event
 (kernels, copies, fills; the rows do not overlap) summed, as the profiler's
 own table totals it.  Prints one summary line per model, the per-step
 device time of each kernel group in ``GROUPS`` (the BasicBlock chain, the
-layer1 Bottleneck train chain, the stem, K4), and its top ``ROWS`` device
+layer1 Bottleneck train chain, the stem, K4, the grid sample and its
+backward), and its top ``ROWS`` device
 events by time, also written to ``<out>/<model>.txt``.
 The idle share is 1 - (device time / the mean wall time of the unprofiled
 steps): the profiler's own host work slows the profiled step.
@@ -52,6 +56,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.train import (
     extra,
     inter,
     inter_gan,
+    legacy,
     state as state_lib,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
@@ -71,14 +76,18 @@ GROUPS = {"BasicBlock chain": ("bb_kernel", "GJobs"),
           "Bottleneck": ("::front_kernel", "::back_kernel",
                          "::wgrad_kernel(__nv_bfloat16"),
           "stem": ("::stem_",),
-          "K4": ("ups_head_kernel",)}
+          "K4": ("ups_head_kernel",),
+          "grid sample": ("::warp_kernel",),
+          "grid sample backward": ("::warp_bwd_kernel",)}
 CFG = Config(model="InterNet", coarse_model="HRNet", syn_type="inter",
              compute_dtype="bfloat16", train_coarse=True)
 _R2 = dict(model="InterRefineNet", train_coarse=False, refine=True,
            refine_model="SRNRefine", n_scales=3, train_refine=True)
-RECIPES = {1: (CFG, B),
-           2: (dataclasses.replace(CFG, **_R2), 27),
-           3: (dataclasses.replace(
+RECIPES = {"1": (CFG, B),
+           "2": (dataclasses.replace(CFG, **_R2), 27),
+           "vae": (Config(model="VAE", vid_length=2, input_h=H, input_w=W,
+                          compute_dtype="bfloat16"), 8),
+           "3": (dataclasses.replace(
                CFG, **{**_R2, "model": "InterStage3Net",
                        "train_refine": False, "stage3": True,
                        "stage3_model": "MSResAttnRefineV2",
@@ -86,7 +95,7 @@ RECIPES = {1: (CFG, B),
                        "refine_l1_weight": 20.0, "refine_gdl_weight": 20.0,
                        "refine_vgg_weight": 20.0,
                        "refine_ssim_weight": 20.0}), 27),
-           4: (parse_args((
+           "4": (parse_args((
                "--syn_type inter --mode xs2xs --input_h 128 --input_w 128 "
                "--bs 18 --kld_w 20 --n_track 10 INTER --model InterGANNet "
                "--coarse_model VAEHRNet --train_coarse --vae --gan "
@@ -103,10 +112,25 @@ RECIPES = {1: (CFG, B),
                "--train_video_det_disc --video_det_disc_g_w 0.4 "
                "--video_det_disc_d_w 0.01 --video_det_disc_lr 0.0001")
                .split()), 18),
-           6: (parse_args((
+           "6": (parse_args((
                "--syn_type extra --mode xs2xs --input_h 128 --input_w 128 "
                "--bs 24 EXTRA --model ExtraNet --coarse_model HRNet "
                "--train_coarse --num_pred_step 3").split()), B)}
+
+
+def _vae_batch(dev, b, t):
+    """T+1 smooth frames in [0, 1] (bilinear upsamplings of 8x8 fields),
+    uint8 seg ids, complementary masks (chip_smoke's VAE train batch)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    coarse = torch.rand((b * (t + 1), 3, 8, 8), generator=g, device=dev)
+    frames = torch.nn.functional.interpolate(
+        coarse, size=(H, W), mode="bilinear", align_corners=False)
+    fg = (torch.rand((b, t + 1, H, W, 1), generator=g, device=dev)
+          > 0.5).float()
+    return {"frames": frames.permute(0, 2, 3, 1).reshape(b, t + 1, H, W, 3),
+            "segs": torch.randint(0, 20, (b, t + 1, H, W), generator=g,
+                                  device=dev, dtype=torch.uint8),
+            "fg_masks": fg, "bg_masks": 1.0 - fg}
 
 
 def _batch(dev, b=B, n_track=0, vid_len=3):
@@ -146,12 +170,16 @@ def profile_model(dev, use_kernels: bool, cfg: Config = CFG, b: int = B):
         cfg, model, init_vgg_frozen(cfg, seed=1, device=dev))
     gan = cfg.model == "InterGANNet"
     steps = extra if cfg.syn_type == "extra" else inter
-    step = (inter_gan.make_train_step(
-        cfg, model, torch.Generator(dev).manual_seed(11)) if gan
-        else steps.make_train_step(cfg, model))
-    vid_len = (2 + cfg.num_pred_once * cfg.num_pred_step
-               if cfg.syn_type == "extra" else 3)
-    batch = _batch(dev, b, cfg.num_track_per_img if gan else 0, vid_len)
+    gen = torch.Generator(dev).manual_seed(11)
+    if cfg.model == "VAE":
+        step = legacy.make_vae_train_step(cfg, model, gen)
+        batch = _vae_batch(dev, b, cfg.vid_length)
+    else:
+        step = (inter_gan.make_train_step(cfg, model, gen) if gan
+                else steps.make_train_step(cfg, model))
+        vid_len = (2 + cfg.num_pred_once * cfg.num_pred_step
+                   if cfg.syn_type == "extra" else 3)
+        batch = _batch(dev, b, cfg.num_track_per_img if gan else 0, vid_len)
     for _ in range(3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
@@ -187,7 +215,7 @@ def profile_model(dev, use_kernels: bool, cfg: Config = CFG, b: int = B):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--recipe", type=int, choices=sorted(RECIPES), default=1)
+    ap.add_argument("--recipe", choices=sorted(RECIPES), default="1")
     ap.add_argument("--out", default="chiprun_out/profile_train")
     args = ap.parse_args(argv)
     cfg, b = RECIPES[args.recipe]

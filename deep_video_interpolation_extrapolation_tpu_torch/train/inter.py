@@ -70,7 +70,6 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     vgg_loss_from_frozen,
 )
 
-_QUEUE = "ROADMAP.md queue 1"
 _REFINE = ("InterRefineNet", "InterStage3Net")
 
 
@@ -79,8 +78,8 @@ def _check(cfg: Config) -> None:
         raise NotImplementedError(
             f"the {cfg.model} train and eval steps are not here "
             "(InterGANNet: train/inter_gan.py; ExtraNet and "
-            "ExtraInpaintNet: train/extra.py) or not ported yet "
-            f"({_QUEUE}, item 8)")
+            "ExtraInpaintNet: train/extra.py; the video VAEs and the legacy "
+            "models: train/legacy.py)")
 
 
 def _check_vae_combo(cfg: Config) -> None:

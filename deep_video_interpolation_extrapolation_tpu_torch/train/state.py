@@ -12,7 +12,18 @@ puts eps inside the max exactly as optax's adamax does
 (u = max(b2 * u, |g| + eps)), with the same bias-corrected step; Adam is
 torch's, the update of ``optax.adam`` (eps outside the square root of the
 bias-corrected second moment); SGD is torch's without momentum, the update
-of ``optax.sgd`` (w -= lr * g).
+of ``optax.sgd`` (w -= lr * g); the legacy discriminators' SGD with
+momentum 0.9 (``sgd_momentum``) is torch's with no dampening, the update of
+``optax.sgd(lr, momentum=0.9)`` (t = g + 0.9 t, w -= lr * t).
+
+The legacy models (``train/legacy.py``) train under the same state: the
+single generators and the video VAEs as one submodel, the whole model
+(name ``""``), with the coarse optimizer; ``GAN``'s ``netG`` (Adamax) and
+``netD`` (SGD with momentum at the frame discriminator's learning rate);
+``RefineNet``'s coarse and refine models by their own flags and
+optimizers; ``RefineGAN``'s coarse and refine models on the coarse
+optimizer and its ``discriminator`` on SGD with momentum, both at the
+coarse learning rate (legacy.py:351-490).
 
 Unlike the JAX state, this one is mutable: ``apply_updates`` steps the
 optimizers, which update the model's parameters in place.
@@ -32,7 +43,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
     VGG19Features,
 )
 
-_QUEUE = "ROADMAP.md queue 1"
+# the legacy models trained whole by the coarse optimizer (legacy.py:175,
+# :492)
+WHOLE = ("UNet", "SepUNet", "MyFRRN", "PSPNet", "PSPNetV2", "B2SNet",
+         "GridNet", "VAE", "VAE_S", "VAE_SD")
 
 
 def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
@@ -43,14 +57,26 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
     ``--train_inpaint``; state.py:97-98); InterGANNet's track generator
     Adamax at the coarse learning rate behind ``--train_coarse``
     (InterGANTrainer.py:108, :452) and each discriminator Adam at its own
-    learning rate behind its own flag (InterGANTrainer.py:110-116)."""
+    learning rate behind its own flag (InterGANTrainer.py:110-116); the
+    legacy models as the module docstring says."""
+    coarse = (cfg.coarse_optimizer, cfg.coarse_learning_rate, True)
+    if cfg.model in WHOLE:
+        return {"": coarse}
+    if cfg.model == "GAN":
+        return {"netG": ("adamax", cfg.coarse_learning_rate, True),
+                "netD": ("sgd_momentum", cfg.frame_disc_learning_rate, True)}
+    if cfg.model == "RefineGAN":
+        return {"coarse_model": coarse[:2] + (cfg.train_coarse,),
+                "refine_model": coarse,
+                "discriminator": ("sgd_momentum", cfg.coarse_learning_rate,
+                                  True)}
     if cfg.model not in ("InterNet", "InterRefineNet", "InterStage3Net",
-                         "InterGANNet", "ExtraNet", "ExtraInpaintNet"):
-        raise NotImplementedError(
-            f"the {cfg.model} train state is not ported yet ({_QUEUE})")
+                         "InterGANNet", "ExtraNet", "ExtraInpaintNet",
+                         "RefineNet"):
+        raise KeyError(cfg.model)
     specs = {"coarse_model": (cfg.coarse_optimizer, cfg.coarse_learning_rate,
                               cfg.train_coarse)}
-    if cfg.model in ("InterRefineNet", "InterStage3Net"):
+    if cfg.model in ("InterRefineNet", "InterStage3Net", "RefineNet"):
         specs["refine_model"] = (cfg.refine_optimizer,
                                  cfg.refine_learning_rate, cfg.train_refine)
     if cfg.model == "InterStage3Net":
@@ -76,7 +102,11 @@ def submodel_specs(cfg: Config) -> Dict[str, Tuple[str, float, bool]]:
 def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
     """torch's Adamax or Adam (betas (0.9, 0.999), eps 1e-8), or plain SGD
     (no momentum, as ``optax.sgd(lr)``), at a constant learning rate, as
-    the reference (state.py:60-76)."""
+    the reference (state.py:60-76); ``sgd_momentum`` is SGD with momentum
+    0.9, no dampening (``optax.sgd(lr, momentum=0.9)``, the legacy
+    discriminators')."""
+    if name == "sgd_momentum":
+        return torch.optim.SGD(params, lr=lr, momentum=0.9, dampening=0.0)
     if name == "adamax":
         return torch.optim.Adamax(params, lr=lr, betas=(0.9, 0.999),
                                   eps=1e-8)
@@ -97,18 +127,23 @@ class TrainState:
     frozen_resnet: Optional[ResNet101Features] = None
 
 
+def submodel(model: nn.Module, name: str) -> nn.Module:
+    """The submodule a spec names; ``""`` is the whole model."""
+    return getattr(model, name) if name else model
+
+
 def create_train_state(cfg: Config, model: nn.Module,
                        frozen_vgg: Optional[VGG19Features] = None,
                        frozen_resnet: Optional[ResNet101Features] = None
                        ) -> TrainState:
     specs = {name: spec for name, spec in submodel_specs(cfg).items()
-             if hasattr(model, name)}
+             if not name or hasattr(model, name)}
     optimizers = {name: make_optimizer(opt, lr,
-                                       getattr(model, name).parameters())
+                                       submodel(model, name).parameters())
                   for name, (opt, lr, _) in specs.items()}
     if any(trains for _, _, trains in specs.values()):
         for name, (_, _, trains) in specs.items():
-            getattr(model, name).requires_grad_(trains)
+            submodel(model, name).requires_grad_(trains)
     return TrainState(model=model, optimizers=optimizers,
                       frozen_vgg=frozen_vgg, frozen_resnet=frozen_resnet)
 
@@ -121,3 +156,30 @@ def apply_updates(cfg: Config, state: TrainState) -> TrainState:
             state.optimizers[name].step()
     state.step += 1
     return state
+
+
+def gan_weights_init(model: nn.Module, generator: torch.Generator
+                     ) -> nn.Module:
+    """The DCGAN init of the legacy GAN head (nets/GAN.py:32-33 applies
+    utils/net_utils.py:31-37 ``weights_init`` to netG and netD;
+    state.py:184-208 of the JAX package): every conv and transposed-conv
+    weight (a 4-D ``weight``) from N(0, 0.02), every BatchNorm scale from
+    N(1, 0.02) and its bias 0; dense weights and conv biases untouched.
+    Draws come from ``generator``, in the order of ``named_parameters``."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models.subnets import (
+        BatchNorm,
+    )
+    bns = {id(m.weight): m for m in model.modules()
+           if isinstance(m, BatchNorm)}
+    bn_bias = {id(m.bias) for m in bns.values()}
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            if id(p) in bns:
+                p.copy_(1.0 + 0.02 * torch.randn(
+                    p.shape, generator=generator, device=generator.device))
+            elif id(p) in bn_bias:
+                p.zero_()
+            elif p.dim() == 4:
+                p.copy_(0.02 * torch.randn(p.shape, generator=generator,
+                                           device=generator.device))
+    return model

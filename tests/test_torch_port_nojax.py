@@ -7,7 +7,9 @@ and an eval step of the refine stages (RefineUnet under InterRefineNet;
 SRNRefine at ``--n_sc 3`` with V2 ``--stage3_prop``, and at ``--n_sc 2``
 with V1 ``--stage3_prop``, under InterStage3Net), the
 BasicBlock chain forward and backward, a VideoVAE eval forward (``--model
-VAE``, two warped steps at 32x32) and the shifted add; then the launcher
+VAE``, two warped steps at 32x32) and its legacy train step
+(``train/legacy.make_vae_train_step``), the legacy simple step on MyFRRN
+and the shifted add; then the launcher
 (``cli.main.run(cfg, device="cpu")``) at 32x64: one epoch of 2 steps on a
 Cityscapes-layout PNG tree it writes (``--nw 2``), ``--split val`` on that
 epoch's checkpoint, and ``--split cycgen`` on synthetic data; and recipe
@@ -120,6 +122,24 @@ with torch.no_grad():
               generator=torch.Generator().manual_seed(1))
 assert len(out) == 6 and out[0].shape == (1, 2, 32, 32, 3)
 assert all(torch.isfinite(o).all() for o in out)
+from {pkg}.train import legacy
+vcfg = Config(model="VAE", vid_length=2, input_h=32, input_w=32,
+              compute_dtype="float32")
+vstate = state_lib.create_train_state(vcfg, vae, vgg)
+vbatch = dict(frames=rgb_seq, segs=torch.randint(
+    0, 20, (1, 3, 32, 32), generator=g, dtype=torch.uint8),
+    fg_masks=fg, bg_masks=1 - fg)
+vstep = legacy.make_vae_train_step(vcfg, vae, torch.Generator().manual_seed(2))
+vstate, vl = vstep(vstate, vbatch)
+assert vstate.step == 1 and torch.isfinite(vl["loss_all"])
+assert list(vl) == ["recon_warp_loss", "recon_refine_loss", "kld_loss",
+                    "vgg_loss", "flow_consist_loss", "loss_all"]
+lcfg = dataclasses.replace(cfg, model="MyFRRN")
+frrn = registry.build_model(lcfg, device="cpu", seed=3)
+lstate = state_lib.create_train_state(lcfg, frrn, vgg)
+lstate, ll = legacy.make_simple_train_step(lcfg, frrn)(lstate, batch)
+assert lstate.step == 1 and torch.isfinite(ll["loss_all"])
+assert "gen_ce_loss" in ll
 from {pkg}.ops import dual_head, shiftadd, warp
 assert torch.isfinite(shiftadd.shifted_add_bias(
     torch.rand(1, 4, 4, 207, generator=g), torch.zeros(23))).all()

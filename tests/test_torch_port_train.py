@@ -216,9 +216,10 @@ def test_unported_train_options_raise(kw, exc):
 @pytest.mark.parametrize("model", ["ExtraNet", "ExtraInpaintNet", "VAE"])
 def test_other_models_name_their_step(model):
     """The INTER step refuses the models whose steps live elsewhere, naming
-    where: the extrapolation models train through train/extra.py; the
-    video VAEs' step is not ported (ROADMAP item 8)."""
-    where = "train/extra.py" if model.startswith("Extra") else "item 8"
+    where: the extrapolation models train through train/extra.py, the
+    video VAEs through train/legacy.py."""
+    where = ("train/extra.py" if model.startswith("Extra")
+             else "train/legacy.py")
     with pytest.raises(NotImplementedError, match=where):
         inter.make_train_step(_cfg(model=model), None)
 

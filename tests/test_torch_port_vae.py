@@ -271,9 +271,10 @@ def test_registry_builds_the_vaes_and_refuses_the_rest():
     assert model.variant == "vae_s" and model.vid_length == 2
     bn = model.seg_encoder.bn1
     assert torch.equal(bn.weight, torch.ones(32))
+    # the legacy models the registry refused before train/legacy.py build
     for name in ("GridNet", "RefineGAN"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            registry.build_model(PortConfig(model=name), device="cpu")
+        assert type(registry.build_model(PortConfig(model=name),
+                                         device="cpu")).__name__ == name
 
 
 def test_eval_without_z_draws_from_the_generator():
