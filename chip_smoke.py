@@ -252,7 +252,29 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     ``--split val`` on vimeo from the epoch-2 checkpoint and a ucf101
     ``--checkepoch_range``
     sweep over it (256x256): the serving launches, PSNR and SSIM, no
-    ``coarse_iou``.
+    ``coarse_iou``;
+35. export: ``tools/export.py`` on ``torch.export``, every served kernel a
+    ``dvie::`` op (``ops/library.py``): InterNet's 3-step rollout at
+    2x512x1024 bf16 exported, saved, loaded (``load_exported``) and run:
+    the launches per forward (K1 18, K2 4, K3 2, K4 1, the shift add 1),
+    equal to the live kernel rollout (or by how much not, printed), each
+    step against the plain model on the window the artifact carried (rgb
+    by the served gate at every step, seg argmax agreement >= 98% at step
+    1 and printed after it), ms a forward exported and eager; then
+    ``--highres_large``, ExtraInpaintNet ``--inpaint_mask``,
+    InterStage3Net V1 ``--n_sc 1`` and ExtraNet ``--num_pred_once 2`` at
+    2x128x256, one export each (launches, equal to the live kernel model
+    or within the served gates of it; phases 6, 7 and 19-20 hold the live
+    models to the plain ones): every dvie:: op runs from an artifact;
+36. data parallelism (``parallel/dist.py``): recipe 1 at 24x128x128 on
+    two ranks of 12 that share the card, started through the launcher's
+    ``DVIE_MULTIHOST`` contract (NCCL takes one rank a device, so the
+    group runs on gloo): each rank's launches are the one-process step's,
+    the ranks' averaged gradients equal, the loss terms within 2e-2 and
+    the gradient within the train gates of the one-process step, each
+    rank's step ms; then one launcher epoch with ``--num_data_shards 1``
+    under ``DVIE_MULTIHOST=1``, a group of one on NCCL: its launches, its
+    losses, its checkpoint, its samples/s.
 
 The kernel phase also holds the 4-part head at 24x128x128
 (``ups_head_taps4_train``), its 216 instance (``upshead4_taps_n216``,
@@ -324,6 +346,7 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -351,6 +374,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
     _encode_inputs,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.native import host, png
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
     extra,
@@ -364,6 +388,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.tools import (
     build_clips,
+    export as export_lib,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.train.common import (
     init_resnet_frozen,
@@ -4768,6 +4793,388 @@ def legacy_steps_phase(dev, card):
     return runs
 
 
+# ---- export and data parallelism (phases 35-36) -----------------------------
+
+# the dvie:: op of each served kernel (ops/library.py), as a graph names it
+DVIE_OPS = {f"dvie.{op}.default" for op in (
+    "conv3x3", "bottleneck_tail", "fuse_out0", "ups_head_taps",
+    "ups_head_1x1", "ups_head_taps4", "shifted_add_bias", "window_attention")}
+# ExtraNet --num_pred_once 2 served: its heads (40 wide) through K4's h mode,
+# the two 3x3s as F.conv2d, no taps and no shifted add
+CFG_X2 = dataclasses.replace(CFG_X, num_pred_once=2)
+PER_FORWARD_X2 = {**PER_FORWARD, "ups_head_taps": 0, "ups_head_1x1": 1,
+                  "shifted_add_bias": 0}
+EXPORT_SLICES = (("--highres_large", CFG_HL, PER_FORWARD_HL),
+                 ("ExtraInpaintNet --inpaint_mask", CFG_XI, PER_FORWARD_XI),
+                 ("InterStage3Net V1 --n_sc 1", CFG_S3, PER_FORWARD_S3),
+                 ("ExtraNet --num_pred_once 2", CFG_X2, PER_FORWARD_X2))
+
+
+def _graph_ops(served) -> set:
+    """The dvie:: ops a loaded program's graphs call."""
+    return {str(n.target) for m in served.modules()
+            if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
+            if str(n.target).startswith("dvie.")}
+
+
+def host_issue_ms(fn, reps=5):
+    """The host's time to issue ``fn``'s work, ms (median of ``reps``):
+    each call made behind a ~200 ms spin of the card, so that none of its
+    launches waits on the card and the clock reads the host alone."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES * 20)
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _same_or_why(label, out, ref) -> None:
+    """Prints whether an artifact's output equals the live model's bit for
+    bit, or by how much it differs."""
+    pairs = list(zip(out, ref))
+    if all(torch.equal(o, r) for o, r in pairs):
+        print(f"{label}: equal to the live kernel model, bit for bit")
+        return
+    print(f"{label}: differs from the live kernel model: " + ", ".join(
+        f"max|d| {(o.float() - r.float()).abs().max().item():.6g}"
+        for o, r in pairs))
+
+
+def _served_gate(label, rgb, seg_ids, ref_rgb, ref_seg, seg=True):
+    """The served gates: rgb max|d| <= 5e-2 * max(1, max|ref|), seg argmax
+    agreement >= 98% (printed only, without ``seg``)."""
+    d = (rgb.float() - ref_rgb.float()).abs().max().item()
+    limit = SLICE_RGB_TOL * max(1.0, ref_rgb.float().abs().max().item())
+    agree = (seg_ids.long() == ref_seg.argmax(-1)).float().mean().item()
+    print(f"{label}: rgb max|d|={d:.6g} (bound {limit:.4g}), seg argmax "
+          f"agreement {agree:.6f} "
+          f"({f'bound {SLICE_SEG_AGREE}' if seg else 'not gated'})")
+    if not torch.isfinite(rgb.float()).all() or d > limit \
+            or (seg and agree < SLICE_SEG_AGREE):
+        raise AssertionError(f"{label}: outside the served gates")
+
+
+def export_phase(dev, card, size=(2, 512, 1024), small=(2, 128, 256)):
+    """Phase 35: serving export (``tools/export.py``).  InterNet's 3-step
+    rollout at 2x512x1024 bf16 exported with the kernels as dvie:: ops,
+    saved, loaded (``load_exported``) and run: the launches per forward,
+    against the live kernel rollout on the same inputs (equal, or by how
+    much not), each step against the plain model on the window the
+    artifact carried (the served rgb gate at every step, the seg gate at
+    the first), ms a forward exported against eager.  Then ``--highres_large``, ExtraInpaintNet ``--inpaint_mask``,
+    InterStage3Net V1 ``--n_sc 1`` and ExtraNet ``--num_pred_once 2`` at
+    2x128x256, exported once each: launches, against the live kernel model
+    (equal, or within the served gates), so that every dvie:: op runs from
+    an artifact.  Returns the counted launches."""
+    tmp = tempfile.mkdtemp(prefix="dvie_export_")
+    runs, seen = [], set()
+    try:
+        (b, h, w), steps = size, 3
+        cfg = dataclasses.replace(CFG, input_h=h, input_w=w, batch_size=b)
+        model = registry.build_model(cfg, device=dev, seed=0)
+        t0 = time.perf_counter()
+        path = export_lib.export_rollout(
+            cfg, model, os.path.join(tmp, "rollout.pt2"), steps)
+        t1 = time.perf_counter()
+        served = export_lib.load_exported(path)
+        t2 = time.perf_counter()
+        seen |= _graph_ops(served)
+        print(f"export rollout {steps} steps {b}x{h}x{w} bf16: exported in "
+              f"{t1 - t0:.2f} s, {os.path.getsize(path) / 2**20:.1f} MiB, "
+              f"loaded in {t2 - t1:.2f} s; ops {sorted(seen)}")
+        imgs, ids = _inputs(dev, b, h, w, 2)
+        imgs = [i.to(torch.bfloat16) for i in imgs]
+        with torch.inference_mode():
+            served(*imgs, *ids)                    # warm-up
+            (frames, out_ids), counts = _counted(
+                "export rollout", PER_FORWARD, steps,
+                lambda: served(*imgs, *ids))
+        runs.append(counts)
+        live_f, live_i = serve.rollout(model, imgs, ids, steps)
+        _same_or_why("export rollout", (frames, out_ids),
+                     (torch.stack(live_f), torch.stack(live_i)))
+        # each step against the plain model on the window the artifact
+        # carried: the rgb by the served gate at every step, the seg at
+        # step 1 (a forward on the input frames, the slice phase's case);
+        # from step 2 the window holds frames the seeded model predicted,
+        # whose seg logits sit near ties, so the agreement is printed
+        plain = registry.build_model(cfg, device=dev, seed=0,
+                                     use_kernels=False)
+        win, win_ids = list(imgs), list(ids)
+        for t in range(steps):
+            x = torch.cat([f * 2 - 1 for f in win], -1)
+            seg = torch.cat([serve.seg_oh(i) for i in win_ids], -1)
+            r_p, s_p = serve.forward(plain, x, seg)
+            _served_gate(f"export rollout step {t + 1} vs plain",
+                         frames[t] * 2 - 1, out_ids[t],
+                         torch.clamp(r_p, -1, 1), s_p, seg=t == 0)
+            win, win_ids = [win[1], frames[t]], [win_ids[1], out_ids[t]]
+        del plain
+        with torch.inference_mode():
+            ms_x = median_ms(lambda: served(*imgs, *ids), iters=1, reps=5)
+            ms_e = median_ms(lambda: serve.rollout(model, imgs, ids, steps),
+                             iters=1, reps=5)
+            host_x = host_issue_ms(lambda: served(*imgs, *ids))
+            host_e = host_issue_ms(
+                lambda: serve.rollout(model, imgs, ids, steps))
+        print(f"export rollout {b}x{h}x{w} bf16: {ms_x / steps:.4f} ms a "
+              f"forward exported, {ms_e / steps:.4f} eager (median of 5 "
+              f"{steps}-step rollouts, CUDA events); the host's issue "
+              f"{host_x / steps:.4f} ms a forward exported, "
+              f"{host_e / steps:.4f} eager, on {card}")
+        del model, served
+        # what the op costs a served call: K1 at its BasicBlock site
+        # through dvie::conv3x3 and by its launch alone, host included
+        g = torch.Generator(device=dev).manual_seed(3)
+        xk, rk = (torch.randn((1, h, w, 64), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        wk = torch.randn((64, 64, 3, 3), generator=g, device=dev) / 24.0
+        with torch.inference_mode():
+            ms_op = median_ms(lambda: k1.conv3x3_bias_res_lrelu(
+                xk, wk, None, rk, True))
+            ms_launch = median_ms(lambda: k1._kernel(xk, wk, None, rk, True))
+        print(f"K1 basicblock conv2 1x{h}x{w}, host issue included: "
+              f"{ms_op:.4f} ms through dvie::conv3x3, {ms_launch:.4f} by its "
+              f"launch alone (median_ms) on {card}")
+        for label, cfg_i, per in EXPORT_SLICES:
+            cfg_i = dataclasses.replace(cfg_i, input_h=small[1],
+                                        input_w=small[2], batch_size=small[0])
+            m = registry.build_model(cfg_i, device=dev, seed=0)
+            served = export_lib.load_exported(export_lib.export_forward(
+                cfg_i, m, os.path.join(tmp, "forward.pt2")))
+            seen |= _graph_ops(served)
+            ims, sids = _inputs(dev, *small, 1)
+            rgb = (torch.cat(ims, -1) * 2 - 1).to(torch.bfloat16)
+            seg = torch.cat([serve.seg_oh(i) for i in sids], -1).to(
+                torch.bfloat16)
+            with torch.inference_mode():
+                out, counts = _counted(f"export {label}", per, 1,
+                                       lambda: served(rgb, seg))
+            runs.append(counts)
+            live = serve.forward(m, rgb, seg)
+            _same_or_why(f"export {label}", out, live)
+            _served_gate(f"export {label} vs the live model", out[0],
+                         out[1].argmax(-1), live[0], live[1])
+            del m, served
+        if seen != DVIE_OPS:
+            raise AssertionError(f"export: ops run from an artifact "
+                                 f"{sorted(seen)}, expected "
+                                 f"{sorted(DVIE_OPS)}")
+        print(f"export: every dvie:: op ran from an artifact "
+              f"({len(seen)} ops)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+# recipe 1 at 24x128x128 bf16 on two ranks of 12 (seeds 0 and 1 for the
+# model and the VGG19, as train_setup's); and one launcher epoch in a group
+# of one
+DDP_RECIPE = (f"{RECIPE} --seed 0 --num_data_shards 2 INTER --model InterNet "
+              "--train_coarse")
+DDP_EPOCH = (f"{RECIPE} --epochs 1 --num_data_shards 1 INTER --model "
+             "InterNet --train_coarse")
+DDP_BATCH_SEED = 31
+DDP_TIMEOUT = 600
+
+
+def _ranks(fn, spec, n):
+    """Start ``n`` processes, rank 0..n-1 of one group through the
+    launcher's contract (``DVIE_MULTIHOST``, ``DVIE_COORDINATOR`` on a free
+    port), each running ``chip_smoke.<fn>(spec)``; wait for each on its own
+    clock.  Returns their stdout."""
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; import chip_smoke as c; "
+            f"c.{fn}(json.loads(sys.argv[1]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(spec)], cwd=root,
+        env=dict(os.environ, DVIE_MULTIHOST="1", PYTHONPATH=root,
+                 DVIE_COORDINATOR=f"127.0.0.1:{port}",
+                 DVIE_NUM_PROCS=str(n), DVIE_PROC_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out = p.communicate(timeout=DDP_TIMEOUT)[0]
+            if p.returncode != 0:
+                raise AssertionError(f"{fn} rank {r} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def ddp_rank(spec):
+    """One rank of phase 36a: the runner on ``cuda:<rank mod cards>`` in the
+    group the launcher's contract starts, its producer's shard of one
+    global batch and one counted train step; writes the reduced losses,
+    the averaged gradient (f32, the parameters' order), the launches, the
+    group's backend and the median time of three more steps."""
+    device = dist.init_from_env(spec.get("device", "cuda"))
+    cfg = parse_args(spec["argv"])
+    r = _quiet(lambda: Runner(cfg, spec["exp"], device=device))
+    r._build_steps(train=True)
+    batch = synthetic_batch(cfg.batch_size, cfg.input_h, cfg.input_w,
+                            seed=DDP_BATCH_SEED)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    for n, b in r._device_prefetch([batch]):
+        sync()
+        hw.reset_counters()
+        with dist.sharded(dist.shard_of(n)):
+            r.state, losses = r.train_step(r.state, b)
+        sync()
+        counts = dict(hw.launches)
+        rows = b["frame1"].shape[0]
+        losses = r._read_back([losses])[0]
+        grads = torch.cat([p.grad.float().flatten()
+                           for _, p in r.model.named_parameters()]).cpu()
+        times = []                  # three more steps on the same shard
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            with dist.sharded(dist.shard_of(n)):
+                r.train_step(r.state, b)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+    torch.save({"losses": losses, "grads": grads, "counts": counts,
+                "rows": rows, "device": str(device),
+                "step_ms": statistics.median(times),
+                "backend": torch.distributed.get_backend()},
+               spec["out"] % dist.rank())
+    torch.distributed.destroy_process_group()
+
+
+def ddp_epoch(spec):
+    """Phase 36b in its own process: one launcher epoch (``cli/main.run``)
+    under ``DVIE_MULTIHOST=1`` in a group of one, with
+    ``--num_data_shards 1``; writes the launches and the backend ``run``'s
+    group started on."""
+    backends = []
+    init = torch.distributed.init_process_group
+
+    def recording(backend, **kw):
+        backends.append(backend)
+        return init(backend, **kw)
+    torch.distributed.init_process_group = recording
+    device = spec.get("device", "cuda")
+    if device == "cuda":
+        _build.library()
+    hw.reset_counters()
+    _quiet(lambda: run(parse_args(spec["argv"]), exp_dir=spec["exp"],
+                       device=device))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    torch.save({"counts": dict(hw.launches), "backends": backends,
+                "group_left": torch.distributed.is_initialized()},
+               spec["out"])
+
+
+def ddp_phase(dev, card):
+    """Phase 36: data parallelism (``parallel/dist.py``).  (a) Recipe 1 at
+    24x128x128 on two ranks of 12 that share the one card (NCCL takes one
+    rank a device, so ``init_from_env`` starts such a group on gloo, which
+    all-reduces CUDA tensors): each rank's launches are the one-process
+    ``b0`` step's, the two ranks' averaged gradients are equal, the
+    reduced losses within 2e-2 of the one-process kernel step's, the
+    gradient no further from the f32 plain step's than 1.5x the
+    one-process kernel step's + 1e-3 (the train gates).  (b) One launcher
+    epoch with ``--num_data_shards 1`` under ``DVIE_MULTIHOST=1``: a group
+    of one on NCCL, the epoch's launches, its checkpoint.  Returns the
+    counted launches."""
+    tmp = tempfile.mkdtemp(prefix="dvie_ddp_")
+    runs = []
+    try:
+        t0 = time.perf_counter()
+        spec = {"argv": DDP_RECIPE.split(), "exp": tmp, "device": dev.type,
+                "out": os.path.join(tmp, "rank%d.pt")}
+        _ranks("ddp_rank", spec, 2)
+        ranks = [torch.load(spec["out"] % r) for r in range(2)]
+        took = time.perf_counter() - t0
+        for r, got in enumerate(ranks):
+            print(f"ddp rank {r}: {got['device']}, backend "
+                  f"{got['backend']}, {got['rows']} rows, a step "
+                  f"{got['step_ms']:.4f} ms (median of 3 after the counted "
+                  f"one), launches "
+                  f"{json.dumps({k: v for k, v in got['counts'].items() if v})}")
+            _check_step_counts(f"ddp rank {r}", got["counts"],
+                               PER_TRAIN_STEP)
+        if not torch.equal(ranks[0]["grads"], ranks[1]["grads"]):
+            raise AssertionError("ddp: the ranks' averaged gradients differ")
+        cfg = parse_args(DDP_RECIPE.split())
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+            cfg.batch_size, cfg.input_h, cfg.input_w,
+            seed=DDP_BATCH_SEED).items() if k != "bboxes"}
+        l_one, g_one = step_grads(dev, True, "bfloat16", batch)
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            _, g_ref = step_grads(dev, False, "float32", batch)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+        print(f"ddp recipe 1 on two ranks of 12 sharing {card}: "
+              f"{took:.2f} s of processes; against one process:")
+        fail = _check_grad("whole gradient", ranks[0]["grads"].to(dev),
+                           _flat(g_one), _flat(g_ref))
+        if fail:
+            raise AssertionError(f"ddp: {fail}")
+        for k, v in l_one.items():
+            got = ranks[0]["losses"][k]
+            rel = abs(got - v) / max(abs(v), 1e-30)
+            print(f"  {k}: two ranks {got:.6g} one process {v:.6g} "
+                  f"rel {rel:.3g}")
+            if rel > LOSS_TOL:
+                raise AssertionError(f"ddp: {k} differs by {rel:.4g}")
+        runs += [r["counts"] for r in ranks]
+
+        t0 = time.perf_counter()
+        exp = os.path.join(tmp, "epoch")
+        spec = {"argv": DDP_EPOCH.split(), "exp": exp, "device": dev.type,
+                "out": os.path.join(tmp, "epoch.pt")}
+        _ranks("ddp_epoch", spec, 1)
+        got = torch.load(spec["out"])
+        epoch = EPOCH_LINE.findall(_log_of(exp))
+        print(f"ddp launcher epoch, --num_data_shards 1 under "
+              f"DVIE_MULTIHOST=1: group backend {got['backends']}, "
+              f"{epoch[0][3] if epoch else '?'} samples/s, "
+              f"{time.perf_counter() - t0:.2f} s of process on {card}")
+        if got["backends"] != ["nccl"] or got["group_left"]:
+            raise AssertionError(f"ddp epoch: backends {got['backends']}, "
+                                 f"group left {got['group_left']}")
+        losses = [float(v) for *_, v in LOSS_LINE.findall(_log_of(exp))]
+        if len(losses) != RUNNER_EPOCH_STEPS or not all(
+                map(math.isfinite, losses)):
+            raise AssertionError(f"ddp epoch: losses {losses}")
+        if not os.listdir(os.path.join(exp, "checkpoint")):
+            raise AssertionError("ddp epoch: no checkpoint")
+        for name in hw.KERNELS:
+            want = PER_TRAIN_STEP.get(name, 0) * RUNNER_EPOCH_STEPS
+            if got["counts"][name] != want:
+                raise AssertionError(f"ddp epoch: {name} launched "
+                                     f"{got['counts'][name]}, expected "
+                                     f"{want}")
+        runs.append(got["counts"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -4802,6 +5209,8 @@ def main():
             *plain_vae_phase(dev, card), vae_train_phase(dev, card),
             *legacy_steps_phase(dev, card), *runner_phase(dev, card)]
     runs += triplet_phase(dev, card)
+    runs += export_phase(dev, card)
+    runs += ddp_phase(dev, card)
     track_gen_phase(dev, card)
     det_disc_phase(dev, card)
     print(json.dumps({"kernels": [

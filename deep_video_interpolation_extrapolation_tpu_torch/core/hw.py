@@ -57,12 +57,33 @@ def entry_device(device) -> torch.device:
 _capability = {}
 
 
+def tracing() -> bool:
+    """Whether the running code is being traced (``torch.export``,
+    ``torch.compile``): its tensors are fake, with no data to launch on."""
+    return torch.compiler.is_compiling()
+
+
+def serving(*tensors) -> bool:
+    """Whether a kernel call on these operands takes its ``dvie::`` op
+    (``ops/library.py``): none of them needs a gradient here (grad mode
+    off, or no operand requires one)."""
+    return not (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors))
+
+
 def use_kernel(t: torch.Tensor) -> bool:
-    """True for a tensor the Hopper kernels take, False for a CPU tensor."""
+    """True for a tensor the Hopper kernels take, False for a CPU tensor.
+    A CUDA tensor under a tracer raises: a kernel reached outside its
+    ``dvie::`` op cannot be recorded in a graph."""
     device = t.device
     if device.type == "cpu":
         return False
     if device.type == "cuda":
+        if tracing():
+            raise RuntimeError(
+                "a kernel without a dvie:: op (ops/library.py) was reached "
+                "while tracing on the card; only the served kernels are "
+                "ops (export at a serving shape, W >= 256)")
         cap = _capability.get(device.index)
         if cap is None:
             cap = _capability[device.index] = \
@@ -102,9 +123,9 @@ def derived(key: str, weights: Sequence, build: Callable):
     changed when its storage or its version counter (bumped by every
     in-place update, an optimizer step included) has moved.  Inference
     tensors keep no version counter, so for them ``build()`` runs on every
-    call."""
+    call; under a tracer it runs too, and its ops enter the graph."""
     ts = [t for t in weights if t is not None]
-    if any(t.is_inference() for t in ts):
+    if tracing() or any(t.is_inference() for t in ts):
         return build()
     stamp = tuple(None if t is None else (id(t), t.data_ptr(), t._version)
                   for t in weights)

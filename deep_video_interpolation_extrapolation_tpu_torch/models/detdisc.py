@@ -53,6 +53,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.subnets import (
 from deep_video_interpolation_extrapolation_tpu_torch.ops.roi import (
     crop_resize,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 
 PATCH = 64
 
@@ -85,8 +86,10 @@ def _sync_neg_boxes(mid_boxes: torch.Tensor,
     if t == 1:
         return mid_boxes
     if generator is not None:
-        off = torch.randint(1, t, (b, t), generator=generator,
-                            device=generator.device).to(mid_boxes.device)
+        off = dist.global_draw(
+            lambda s: torch.randint(1, t, s, generator=generator,
+                                    device=generator.device),
+            (b, t)).to(mid_boxes.device)
     else:
         off = torch.ones((b, t), dtype=torch.long, device=mid_boxes.device)
     idx = (torch.arange(t, device=mid_boxes.device)[None, :] + off) % t

@@ -136,6 +136,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
     ups_head_taps4_plain,
     ups_head_taps_plain,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 
 # stage configs (hrnet.py:45-47)
 STAGE2_CFG = dict(num_branches=2, num_blocks=(4, 4), num_channels=(64, 128))
@@ -499,7 +500,9 @@ class HRNet(nn.Module):
         biases in f32 and the taps matrix of the two 3x3s (None unless
         ``taps``).  Without grad (serving) the three are kept per weight
         (``hw.derived``): they are built once, not once a forward, and so
-        are the 4-part kernel's units of them (ops/upshead.taps4_weights)."""
+        are the 4-part kernel's units of them (ops/upshead.taps4_weights).
+        Under a tracer (``tools/export.py``) they are built as traced ops,
+        a graph's own."""
         rgb_fc, seg_fc = self.rgb_layer[0], self.seg_layer[0]
         rgb_k, seg_k = self.rgb_layer[2].weight, self.seg_layer[2].weight
 
@@ -510,7 +513,7 @@ class HRNet(nn.Module):
             return w1, b1, (build_dual_tap_kernel(rgb_k, seg_k, dt)
                             if taps else None)
 
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or hw.tracing():
             return build()
 
         def kept():   # plain tensors, though built under inference mode
@@ -792,15 +795,17 @@ class VAEHRNet(HRNet):
                 mu, logvar = self.mu_fc(e, dt), self.logvar_fc(e, dt)
             else:
                 mu, logvar = self.mu_conv(e), self.logvar_conv(e)
-            eps = noise if noise is not None else torch.randn(
-                mu.shape, generator=generator, device=mu.device)
+            eps = noise if noise is not None else dist.global_draw(
+                lambda s: torch.randn(s, generator=generator,
+                                      device=mu.device), mu.shape)
             z = mu + eps.reshape(mu.shape).to(mu.dtype) * torch.exp(
                 0.5 * logvar)
         else:
             shape = (b, zh, zw, LATENT_C) if not dense else (
                 b, LATENT_C * zh * zw)
-            z = noise if noise is not None else torch.randn(
-                shape, generator=generator, device=rgb.device)
+            z = noise if noise is not None else dist.global_draw(
+                lambda s: torch.randn(s, generator=generator,
+                                      device=rgb.device), shape)
             z = z.to(dt)
         feat = self.vae_decoder(z.reshape(b, zh, zw, LATENT_C), train, dt)
         x = _encode_inputs(rgb, seg, self.seg_encoder, dt)

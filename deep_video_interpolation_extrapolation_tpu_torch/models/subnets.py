@@ -34,6 +34,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 
 Size = Tuple[int, int]
 
@@ -45,7 +46,9 @@ class BatchNorm(nn.Module):
     torch's momentum 0.1.  Computes in f32; ``train`` normalizes by the
     batch's biased statistics (E[x^2] - E[x]^2, clipped at 0, as flax) and
     moves the running ones towards them; else by the running ones.  Returns
-    ``dtype``, f32 when None (the flax promotion with its f32 params)."""
+    ``dtype``, f32 when None (the flax promotion with its f32 params).
+    Under a step on a shard of the batch (``parallel/dist.sharded``) the
+    statistics are the global batch's, as JAX's of a sharded batch."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -60,9 +63,7 @@ class BatchNorm(nn.Module):
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         xf = x.float()
         if train:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            mean, var = dist.batch_moments(xf, tuple(range(x.dim() - 1)))
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)
                 self.running_var.lerp_(var.detach(), self.momentum)

@@ -50,6 +50,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.warp import (
     backward_warp,
     warp_steps,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 
 VARIANTS = ("vae", "vae_s", "vae_sd")
 
@@ -130,14 +131,16 @@ class VideoVAE(nn.Module):
                 mu = torch.cat([mu_bg, mu_fg], -1)
                 logvar = torch.cat([logvar_bg, logvar_fg], -1)
                 if eps is None:
-                    eps = torch.randn(mu.shape, generator=generator,
-                                      device=mu.device)
+                    eps = dist.global_draw(
+                        lambda s: torch.randn(s, generator=generator,
+                                              device=mu.device), mu.shape)
                 eps = eps.to(mu.dtype)
                 z_m = mu + eps * torch.exp(0.5 * logvar)
             else:
-                z_m = torch.randn((b, self.latent_bg + self.latent_fg),
-                                  generator=generator,
-                                  device=frame1.device).to(frame1.dtype)
+                z_m = dist.global_draw(
+                    lambda s: torch.randn(s, generator=generator,
+                                          device=frame1.device),
+                    (b, self.latent_bg + self.latent_fg)).to(frame1.dtype)
 
         fc = self.fc(z_m, self.dtype).reshape(b, self.zh, self.zw, 48)
         codey = self.zconv(torch.cat([fc, codex], -1))

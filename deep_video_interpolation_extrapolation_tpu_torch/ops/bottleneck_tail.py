@@ -69,7 +69,11 @@ def bottleneck_tail(h1: torch.Tensor, x: torch.Tensor, w2: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The tail on CUDA bf16 tensors through the Hopper kernel; on CPU
     tensors through the plain version.  Same arguments as the plain
-    version; the kernel takes P = 64, Co = 256, Pn = 64.  Differentiable."""
+    version; the kernel takes P = 64, Co = 256, Pn = 64.  Differentiable.
+    Without a gradient, through its op ``dvie::bottleneck_tail``."""
+    if hw.serving(h1, x, w2, w3, wres, w1_next):
+        y, h1n = torch.ops.dvie.bottleneck_tail(h1, x, w2, w3, wres, w1_next)
+        return y, (h1n if w1_next is not None else None)
     return recompute_vjp(_kernel, bottleneck_tail_plain, h1, x, w2, w3,
                          wres, w1_next)
 

@@ -55,7 +55,10 @@ def conv3x3_bias_res_lrelu(x: torch.Tensor, w: torch.Tensor,
                            relu: bool = True) -> torch.Tensor:
     """The conv on a CUDA bf16 tensor through the Hopper kernel; on a CPU
     tensor through the plain version.  Same arguments as the plain
-    version; differentiable."""
+    version; differentiable.  Without a gradient, through its op
+    ``dvie::conv3x3``."""
+    if hw.serving(x, w, bias, res):
+        return torch.ops.dvie.conv3x3(x, w, bias, res, relu)
     return recompute_vjp(_kernel, conv3x3_bias_res_lrelu_plain, x, w, bias,
                          res, relu)
 

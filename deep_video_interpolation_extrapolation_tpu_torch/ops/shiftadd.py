@@ -115,5 +115,8 @@ class _ShiftedAddBias(torch.autograd.Function):
 def shifted_add_bias(yt: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The shifted add + bias on a CUDA bf16 tensor through the Hopper
     kernel; on a CPU tensor through the plain version.  Differentiable,
-    by ``shifted_add_bias_bwd``."""
+    by ``shifted_add_bias_bwd``.  Without a gradient, through its op
+    ``dvie::shifted_add_bias``."""
+    if hw.serving(yt, b2):
+        return torch.ops.dvie.shifted_add_bias(yt, b2)
     return _ShiftedAddBias.apply(yt, b2)

@@ -230,7 +230,10 @@ def ups_head_1x1(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     ``ups_head_1x1_plain`` recomputed: the route of the heads whose taps
     product does not fit the taps mode (``pallas_upshead.ups_head_1x1``,
     a ``custom_vjp`` whose backward is the vjp of ``_ups_head_ref``).  The
-    backward of ``ups_head_taps`` calls it without grad, for h alone."""
+    backward of ``ups_head_taps`` calls it without grad, for h alone.
+    Without a gradient, through its op ``dvie::ups_head_1x1``."""
+    if hw.serving(p0, p1, p2, w1, b1):
+        return torch.ops.dvie.ups_head_1x1(p0, p1, p2, w1, b1)
     return recompute_vjp(_h_kernel, ups_head_1x1_plain, p0, p1, p2, w1, b1)
 
 
@@ -321,7 +324,10 @@ def ups_head_taps(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                   w2t: torch.Tensor) -> torch.Tensor:
     """The fused head on CUDA bf16 tensors through the Hopper kernel; on
     CPU tensors through the plain version.  Same arguments as the plain
-    version; differentiable, by the explicit backward."""
+    version; differentiable, by the explicit backward.  Without a
+    gradient, through its op ``dvie::ups_head_taps``."""
+    if hw.serving(p0, p1, p2, w1, b1, w2t):
+        return torch.ops.dvie.ups_head_taps(p0, p1, p2, w1, b1, w2t)
     return _UpsHeadTaps.apply(p0, p1, p2, w1, b1, w2t)
 
 
@@ -485,5 +491,8 @@ def ups_head_taps4(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     """The 4-part head on CUDA bf16 tensors through ``csrc/upshead4.cu``
     (its 208 or 216 instance by N2); on CPU tensors through
     ``ups_head_taps4_plain``.  Same arguments as the plain version;
-    differentiable, by the explicit backward ``ups_head_taps4_bwd``."""
+    differentiable, by the explicit backward ``ups_head_taps4_bwd``.
+    Without a gradient, through its op ``dvie::ups_head_taps4``."""
+    if hw.serving(p0, p1, p2, p3, w1, b1, w2t):
+        return torch.ops.dvie.ups_head_taps4(p0, p1, p2, p3, w1, b1, w2t)
     return _UpsHeadTaps4.apply(p0, p1, p2, p3, w1, b1, w2t)

@@ -61,16 +61,14 @@ def window_attention(q, k1, k2, v1, v2, win_h: int = 5, win_w: int = 9
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The attention on CUDA bf16 tensors through the Hopper kernel; on CPU
     tensors through the plain version.  Same arguments as the plain
-    version; not differentiable."""
+    version; not differentiable: through its op ``dvie::window_attention``."""
     ins = (q, k1, k2, v1, v2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+    if not hw.serving(*ins):
         raise NotImplementedError(
             "window_attention has no backward (ROADMAP.md section 2): "
             "under autograd call window_attention_plain, as "
             "MSResAttnRefine does")
-    if not hw.use_kernel(q):
-        return window_attention_plain(*ins, win_h, win_w)
-    return _kernel(*ins, win_h, win_w)
+    return torch.ops.dvie.window_attention(*ins, win_h, win_w)
 
 
 # the kernel's tiling (csrc/window_attn.cu): a block owns a TILE_Y x TILE_X

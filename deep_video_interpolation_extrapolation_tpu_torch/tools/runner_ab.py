@@ -50,10 +50,12 @@ EPOCH = re.compile(r"\[epoch +(\d+)\] \d+ samples in [0-9.]+s: ([0-9.]+) "
                    r"samples/s, load: ([0-9.]+)s, comp: ([0-9.]+)s")
 
 
-def _inline(self, loader, depth):
-    """The batches built on the caller's thread, as before the producer."""
+def _inline(self, loader, depth, shard=True):
+    """The batches built on the caller's thread, as before the producer
+    (one process: no shard to take)."""
     for batch in loader:
-        yield {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+        yield len(batch["frame1"]), {k: torch.from_numpy(v).pin_memory()
+                                     for k, v in batch.items()}
 
 
 def epochs(label, build):

@@ -44,7 +44,20 @@ kernels) into a Chrome trace in that directory, once per runner, as the
 JAX runner traces them (runner.py:404-427).  The vimeo and ucf101 triplet
 sets (``--mode xx2x``) carry no segmentation; ucf101 has a val split only,
 so its runner validates and sweeps ``--checkepoch_range`` and ``train``
-raises.  Sharding, which the port does not have yet, raises
+raises.
+
+Data parallelism (``--num_data_shards``, one process a rank in a group
+``parallel/dist.init_from_env`` started; runner.py:64-81, 219-233,
+476-490 of the JAX package): every rank reads the same global batches
+and takes its rows of each (``_host_batches``), so an epoch is the
+one-process epoch; a step runs on its shard (``dist.sharded``: BatchNorm
+statistics and random draws of the global batch), the optimizers step on
+gradients averaged over the ranks (``train/state.apply_updates``), and the
+logged losses and val metrics are reduced across the ranks.  A val batch
+that does not divide over the ranks runs whole on every rank and counts
+once, as JAX runs it replicated.  Only rank 0 writes checkpoints (the
+others wait for it) and TensorBoard scalars.  Spatial sharding
+(``--num_spatial_shards``) is not ported and raises
 ``NotImplementedError`` with its ROADMAP item (9).
 """
 
@@ -76,6 +89,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.data.cityscapes import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.native import png
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
     extra as extra_lib,
@@ -113,10 +127,10 @@ def _writer(cfg, exp_dir: str):
 
 
 def _check_supported(cfg) -> None:
-    if cfg.num_data_shards > 1 or cfg.num_spatial_shards > 1:
+    if cfg.num_spatial_shards > 1:
         raise NotImplementedError(
-            f"data and spatial sharding (DDP) are not ported yet ({_QUEUE}, "
-            "item 9)")
+            f"spatial sharding (--num_spatial_shards) is not ported yet "
+            f"({_QUEUE}, item 9)")
 
 
 def _seg_ids(path: str) -> np.ndarray:
@@ -140,6 +154,10 @@ class Runner:
         self.cfg = cfg
         self.exp_dir = exp_dir
         self.device = hw.entry_device(device)
+        # the data axis: the ranks of the group (1 without one), each
+        # taking an equal part of every global batch
+        dist.local_batch_size(cfg.batch_size,
+                              dist.data_shards(cfg.num_data_shards))
         self.is_gan = cfg.model == "InterGANNet"
         self.is_extra = cfg.syn_type == "extra"
         # a VAEHRNet coarse (the GAN's, or the plain VAE's) evaluates
@@ -160,7 +178,7 @@ class Runner:
         self.train_step = self.eval_step = None
         self._build_model_and_state()
         self._maybe_load()
-        self.writer = _writer(cfg, exp_dir)
+        self.writer = _writer(cfg, exp_dir) if dist.is_main() else None
         self._train_loader = None
         self._val_loader = None
         self._copy_stream = None
@@ -254,13 +272,16 @@ class Runner:
                     cfg, self._eval_model()))
 
     # ------------------------------------------------------------- data
-    def _host_batches(self, loader, depth: int):
-        """The loader's batches as CPU tensors, produced by a thread that
-        runs up to ``depth`` batches ahead of the consumer, so the host's
-        data work (decode, augmentation, synthetic draws) overlaps the
-        step's dispatch; on the card each batch is copied into pinned
-        memory there.  The thread stops when the consumer stops, and its
-        errors are raised in the consumer."""
+    def _host_batches(self, loader, depth: int, shard: bool = True):
+        """``(n, batch)``: the loader's batches of ``n`` samples as CPU
+        tensors, produced by a thread that runs up to ``depth`` batches
+        ahead of the consumer, so the host's data work (decode,
+        augmentation, synthetic draws) overlaps the step's dispatch; on the
+        card each batch is copied into pinned memory there.  With ``shard``
+        each rank keeps its rows of a batch that divides over the ranks
+        (``dist.shard_of``), the whole of one that does not.  The thread
+        stops when the consumer stops, and its errors are raised in the
+        consumer."""
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
         pin = self.device.type == "cuda"
@@ -278,10 +299,14 @@ class Runner:
                 for batch in loader:
                     if stop.is_set():
                         return
-                    host = {k: torch.from_numpy(v) for k, v in batch.items()}
+                    n = len(next(iter(batch.values())))
+                    part = dist.shard_of(n) if shard else None
+                    rows = part.rows(n) if part is not None else slice(None)
+                    host = {k: torch.from_numpy(v[rows])
+                            for k, v in batch.items()}
                     if pin:
                         host = {k: t.pin_memory() for k, t in host.items()}
-                    put(host)
+                    put((n, host))
             except Exception as e:     # raised in the consumer below
                 put(e)
                 return
@@ -299,8 +324,9 @@ class Runner:
         finally:
             stop.set()
 
-    def _device_prefetch(self, loader, depth: int = 2):
-        """Batches on the device.  A producer thread builds them on the
+    def _device_prefetch(self, loader, depth: int = 2, shard: bool = True):
+        """``(n, batch)``: batches of ``n`` samples (this rank's rows, with
+        ``shard``) on the device.  A producer thread builds them on the
         host up to ``depth`` ahead (``_host_batches``).  On the card each
         pinned batch is sent by non-blocking copies on a side stream as
         soon as the step before it has been issued; the step's stream waits
@@ -308,7 +334,7 @@ class Runner:
         (``record_stream``) so their memory is not reused early.  Each
         pinned buffer is kept until its copy's event has fired.  On the CPU
         the host tensors are the batch."""
-        batches = self._host_batches(loader, depth)
+        batches = self._host_batches(loader, depth, shard)
         if self.device.type != "cuda":
             yield from batches
             return
@@ -318,37 +344,42 @@ class Runner:
         compute = torch.cuda.current_stream(self.device)
         inflight: List = []            # (event, pinned batch)
 
-        def upload(host):
-            if host is None:
+        def upload(item):
+            if item is None:
                 return None
+            n, host = item
             with torch.cuda.stream(stream):
                 dev = {k: t.to(self.device, non_blocking=True)
                        for k, t in host.items()}
                 done = torch.cuda.Event()
                 done.record(stream)
             inflight.append((done, host))
-            return dev, done
+            return n, dev, done
 
         nxt = upload(next(batches, None))
         while nxt is not None:
-            dev, done = nxt
+            n, dev, done = nxt
             compute.wait_event(done)
             for t in dev.values():
                 t.record_stream(compute)
             inflight[:] = [(e, h) for e, h in inflight if not e.query()]
-            yield dev                  # the step that reads it is issued
+            yield n, dev               # the step that reads it is issued
             nxt = upload(next(batches, None))
         inflight.clear()
 
     @staticmethod
-    def _read_back(pending) -> List[Dict[str, float]]:
+    def _read_back(pending, reduce: bool = True) -> List[Dict[str, float]]:
         """Scalar dicts kept on the device -> floats, in one transfer (it
-        fences the device)."""
+        fences the device); with ``reduce`` averaged over the ranks (every
+        rank calls it with its own)."""
         if not pending:
             return []
         keys = list(pending[0])
         rows = torch.stack([torch.stack([d[k].float() for k in keys])
-                            for d in pending]).cpu().tolist()
+                            for d in pending])
+        if reduce:
+            rows = dist.mean_over_ranks(rows)
+        rows = rows.cpu().tolist()
         return [dict(zip(keys, row)) for row in rows]
 
     # ------------------------------------------------------------- train
@@ -517,14 +548,15 @@ class Runner:
         profile_dir = (None if self._profiled
                        else os.environ.get("DVIE_PROFILE_DIR"))
         prof = None
-        for i, batch in enumerate(self._device_prefetch(loader)):
+        for i, (n, batch) in enumerate(self._device_prefetch(loader)):
             if profile_dir and i == 2:
                 prof = self._start_trace()
             load_t += time.time() - t0
             t0 = time.time()
-            self.state, losses = self.train_step(self.state, batch)
+            with dist.sharded(dist.shard_of(n)):
+                self.state, losses = self.train_step(self.state, batch)
             pending.append(losses)
-            n_samples += int(batch["frame1"].shape[0])
+            n_samples += n
             comp_t += time.time() - t0
             if prof is not None and i == 6:
                 self._stop_trace(prof, profile_dir, i)
@@ -570,11 +602,13 @@ class Runner:
         cfg = self.cfg
         while self.epoch <= cfg.epochs:
             self.train()
-            t0 = time.time()
-            path = ckpt_lib.save_checkpoint(cfg, self.exp_dir, self.state,
-                                            self.epoch, 0)
-            logger.info("saved checkpoint %s in %.3fs", path,
-                        time.time() - t0)
+            if dist.is_main():
+                t0 = time.time()
+                path = ckpt_lib.save_checkpoint(cfg, self.exp_dir,
+                                                self.state, self.epoch, 0)
+                logger.info("saved checkpoint %s in %.3fs", path,
+                            time.time() - t0)
+            dist.barrier()             # the file exists for every rank
             self.epoch += 1
 
     # ------------------------------------------------------------- val
@@ -590,12 +624,16 @@ class Runner:
                                                     shuffle=False)
         bank = MetricBank([])
         self._reseed(0)
-        for batch in self._device_prefetch(self._val_loader):
-            n = int(batch["frame1"].shape[0])
-            metrics = self.eval_step(self.state, batch)
+        for n, batch in self._device_prefetch(self._val_loader):
+            shard = dist.shard_of(n)
+            with dist.sharded(shard):
+                metrics = self.eval_step(self.state, batch)
             # one transfer per batch; weighted by the true batch size so
-            # the tail batch does not skew the means
-            bank.update(self._read_back([metrics])[0], n=n)
+            # the tail batch does not skew the means.  A sharded batch's
+            # equal parts average over the ranks; a whole one (every rank
+            # ran it) counts once
+            bank.update(self._read_back([metrics],
+                                        reduce=shard is not None)[0], n=n)
         avg = bank.averages()
         logger.info("[val epoch %d] %s", self.epoch,
                     " ".join(f"{k}: {v:.4f}" for k, v in avg.items()))
@@ -649,7 +687,7 @@ class Runner:
         dataset, val_ds = data_lib.get_dataset(vcfg, vid_len=self.vid_len)
         loader = data_lib.make_loader(vcfg, val_ds or dataset, shuffle=False)
         n_clips = 0
-        for batch in self._device_prefetch(loader):
+        for _, batch in self._device_prefetch(loader, shard=False):
             frames, ids = (self._extrapolate(batch) if self.is_extra
                            else self._interpolate(batch))
             frames = [f.float().cpu().numpy() for f in frames]

@@ -42,6 +42,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
     ResNet101Features,
     VGG19Features,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
 
 # the legacy models trained whole by the coarse optimizer (legacy.py:175,
 # :492)
@@ -150,9 +151,14 @@ def create_train_state(cfg: Config, model: nn.Module,
 
 def apply_updates(cfg: Config, state: TrainState) -> TrainState:
     """Step every submodel whose train flag is set, on the grads left in
-    its parameters' ``.grad``; the others do not move."""
+    its parameters' ``.grad``; the others do not move.  Under data
+    parallelism (``parallel/dist``) each stepped submodel's grads are first
+    averaged over the ranks, one flat bucket a submodel, as XLA reduces
+    the gradients of a batch sharded over the ``data`` axis; a frozen
+    submodel has none to reduce."""
     for name, (_, _, trains) in submodel_specs(cfg).items():
         if trains and name in state.optimizers:
+            dist.average_grads(submodel(state.model, name).parameters())
             state.optimizers[name].step()
     state.step += 1
     return state

@@ -1,6 +1,6 @@
 """The runner's batch producer (``Runner._host_batches`` and, on the CPU,
-``_device_prefetch``): a thread that builds the loader's batches ahead of
-the consumer.  Under a shortened thread switch interval the batches come
+``_device_prefetch``, each yielding ``(n, batch)``): a thread that builds
+the loader's batches ahead of the consumer.  Under a shortened thread switch interval the batches come
 in the loader's order and unchanged; an error in the loader is raised in
 the consumer; a consumer that stops early stops the thread, which then
 draws at most ``depth`` + 2 batches past the last one consumed."""
@@ -49,20 +49,20 @@ def fast_switch():
 def _prefetch(loader, depth=2):
     # _device_prefetch reads self.device and, on the card, its copy stream
     fake = types.SimpleNamespace(device=torch.device("cpu"))
-    fake._host_batches = lambda ld, d: Runner._host_batches(fake, ld, d)
+    fake._host_batches = lambda ld, d, s: Runner._host_batches(fake, ld, d, s)
     return Runner._device_prefetch(fake, loader, depth)
 
 
 @pytest.mark.parametrize("depth", [1, 2, 5])
 def test_batches_in_order(fast_switch, depth):
-    got = [int(b["frame1"][0, 0]) for b in _prefetch(_Loader(200), depth)]
+    got = [int(b["frame1"][0, 0]) for _, b in _prefetch(_Loader(200), depth)]
     assert got == list(range(200))
 
 
 def test_loader_error_reaches_the_consumer(fast_switch):
     got = []
     with pytest.raises(RuntimeError, match="bad batch 7"):
-        for b in Runner._host_batches(CPU, _Loader(50, fail_at=7), 2):
+        for _, b in Runner._host_batches(CPU, _Loader(50, fail_at=7), 2):
             got.append(int(b["seg1"][0, 0]))
     assert got == list(range(7))
 
