@@ -274,7 +274,18 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     the gradient within the train gates of the one-process step, each
     rank's step ms; then one launcher epoch with ``--num_data_shards 1``
     under ``DVIE_MULTIHOST=1``, a group of one on NCCL: its launches, its
-    losses, its checkpoint, its samples/s.
+    losses, its checkpoint, its samples/s;
+37. the rest of the model zoo (``legacy_zoo_phase``): each public model
+    of ``models/srn_legacy.py`` (the SRN4 family at ``n_scales`` 1 and 2,
+    HResUnet on an SRN4Sharp ``high_res`` feature of the half-resolution
+    frames, AttnRefine, AttnBaseRefine, MSBaseRefine),
+    ``models/attn_legacy.py`` (V2, V2O, V2Base, V3, V3Base, V4, V4Base)
+    and OpticalUnet / OpticalRefineNet at 2x512x1024 bf16 eval on a noisy
+    moving scene: ms a forward (median of 5 after a warm-up), peak memory,
+    and the same weights in f32 (TF32 off) as the reference: the rgb by
+    the slice bound (V3's and V4's by rel-L2 <= 2e-2), the flow maps by
+    agreement >= 90%, the voxel-flow nets' flows and masks by the slice
+    bound; no kernel launched.
 
 The kernel phase also holds the 4-part head at 24x128x128
 (``ups_head_taps4_train``), its 216 instance (``upshead4_taps_n216``,
@@ -338,6 +349,7 @@ compute capability (9, 0); there is no CPU fallback.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -5175,6 +5187,244 @@ def ddp_phase(dev, card):
     return runs
 
 
+# ---- the rest of the model zoo (phase 37) ---------------------------------
+
+ZOO_SIZE = (2, 512, 1024)
+ZOO_SHIFT = (8, 16)        # px between the moving scene's frames
+ZOO_FLOW_AGREE = 0.90      # flow maps, bf16 model vs f32 model
+ZOO_REPS = 5               # timed forwards a model, after one warm-up
+ZOO_NOISE = 0.1            # std of each frame's own noise
+# the L2 attention: also run, not gated, on the scene without noise
+ZOO_EXACT = ("AttnRefineV2", "AttnRefineV2O")
+# the cosine attention with the -100 pad on the normalized neighbour: its
+# rgb is held by rel-L2, its max|d| printed beside the bound, not gated
+ZOO_PAD_SENSITIVE = ("AttnRefineV3", "AttnRefineV4")
+ZOO_REL_L2 = 2e-2
+# the voxel-flow nets' warped frames (f32 samples at the bf16 model's
+# flows): printed, not gated; the flows and masks are
+ZOO_WARPED = {"OpticalUnet": (0, 3), "OpticalRefineNet": (1, 4)}
+
+
+def moving_frames(dev, b, h, w, seed, shift=ZOO_SHIFT, noise=ZOO_NOISE):
+    """A moving scene: a smooth random field in [-1, 1] seen at ``-shift``
+    (neighbour 1), 0 (x) and ``+shift`` (neighbour 2) pixels, each frame
+    plus its own N(0, ``noise``) noise, and blocky seg one-hots at 0: (x
+    (b,h,w,3), neighbours (b,h,w,6), seg (b,h,w,20)).  The shifts are
+    multiples of 8 px, so the encoders' 1/4 and 1/8 maps see the same
+    content moved by whole cells and the window correlations have a clear
+    best offset (random frames leave near ties that bf16 rounding
+    reorders, phase 13).  The noise keeps that offset from an exact match,
+    as in real frames: there the L2 attention's ``1 / (dist + 1e-6)``
+    would divide by dist's rounding error."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy, dx = shift
+    hh, ww = h + 2 * dy, w + 2 * dx
+    z = torch.randn((b, 3, hh // 8 + 2, ww // 8 + 2), generator=g, device=dev)
+    field = torch.tanh(torch.nn.functional.interpolate(
+        z, size=(hh, ww), mode="bicubic", align_corners=False))
+    frames = [field[:, :, dy + k * dy:dy + k * dy + h,
+                    dx + k * dx:dx + k * dx + w].permute(0, 2, 3, 1)
+              for k in (-1, 0, 1)]
+    frames = [f + noise * torch.randn(f.shape, generator=g, device=dev)
+              for f in frames]
+    ids = torch.nn.functional.interpolate(torch.randint(
+        0, 20, (b, 1, h // 16, w // 16), generator=g, device=dev).float(),
+        size=(h, w), mode="nearest")[:, 0]
+    return (frames[1].contiguous(), torch.cat([frames[0], frames[2]], -1),
+            serve.seg_oh(ids.to(torch.uint8)))
+
+
+def zoo_cases(x, nb, seg):
+    """(name, model factory on a dtype, the forward's inputs, flow output
+    index or None) of each public model of models/srn_legacy,
+    models/attn_legacy and OpticalUnet / OpticalRefineNet."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        attn_legacy as al,
+        optical,
+        srn_legacy as srn,
+    )
+    cases = []
+    for n in (1, 2):
+        cases += [
+            (f"SRN4 n_scales {n}", lambda d, n=n: srn.SRN4(n, dtype=d), (x,)),
+            (f"SRN4Seg n_scales {n}",
+             lambda d, n=n: srn.SRN4Seg(n, dtype=d), (x, seg)),
+            (f"SRN4Sharp n_scales {n}",
+             lambda d, n=n: srn.SRN4Sharp(n, dtype=d), (x, None, nb))]
+    cases += [
+        ("AttnRefine", lambda d: srn.AttnRefine(dtype=d), (x, None, nb)),
+        ("AttnBaseRefine", lambda d: srn.AttnBaseRefine(dtype=d),
+         (x, None, nb)),
+        ("MSBaseRefine", lambda d: srn.MSBaseRefine(cin=9, dtype=d),
+         (x, None, nb))]
+    for v in ("V2", "V2O", "V2Base", "V3", "V3Base", "V4", "V4Base"):
+        cases.append((f"AttnRefine{v}",
+                      lambda d, v=v: getattr(al, f"AttnRefine{v}")(dtype=d),
+                      (x, nb)))
+    cases += [("OpticalUnet", lambda d: optical.OpticalUnet(dtype=d), (nb,)),
+              ("OpticalRefineNet", lambda d: optical.OpticalRefineNet(dtype=d),
+               (nb,))]
+    return cases
+
+
+def _as_dtype(model, dt):
+    """A copy of ``model`` whose modules compute in ``dt``."""
+    model = copy.deepcopy(model)
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dt
+    return model
+
+
+def _f32_ref(fn):
+    """``fn()`` with TF32 off (the f32 reference's convolutions)."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _zoo_timed(model, args):
+    """(the outputs, the median ms of ``ZOO_REPS`` synchronized forwards
+    after a warm-up, peak GiB from before the warm-up)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = model(*args)
+    times = []
+    for _ in range(ZOO_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = model(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return (out, statistics.median(times),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _zoo_gate(name, out, ref, gate=True):
+    """Each output of the bf16 model against the f32 model's: a flow map
+    (the (B, 2, h, w, 2) argmax offsets of V2..V4) by its agreement >=
+    ZOO_FLOW_AGREE, every other output by max|d| <= SLICE_RGB_TOL *
+    max(1, max|ref|) (raising where ``gate``).  V3's and V4's rgb is held
+    by rel-L2 <= ZOO_REL_L2 instead: at the cells where the normalized
+    query sums near 0, each padded offset's logit ``-100 * sum`` moves by
+    ~2 under bf16 rounding of the features, and the softmax with it (V4's
+    largest errors sit at such a cell).  The voxel-flow nets' warped
+    frames are not gated: a flow near +-1 in normalized coordinates has a
+    bf16 step of 2^-8, ~2 px at 1024 wide, so they differ by the frame's
+    change over that (up to 0.44 on a noisy frame); their flows and masks
+    are gated, and OpticalRefineNet's fused frame is held against the f32
+    RefineUnet on the bf16 model's own warps and masks (the caller's
+    ``ref``).  Returns the printable results."""
+    got, want = list(_tensors(out)), list(_tensors(ref))
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs, f32 {len(want)}")
+    parts = []
+    for k, (o, r) in enumerate(zip(got, want)):
+        if o.shape != r.shape or not torch.isfinite(o.float()).all():
+            raise AssertionError(f"{name}: output {k} {tuple(o.shape)} "
+                                 f"against {tuple(r.shape)}, or not finite")
+        if name.startswith("AttnRefineV") and k == 1:
+            agree = flow_agreement(o, r)
+            parts.append(f"flow agreement {agree:.6f}")
+            if gate and agree < ZOO_FLOW_AGREE:
+                raise AssertionError(f"{name}: flow agreement {agree:.4f}")
+            continue
+        d = (o.float() - r.float()).abs().max().item()
+        bound = SLICE_RGB_TOL * max(1.0, r.float().abs().max().item())
+        rel = ((o.float() - r.float()).norm() / r.float().norm()).item()
+        parts.append(f"out {k} {tuple(o.shape)} max|d| {d:.6g} (bound "
+                     f"{bound:.6g}), rel-L2 {rel:.6g}")
+        if k in ZOO_WARPED.get(name, ()):
+            parts[-1] += " (not gated)"
+        elif name in ZOO_PAD_SENSITIVE:
+            parts[-1] += f" (bound {ZOO_REL_L2}; max|d| not gated)"
+            if gate and not rel <= ZOO_REL_L2:
+                raise AssertionError(f"{name}: output {k} rel-L2 {rel:.4g}")
+        elif gate and not d <= bound:
+            raise AssertionError(f"{name}: output {k} max|d| {d:.4g} > "
+                                 f"{bound:.4g}")
+    return "; ".join(parts)
+
+
+def legacy_zoo_phase(dev, card):
+    """Phase 37: each public model of models/srn_legacy (the SRN4 family at
+    ``n_scales`` 1 and 2, HResUnet on the 32-channel feature of an
+    SRN4Sharp ``high_res`` run on the half-resolution frames, AttnRefine,
+    AttnBaseRefine, MSBaseRefine), models/attn_legacy (V2, V2O, V2Base,
+    V3, V3Base, V4, V4Base) and OpticalUnet / OpticalRefineNet, at full
+    width at 2x512x1024 bf16 in eval (``inference_mode``) on a seeded
+    noisy moving scene (``moving_frames``), seeded weights
+    (``init_weights``): the median ms of 5 forwards after a warm-up and
+    the peak memory, then the same weights in f32 (TF32 off) as the
+    reference: every output by the slice phase's rgb bound (V3's and V4's
+    rgb by rel-L2, the voxel-flow nets' warps not gated: ``_zoo_gate``),
+    the flow maps by their agreement.  V2
+    and V2O are also compared, not gated, on the scene without noise (an
+    exact match at the best offset).  They
+    launch no kernel of the port (JAX's counterparts reach no Pallas
+    kernel): every launch counter stays at 0."""
+    from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        srn_legacy as srn,
+    )
+    from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
+        interpolate_bilinear,
+    )
+    b, h, w = ZOO_SIZE
+    x, nb, seg = moving_frames(dev, b, h, w, 37)
+    exact = moving_frames(dev, b, h, w, 37, noise=0.0)[:2]
+    half = [interpolate_bilinear(t, scale_factor=0.5, align_corners=True)
+            for t in (x, nb)]
+    # HResUnet runs on the feature of its own dtype's SRN4Sharp
+    sharp = registry.init_weights(srn.SRN4Sharp(high_res=True,
+                                                dtype=torch.float32), 36)
+    lows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        model = _as_dtype(sharp, dt).to(dev).eval()
+        with torch.inference_mode():
+            lows[dt] = _f32_ref(lambda: model(half[0], None, half[1])[1])
+    cases = zoo_cases(x, nb, seg) + [
+        ("HResUnet", lambda d: srn.HResUnet(dtype=d), (None, lows, x))]
+    t0 = time.perf_counter()
+    hw.reset_counters()
+    for i, (name, make, args) in enumerate(cases):
+        master = registry.init_weights(make(torch.float32), 40 + i)
+        run_args = {dt: tuple(a[dt] if isinstance(a, dict) else a
+                              for a in args)
+                    for dt in (torch.bfloat16, torch.float32)}
+        model = _as_dtype(master, torch.bfloat16).to(dev).eval()
+        n_par = sum(p.numel() for p in master.parameters())
+        with torch.inference_mode():
+            out, ms, peak = _zoo_timed(model, run_args[torch.bfloat16])
+            master.to(dev).eval()
+            ref = _f32_ref(lambda: master(*run_args[torch.float32]))
+            if name == "OpticalRefineNet":      # its refiner, on out's warps
+                ref = (_f32_ref(lambda: master.refine_model(
+                    out[1], out[3], out[4], out[6])), *ref[1:])
+            line = _zoo_gate(name, out, ref)
+            if name in ZOO_EXACT:
+                line += "; noise-free scene (not gated): " + _zoo_gate(
+                    name, model(*exact), _f32_ref(lambda: master(*exact)),
+                    gate=False)
+        print(f"zoo {name}: {n_par} parameters, {b}x{h}x{w} bf16 eval: "
+              f"{ms:.4f} ms a forward (median of {ZOO_REPS} after a "
+              f"warm-up), peak memory {peak:.3f} GiB on {card}; {line}")
+        del master, model, out
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in hw.launches.items() if v}
+    if launched:
+        raise AssertionError(f"zoo: kernel launches {launched}")
+    print(f"zoo phase: {len(cases)} models in "
+          f"{time.perf_counter() - t0:.2f} s, no kernel launched")
+
+
 def main():
     dev = require_card()
     card = card_line()
@@ -5213,6 +5463,7 @@ def main():
     runs += ddp_phase(dev, card)
     track_gen_phase(dev, card)
     det_disc_phase(dev, card)
+    legacy_zoo_phase(dev, card)
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

@@ -166,14 +166,15 @@ def conv_lrelu(cin: int, cout: int, stride: int = 1,
 
 
 class ResnetBlock(nn.Module):
-    """conv-lrelu-conv + input (blocks.py:492); ``conv.0`` / ``conv.2`` are
-    the reference's state_dict keys."""
+    """conv-lrelu-conv + input, both convs ``kernel`` x ``kernel``
+    (blocks.py:492); ``conv.0`` / ``conv.2`` are the reference's state_dict
+    keys."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, kernel: int = 3):
         super().__init__()
-        self.conv = nn.Sequential(Conv(features, features, 3),
+        self.conv = nn.Sequential(Conv(features, features, kernel),
                                   nn.LeakyReLU(0.2),
-                                  Conv(features, features, 3))
+                                  Conv(features, features, kernel))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x) + x

@@ -153,12 +153,13 @@ class ResNet101Features(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, last: int = 4) -> List[torch.Tensor]:
+        """The maps of stages 2 to ``last`` (later stages are not run)."""
         dt = self.dtype or x.dtype
         h = F.relu(self.bn1(self.conv1(x, dt), False, dt))
         h = nhwc(F.max_pool2d(nchw(h), 3, stride=2, padding=1))
         stages = []
-        for i in range(len(RESNET101_PLAN)):
+        for i in range(last):
             for block in getattr(self, f"layer{i + 1}"):
                 h = block(h, dt)
             stages.append(h)

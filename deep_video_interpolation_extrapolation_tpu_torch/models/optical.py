@@ -1,18 +1,27 @@
-"""The warp-fusion refine U-Net (counterpart of models/optical.py's
-``_WarpUNet`` :36-67 and ``RefineUnet`` :101-119; reference
-nets/OpticalUnet.py:151-232): the Config's default ``--refine_model``
-(``refineUnet``).  It runs no grid sample; ``OpticalUnet`` and
-``OpticalRefineNet`` wait in ROADMAP.md queue 1 (item 8).
+"""The voxel-flow warp networks (counterpart of models/optical.py;
+reference nets/OpticalUnet.py):
 
-The layers carry the JAX module names (``unet.encoder_1_0``, ...,
+- ``WarpUNet`` (optical.py:36-67), the encoder/decoder skeleton of both;
+- ``OpticalUnet`` (:70-98): the skeleton at its defaults to 6 channels,
+  tanh'd into forward and backward flows and masks; both frames are
+  backward-warped by ``ops/warp.grid_sample_border`` (border padding, the
+  coordinates in f32, weights and sums in the frame's dtype, as the JAX
+  function) and multiplied by their masks ``0.5 * (1 + tanh)``;
+- ``RefineUnet`` (:101-116), the warp-fusion refiner: the Config's default
+  ``--refine_model`` (``refineUnet``);
+- ``OpticalRefineNet`` (:119-131): OpticalUnet, then RefineUnet on its two
+  masked warps and masks; returns JAX's 7-tuple.
+
+The warp is the plain gather composition, as JAX's is XLA.  The layers
+carry the JAX module names (``unet.encoder_1_0``, ...,
 ``unet.output_layer``); the reference's torch names are not known to the
-JAX package (it has no torch_port mapper for this module).  Every layer
+JAX package (it has no torch_port mapper for these modules).  Every layer
 computes in ``dtype``; the parameters are f32 masters.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -21,6 +30,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.blocks import (
     Conv,
     ConvT,
     lrelu,
+)
+from deep_video_interpolation_extrapolation_tpu_torch.ops.warp import (
+    grid_sample_border,
+    make_base_grid,
 )
 
 
@@ -94,3 +107,47 @@ class RefineUnet(nn.Module):
                 ) -> torch.Tensor:
         parts = [p for p in (img1, mask1, img2, mask2) if p is not None]
         return self.unet(torch.cat([p.to(self.dtype) for p in parts], dim=-1))
+
+
+class OpticalUnet(nn.Module):
+    """``forward(rgb)``: two frames (B,H,W,6) -> (for_output, for_flow,
+    for_mask, back_output, back_flow, back_mask): each flow (B,H,W,2) and
+    mask (B,H,W,1) in ``dtype``; each output the frame warped by its flow
+    (``base - for_flow`` and ``base + back_flow`` in normalized
+    coordinates) times its mask, promoted to the wider of the frame's dtype
+    and ``dtype``, as the JAX product is.  H and W divide by 16."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.unet = WarpUNet(6, 6)
+
+    def forward(self, rgb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        _, h, w, _ = rgb.shape
+        out = torch.tanh(self.unet(rgb[..., :6].to(self.dtype)))
+        for_flow, for_mask = out[..., 0:2], out[..., 2:3]
+        back_flow, back_mask = out[..., 3:5], out[..., 5:6]
+        base = make_base_grid(h, w, device=rgb.device)[None]
+        for_out = grid_sample_border(rgb[..., 0:3], base - for_flow.float())
+        back_out = grid_sample_border(rgb[..., 3:6], base + back_flow.float())
+        for_mask = 0.5 * (1.0 + for_mask)
+        back_mask = 0.5 * (1.0 + back_mask)
+        return (for_out * for_mask, for_flow, for_mask, back_out * back_mask,
+                back_flow, back_mask)
+
+
+class OpticalRefineNet(nn.Module):
+    """``forward(rgb)``: OpticalUnet, then RefineUnet on (for_output,
+    for_mask, back_output, back_mask) -> (output, for_output, for_flow,
+    for_mask, back_output, back_flow, back_mask) (:119-131)."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.coarse_model = OpticalUnet(dtype)
+        self.refine_model = RefineUnet(cin=8, dtype=dtype)
+
+    def forward(self, rgb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        coarse = self.coarse_model(rgb)
+        for_out, _, for_mask, back_out, _, back_mask = coarse
+        return (self.refine_model(for_out, for_mask, back_out, back_mask),
+                *coarse)

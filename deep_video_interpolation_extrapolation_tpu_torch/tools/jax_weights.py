@@ -27,7 +27,11 @@ biases, BatchNorm scale, bias and statistics, and each spectral norm's
 ``u`` and ``sigma``).  The legacy models' port modules carry the flax
 module names, so ``flax_key_map`` maps their trees generically
 (``load_jax_legacy``; the legacy heads' HRNet coarse and refiner by their
-own maps).
+own maps); so do the SRN-era refiners (``models/srn_legacy``).  The legacy
+attention refiners V2..V4Base carry the reference's names:
+``attn_legacy_key_map`` is the inverse of ``port_attn_legacy``
+(torch_port.py:590-700).  OpticalUnet and OpticalRefineNet map by
+``refine_unet_key_map`` (``optical_key_map``).
 """
 
 from __future__ import annotations
@@ -676,18 +680,25 @@ _FLAX_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
                 "mean": "running_mean", "var": "running_var"}
 # the port's SegEncoder is a Sequential: flax Conv_k is its child 2k
 _SEG_ENCODER = re.compile(r"(^|\.)seg_encoder\.Conv_(\d)\.")
+# a ResnetBlock's Conv_k is its Sequential's child conv.2k; a ConvT's
+# ConvTranspose_0 is the port ConvT itself
+_RESNET_BLOCK = re.compile(r"(^|\.)(ResnetBlock_\d+)\.Conv_(\d)\.")
+_CONVT = re.compile(r"(^|\.)(ConvT_\d+)\.ConvTranspose_0\.")
 
 
 def flax_key_map(params: Mapping, batch_stats: Mapping = None
                  ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
     """(torch key, (collection, *flax path), leaf kind) of every leaf of a
     JAX legacy model (``models/unet``, ``legacy_gen``, ``gridnet``,
-    ``legacy_disc`` and the ``GAN`` head), whose port modules carry the
-    flax module names: the path joined by dots, ``kernel`` / ``scale`` ->
-    ``weight`` (a 4-D kernel HWIO -> OIHW, a 2-D one transposed), BatchNorm
+    ``legacy_disc``, the ``GAN`` head and ``srn_legacy``), whose port
+    modules carry the flax module names: the path joined by dots,
+    ``kernel`` / ``scale`` -> ``weight`` (a 4-D kernel HWIO -> OIHW, a
+    ConvTranspose's flipped back, a 2-D one transposed), BatchNorm
     ``mean`` / ``var`` -> ``running_mean`` / ``running_var``, PReLU slopes
     (``a0``, ``a1``) as they are; a ``seg_encoder``'s ``Conv_k`` is the
-    port Sequential's child 2k."""
+    port Sequential's child 2k, a ``ResnetBlock_j``'s ``Conv_k`` its
+    ``conv.2k``, a ``ConvT_j``'s ``ConvTranspose_0`` the ``ConvT_j``
+    itself."""
     def walk(tree, coll, path):
         for k, v in tree.items():
             if isinstance(v, Mapping):
@@ -696,7 +707,11 @@ def flax_key_map(params: Mapping, batch_stats: Mapping = None
             key = ".".join(path + (_FLAX_LEAVES.get(k, k),))
             key = _SEG_ENCODER.sub(
                 lambda m: f"{m[1]}seg_encoder.{2 * int(m[2])}.", key)
-            kind = {4: "conv", 2: "dense"}.get(np.ndim(v), "leaf")
+            key = _RESNET_BLOCK.sub(
+                lambda m: f"{m[1]}{m[2]}.conv.{2 * int(m[3])}.", key)
+            key = _CONVT.sub(lambda m: f"{m[1]}{m[2]}.", key)
+            kind = ("convT" if "ConvTranspose_0" in path else
+                    {4: "conv", 2: "dense"}.get(np.ndim(v), "leaf"))
             yield key, (coll,) + path + (k,), kind
 
     yield from walk(params, "params", ())
@@ -711,19 +726,114 @@ def from_jax_legacy(params: Mapping, batch_stats: Mapping = None
                        {"params": params, "batch_stats": batch_stats or {}})
 
 
+def attn_legacy_key_map(variant: str
+                        ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch key, (collection, *flax path), leaf kind) of every leaf of a
+    JAX ``models/attn_legacy`` model (``variant`` v2, v2o, v2base, v3,
+    v3base, v4 or v4base) in the reference's naming: the inverse of
+    port_attn_legacy (torch_port.py:590-700), V2's ResNet101 under
+    ``resnet101.resnet101.`` by ``resnet101_key_map``."""
+    def conv(path, tname, kind="conv"):
+        yield f"{tname}.weight", ("params",) + path + ("kernel",), kind
+        yield f"{tname}.bias", ("params",) + path + ("bias",), kind
+
+    def res(path, tname):
+        yield from conv(path + ("Conv_0",), f"{tname}.conv.0")
+        yield from conv(path + ("Conv_1",), f"{tname}.conv.2")
+
+    def enc_head(name, blocks=3):
+        yield from conv((name, "Conv_0"), f"{name}.0")
+        for k in range(blocks):
+            yield from res((name, f"ResnetBlock_{k}"), f"{name}.{2 + k}")
+
+    def enc_l3(name):
+        yield from conv((name, "Conv_0"), f"{name}.conv.0")
+        for k in range(3):
+            yield from res((name, f"ResnetBlock_{k}"), f"{name}.conv.{2 + k}")
+
+    def dec(name, last):
+        for k in range(3):
+            yield from res((name, f"ResnetBlock_{k}"), f"{name}.conv.{k}")
+        yield from last
+
+    def dec_l5(name):
+        yield from dec(name, conv((name, "ConvT_0", "ConvTranspose_0"),
+                                  f"{name}.conv.3", "convT"))
+
+    def mid(rb_at):
+        yield from conv(("mid", "Conv_0"), "mid.0")
+        if rb_at == 4:
+            yield from conv(("mid", "Conv_1"), "mid.2")
+        for k in range(2):
+            yield from res(("mid", f"ResnetBlock_{k}"), f"mid.{rb_at + k}")
+
+    if variant in ("v2", "v2o", "v2base"):
+        yield from enc_head("encoder_1")
+        for i in (2, 3, 4):
+            yield from enc_l3(f"encoder_{i}")
+        yield from mid(2)
+        decs = (4, 3, 2)
+        if variant == "v2":
+            for key, (coll, *path), kind in resnet101_key_map():
+                yield (f"resnet101.resnet101.{key}",
+                       (coll, "resnet101", *path), kind)
+    elif variant in ("v3", "v3base", "v4", "v4base"):
+        yield from enc_head("img_encoder_1")
+        yield from enc_l3("img_encoder_2")
+        yield from enc_l3("img_encoder_3")
+        if variant in ("v3", "v4"):
+            yield from enc_head("attn_encoder_1",
+                                blocks=1 if variant == "v4" else 3)
+            yield from enc_l3("attn_encoder_2")
+            yield from enc_l3("attn_encoder_3")
+        yield from mid(4)
+        decs = (3, 2)
+    else:
+        raise KeyError(variant)
+    for i in decs:
+        yield from dec_l5(f"decoder_{i}")
+    yield from dec("decoder_1", conv(("decoder_1", "Conv_0"),
+                                     "decoder_1.conv.3"))
+
+
+def optical_key_map(params: Mapping
+                    ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch key, (collection, *flax path), leaf kind) of every leaf of a
+    JAX ``OpticalUnet`` (its ``unet``) or ``OpticalRefineNet`` (its
+    ``coarse_model`` and ``refine_model``): ``refine_unet_key_map`` under
+    each."""
+    if "unet" not in params:
+        for name in ("coarse_model", "refine_model"):
+            for key, path, kind in optical_key_map(params[name]):
+                yield f"{name}.{key}", (path[0], name, *path[1:]), kind
+        return
+    for key, path in refine_unet_key_map(params):
+        yield key, ("params",) + path, (
+            "convT" if "ConvTranspose_0" in path else "conv")
+
+
 def legacy_state_dict(model: torch.nn.Module, params: Mapping,
                       batch_stats: Mapping = None
                       ) -> Dict[str, torch.Tensor]:
     """A JAX legacy model's trees (``params``, or a gradient of the same
     structure; ``batch_stats``) -> the port ``model``'s keys: a generator,
-    GridNet, a discriminator or ``GAN`` by ``flax_key_map``; ``RefineNet``
-    and ``RefineGAN`` by submodel (an HRNet coarse and the refiner by their
-    own maps)."""
+    GridNet, a discriminator, ``GAN`` or an ``srn_legacy`` model by
+    ``flax_key_map``; an ``attn_legacy`` model by ``attn_legacy_key_map``;
+    ``OpticalUnet`` and ``OpticalRefineNet`` by ``optical_key_map``;
+    ``RefineNet`` and ``RefineGAN`` by submodel (an HRNet coarse and the
+    refiner by their own maps)."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
+        attn_legacy,
         hrnet,
         legacy_heads,
+        optical,
     )
     batch_stats = batch_stats or {}
+    trees = {"params": params, "batch_stats": batch_stats}
+    if isinstance(model, (attn_legacy.AttnV2Core, attn_legacy.AttnV3Core)):
+        return _from_trees(attn_legacy_key_map(model.variant), trees)
+    if isinstance(model, (optical.OpticalUnet, optical.OpticalRefineNet)):
+        return _from_trees(optical_key_map(params), trees)
     if not isinstance(model, (legacy_heads.RefineNet,
                               legacy_heads.RefineGAN)):
         return from_jax_legacy(params, batch_stats)

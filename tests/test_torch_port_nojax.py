@@ -23,7 +23,9 @@ rest of recipe 4: the track-object variant (``--track_obj_loss
 its det family) through the launcher, one epoch and val, each of the
 seven newer det discriminators and TrackGen in one train step, and the
 plain VAE (ExtraNet on a VAEHRNet) through the launcher, one epoch and
-val.  Pillow and
+val; and one forward at 1x32x64 of SRN4, SRN4Sharp, HResUnet, AttnRefine,
+MSBaseRefine (``models/srn_legacy``), OpticalRefineNet and AttnRefineV2O,
+V3 and V4 (``models/attn_legacy``).  Pillow and
 TensorBoard are blocked too, as the card's machine has neither: the PNGs go
 through ``native/png.py`` and the runner logs without a writer.  A second
 interpreter, blocked alike, runs the vimeo triplet set through the
@@ -287,6 +289,30 @@ metrics = run(parse_args(f"{{ex}} --split val --load_dir {{vexp}} "
                              coarse_model="VAEHRNet"),
               exp_dir=os.path.join(tmp, "pval"), device="cpu")
 assert np.isfinite(metrics["step_1_frame_0_coarse_psnr"])
+# the SRN-era refiners, the legacy attention refiners (the L2 and the
+# padded cosine windows) and the voxel-flow nets: one f32 forward each at
+# 1x32x64 on seeded weights
+from {pkg}.models import attn_legacy, optical, srn_legacy
+f32 = torch.float32
+zg = torch.Generator().manual_seed(11)
+x3 = torch.rand(1, 32, 64, 3, generator=zg) * 2 - 1
+nb6 = torch.rand(1, 32, 64, 6, generator=zg) * 2 - 1
+zoo = [(srn_legacy.SRN4(n_scales=2, dtype=f32), (x3,)),
+       (srn_legacy.SRN4Sharp(high_res=True, dtype=f32), (x3, None, nb6)),
+       (srn_legacy.HResUnet(dtype=f32),
+        (None, torch.zeros(1, 16, 32, 32), x3)),
+       (srn_legacy.AttnRefine(dtype=f32), (x3, None, nb6)),
+       (srn_legacy.MSBaseRefine(cin=9, dtype=f32), (x3, None, nb6)),
+       (optical.OpticalRefineNet(dtype=f32), (nb6,)),
+       (attn_legacy.AttnRefineV2O(dtype=f32), (x3, nb6)),
+       (attn_legacy.AttnRefineV3(dtype=f32), (x3, nb6)),
+       (attn_legacy.AttnRefineV4(dtype=f32), (x3, nb6))]
+for m, args in zoo:
+    with torch.no_grad():
+        out = registry.init_weights(m, 5)(*args)
+    leaves = [t for t in torch.utils._pytree.tree_leaves(out)
+              if isinstance(t, torch.Tensor)]
+    assert leaves and all(torch.isfinite(t).all() for t in leaves), m
 assert not any(sys.modules.get(n) for n in BLOCKED)
 print("modules", len(names))
 """
