@@ -285,7 +285,21 @@ Builds the Hopper kernels from ``deep_video_interpolation_extrapolation_tpu_torc
     and the same weights in f32 (TF32 off) as the reference: the rgb by
     the slice bound (V3's and V4's by rel-L2 <= 2e-2), the flow maps by
     agreement >= 90%, the voxel-flow nets' flows and masks by the slice
-    bound; no kernel launched.
+    bound; no kernel launched;
+38. spatial sharding (``parallel/spatial.py``, ``spatial_phase``): two
+    ranks of one spatial group (S = 2) share the card on gloo, started
+    through the launcher's ``DVIE_MULTIHOST`` contract; one process of the
+    plain route (the route a spatial step takes) is the reference.  (a)
+    Recipe 1 at 24x128x128 bf16 on bands of 24x64x128: one counted step
+    (every kernel counter 0; the halo exchanges; the loss terms within
+    2e-2 and the gradient within the train gates of the one-process plain
+    step, against its f32 twin; the ranks' parameters after it equal), the
+    median ms of 3 more, a launcher epoch of 20 steps whose loss falls
+    (the mean of its last 5 steps below that of its first 5) and ends
+    within 10% of the one-process plain epoch's on the same synthetic
+    data, and ``--split val`` on its checkpoint; (b) one step at
+    1x512x1024: each rank's peak memory beside the one-process peak (each
+    below it) and the loss terms within 2e-2.
 
 The kernel phase also holds the 4-part head at 24x128x128
 (``ups_head_taps4_train``), its 216 instance (``upshead4_taps_n216``,
@@ -351,6 +365,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -377,6 +392,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.cli.options import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.config import Config
+from deep_video_interpolation_extrapolation_tpu_torch.data import datasets
 from deep_video_interpolation_extrapolation_tpu_torch.data.synthetic import (
     synthetic_batch,
 )
@@ -386,7 +402,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.hrnet import (
     _encode_inputs,
 )
 from deep_video_interpolation_extrapolation_tpu_torch.native import host, png
-from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import (
+    dist,
+    spatial,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
     extra,
@@ -5187,6 +5206,215 @@ def ddp_phase(dev, card):
     return runs
 
 
+# ---- spatial sharding (phase 38) ------------------------------------------
+
+# recipe 1 on a spatial group of two ranks sharing the card and in one
+# process of the plain route: (a) at its published shape, (b) at 1x512x1024
+SPATIAL_SHAPES = {"a": (24, 128, 128), "b": (1, 512, 1024)}
+SPATIAL_EPOCH_STEPS = 20
+SPATIAL_BATCH_SEED = 37
+
+
+def _spatial_argv(key, s, extra=""):
+    b, h, w = SPATIAL_SHAPES[key]
+    return (f"--dataset synthetic --split train --syn_type inter --input_h "
+            f"{h} --input_w {w} --bs {b} --disp_interval 1 --seed 0 "
+            f"--num_spatial_shards {s} {extra} INTER --model InterNet "
+            "--train_coarse").split()
+
+
+def _spatial_step(key, spec, device, extra="", timed=False):
+    """One counted step of recipe 1 at ``SPATIAL_SHAPES[key]`` through the
+    runner's producer on this rank's band: its launches, halo exchanges,
+    peak memory, reduced losses, the gradient the optimizer stepped on and
+    the parameters after it; with ``timed`` the median ms of 3 more."""
+    cfg = parse_args(_spatial_argv(key, spec["s"], extra))
+    r = _quiet(lambda: Runner(cfg, spec["exp"], device=device))
+    r._build_steps(train=True)
+    b, h, w = SPATIAL_SHAPES[key]
+    batch = synthetic_batch(b, h, w, seed=SPATIAL_BATCH_SEED)
+    for n, bt in r._device_prefetch([batch]):
+        torch.cuda.synchronize()
+        hw.reset_counters()
+        spatial.exchanges.update(fwd=0, bwd=0)
+        torch.cuda.reset_peak_memory_stats()
+        with r._on_shard(n):
+            r.state, losses = r.train_step(r.state, bt)
+        torch.cuda.synchronize()
+        res = {"counts": dict(hw.launches),
+               "exchanges": dict(spatial.exchanges),
+               "peak": torch.cuda.max_memory_allocated() / 2**30,
+               "losses": r._read_back([losses])[0],
+               "grads": torch.cat([p.grad.float().flatten()
+                                   for p in r.model.parameters()]).cpu(),
+               "params": torch.cat([p.detach().float().flatten()
+                                    for p in r.model.parameters()]).cpu()}
+        times = []
+        for _ in range(3 if timed else 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with r._on_shard(n):
+                r.train_step(r.state, bt)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        res["step_ms"] = statistics.median(times) if times else None
+    del r
+    torch.cuda.empty_cache()
+    return res
+
+
+def _spatial_epoch(spec, device):
+    """The launcher (``cli.main.run``): one epoch of recipe 1 at
+    24x128x128 (its synthetic train set lengthened to
+    ``SPATIAL_EPOCH_STEPS`` batches), then ``--split val`` on its
+    checkpoint; returns the epoch's logged losses (rank 0), the
+    checkpoints and the val metrics."""
+    exp = os.path.join(spec["exp"], f"epoch_s{spec['s']}")
+    get = datasets.get_dataset
+
+    def longer(cfg, vid_len=3):
+        train, val = get(cfg, vid_len)
+        if train is not None:
+            train.num_batches = SPATIAL_EPOCH_STEPS
+        return train, val
+    datasets.get_dataset = longer
+    try:
+        _quiet(lambda: run(parse_args(_spatial_argv("a", spec["s"],
+                                                    "--epochs 1")),
+                           exp_dir=exp, device=device))
+        argv = _spatial_argv("a", spec["s"], f"--load_dir {exp} "
+                             "--checksession 0 --checkepoch 1")
+        argv[argv.index("train")] = "val"
+        val = _quiet(lambda: run(parse_args(argv + ["--load_coarse"]),
+                                 exp_dir=exp, device=device))
+    finally:
+        datasets.get_dataset = get
+    losses = ([float(v) for *_, v in LOSS_LINE.findall(_log_of(exp))]
+              if dist.is_main() else None)
+    return {"losses": losses, "val": val,
+            "ckpts": sorted(os.listdir(os.path.join(exp, "checkpoint")))}
+
+
+def spatial_rank(spec):
+    """One process of phase 38: rank r of a spatial group of ``spec["s"]``
+    ranks on ``cuda:<rank mod cards>``, or (s = 1) the one-process
+    reference on the plain route, which also takes (a)'s step in f32 with
+    TF32 off.  Writes (a)'s and (b)'s steps, the epoch and the backend."""
+    device = dist.init_from_env("cuda")
+    if spec["s"] == 1:    # the route of a spatial step
+        registry.build_model = functools.partial(registry.build_model,
+                                                 use_kernels=False)
+    out = {"device": str(device), "backend": torch.distributed.get_backend(),
+           "a": _spatial_step("a", spec, device, timed=True),
+           "b": _spatial_step("b", spec, device)}
+    if spec["s"] == 1:
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out["a_f32"] = _spatial_step("a", spec, device,
+                                         "--compute_dtype float32")
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+    out["epoch"] = _spatial_epoch(spec, device)
+    torch.save(out, spec["out"] % dist.rank())
+    torch.distributed.destroy_process_group()
+
+
+def spatial_phase(dev, card):
+    """Phase 38: spatial sharding on two ranks sharing the card (module
+    docstring).  Returns the ranks' counted launches (all 0)."""
+    tmp = tempfile.mkdtemp(prefix="dvie_spatial_")
+    try:
+        got = {}
+        for s in (1, 2):
+            t0 = time.perf_counter()
+            spec = {"s": s, "exp": tmp,
+                    "out": os.path.join(tmp, f"s{s}_rank%d.pt")}
+            _ranks("spatial_rank", spec, s)
+            got[s] = [torch.load(spec["out"] % r) for r in range(s)]
+            print(f"spatial S = {s}: {time.perf_counter() - t0:.2f} s of "
+                  f"processes on {card}")
+        (one,), ranks = got[1], got[2]
+        b, h, w = SPATIAL_SHAPES["a"]
+        for r, g in enumerate(ranks):
+            a = g["a"]
+            print(f"spatial rank {r}: {g['device']}, backend {g['backend']}, "
+                  f"band {b}x{h // 2}x{w} of {b}x{h}x{w}, a step "
+                  f"{a['step_ms']:.4f} ms (median of 3 after the counted "
+                  f"one; one process of the plain route "
+                  f"{one['a']['step_ms']:.4f} ms), halo exchanges "
+                  f"{a['exchanges']['fwd']} forward + "
+                  f"{a['exchanges']['bwd']} backward a step, peak "
+                  f"{a['peak']:.3f} GiB on {card}")
+            for key in ("a", "b"):
+                if any(g[key]["counts"].values()):
+                    raise AssertionError(
+                        f"spatial rank {r} ({key}): kernels launched "
+                        f"{ {k: v for k, v in g[key]['counts'].items() if v} }")
+        for part in ("grads", "params"):
+            if not torch.equal(ranks[0]["a"][part], ranks[1]["a"][part]):
+                raise AssertionError(f"spatial: the ranks' {part} differ")
+        print(f"spatial (a) recipe 1 at {b}x{h}x{w} bf16, S = 2, against "
+              f"one process of the plain route:")
+        fail = _check_grad("whole gradient", ranks[0]["a"]["grads"].to(dev),
+                           one["a"]["grads"].to(dev),
+                           one["a_f32"]["grads"].to(dev))
+        if fail:
+            raise AssertionError(f"spatial: {fail}")
+        for key in ("a", "b"):
+            for k, v in one[key]["losses"].items():
+                got_k = ranks[0][key]["losses"][k]
+                rel = abs(got_k - v) / max(abs(v), 1e-30)
+                print(f"  ({key}) {k}: two bands {got_k:.6g} one process "
+                      f"{v:.6g} rel {rel:.3g}")
+                if rel > LOSS_TOL:
+                    raise AssertionError(f"spatial ({key}): {k} differs by "
+                                         f"{rel:.4g}")
+        bb, hb, wb = SPATIAL_SHAPES["b"]
+        peaks = [g["b"]["peak"] for g in ranks]
+        print(f"spatial (b) one step at {bb}x{hb}x{wb} bf16: peak memory "
+              f"rank 0 {peaks[0]:.3f} GiB, rank 1 {peaks[1]:.3f} GiB, one "
+              f"process {one['b']['peak']:.3f} GiB "
+              f"({peaks[0] / one['b']['peak']:.4f} of it); halo exchanges "
+              f"{ranks[0]['b']['exchanges']} a step, on {card}")
+        if max(peaks) >= one["b"]["peak"]:
+            raise AssertionError(f"spatial (b): a rank's peak {max(peaks)} "
+                                 f"GiB is not below {one['b']['peak']}")
+        l2, l1 = ranks[0]["epoch"]["losses"], one["epoch"]["losses"]
+        print(f"spatial launcher epoch of {len(l2)} steps: loss_all "
+              f"{' '.join(f'{v:.5g}' for v in l2)}; one process "
+              f"{' '.join(f'{v:.5g}' for v in l1)}")
+        if (len(l2) != SPATIAL_EPOCH_STEPS or len(l1) != SPATIAL_EPOCH_STEPS
+                or not all(map(math.isfinite, l2 + l1))):
+            raise AssertionError(f"spatial epoch: losses {l2} / {l1}")
+        # the first Adamax step overshoots (PERF.md section 7), so the
+        # epoch falls from its first steps to its last ones
+        head, tail = (statistics.mean(l2[:5]), statistics.mean(l2[-5:]))
+        if not tail < head:
+            raise AssertionError(f"spatial epoch: loss_all did not fall: "
+                                 f"mean of the first 5 steps {head:.6g}, of "
+                                 f"the last 5 {tail:.6g}")
+        gap = abs(l2[-1] - l1[-1]) / abs(l1[-1])
+        print(f"spatial epoch: final loss_all two bands {l2[-1]:.6g}, one "
+              f"process {l1[-1]:.6g} (rel {gap:.4g}, bound {TRAJ_TOL})")
+        if gap > TRAJ_TOL:
+            raise AssertionError(f"spatial epoch: final loss differs by "
+                                 f"{gap:.4g}")
+        val = ranks[0]["epoch"]["val"]
+        print(f"spatial --split val on the epoch's checkpoint "
+              f"{ranks[0]['epoch']['ckpts']}: "
+              f"{json.dumps(val)}; one process {json.dumps(one['epoch']['val'])}")
+        if (not ranks[0]["epoch"]["ckpts"] or val != ranks[1]["epoch"]["val"]
+                or not all(map(math.isfinite, val.values()))):
+            raise AssertionError(f"spatial val: {val}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [g[key]["counts"] for g in ranks for key in ("a", "b")]
+
+
 # ---- the rest of the model zoo (phase 37) ---------------------------------
 
 ZOO_SIZE = (2, 512, 1024)
@@ -5464,6 +5692,7 @@ def main():
     track_gen_phase(dev, card)
     det_disc_phase(dev, card)
     legacy_zoo_phase(dev, card)
+    runs += spatial_phase(dev, card)
     print(json.dumps({"kernels": [
         dict(name=n, route=META[n][0], source=META[n][1], replaces=META[n][2],
              launches=sum(c[COUNTER.get(n, n)] for c in runs),

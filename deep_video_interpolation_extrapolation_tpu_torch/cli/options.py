@@ -197,6 +197,25 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def check_spatial(cfg: Config) -> None:
+    """A ``--num_spatial_shards`` S the bands cannot take raises
+    ``ValueError``: S must be at least 1, and under S > 1 the crop height
+    must divide by S x 16, so that every band keeps whole rows down to the
+    VGG19's 1/16 maps (HRNet's own 1/4 branch needs S x 4).  That the
+    world divides by S is checked where the group is known
+    (``parallel/dist.data_shards``)."""
+    s = cfg.num_spatial_shards
+    if s < 1:
+        raise ValueError(f"--num_spatial_shards {s}: at least 1")
+    if s > 1 and cfg.input_h % (16 * s):
+        raise ValueError(
+            f"--num_spatial_shards {s} needs --input_h divisible by "
+            f"{16 * s} (S x 16: each band keeps whole rows down to the 1/16 "
+            f"maps); got {cfg.input_h}")
+
+
 def parse_args(argv=None) -> Config:
     ns = build_parser().parse_args(argv)
-    return Config.from_namespace(ns).validate()
+    cfg = Config.from_namespace(ns).validate()
+    check_spatial(cfg)
+    return cfg

@@ -157,7 +157,7 @@ class Config:
     data_axis: str = "data"             # JAX mesh axis names: unused here
     spatial_axis: str = "spatial"       # mesh axis name for optional 2D sharding
     num_data_shards: int = 0            # 0: the process group's size
-    num_spatial_shards: int = 1         # > 1 waits for ROADMAP item 9
+    num_spatial_shards: int = 1         # > 1: H over a spatial group
     remat: bool = False                 # not ported (ROADMAP item 4)
     donate_state: bool = True
 

@@ -16,27 +16,31 @@ from deep_video_interpolation_extrapolation_tpu_torch.models.features import (
 from deep_video_interpolation_extrapolation_tpu_torch.ops.roi import (
     crop_resize,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 
 def make_vgg_l1_loss(vgg: VGG19Features) -> Callable:
-    """Mean L1 over the 5 feature maps; no gradient flows into gt."""
+    """Mean L1 over the 5 feature maps; no gradient flows into gt.  On a
+    band, each mean the band's share (``spatial.mean``)."""
     def loss(pred, gt):
         fp = vgg(imagenet_norm(pred))
         with torch.no_grad():
             fg = vgg(imagenet_norm(gt))
-        return sum((a - b).abs().mean() for a, b in zip(fp, fg)) / len(fp)
+        return sum(spatial.mean((a - b).abs()) for a, b in zip(fp, fg)
+                   ) / len(fp)
     return loss
 
 
 def make_vgg_cosine_score(vgg: VGG19Features) -> Callable:
-    """Mean channelwise cosine over the 5 feature maps."""
+    """Mean channelwise cosine over the 5 feature maps (on a band, its
+    share)."""
     def score(pred, gt):
         fp, fg = vgg(imagenet_norm(pred)), vgg(imagenet_norm(gt))
         total = 0.0
         for a, b in zip(fp, fg):
             an = a / torch.sqrt((a * a).sum(dim=-1, keepdim=True))
             bn = b / torch.sqrt((b * b).sum(dim=-1, keepdim=True))
-            total = total + (an * bn).sum(dim=-1).mean()
+            total = total + spatial.mean((an * bn).sum(dim=-1))
         return total / len(fp)
     return score
 

@@ -27,6 +27,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
 from deep_video_interpolation_extrapolation_tpu_torch.ops.trainchain import (
     bottleneck_plain,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -54,7 +55,8 @@ class Conv(nn.Module):
     """torch-style Conv2d on NHWC tensors: symmetric padding
     ``(kh // 2, kw // 2) * dilation`` (unless given), optional bias,
     compute in ``dtype`` (default: the input's).  ``kernel`` is a size or a
-    (kh, kw) pair."""
+    (kh, kw) pair.  On a band (``parallel/spatial.banded``) H's padding is
+    the neighbouring bands' rows (``spatial.conv2d``)."""
 
     def __init__(self, cin: int, cout: int, kernel=3, stride: int = 1,
                  padding: Optional[int] = None, bias: bool = True,
@@ -71,9 +73,9 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         dt = dtype or x.dtype
-        out = nhwc(F.conv2d(nchw(x.to(dt)), self.weight.to(dt),
-                            stride=self.stride, padding=self.padding,
-                            dilation=self.dilation))
+        out = nhwc(spatial.conv2d(nchw(x.to(dt)), self.weight.to(dt),
+                                  stride=self.stride, padding=self.padding,
+                                  dilation=self.dilation))
         if self.bias is not None:
             out = out + self.bias.to(dt)
         return out

@@ -33,6 +33,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -57,7 +58,9 @@ def imagenet_norm(x: torch.Tensor) -> torch.Tensor:
 
 class VGG19Features(nn.Module):
     """``forward(x)``: x NHWC, ImageNet-normalized; returns the 5 feature
-    maps in ``dtype`` (the input's if None)."""
+    maps in ``dtype`` (the input's if None).  On a band
+    (``parallel/spatial.banded``) each 3x3 conv takes its neighbours' rows
+    (``spatial.conv2d``); the 2x2 pools stay inside an even band."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -78,7 +81,7 @@ class VGG19Features(nn.Module):
                 h = F.avg_pool2d(h, 2)
             for _ in block:
                 conv = self.convs[next(names)]
-                h = F.relu(F.conv2d(h, conv.weight.to(dt), padding=1)
+                h = F.relu(spatial.conv2d(h, conv.weight.to(dt), padding=1)
                            + conv.bias.to(dt)[:, None, None])
             feats.append(nhwc(h))
         return feats

@@ -136,7 +136,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.upshead import (
     ups_head_taps4_plain,
     ups_head_taps_plain,
 )
-from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import (
+    dist,
+    spatial,
+)
 
 # stage configs (hrnet.py:45-47)
 STAGE2_CFG = dict(num_branches=2, num_blocks=(4, 4), num_channels=(64, 128))
@@ -244,7 +247,8 @@ class HighResolutionModule(nn.Module):
     Each branch's BasicBlocks take the chain (``bb_chain``, or
     ``bb_chain_plain`` in the plain model) where ``bb_chain_route`` holds
     for its shape and the ``DVIE_BBCHAIN`` mode, read at each forward;
-    else block by block, on K1 for a packable 64-ch branch 0."""
+    else block by block, on K1 for a packable 64-ch branch 0.  On a band
+    (spatial sharding) the route is decided on the global shape."""
 
     def __init__(self, num_branches: int, num_blocks: Sequence[int],
                  num_channels: Sequence[int], use_kernels: bool = True):
@@ -278,7 +282,8 @@ class HighResolutionModule(nn.Module):
         mode = bb_chain_mode()
         for i, blocks in enumerate(self.branches):
             h = xs[i]
-            if bb_chain_route(*h.shape[:3], h.element_size(), len(blocks),
+            if bb_chain_route(h.shape[0], spatial.global_rows(h.shape[1]),
+                              h.shape[2], h.element_size(), len(blocks),
                               h.shape[-1], mode):
                 pairs = [(blk.conv1.weight, blk.conv2.weight)
                          for blk in blocks]

@@ -210,7 +210,12 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
                 use_kernels: bool = True) -> nn.Module:
     """Build the model named by ``cfg.model``, weights from ``seed``, in
     eval mode on ``device`` (the card unless the caller asks for the CPU;
-    without a card it raises).  An unknown name raises ``KeyError``."""
+    without a card it raises).  An unknown name raises ``KeyError``.
+    Under spatial sharding (``--num_spatial_shards`` > 1) the model runs
+    on the plain versions of the kernels, as the JAX registry turns every
+    Pallas path off under a spatial mesh (registry.py:29-32,
+    ``spatial_sharded``): the kernels take whole maps, not halo-padded
+    bands (ROADMAP.md queue 2)."""
     from deep_video_interpolation_extrapolation_tpu_torch.models import (
         composite,
         gridnet,
@@ -218,6 +223,7 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
         vae_video,
     )
     d = compute_dtype(cfg)
+    use_kernels = use_kernels and cfg.num_spatial_shards <= 1
     heads = {"InterNet": composite.InterNet,
              "InterRefineNet": composite.InterRefineNet,
              "InterStage3Net": composite.InterStage3Net,

@@ -35,6 +35,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 NAME = "bottleneck_tail"
 P, CO = 64, 256   # layer1 widths: planes and planes * expansion
@@ -51,9 +52,11 @@ def bottleneck_tail_plain(h1, x, w2, w3, wres=None, w1_next=None):
     """h1 (B,H,W,P) post-lrelu conv1 output; x (B,H,W,Cx) block input;
     w2 (P,P,3,3), w3 (Co,P,1,1), wres (Co,Cx,1,1) or None (then Cx == Co),
     w1_next (Pn,Co,1,1) or None — torch conv weights, any float dtype.
-    Returns (y (B,H,W,Co), h1_next (B,H,W,Pn) or None)."""
+    Returns (y (B,H,W,Co), h1_next (B,H,W,Pn) or None).  On a band, the
+    3x3 with its neighbours' rows (``spatial.conv2d``)."""
     dt = h1.dtype
-    h2 = nhwc(F.conv2d(nchw(h1).float(), w2.to(dt).float(), padding=1))
+    h2 = nhwc(spatial.conv2d(nchw(h1).float(), w2.to(dt).float(),
+                             padding=1))
     h2 = F.leaky_relu(h2.to(dt), 0.2)
     out = _dot(h2, w3)
     out = out + (_dot(x, wres) if wres is not None else x)

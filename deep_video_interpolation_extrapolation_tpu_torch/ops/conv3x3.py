@@ -31,15 +31,17 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 NAME = "conv3x3_bias_res_lrelu"
 
 
 def conv3x3_bias_res_lrelu_plain(x, w, bias=None, res=None, relu=True):
     """x (B,H,W,Cin); w (Cout,Cin,3,3) torch layout, any float dtype (cast
-    to x's dtype); bias (Cout,) or None; res (B,H,W,Cout) or None."""
+    to x's dtype); bias (Cout,) or None; res (B,H,W,Cout) or None.  On a
+    band, with its neighbours' rows (``spatial.conv2d``)."""
     dt = x.dtype
-    out = nhwc(F.conv2d(nchw(x), w.to(dt), padding=1))
+    out = nhwc(spatial.conv2d(nchw(x), w.to(dt), padding=1))
     if bias is not None:
         out = out + bias.to(dt)
     if res is not None:

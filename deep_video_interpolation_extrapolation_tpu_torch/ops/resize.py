@@ -21,6 +21,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
+
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC tensor -> logical NCHW view (channels_last memory, no copy)."""
@@ -59,7 +61,11 @@ def interpolate_bilinear(x: torch.Tensor,
                          align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of an NHWC tensor to ``size``, or by ``scale_factor``
     (the size is ``int(n * factor)``, as the JAX function computes it).
-    Returns ``x`` itself when the size is unchanged."""
+    Returns ``x`` itself when the size is unchanged.  On a band
+    (``parallel/spatial.banded``) ``size`` is the band's, and the
+    half-pixel resize reads the neighbouring bands' edge rows
+    (``spatial.bilinear``); the align_corners=True resize of the refine
+    stages is not ported there."""
     if x.dim() != 4:
         raise ValueError(f"expected an NHWC tensor, got shape {tuple(x.shape)}")
     if size is None:
@@ -69,6 +75,12 @@ def interpolate_bilinear(x: torch.Tensor,
     size = (int(size[0]), int(size[1]))
     if size == tuple(x.shape[1:3]):
         return x
+    if spatial.current() is not None:
+        if align_corners:
+            raise NotImplementedError(
+                "the align_corners=True resize on a band is not ported yet "
+                "(ROADMAP.md queue 1, item 10)")
+        return spatial.bilinear(x, size)
     if align_corners:
         return _resize_axis_align_corners(
             _resize_axis_align_corners(x, 1, size[0]), 2, size[1])

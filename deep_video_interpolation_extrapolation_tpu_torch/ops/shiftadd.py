@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.ops import _build
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 NAME = "shifted_add_bias"
 
@@ -36,10 +37,13 @@ def _co(yt: torch.Tensor, b2: torch.Tensor) -> int:
 
 
 def shifted_add_bias_plain(yt: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """yt (B,H,W,9*co), b2 (co,) -> (B,H,W,co) in yt's dtype."""
+    """yt (B,H,W,9*co), b2 (co,) -> (B,H,W,co) in yt's dtype.  On a band
+    the rows above and below are the neighbouring bands' (``spatial.halo``),
+    zero beyond the image."""
     co = _co(yt, b2)
     b, h, w, _ = yt.shape
-    ytp = F.pad(yt.float().reshape(b, h, w, 9, co), (0, 0, 0, 0, 1, 1, 1, 1))
+    ytp = F.pad(spatial.halo(yt, 1, 1).float().reshape(b, h + 2, w, 9, co),
+                (0, 0, 0, 0, 1, 1))
     out = None
     for ky in range(3):
         for kx in range(3):

@@ -48,6 +48,7 @@ from deep_video_interpolation_extrapolation_tpu_torch.ops.resize import (
     nchw,
     nhwc,
 )
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
 
 STEM_FWD, STEM_BWD = "stem_fwd", "stem_bwd"
 STEM48_FWD, STEM48_BWD = "stem48_fwd", "stem48_bwd"   # the kernels at Ci 48
@@ -75,9 +76,11 @@ def _masked(pre: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SAME 3x3 conv of NHWC x with an OIHW weight: f32 accumulation of
-    compute-dtype operands, rounded to x's dtype."""
+    compute-dtype operands, rounded to x's dtype; on a band with its
+    neighbours' rows (``spatial.conv2d``)."""
     dt = x.dtype
-    return nhwc(F.conv2d(nchw(x).float(), w.to(dt).float(), padding=1)).to(dt)
+    return nhwc(spatial.conv2d(nchw(x).float(), w.to(dt).float(),
+                               padding=1)).to(dt)
 
 
 def _conv_t(g: torch.Tensor, w: torch.Tensor, cin: int) -> torch.Tensor:

@@ -23,8 +23,16 @@ shards the batch.  The port goes back to one process per rank:
   gradient reduction over the ``data`` axis;
 - losses and metrics are reduced across the ranks for the log.
 
-Spatial sharding (JAX's ``spatial`` axis) is not ported (ROADMAP.md queue
-1, item 9).
+Spatial sharding (JAX's ``spatial`` axis, ``--num_spatial_shards S``;
+``parallel/spatial.py``): a world of D x S processes, rank ``d * S + s``
+rank ``s`` of the spatial group ``d`` (spatial innermost, as JAX's mesh,
+mesh.py:84-93).  Each spatial group holds one data shard's rows
+(``shard_of``: by the data rank ``d``), each rank of it a band of their
+rows (``spatial_band``).  A rank's loss is its band's share of the group's
+loss, so ``average_grads`` sums the gradients over each spatial group and
+averages them over the data groups, and ``mean_over_ranks`` reduces the
+logged shares the same way: one all-reduce over the world divided by D
+does both.
 """
 
 from __future__ import annotations
@@ -38,10 +46,13 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import spatial
+
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """This process's part of a global batch: rank ``rank`` of ``world``."""
+    """This process's part of a global batch: data rank ``rank`` of
+    ``world`` data shards."""
     world: int
     rank: int
 
@@ -131,15 +142,21 @@ def broadcast(obj):
     return box[0]
 
 
-def data_shards(requested: int) -> int:
-    """The data-parallel degree of ``--num_data_shards``: 0 is the group's
-    world size (1 without a group); any other value must equal it."""
-    n = world_size()
+def data_shards(requested: int, spatial_shards: int = 1) -> int:
+    """The data-parallel degree D of ``--num_data_shards``: the group's
+    world size (1 without a group) over ``--num_spatial_shards`` S, which
+    must divide it; 0 means that D, any other value must equal it."""
+    w = world_size()
+    if spatial_shards < 1 or w % spatial_shards:
+        raise ValueError(
+            f"--num_spatial_shards {spatial_shards} does not divide the "
+            f"{w} processes of this run")
+    n = w // spatial_shards
     if requested > 0 and requested != n:
         raise ValueError(
-            f"--num_data_shards {requested} needs {requested} processes "
-            f"(DVIE_MULTIHOST=1 with DVIE_NUM_PROCS={requested}); this run "
-            f"has {n}")
+            f"--num_data_shards {requested} needs {requested * spatial_shards}"
+            f" processes (DVIE_MULTIHOST=1 with DVIE_NUM_PROCS="
+            f"{requested * spatial_shards}); this run has {w}")
     return n
 
 
@@ -153,14 +170,41 @@ def local_batch_size(global_batch: int, n: int) -> int:
     return global_batch // n
 
 
-def shard_of(n: int) -> Optional[Shard]:
-    """The shard this rank takes of an ``n``-row global batch, or None
-    where there is one rank or ``n`` does not divide over them (such a
-    batch runs whole on every rank, as JAX runs it replicated)."""
-    w = world_size()
+def shard_of(n: int, spatial_shards: int = 1) -> Optional[Shard]:
+    """The shard this rank takes of an ``n``-row global batch, by its data
+    rank (rank // ``spatial_shards``), or None where there is one data
+    shard or ``n`` does not divide over them (such a batch runs whole on
+    every data shard, as JAX runs it replicated)."""
+    w = world_size() // spatial_shards
     if w == 1 or n % w:
         return None
-    return Shard(w, rank())
+    return Shard(w, rank() // spatial_shards)
+
+
+# the spatial groups of the running world, by S: (world group, this rank's
+# band); rebuilt when the world is
+_BANDS: dict = {}
+
+
+def spatial_band(spatial_shards: int) -> Optional[spatial.Band]:
+    """This rank's band under ``--num_spatial_shards`` S (None for S = 1):
+    spatial group d holds ranks d*S .. d*S + S - 1.  Every rank creates
+    every group, in the same order, once per world."""
+    if spatial_shards <= 1:
+        return None
+    data_shards(0, spatial_shards)
+    cached = _BANDS.get(spatial_shards)
+    if cached is not None and cached[0] is dist.group.WORLD:
+        return cached[1]
+    w, r = world_size(), rank()
+    band = None
+    for d in range(w // spatial_shards):
+        ranks = list(range(d * spatial_shards, (d + 1) * spatial_shards))
+        group = dist.new_group(ranks)
+        if r in ranks:
+            band = spatial.Band(spatial_shards, r - ranks[0], group)
+    _BANDS[spatial_shards] = (dist.group.WORLD, band)
+    return band
 
 
 @contextlib.contextmanager
@@ -192,7 +236,13 @@ def batch_moments(x: torch.Tensor, axes: Tuple[int, ...]
     """The per-channel mean and biased variance E[x^2] - E[x]^2 (clipped at
     0, as flax) of ``x`` over ``axes``.  Under a sharded step, over the
     global batch: the sums of x and x^2 and the count are all-reduced
-    (differentiably), as JAX's statistics of a sharded batch are."""
+    (differentiably), as JAX's statistics of a sharded batch are.  On a
+    band (spatial sharding) it raises: the moments over data x spatial are
+    not ported (ROADMAP.md queue 1, item 10)."""
+    if spatial.current() is not None:
+        raise NotImplementedError(
+            "BatchNorm statistics over the bands of a spatial group are not "
+            "ported yet (ROADMAP.md queue 1, item 10)")
     if _SHARD.get() is None:
         mean = x.mean(axes)
         return mean, ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
@@ -205,10 +255,13 @@ def batch_moments(x: torch.Tensor, axes: Tuple[int, ...]
     return mean, (sums[c:2 * c] / n - mean * mean).clamp_min(0.0)
 
 
-def average_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """Average the ``.grad`` of ``params`` over the ranks, in one flat
-    bucket (one all-reduce); a no-op in one process.  Every rank holds
-    the same parameters, so the same ones carry a gradient."""
+def average_grads(params: Iterable[torch.nn.Parameter],
+                  spatial_shards: int = 1) -> None:
+    """Sum the ``.grad`` of ``params`` over each spatial group (a band's
+    gradient is its share of the group's) and average it over the data
+    shards, in one flat bucket (one all-reduce over the world, divided by
+    the data shards); a no-op in one process.  Every rank holds the same
+    parameters, so the same ones carry a gradient."""
     if world_size() == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -216,15 +269,19 @@ def average_grads(params: Iterable[torch.nn.Parameter]) -> None:
         return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     dist.all_reduce(flat)
-    flat /= world_size()
+    flat /= world_size() // spatial_shards
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
 
-def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """``t`` averaged over the ranks (a copy); ``t`` in one process."""
+def mean_over_ranks(t: torch.Tensor, spatial_shards: int = 1
+                    ) -> torch.Tensor:
+    """``t`` summed over each spatial group and averaged over the data
+    shards (a copy): with ``spatial_shards`` S = 1 its mean over the ranks;
+    under S > 1 each rank holds its band's share of its group's value.
+    ``t`` in one process."""
     if world_size() == 1:
         return t
     t = t.clone()
     dist.all_reduce(t)
-    return t / world_size()
+    return t / (world_size() // spatial_shards)

@@ -56,13 +56,25 @@ gradients averaged over the ranks (``train/state.apply_updates``), and the
 logged losses and val metrics are reduced across the ranks.  A val batch
 that does not divide over the ranks runs whole on every rank and counts
 once, as JAX runs it replicated.  Only rank 0 writes checkpoints (the
-others wait for it) and TensorBoard scalars.  Spatial sharding
-(``--num_spatial_shards``) is not ported and raises
-``NotImplementedError`` with its ROADMAP item (9).
+others wait for it) and TensorBoard scalars.
+
+Spatial sharding (``--num_spatial_shards S``, recipe 1: InterNet on HRNet;
+runner.py:73-81, 219-231 of the JAX package): a world of D x S ranks, spatial
+innermost; each rank takes its data shard's rows of every global batch and
+its band of their H rows (frames and seg-id maps; ``_host_batches``), and
+its step runs on the band (``parallel/spatial.banded``) on the plain route
+(``registry.build_model``).  Its losses and metrics are the band's shares,
+reduced for the log only (summed over the group, averaged over the data
+shards); the gradients likewise (``dist.average_grads``), so the group
+steps on the one-process step's gradient.  The image panel is gathered to
+the group's first rank.  Every other model, ``--highres_large``,
+``--remat``, cycgen and mycycgen raise ``NotImplementedError`` with their
+ROADMAP item (10) before any step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import pickle
@@ -75,6 +87,9 @@ import numpy as np
 import torch
 
 from deep_video_interpolation_extrapolation_tpu_torch import serve
+from deep_video_interpolation_extrapolation_tpu_torch.cli.options import (
+    check_spatial,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.core import hw
 from deep_video_interpolation_extrapolation_tpu_torch.core.seg import (
     oh_ids,
@@ -89,7 +104,10 @@ from deep_video_interpolation_extrapolation_tpu_torch.data.cityscapes import (
 )
 from deep_video_interpolation_extrapolation_tpu_torch.models import registry
 from deep_video_interpolation_extrapolation_tpu_torch.native import png
-from deep_video_interpolation_extrapolation_tpu_torch.parallel import dist
+from deep_video_interpolation_extrapolation_tpu_torch.parallel import (
+    dist,
+    spatial,
+)
 from deep_video_interpolation_extrapolation_tpu_torch.train import (
     checkpoint as ckpt_lib,
     extra as extra_lib,
@@ -127,10 +145,22 @@ def _writer(cfg, exp_dir: str):
 
 
 def _check_supported(cfg) -> None:
-    if cfg.num_spatial_shards > 1:
+    """Spatial sharding is ported for recipe 1 (InterNet on HRNet, the
+    train and val splits); anything else under it raises, and so does an S
+    the bands cannot take (``cli/options.check_spatial``)."""
+    check_spatial(cfg)
+    if cfg.num_spatial_shards <= 1:
+        return
+    rest = [name for name, off in (
+        (f"--model {cfg.model}", cfg.model != "InterNet"),
+        (f"--coarse_model {cfg.coarse_model}", cfg.coarse_model != "HRNet"),
+        ("--highres_large", cfg.highres_large), ("--remat", cfg.remat),
+        (f"--split {cfg.split}", cfg.split in ("cycgen", "mycycgen")))
+        if off]
+    if rest:
         raise NotImplementedError(
-            f"spatial sharding (--num_spatial_shards) is not ported yet "
-            f"({_QUEUE}, item 9)")
+            f"spatial sharding (--num_spatial_shards) with "
+            f"{', '.join(rest)} is not ported yet ({_QUEUE}, item 10)")
 
 
 def _seg_ids(path: str) -> np.ndarray:
@@ -154,10 +184,13 @@ class Runner:
         self.cfg = cfg
         self.exp_dir = exp_dir
         self.device = hw.entry_device(device)
-        # the data axis: the ranks of the group (1 without one), each
-        # taking an equal part of every global batch
-        dist.local_batch_size(cfg.batch_size,
-                              dist.data_shards(cfg.num_data_shards))
+        # the data axis: the ranks of the group (1 without one) over the
+        # spatial shards, each taking an equal part of every global batch;
+        # the spatial axis: this rank's band of every map (None for one)
+        self.spatial = cfg.num_spatial_shards
+        dist.local_batch_size(cfg.batch_size, dist.data_shards(
+            cfg.num_data_shards, self.spatial))
+        self.band = dist.spatial_band(self.spatial)
         self.is_gan = cfg.model == "InterGANNet"
         self.is_extra = cfg.syn_type == "extra"
         # a VAEHRNet coarse (the GAN's, or the plain VAE's) evaluates
@@ -202,6 +235,10 @@ class Runner:
                                         device=self.device)
         self.model = registry.build_model(cfg, device=self.device,
                                           seed=cfg.seed)
+        if self.band is not None:
+            logger.info("spatial sharding: band %d of %d, on the plain "
+                        "route (no kernel)", self.band.index,
+                        self.band.count)
         self.state = state_lib.create_train_state(cfg, self.model, vgg,
                                                   resnet)
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -279,9 +316,10 @@ class Runner:
         augmentation, synthetic draws) overlaps the step's dispatch; on the
         card each batch is copied into pinned memory there.  With ``shard``
         each rank keeps its rows of a batch that divides over the ranks
-        (``dist.shard_of``), the whole of one that does not.  The thread
-        stops when the consumer stops, and its errors are raised in the
-        consumer."""
+        (``dist.shard_of``), the whole of one that does not, and under
+        spatial sharding its band of their frames and seg-id maps (the
+        JAX ``Runner._shard``).  The thread stops when the consumer stops,
+        and its errors are raised in the consumer."""
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
         pin = self.device.type == "cuda"
@@ -300,10 +338,13 @@ class Runner:
                     if stop.is_set():
                         return
                     n = len(next(iter(batch.values())))
-                    part = dist.shard_of(n) if shard else None
+                    part = dist.shard_of(n, self.spatial) if shard else None
                     rows = part.rows(n) if part is not None else slice(None)
                     host = {k: torch.from_numpy(v[rows])
                             for k, v in batch.items()}
+                    if shard and self.band is not None:
+                        host = {k: self._band_of(k, v)
+                                for k, v in host.items()}
                     if pin:
                         host = {k: t.pin_memory() for k, t in host.items()}
                     put((n, host))
@@ -323,6 +364,22 @@ class Runner:
                 yield item
         finally:
             stop.set()
+
+    def _band_of(self, key: str, v: torch.Tensor) -> torch.Tensor:
+        """This rank's band of a (B,H,W,C) frame or (B,H,W) seg-id map
+        (``v`` itself without spatial sharding or for any other key)."""
+        if (self.band is None or not key.startswith(("frame", "seg"))
+                or v.dim() not in (3, 4)):
+            return v
+        return v[:, self.band.rows(v.shape[1])].contiguous()
+
+    @contextlib.contextmanager
+    def _on_shard(self, n: int):
+        """The context a step on an ``n``-row global batch runs in: this
+        rank's data shard and band."""
+        with dist.sharded(dist.shard_of(n, self.spatial)), \
+                spatial.banded(self.band):
+            yield
 
     def _device_prefetch(self, loader, depth: int = 2, shard: bool = True):
         """``(n, batch)``: batches of ``n`` samples (this rank's rows, with
@@ -367,18 +424,19 @@ class Runner:
             nxt = upload(next(batches, None))
         inflight.clear()
 
-    @staticmethod
-    def _read_back(pending, reduce: bool = True) -> List[Dict[str, float]]:
+    def _read_back(self, pending, reduce: bool = True
+                   ) -> List[Dict[str, float]]:
         """Scalar dicts kept on the device -> floats, in one transfer (it
         fences the device); with ``reduce`` averaged over the ranks (every
-        rank calls it with its own)."""
+        rank calls it with its own), the bands' shares summed over each
+        spatial group."""
         if not pending:
             return []
         keys = list(pending[0])
         rows = torch.stack([torch.stack([d[k].float() for k in keys])
                             for d in pending])
         if reduce:
-            rows = dist.mean_over_ranks(rows)
+            rows = dist.mean_over_ranks(rows, self.spatial)
         rows = rows.cpu().tolist()
         return [dict(zip(keys, row)) for row in rows]
 
@@ -387,30 +445,39 @@ class Runner:
         """Input/pred/GT + seg-vis grid every 30 steps
         (InterTrainer.py:499-513); in extrapolation the two input frames,
         the first predicted frame, its ground truth frame3 and their
-        segs."""
-        if not self.writer:
+        segs.  Under spatial sharding every rank runs the forward on its
+        band and the first sample's maps are gathered to the group's first
+        rank."""
+        if not (self.writer or self.band):
             return
         from deep_video_interpolation_extrapolation_tpu_torch.utils.vis import (
             make_grid,
             seg_to_rgb,
             to01,
         )
-        with torch.no_grad():
+        gt = f"seg{'3' if self.is_extra else '2'}"
+        with torch.no_grad(), spatial.banded(self.band):
             x, seg = self._inputs(batch)
             pred_rgb, pred_seg = serve.final_output(self._eval_model()(x,
                                                                        seg))
+            # the first sample of each map, whole on the group's first rank
+            maps = {k: spatial.gather_rows(t[:1]) for k, t in (
+                ("pred_rgb", pred_rgb), ("pred_seg", pred_seg),
+                *((k, batch[k].float()) for k in ("frame1", "frame2",
+                                                  "frame3", gt)))}
+        if not self.writer:
+            return
 
-        def first(t):
-            return t[0].float().cpu().numpy()
-        gt = "3" if self.is_extra else "2"
-        frames = ([batch["frame1"], batch["frame2"], pred_rgb[..., :3]]
-                  if self.is_extra else
-                  [batch["frame1"], pred_rgb, batch["frame2"]])
+        def first(k):
+            return maps[k][0].float().cpu().numpy()
+        frames = (["frame1", "frame2", "pred_rgb"] if self.is_extra else
+                  ["frame1", "pred_rgb", "frame2"])
         row = make_grid([
-            *(to01(first(f)) for f in frames), to01(first(batch["frame3"])),
-            seg_to_rgb(first(pred_seg[..., :N_CLASSES])),
-            vis_seg_ids(oh_ids(batch[f"seg{gt}"][0]).long().cpu().numpy()
-                        ).astype(np.float32),
+            *(to01(first(k)[..., :3]) for k in frames),
+            to01(first("frame3")),
+            seg_to_rgb(first("pred_seg")[..., :N_CLASSES]),
+            vis_seg_ids(oh_ids(maps[gt][0].to(batch[gt].dtype)).long()
+                        .cpu().numpy()).astype(np.float32),
         ])
         self.writer.add_image("train/in_pred_gt", row, step)
 
@@ -553,7 +620,7 @@ class Runner:
                 prof = self._start_trace()
             load_t += time.time() - t0
             t0 = time.time()
-            with dist.sharded(dist.shard_of(n)):
+            with self._on_shard(n):
                 self.state, losses = self.train_step(self.state, batch)
             pending.append(losses)
             n_samples += n
@@ -578,7 +645,7 @@ class Runner:
                     step = self.epoch * len(loader) + i
                     self.writer.add_scalars("losses", bank.averages(), step)
                     bank = MetricBank([])
-            if (self.writer and i % 30 == 0
+            if ((self.writer or self.band) and i % 30 == 0
                     and cfg.dataset != "synthetic"):
                 log = self._log_gan_images if self.is_gan else \
                     self._log_images
@@ -625,15 +692,15 @@ class Runner:
         bank = MetricBank([])
         self._reseed(0)
         for n, batch in self._device_prefetch(self._val_loader):
-            shard = dist.shard_of(n)
-            with dist.sharded(shard):
+            with self._on_shard(n):
                 metrics = self.eval_step(self.state, batch)
             # one transfer per batch; weighted by the true batch size so
             # the tail batch does not skew the means.  A sharded batch's
             # equal parts average over the ranks; a whole one (every rank
-            # ran it) counts once
-            bank.update(self._read_back([metrics],
-                                        reduce=shard is not None)[0], n=n)
+            # ran it) counts once; the bands' shares always add up
+            reduce = (dist.shard_of(n, self.spatial) is not None
+                      or self.band is not None)
+            bank.update(self._read_back([metrics], reduce=reduce)[0], n=n)
         avg = bank.averages()
         logger.info("[val epoch %d] %s", self.epoch,
                     " ".join(f"{k}: {v:.4f}" for k, v in avg.items()))

@@ -154,11 +154,13 @@ def apply_updates(cfg: Config, state: TrainState) -> TrainState:
     its parameters' ``.grad``; the others do not move.  Under data
     parallelism (``parallel/dist``) each stepped submodel's grads are first
     averaged over the ranks, one flat bucket a submodel, as XLA reduces
-    the gradients of a batch sharded over the ``data`` axis; a frozen
-    submodel has none to reduce."""
+    the gradients of a batch sharded over the ``data`` axis; under spatial
+    sharding summed over each spatial group first (a band's gradient is
+    its share); a frozen submodel has none to reduce."""
     for name, (_, _, trains) in submodel_specs(cfg).items():
         if trains and name in state.optimizers:
-            dist.average_grads(submodel(state.model, name).parameters())
+            dist.average_grads(submodel(state.model, name).parameters(),
+                               cfg.num_spatial_shards)
             state.optimizers[name].step()
     state.step += 1
     return state

@@ -343,9 +343,23 @@ def test_recipe4_two_ranks_match_one(ranks, monkeypatch):
     assert {"coarse_kld_loss", "disc_video_det_fake_loss"} <= set(losses)
 
 
-def test_spatial_sharding_still_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runner._check_supported(Config(num_spatial_shards=2))
+@pytest.mark.parametrize("kw", [
+    dict(model="InterGANNet", coarse_model="VAEHRNet"),
+    dict(model="ExtraNet", syn_type="extra"),
+    dict(model="InterNet", highres_large=True),
+    dict(model="InterNet", split="cycgen"),
+    dict(model="InterNet")])
+def test_spatial_sharding_still_raises(kw):
+    """Under --num_spatial_shards 2 every combination but recipe 1's
+    (InterNet on HRNet, train or val) raises, citing its ROADMAP item,
+    before any step; recipe 1 passes (tests/test_torch_port_spatial.py
+    runs it)."""
+    cfg = Config(**{"num_spatial_shards": 2, "syn_type": "inter", **kw})
+    if kw == dict(model="InterNet"):
+        runner._check_supported(cfg)
+        return
+    with pytest.raises(NotImplementedError, match="item 10"):
+        runner._check_supported(cfg)
 
 
 def test_data_shards_follow_the_group():

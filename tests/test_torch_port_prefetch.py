@@ -18,7 +18,8 @@ from deep_video_interpolation_extrapolation_tpu_torch.train.runner import (
     Runner,
 )
 
-CPU = types.SimpleNamespace(device=torch.device("cpu"))
+# a runner of one rank: no data shards, no spatial band
+CPU = types.SimpleNamespace(device=torch.device("cpu"), spatial=1, band=None)
 
 
 class _Loader:
@@ -48,7 +49,7 @@ def fast_switch():
 
 def _prefetch(loader, depth=2):
     # _device_prefetch reads self.device and, on the card, its copy stream
-    fake = types.SimpleNamespace(device=torch.device("cpu"))
+    fake = types.SimpleNamespace(**vars(CPU))
     fake._host_batches = lambda ld, d, s: Runner._host_batches(fake, ld, d, s)
     return Runner._device_prefetch(fake, loader, depth)
 
